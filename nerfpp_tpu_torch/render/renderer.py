@@ -1,0 +1,392 @@
+"""Volume renderer, serving path (port of nerfpp_tpu/render/renderer.py).
+
+Coarse-only rendering (``n_importance == 0``) of ray batches and full
+images: occupancy-guided depths (per ray or shared per 128-ray tile), the
+8x16 pixel-tile order, the chunk loop (a Python loop where JAX has
+``lax.map``), and the two-class render budget that gives the highest-mass
+tiles the full sample count and the rest a few samples. The hierarchical
+importance pass and NDC rays belong to later slices and raise.
+
+Randomness (the cone scatter, stochastic depths) comes from an explicit
+``torch.Generator``; with ``thin_ray=True`` and ``perturb=0`` a render is
+deterministic.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from nerfpp_tpu_torch.core import rays as ray_math
+from nerfpp_tpu_torch.core import sampling as S
+from nerfpp_tpu_torch.core.integrate import RenderOutputs, raw2outputs
+from nerfpp_tpu_torch.core.occupancy import (ray_bin_densities,
+                                             ray_bin_weights, tiled_prior,
+                                             tiled_ray_z)
+
+TILE_H, TILE_W = 8, 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rendering options (the JAX package's fields and defaults)."""
+    n_samples: int = 64
+    n_importance: int = 192
+    chunk: int = 1024 * 32
+    return_raw: bool = False
+    lin_disp: bool = False
+    perturb: float = 0.0
+    white_bkgr: bool = False
+    ndc: bool = False
+    use_viewdirs: bool = True
+    thin_ray: bool = False
+    return_weights: bool = True
+    use_raw_noise: bool = False
+    use_sp_noise: bool = False
+    density_activation: str = "relu"
+    tile_order: bool = False
+    n_occ_bins: int = 0
+    occ_uniform_frac: float = 0.1
+    occ_ray_tile: int = 0
+    hier_ray_tile: int = 0
+
+
+class RenderResult(NamedTuple):
+    outputs: RenderOutputs           # coarse (the only pass ported)
+    coarse: RenderOutputs
+    raw: Optional[torch.Tensor]      # [n_rays, S, C] if return_raw
+    z_vals: torch.Tensor             # [n_rays, S]
+
+
+def make_nerf_network_fn(embed_fn, embed_dirs_fn, field_fn,
+                         sigma_channel: int = 3, sample_major: bool = False):
+    """network_fn(pts [R, S, 3], viewdirs [R, 3] | None) -> raw [R, S, C]:
+    flatten (sample-major: all rays at sample 0, then sample 1, ...), embed,
+    broadcast the directions, run the field, zero sigma where the point lies
+    outside the bbox, and undo the flatten."""
+
+    def network_fn(pts, viewdirs):
+        n_rays, n_samples, _ = pts.shape
+        if sample_major:
+            flat = pts.transpose(0, 1).reshape(-1, 3)
+        else:
+            flat = pts.reshape(-1, 3)
+        embedded, keep_mask = embed_fn(flat)
+        if viewdirs is not None:
+            dirs = viewdirs[:, None, :].expand(pts.shape)
+            if sample_major:
+                dirs = dirs.transpose(0, 1)
+            embedded_dirs, _ = embed_dirs_fn(dirs.reshape(-1, 3))
+            embedded = torch.cat([embedded, embedded_dirs], dim=-1)
+        raw = field_fn(embedded)
+        if keep_mask is not None:
+            sc = sigma_channel if sigma_channel >= 0 else raw.shape[-1] + sigma_channel
+            raw = raw.clone()
+            raw[..., sc] = torch.where(keep_mask, raw[..., sc],
+                                       torch.zeros_like(raw[..., sc]))
+        if sample_major:
+            return raw.reshape(n_samples, n_rays, raw.shape[-1]).transpose(0, 1)
+        return raw.reshape(n_rays, n_samples, raw.shape[-1])
+
+    return network_fn
+
+
+def make_nerf_integrate_fn(cfg: RenderConfig):
+    """Standard rgb + sigma integrator. ``noise`` is a standard-normal draw
+    for the training-time density noise (ignored unless use_raw_noise)."""
+
+    def integrate_fn(raw, z_vals, rays_d, raw_noise_std=0.0, noise=None):
+        return raw2outputs(raw, z_vals, rays_d, raw_noise_std, cfg.white_bkgr,
+                           noise if cfg.use_raw_noise else None,
+                           cfg.density_activation)
+
+    return integrate_fn
+
+
+def _occ_bins_or_z(occupancy, rays_o, rays_d, near, far, bounding_box,
+                   cfg: RenderConfig, generator=None):
+    """Tile-shared depths when the batch divides into occ_ray_tile groups,
+    else the per-ray (edges, weights) prior."""
+    tile = cfg.occ_ray_tile
+    if tile > 0 and rays_o.shape[0] % tile == 0:
+        return tiled_ray_z(occupancy, rays_o, rays_d, near[..., 0],
+                           far[..., 0], bounding_box, cfg.n_occ_bins,
+                           cfg.n_samples, cfg.occ_uniform_frac, tile,
+                           det=(cfg.perturb == 0.0), generator=generator)
+    return ray_bin_weights(occupancy, rays_o, rays_d, near, far,
+                           bounding_box, cfg.n_occ_bins, cfg.occ_uniform_frac)
+
+
+def render_rays(network_fn: Callable, integrate_fn: Callable,
+                rays_o: torch.Tensor, rays_d: torch.Tensor,
+                near: torch.Tensor, far: torch.Tensor,
+                viewdirs: Optional[torch.Tensor], cone_angle,
+                cfg: RenderConfig, generator: Optional[torch.Generator] = None,
+                bounding_box: Optional[torch.Tensor] = None,
+                occ_bins=None, scatter_u=None) -> RenderResult:
+    """Coarse volume rendering of one ray batch. rays_o/rays_d [R, 3],
+    near/far [R, 1]; ``occ_bins`` are precomputed depths [R, S] or a
+    per-ray (edges, weights) prior; ``scatter_u`` optionally supplies the
+    cone scatter's two uniform draws (else they come from ``generator``)."""
+    if cfg.n_importance > 0:
+        raise NotImplementedError(
+            "the hierarchical importance pass (n_importance > 0) is not "
+            "ported yet; use n_importance=0")
+    det = cfg.perturb == 0.0
+    hier_tile = cfg.hier_ray_tile
+    if occ_bins is not None and not isinstance(occ_bins, tuple):
+        z_vals = occ_bins
+    elif occ_bins is not None:
+        edges, w = occ_bins
+        z_vals = S.sample_pdf(edges, w, cfg.n_samples, det=det,
+                              generator=generator)
+    elif hier_tile > 0 and rays_o.shape[0] % hier_tile == 0:
+        nt = rays_o.shape[0] // hier_tile
+        near_t = near.reshape(nt, hier_tile).amin(dim=1, keepdim=True)
+        far_t = far.reshape(nt, hier_tile).amax(dim=1, keepdim=True)
+        z_vals = S.sample_z_vals(
+            near_t, far_t, cfg.n_samples, cfg.lin_disp, cfg.perturb,
+            _uniform((nt, cfg.n_samples), generator, near.device, det)
+        ).repeat_interleave(hier_tile, dim=0)
+    else:
+        z_vals = S.sample_z_vals(
+            near, far, cfg.n_samples, cfg.lin_disp, cfg.perturb,
+            _uniform((near.shape[0], cfg.n_samples), generator, near.device,
+                     det))
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    if not cfg.thin_ray and cone_angle is not None:
+        if scatter_u is None:
+            scatter_u = S.scatter_uniforms(z_vals.shape[0], z_vals.shape[1],
+                                           generator, z_vals.device)
+        pts = S.tangent_scatter(pts, z_vals, cone_angle, rays_d, *scatter_u,
+                                bounding_box)
+    raw = network_fn(pts, viewdirs)
+    coarse = integrate_fn(raw, z_vals, rays_d)
+    return RenderResult(outputs=coarse, coarse=coarse,
+                        raw=raw if cfg.return_raw else None, z_vals=z_vals)
+
+
+def _uniform(shape, generator, device, det: bool):
+    if det:
+        return None
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def k_dense_of(dense_frac: float, n_tiles: int) -> int:
+    """Dense-class tile count: round(frac * tiles), both classes non-empty.
+    The executor's auto fraction relies on round-tripping through this."""
+    return min(max(int(round(dense_frac * n_tiles)), 1), n_tiles - 1)
+
+
+def _cheap_tile_probe(occupancy, rays_o, rays_d, near, far, bounding_box,
+                      tile: int = 128, sub_r: int = 16, sub_b: int = 16):
+    """Rank ray tiles with a subsampled probe (sub_r rays x sub_b bins per
+    tile). Returns (edges_c [T*sub_r, sub_b+1], d_c [T*sub_r, sub_b],
+    mass [T], near_t [T], far_t [T])."""
+    n = rays_o.shape[0]
+    n_tiles = n // tile
+    stride = tile // sub_r
+    near_t = near.reshape(n_tiles, tile).amin(dim=1)
+    far_t = far.reshape(n_tiles, tile).amax(dim=1)
+    dev = rays_o.device
+    sidx = (torch.arange(n_tiles, device=dev)[:, None] * tile
+            + torch.arange(0, tile, stride, device=dev)[None, :]).reshape(-1)
+    edges_c, d_c = ray_bin_densities(
+        occupancy, rays_o[sidx], rays_d[sidx],
+        near_t.repeat_interleave(sub_r)[:, None],
+        far_t.repeat_interleave(sub_r)[:, None], bounding_box, sub_b)
+    mass = d_c.reshape(n_tiles, sub_r, sub_b).sum(dim=(1, 2))
+    return edges_c, d_c, mass, near_t, far_t
+
+
+def _tile_flatten(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """[hp, wp, C] -> [hp*wp, C] enumerated 8x16 tile by tile."""
+    c = x.shape[-1]
+    return (x.reshape(hp // TILE_H, TILE_H, wp // TILE_W, TILE_W, c)
+            .permute(0, 2, 1, 3, 4).reshape(-1, c))
+
+
+def probe_tile_mass(occupancy, h: int, w: int, k: torch.Tensor,
+                    c2w: torch.Tensor, bounding_box: torch.Tensor):
+    """Cheap occupancy mass per 8x16 tile of the tile-padded image: the
+    ranking signal of render_image's budget path."""
+    hp, wp = -(-h // TILE_H) * TILE_H, -(-w // TILE_W) * TILE_W
+    rays_o, rays_d, _ = ray_math.get_rays(hp, wp, k, c2w)
+    rays_o = _tile_flatten(rays_o, hp, wp)
+    rays_d = _tile_flatten(rays_d, hp, wp)
+    near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
+    return _cheap_tile_probe(occupancy, rays_o, rays_d, near, far,
+                             bounding_box)[2]
+
+
+def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
+                 c2w: torch.Tensor, cfg: RenderConfig,
+                 bounding_box: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 occupancy=None, dense_frac: float = 0.0,
+                 sparse_samples: int = 8, prior_bins: int = 0):
+    """Full-image render in fixed-size ray chunks.
+
+    With ``cfg.tile_order`` the image is padded to 8x16-tile multiples and
+    enumerated tile by tile. ``dense_frac`` > 0 (with the occupancy grid and
+    tile order) enables the two-class budget: the top dense_frac of the
+    128-ray tiles by probe mass render at cfg.n_samples over a depth range
+    narrowed to where the probe saw mass, the rest at ``sparse_samples``.
+
+    Returns (RenderOutputs with [h, w, ...] maps, (near_min, far_max))."""
+    if cfg.ndc:
+        raise NotImplementedError("NDC rays are not ported yet")
+    hp = -(-h // TILE_H) * TILE_H if cfg.tile_order else h
+    wp = -(-w // TILE_W) * TILE_W if cfg.tile_order else w
+
+    def flatten_pixels(x):
+        if not cfg.tile_order:
+            return x.reshape(-1, x.shape[-1])
+        return _tile_flatten(x, hp, wp)
+
+    rays_o, rays_d, cone_angle = ray_math.get_rays(hp, wp, k, c2w)
+    viewdirs = None
+    if cfg.use_viewdirs:
+        viewdirs = flatten_pixels(
+            rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True))
+    rays_o = flatten_pixels(rays_o)
+    rays_d = flatten_pixels(rays_d)
+    near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
+    n = hp * wp
+    use_occ = occupancy is not None and cfg.n_occ_bins > 0
+
+    def render_flat(ro, rd, nr, fr, vd, ccfg, z_all=None):
+        """The chunk loop over a flat ray set; z_all [m, S] are precomputed
+        depths (budget path) or None (occupancy prior per chunk)."""
+        m = ro.shape[0]
+        ch = min(ccfg.chunk, m)
+        # The JAX package pads every chunk to ch rays, and render_rays shares
+        # depths per tile (occupancy or hierarchical) only where its batch
+        # divides into tiles: so all chunks are tiled, or none. Rays are
+        # otherwise independent, so the last chunk is padded to whole tiles
+        # only, and per ray where ch does not divide.
+        tile = 0
+        if z_all is None:
+            tile = ccfg.occ_ray_tile if use_occ else ccfg.hier_ray_tile
+        if tile > 0 and ch % tile:
+            ccfg = dataclasses.replace(ccfg, occ_ray_tile=0, hier_ray_tile=0)
+            tile = 0
+        outs = []
+        for c0 in range(0, m, ch):
+            sl = slice(c0, c0 + ch)
+            ro_c, rd_c, nr_c, fr_c = ro[sl], rd[sl], nr[sl], fr[sl]
+            vd_c = vd[sl] if vd is not None else None
+            real = ro_c.shape[0]
+            pad = -real % tile if tile else 0
+            if pad:
+                ro_c, rd_c, nr_c, fr_c = (_pad0(x, pad) for x in
+                                          (ro_c, rd_c, nr_c, fr_c))
+                vd_c = _pad0(vd_c, pad) if vd_c is not None else None
+            if z_all is not None:
+                occ_bins = z_all[sl]
+            elif use_occ:
+                occ_bins = _occ_bins_or_z(occupancy, ro_c, rd_c, nr_c, fr_c,
+                                          bounding_box, ccfg, generator)
+            else:
+                occ_bins = None
+            res = render_rays(network_fn, integrate_fn, ro_c, rd_c, nr_c,
+                              fr_c, vd_c, None if ccfg.thin_ray else cone_angle,
+                              ccfg, generator, bounding_box, occ_bins)
+            outs.append(RenderOutputs(*(x[:real] for x in res.outputs)))
+        return RenderOutputs(*(torch.cat(xs) for xs in zip(*outs)))
+
+    use_budget = (dense_frac > 0.0 and use_occ and cfg.tile_order
+                  and n % 128 == 0 and n // 128 >= 2)
+    if use_budget:
+        tile = 128
+        n_tiles = n // tile
+        k_dense = k_dense_of(dense_frac, n_tiles)
+        edges_c, d_c, mass, near_t, far_t = _cheap_tile_probe(
+            occupancy, rays_o, rays_d, near, far, bounding_box)
+        sub_r, sub_b = d_c.shape[0] // n_tiles, d_c.shape[1]
+        # stable, as JAX's argsort: empty tiles tie at mass 0
+        order = torch.argsort(-mass, stable=True)
+        lanes = torch.arange(tile, device=rays_o.device)
+
+        def render_class(tiles, n_s, edges_t, w_t):
+            ridx = (tiles[:, None] * tile + lanes).reshape(-1)
+            z_t = S.sample_pdf(edges_t, w_t, n_s, det=True)
+            z = z_t.repeat_interleave(tile, dim=0)
+            ccfg = dataclasses.replace(cfg, n_samples=n_s)
+            out = render_flat(rays_o[ridx], rays_d[ridx],
+                              near[ridx][:, None], far[ridx][:, None],
+                              viewdirs[ridx] if viewdirs is not None else None,
+                              ccfg, z_all=z)
+            return out, ridx
+
+        # dense class: full prior over the depth span where the probe saw
+        # mass (a probe bin counts above 2% of its tile's peak), +1 bin
+        dtiles = order[:k_dense]
+        dray = (dtiles[:, None] * tile + lanes).reshape(-1)
+        pb = abs(prior_bins) if prior_bins != 0 else cfg.n_occ_bins
+        narrow = prior_bins >= 0
+        bm = d_c.reshape(n_tiles, sub_r, sub_b).amax(dim=1)          # [T, B]
+        occ_bin = bm > 0.02 * bm.amax(dim=1, keepdim=True)
+        any_occ = occ_bin.any(dim=1)
+        bi = torch.arange(sub_b, device=bm.device)
+        lo = torch.where(occ_bin, bi, sub_b).amin(dim=1) - 1
+        hi = torch.where(occ_bin, bi, -1).amax(dim=1) + 2
+        lo = torch.clamp(lo, 0, sub_b)
+        hi = torch.clamp(hi, 0, sub_b)
+        edges_tile = edges_c.reshape(n_tiles, sub_r, -1)[:, 0, :]  # [T, B+1]
+        narrow_ok = any_occ if narrow else torch.zeros_like(any_occ)
+        near_n = torch.where(narrow_ok, torch.gather(
+            edges_tile, 1, lo[:, None])[:, 0], near_t)
+        far_n = torch.where(narrow_ok, torch.gather(
+            edges_tile, 1, hi[:, None])[:, 0], far_t)
+        edges_d, w_d, _ = tiled_prior(
+            occupancy, rays_o[dray], rays_d[dray],
+            near_n[dtiles].repeat_interleave(tile)[:, None],
+            far_n[dtiles].repeat_interleave(tile)[:, None], bounding_box, pb,
+            cfg.occ_uniform_frac, tile)
+        out_d, idx_d = render_class(dtiles, cfg.n_samples, edges_d, w_d)
+        # sparse class: prior from the cheap probe
+        stiles = order[k_dense:]
+        d_t = d_c.reshape(n_tiles, sub_r, sub_b).mean(dim=1)[stiles]
+        pdf_s = d_t / torch.clamp(d_t.sum(dim=-1, keepdim=True), min=1e-8)
+        w_s = ((1.0 - cfg.occ_uniform_frac) * pdf_s
+               + cfg.occ_uniform_frac / sub_b)
+        out_s, idx_s = render_class(stiles, sparse_samples, edges_tile[stiles],
+                                    w_s)
+
+        def combine(f, a, b):
+            if f == "weights":        # per-sample, class-dependent S
+                return None
+            buf = torch.zeros((n, *a.shape[1:]), dtype=a.dtype,
+                              device=a.device)
+            buf[idx_d] = a
+            buf[idx_s] = b
+            return buf
+
+        outputs = RenderOutputs(**{
+            f: combine(f, getattr(out_d, f), getattr(out_s, f))
+            for f in RenderOutputs._fields})
+    else:
+        outputs = render_flat(rays_o, rays_d, near[:, None], far[:, None],
+                              viewdirs, cfg)
+
+    def unshape(flat):
+        rest = flat.shape[1:]
+        if not cfg.tile_order:
+            return flat.reshape(h, w, *rest)
+        img = (flat.reshape(hp // TILE_H, wp // TILE_W, TILE_H, TILE_W, *rest)
+               .permute(0, 2, 1, 3, *range(4, 4 + len(rest)))
+               .reshape(hp, wp, *rest))
+        return img[:h, :w]
+
+    # per-sample weights would be huge image-wide: dropped, as in JAX
+    out = RenderOutputs(**{
+        f: (torch.zeros((0,), dtype=torch.float32, device=rays_o.device)
+            if f == "weights" else unshape(getattr(outputs, f)))
+        for f in RenderOutputs._fields})
+    return out, (near.min(), far.max())
+
+
+def _pad0(x: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These run only where CUDA is available; elsewhere each test skips with a
+reason. The JAX package is not installed beside the card, and the repo's
+tests/conftest.py imports it, so run this file without it:
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
+
+chip_smoke.py holds the kernels at the flagship's shapes; these tests cover
+the edges: small tables whose 8-row windows wrap (S < 8), points within a few
+ulps of cell boundaries, out-of-box points, and the wrappers' input checks.
+"""
+import numpy as np
+import pytest
+import torch
+
+from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
+from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+BBOX = [-1.5, -1.0, -1.2, 1.5, 1.0, 1.3]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _encoder(dev, log2_t=12, levels=4, finest=128):
+    return HashGridEncoder(BBOX, levels, 2, log2_t, 16, finest,
+                           use_kernel=True, device=dev)
+
+
+def _boundary_points(enc, n, seed):
+    """Points within +-3 ulps of cell boundaries of random levels."""
+    rng = np.random.RandomState(seed)
+    bb = np.asarray(BBOX, np.float32)
+    lvl = rng.randint(0, enc.n_levels, n)
+    scale = enc.level_scales[lvl][:, None].astype(np.float64)
+    cell = np.floor(rng.uniform(0, 1, (n, 3)) * scale)
+    x = (bb[:3] + cell / scale * (bb[3:] - bb[:3])).astype(np.float32)
+    steps = rng.randint(-3, 4, (n, 3))
+    for s in range(3):
+        x = np.where(steps > s, np.nextafter(x, np.float32(np.inf)), x)
+        x = np.where(steps < -s, np.nextafter(x, np.float32(-np.inf)), x)
+    return np.clip(x, bb[:3], bb[3:])
+
+
+def _point_sets(enc, dev):
+    g = torch.Generator().manual_seed(0)
+    lo = torch.tensor(BBOX[:3])
+    ext = torch.tensor(BBOX[3:]) - lo
+    uniform = torch.rand(4096, 3, generator=g) * ext + lo
+    coherent = torch.rand(4096, 3, generator=g) * 0.05 * ext + lo + 0.4 * ext
+    edges = torch.from_numpy(_boundary_points(enc, 4096, 1))
+    return {name: p.to(dev).contiguous() for name, p in
+            (("uniform", uniform), ("coherent", coherent), ("edges", edges))}
+
+
+@pytest.mark.parametrize("log2_t", [7, 9, 12, 19])
+def test_kernels_match_plain_versions(cuda, log2_t):
+    # K1 exactly; K2 within 1e-6 at |table| <= 1 (f32 weights on both
+    # sides, only the order of the corner products differs). log2_t 7 and 9
+    # give S = 1 and 4 block rows per level, so the staged windows wrap.
+    enc = _encoder(cuda, log2_t)
+    g = torch.Generator().manual_seed(log2_t)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    for name, pts in _point_sets(enc, cuda).items():
+        wids, counts = K.window_lists(pts, enc)
+        wids_p, counts_p = K.window_lists_plain(pts, enc)
+        assert torch.equal(wids, wids_p), name
+        assert torch.equal(counts, counts_p), name
+        out = K.encode_blocked(packed, pts, wids, counts, enc)
+        out_p = K.encode_blocked_plain(packed, pts, wids, counts, enc)
+        torch.cuda.synchronize()
+        err = float((out - out_p).abs().max())
+        assert err <= 1e-6, (name, err)
+
+
+def test_encoder_forward_kernel_matches_plain_gather(cuda):
+    # the kernel path reads the bf16-packed table; the plain gather on the
+    # bf16-rounded f32 table computes the same function. Out-of-box points
+    # are clamped and masked the same way on both paths.
+    enc = _encoder(cuda)
+    plain = HashGridEncoder(BBOX, 4, 2, 12, 16, 128, use_kernel=False,
+                            device="cpu")
+    g = torch.Generator().manual_seed(3)
+    table = torch.rand(enc.table_rows, 2, generator=g) * 2 - 1
+    with torch.no_grad():
+        enc.table.copy_(table)
+        plain.table.copy_(table.to(torch.bfloat16).float())
+    pts = torch.cat([_point_sets(enc, "cpu")["uniform"][:999],
+                     torch.tensor([[2.0, 0.0, 0.0], [-5.0, -5.0, -5.0]])])
+    with torch.no_grad():
+        f_k, keep_k = enc(pts.to(cuda))
+        f_p, keep_p = plain(pts)
+    assert f_k.shape == (1001, 8)
+    keep_k = keep_k.cpu()
+    assert torch.equal(keep_k, keep_p) and not bool(keep_k[-2:].any())
+    assert float((f_k.cpu() - f_p).abs().max()) <= 1e-6
+
+
+def test_encoder_f32_gather_raises_on_cuda(cuda):
+    # the f32-table gather has no kernel: on the card the encoder launches
+    # the bf16 kernel pair or raises, never the plain gather
+    enc = HashGridEncoder(BBOX, 4, 2, 12, 16, 128, use_kernel=False,
+                          device=cuda)
+    pts = _point_sets(enc, cuda)["uniform"][:256]
+    reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        enc(pts)
+    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0}
+
+
+def test_launch_counts_move_once_per_launch(cuda):
+    enc = _encoder(cuda)
+    pts = _point_sets(enc, cuda)["uniform"][:300]
+    reset_launch_counts()
+    K.hash_encode_blocked(enc.table.detach(), pts, enc)
+    K.window_lists_plain(K.pad_points(pts, enc), enc)
+    assert launch_counts() == {"window_lists": 1, "encode_blocked": 1}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    enc = _encoder(cuda)
+    pts = _point_sets(enc, cuda)["uniform"][:256]
+    with pytest.raises(TypeError, match="dtype"):
+        K.window_lists(pts.double(), enc)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.window_lists(pts.t().contiguous().t(), enc)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.window_lists(pts[:200].contiguous(), enc)
+    wids, counts = K.window_lists(pts, enc)
+    packed = K.pack_table_bf16(enc.table.detach())
+    with pytest.raises(ValueError, match="shape"):
+        K.encode_blocked(packed[:-1], pts, wids, counts, enc)
+    with pytest.raises(ValueError, match="window ids is on cpu"):
+        K.encode_blocked(packed, pts, wids.cpu(), counts, enc)

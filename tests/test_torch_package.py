@@ -1,0 +1,161 @@
+"""The port as a package: imports, device rule, config interchange, and the
+parts of the JAX package that are not ported yet failing loudly."""
+import ast
+import dataclasses
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from nerfpp_tpu import config as jax_config
+from nerfpp_tpu_torch import config as port_config
+from nerfpp_tpu_torch import resolve_device
+from nerfpp_tpu_torch.core.occupancy import make_occupancy_grid
+from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+from nerfpp_tpu_torch.executor import NeRFExecutor
+from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
+from nerfpp_tpu_torch.nn import MLP
+from nerfpp_tpu_torch.render import renderer as TR
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "nerfpp_tpu_torch"
+BBOX = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
+
+
+def _banned(module: str) -> bool:
+    return (module in ("jax", "jaxlib", "nerfpp_tpu")
+            or module.startswith(("jax.", "jaxlib.", "nerfpp_tpu.")))
+
+
+def test_import_loads_neither_jax_nor_nerfpp_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import nerfpp_tpu_torch\n"
+        "for m in pkgutil.walk_packages(nerfpp_tpu_torch.__path__,\n"
+        "                               'nerfpp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "print(sorted(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert "nerfpp_tpu_torch.executor" in loaded
+    assert [m for m in loaded if _banned(m)] == []
+
+
+def test_sources_import_no_jax():
+    # every import statement of the port and of chip_smoke.py, read as code
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            assert not [n for n in names if _banned(n)], (path, names)
+
+
+def test_default_device_is_cuda():
+    # entry points default to "cuda" and never fall back to the CPU
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    for make in (lambda: resolve_device(),
+                 lambda: HashGridEncoder(BBOX, log2_hashmap_size=10),
+                 lambda: MLP([4, 8, 1]),
+                 lambda: NeRFSmall(input_ch=4, input_ch_views=4),
+                 lambda: make_occupancy_grid(8),
+                 lambda: NeRFExecutor(port_config.hashnerf_blocked_preset())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("preset", ["hashnerf_preset",
+                                    "hashnerf_blocked_preset",
+                                    "hashnerf_tpu_preset"])
+def test_config_json_interchange(preset, tmp_path):
+    # same fields, defaults and JSON keys: a file written by one package
+    # loads in the other
+    jp = getattr(jax_config, preset)(n_importance=0)
+    tp = getattr(port_config, preset)(n_importance=0)
+    assert tp.to_json() == jp.to_json()
+    jp.save(tmp_path / "p.json")
+    assert port_config.ExecutorParams.load(tmp_path / "p.json") == tp
+    assert (port_config.TrainParams().to_json()
+            == jax_config.TrainParams().to_json())
+    j = json.loads(json.dumps(port_config.TrainParams(chunk=4096).to_json()))
+    assert jax_config.TrainParams.from_json(j).chunk == 4096
+    assert ([f.name for f in dataclasses.fields(port_config.ExecutorParams)]
+            == [f.name for f in dataclasses.fields(jax_config.ExecutorParams)])
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+def test_small_table_schemes_not_ported_yet(scheme):
+    with pytest.raises(NotImplementedError, match="small-table"):
+        HashGridEncoder(BBOX, log2_hashmap_size=10, scheme=scheme,
+                        device="cpu")
+
+
+def test_hierarchical_pass_not_ported_yet():
+    cfg = TR.RenderConfig(n_samples=4, n_importance=8)
+    o = torch.zeros(2, 3)
+    with pytest.raises(NotImplementedError, match="n_importance"):
+        TR.render_rays(None, None, o, o, o[:, :1], o[:, :1] + 1, None, None,
+                       cfg)
+
+
+def test_executor_builds_flagship_stack_on_cpu():
+    p = port_config.hashnerf_blocked_preset(
+        n_importance=0, use_occupancy_grid=True, log2_hashmap_size=10,
+        n_levels=2, occ_grid_resolution=8)
+    ex = NeRFExecutor(p, device="cpu").initialize(BBOX, seed=3)
+    again = NeRFExecutor(p, device="cpu").initialize(BBOX, seed=3)
+    assert torch.equal(ex.embedder.table, again.embedder.table)
+    assert float(ex.embedder.table.detach().abs().max()) <= 1e-4
+    assert ex._sample_major() and ex.occupancy.resolution == 8
+    # nn.Linear layout [out, in]: 2 levels x 2 features in, net_width out
+    assert ex.model.sigma_net.layers[0].weight.shape == (p.net_width, 4)
+    assert ex.model.color_net.layers[0].weight.shape == (
+        p.hidden_dim_color, ex.embeddirs.output_dims + p.geo_feat_dim)
+    cfg = ex.make_render_config(port_config.TrainParams(), train=False)
+    assert cfg.tile_order and cfg.n_occ_bins == p.occ_n_bins
+    assert ex._auto_frac_eligible(cfg)
+
+
+def test_chip_smoke_fails_without_cuda_or_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the failure without a GPU")
+    for cwd in (ROOT, tmp_path):
+        if cwd is tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_state_from_jax_layout():
+    from nerfpp_tpu_torch.convert import state_from_jax
+    rng = np.random.RandomState(0)
+    params = {"embed": {"table": rng.standard_normal((256, 2))},
+              "model": {"sigma_net": [{"w": rng.standard_normal((4, 16))}],
+                        "color_net": [{"w": rng.standard_normal((31, 3))}]}}
+    st = state_from_jax(params, np.ones((4, 4, 4)), device="cpu")
+    assert st["model.sigma_net.layers.0.weight"].shape == (16, 4)
+    np.testing.assert_array_equal(st["model.color_net.layers.0.weight"],
+                                  params["model"]["color_net"][0]["w"].T
+                                  .astype(np.float32))
+    assert st["occupancy"].shape == (4, 4, 4)
+    params["model"]["sigma_net"][0]["b"] = np.zeros(16)
+    with pytest.raises(ValueError, match="bias"):
+        state_from_jax(params, device="cpu")
