@@ -6,26 +6,42 @@
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 off for matrix products and convolutions.
-  2. build: every CUDA kernel of the serving path from nerfpp_tpu_torch/csrc.
-  3. kernels: each kernel against its plain PyTorch version at flagship
+  2. build: every CUDA kernel from nerfpp_tpu_torch/csrc, in parallel.
+  3. kernels: K1 and K2 against their plain PyTorch versions at flagship
      shapes (16 levels, T = 2^19; one 65,536-ray chunk of the 800x800 view at
-     64 samples, and 2^20 uniformly random points), with its median time over
-     CUDA-event-timed launches, the plain version's time and its bound.
+     64 samples, and 2^20 uniformly random points), with their median times
+     over CUDA-event-timed launches, the plain versions' times and bounds.
   4. parity: a 64x64 full-width render on the GPU (kernels) against the same
      state on the CPU (plain versions).
   5. serving: render_view of hashnerf_blocked_preset(n_importance=0,
      use_occupancy_grid=True) at full width, 800x800, 64 samples, auto
      two-class budget, 1 + 5 frames; the kernels' launch counts are reset
      just before and read just after.
+  6. gradient: K3 against its plain version at the training chunk (4,096
+     tile-ordered rays x 64 samples, sample-major) and on the 2^20 random
+     points, beside one index_add_ of the precomputed corner products.
+  7. train parity: one step of a tiny configuration on the GPU and on the
+     CPU from the same seeded state with the same draws.
+  8. training: the flagship configuration of bench.py (the 800x800
+     synthetic bench scene built on the card, NRand 4096 in 8x16 tiles, 64
+     occupancy-guided samples) from step 0 to step 2,099 through
+     NeRFExecutor.train: full refresh and full render before step 1,024,
+     phased refresh and the two-class budget after. Steps 33-64 (as
+     bench.py times them) and 1,056-1,087 are timed windows; launch counts are reset before step 0
+     and read after the last step; the loss curve must fall; the held-out
+     PSNR of the unbudgeted test view after 1,088 and 2,100 steps (the JAX
+     reference's 2,100-step quality point).
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,6 +49,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 NONTENSOR_OPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 BBOX = [-1.2, -1.2, -1.2, 1.2, 1.2, 1.2]
 SEED = 0
+SERVE_KERNELS = ("window_lists", "encode_blocked")
+TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked")
 
 
 def log(phase, msg):
@@ -163,6 +181,222 @@ def kernel_phase(enc, table, pts, label):
     return stats
 
 
+def grad_phase(enc, pts, label):
+    """K3 against its plain version on one point set, beside one PyTorch
+    call (index_add_ of the precomputed corner products)."""
+    import torch
+    from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
+    from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
+    n, nl = pts.shape[0], enc.n_levels
+    gen = torch.Generator().manual_seed(SEED + 3)
+    g = torch.randn(n, 2 * nl, generator=gen).to(pts.device)
+    out = K.grad_blocked(g, pts, enc)
+    torch.cuda.synchronize()
+    out_p = K.grad_blocked_plain(g, pts, enc)
+    # atomics sum in a different order each run: hold each entry against
+    # the sum of its terms' magnitudes, sum |w * g| (w >= 0)
+    mag = K.grad_blocked_plain(g.abs(), pts, enc)
+    diff = (out - out_p).abs()
+    err = float(diff.max())
+    rel = float((diff / mag.clamp(min=1e-30)).max())
+    lanes_zero = bool((out.reshape(-1, 128, 2)[:, 125:] == 0).all())
+    if not (rel <= 1e-5 and lanes_zero and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{label}: grad_blocked max |err| {err}, "
+                             f"max |err| / sum|w*g| {rel} > 1e-5, or "
+                             f"lanes 125-127 not zero ({lanes_zero})")
+    k3_ms = cuda_ms(lambda: K.grad_blocked(g, pts, enc))
+    k3_plain = cuda_ms(lambda: K.grad_blocked_plain(g, pts, enc), reps=5,
+                       inner=1, warmup=1)
+    idx, frac = enc.corner_indices(pts)
+    vals = (trilerp_weights(frac)[..., None]
+            * g.reshape(n, nl, 1, 2)).reshape(-1, 2)
+    idx = idx.reshape(-1)
+    del frac
+    lib_ms = cuda_ms(lambda: torch.zeros(
+        (enc.table_rows, 2), device=pts.device).index_add_(0, idx, vals),
+        reps=5, inner=2, warmup=1)
+    del idx, vals
+    # bytes: coordinates and cotangent read once, the gradient written once
+    nbytes = n * 12 + n * 8 * nl + enc.table_rows * 8 + nl * 16
+    # ~60 operations per (point, level): cell, slot, 8 weights, 16 products
+    ops = 60.0 * n * nl
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+    log("grad", f"{label} grad_blocked: N={n} ms={k3_ms:.4f} "
+        f"plain_ms={k3_plain:.4f} index_add_ms={lib_ms:.4f} (excluding "
+        f"the index computation) bound_ms={max(t_bytes, t_ops):.4f} (bytes "
+        f"{nbytes} -> {t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} ms) "
+        f"max_abs_err={err:.3g} max_err/sum|w*g|={rel:.3g}")
+    return dict(ms=k3_ms, plain_ms=k3_plain, library_ms=lib_ms,
+                max_abs_err=err, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_parity():
+    """One train step of a tiny configuration (L = 4, T = 2^12, NRand 256,
+    8 samples, the two-class budget, the full refresh of step 0, density
+    noise and cone scatter on) on the card and on the CPU, from the same
+    seeded state; one CPU generator gives both runs the same draws. The MLP
+    runs in f32 so that the comparison sees the kernels and the step, not
+    bf16 rounding. Tolerances: the loss to 1e-4 of itself; gradients and
+    first moments to 1e-3 of each tensor's largest (K3's atomics and the
+    card's matrix products sum in other orders); second moments to 2e-3;
+    the refreshed grid to 1e-4."""
+    import torch
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
+    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+    from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    scene = make_synthetic_scene(n_train=2, n_val=1, n_test=1, image_hw=32,
+                                 n_samples=32, white_bkgr=False, device="cpu")
+    p = hashnerf_blocked_preset(
+        n_importance=0, use_occupancy_grid=True, n_levels=4,
+        log2_hashmap_size=12, finest_resolution=128, occ_grid_resolution=16,
+        occ_n_bins=8, occ_sparse_samples=4, occ_tile_budget_warmup=0,
+        compute_dtype="float32")
+    tp = TrainParams(n_samples=8, n_rand=256, chunk=256, n_iters=100)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        ex = NeRFExecutor(p, device=name)
+        ex.white_bkgr = scene.white_bkgr
+        ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
+        sampler = RayBatchSampler.from_scene(scene, tp.n_rand, tile_h=8,
+                                             tile_w=16, device=name)
+        reset_launch_counts()
+        m = ex._build_train_step(tp)(
+            0, sampler, torch.Generator().manual_seed(SEED + 7))
+        if name == "cuda" and 0 in launch_counts().values():
+            raise AssertionError(f"train parity: a kernel did not launch "
+                                 f"on the card ({launch_counts()})")
+        run = {"loss": m["loss"].cpu().reshape(1),
+               "occupancy": ex.occupancy.density.cpu()}
+        for k, v in ex.named_parameters().items():
+            run[f"grad {k}"] = v.grad.cpu()
+            run[f"mu {k}"] = ex.optimizer.mu[k].cpu()
+            run[f"nu {k}"] = ex.optimizer.nu[k].cpu()
+        runs[name] = run
+    worst = {}
+    for key, a in runs["cuda"].items():
+        b = runs["cpu"][key]
+        kind = key.split(" ")[0]
+        tol = {"loss": 1e-4, "occupancy": 1e-4, "grad": 1e-3, "mu": 1e-3,
+               "nu": 2e-3}[kind]
+        ratio = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst[kind] = max(worst.get(kind, 0.0), ratio)
+        if not (bool(torch.isfinite(a).all()) and ratio <= tol):
+            raise AssertionError(f"train parity: {key} differs by {ratio:.3g}"
+                                 f" of its largest value (limit {tol})")
+    log("train-parity", f"loss gpu {float(runs['cuda']['loss']):.6f} cpu "
+        f"{float(runs['cpu']['loss']):.6f}; worst |gpu - cpu| / max|cpu|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def train_phase(dev):
+    """The flagship train run; returns the launch counts of steps 0-2,099."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
+    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+    from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(n_train=16, n_val=1, n_test=1,
+                                 image_hw=800, n_samples=64, white_bkgr=False,
+                                 device=dev)
+    log("train", f"bench scene (16 + 1 + 1 views, 800x800, 64 GT samples) "
+        f"built on the card in {time.perf_counter() - t0:.2f} s")
+    p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
+                                occ_update_every=32)
+    tmp = tempfile.TemporaryDirectory()
+    tp = TrainParams(n_samples=64, n_rand=4096, n_iters=8100, chunk=4096,
+                     i_print=32, i_img=0, i_weights=0, i_testset=0,
+                     steps_per_call=25, base_dir=tmp.name)
+    ex = NeRFExecutor(p, device=dev)
+    ex.white_bkgr = scene.white_bkgr
+    ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
+    sampler = RayBatchSampler.from_scene(scene, tp.n_rand, tile_h=8,
+                                         tile_w=16, device=dev)
+    curve = []
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.train(scene, tp, seed=SEED, sampler=sampler, steps=n,
+                 progress_fn=lambda i, m: curve.append((i, m["loss"],
+                                                        m["psnr"])))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def per_step(a, b, n):
+        return {k: (b[k] - a[k]) / n for k in TRAIN_KERNELS}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run(33)                                   # steps 0-32
+    c0 = launch_counts()
+    early_s = run(32)                         # steps 33-64: one full refresh
+    c1 = launch_counts()
+    run(1056 - 65)                            # steps 65-1055: warmups end
+    c2 = launch_counts()
+    late_s = run(32)                          # steps 1056-1087: one phased
+    c3 = launch_counts()
+    test_view = scene.views[list(scene.split_indices("test"))[0]]
+
+    def held_out_psnr():
+        """PSNR of the unbudgeted 800x800 test view, as bench.py renders
+        it for its quality numbers."""
+        budget = ex.params.render_dense_frac
+        ex.params.render_dense_frac = 0.0
+        out = ex.render_view(test_view.pose, test_view.h, test_view.w,
+                             test_view.k,
+                             TrainParams(n_samples=64, chunk=65536))
+        ex.params.render_dense_frac = budget
+        rgb = torch.clamp(out["nerf"].rgb, 0.0, 1.0).cpu().numpy()
+        mse = float(np.mean((rgb - scene.images[test_view.id]) ** 2))
+        return -10.0 * math.log10(max(mse, 1e-10))
+
+    peak = torch.cuda.max_memory_allocated()
+    psnr_1088 = held_out_psnr()               # outside the counts and peak
+    c4 = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run(2100 - 1088)                          # steps 1088-2099
+    counts = {k: v + launch_counts()[k] - c4[k] for k, v in c3.items()}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    tmp.cleanup()
+    for name in TRAIN_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the training "
+                                 "path")
+    for label, secs, a, b in (("steps 33-64 (warmups: full refresh, full "
+                               "render; density noise on)", early_s, c0, c1),
+                              ("steps 1056-1087 (phased refresh, two-class "
+                               "budget)", late_s, c2, c3)):
+        ms = secs / 32 * 1e3
+        log("train", f"{label}: {ms:.3f} ms/step, "
+            f"{tp.n_rand / (ms / 1e3):.1f} rays/s; launches per step "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per_step(a, b, 32).items()))
+    log("train", f"steps 0-{ex.step - 1} ({ex.step} steps): launches "
+        + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("train", "loss curve (step, loss, batch PSNR): "
+        + " ".join(f"({i}, {l:.5f}, {q:.2f})" for i, l, q in curve))
+    first = statistics.mean(l for _, l, _ in curve[:4])
+    last = statistics.mean(l for _, l, _ in curve[-4:])
+    if not (math.isfinite(last) and last < 0.5 * first):
+        raise AssertionError(f"training loss did not fall: mean of the "
+                             f"first four readings {first}, last four {last}")
+    psnr = held_out_psnr()
+    log("train", f"loss mean {first:.5f} (first four readings) -> "
+        f"{last:.5f} (last four); held-out PSNR {psnr_1088:.2f} dB after "
+        f"1088 steps, {psnr:.2f} dB after {ex.step} steps (test view "
+        f"{test_view.id}, 800x800, unbudgeted)")
+    if not psnr > 20.0:
+        raise AssertionError(f"held-out PSNR {psnr:.2f} dB <= 20 dB")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -217,7 +451,7 @@ def main() -> int:
     stats = kernel_phase(enc, table, pts_chunk, "chunk")
     pts_rand = (torch.rand(1 << 20, 3, generator=gen) * 2.4 - 1.2).to(dev)
     kernel_phase(enc, table, pts_rand, "random")
-    del pts_chunk, pts_rand
+    del pts_chunk
 
     # 4. full-width 64x64 render: GPU path against the CPU plain path -----
     p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
@@ -273,9 +507,10 @@ def main() -> int:
                                  "non-finite values")
     if tuple(out["rgb8"].shape) != (800, 800, 3):
         raise AssertionError("rgb8 shape")
-    for name, c in counts.items():
-        if c == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched on the serving "
+                                 "path")
     frac = ex._auto_dense_frac(800, 800, k800, pose)
     n_tiles = 800 * 800 // 128
     kd = k_dense_of(frac, n_tiles)
@@ -286,21 +521,40 @@ def main() -> int:
         f"Mpix/s; auto dense_frac {frac}; tiles dense {kd} sparse "
         f"{n_tiles - kd}")
     log("serve", f"launches per frame: "
-        + ", ".join(f"{k} {v / 6:.2f}" for k, v in counts.items())
+        + ", ".join(f"{k} {counts[k] / 6:.2f}" for k in SERVE_KERNELS)
         + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
     log("serve", f"image: rgb mean {float(res.rgb.mean()):.4f}, acc mean "
         f"{float(res.acc.mean()):.4f}; total run "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    del ex, out, res
+
+    # 6. K3 against its plain version ---------------------------------------
+    pts_train = chunk_points(enc, occ, 4096, 64, dev)
+    stats["grad_blocked"] = grad_phase(enc, pts_train, "train chunk")
+    grad_phase(enc, pts_rand, "random")
+    del pts_train, pts_rand, table
+    torch.cuda.empty_cache()
+
+    # 7. one tiny train step, GPU against CPU -------------------------------
+    train_parity()
+
+    # 8. full-width training ----------------------------------------------
+    counts = train_phase(dev)
+    log("train", f"total run {time.perf_counter() - t_start:.1f} s")
+
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),
                "encode_blocked": ("nerfpp_tpu_torch/csrc/encode_blocked.cu",
-                                  "nerfpp_tpu/pallas/hash_encode_blocked.py:270")}
+                                  "nerfpp_tpu/pallas/hash_encode_blocked.py:270"),
+               "grad_blocked": ("nerfpp_tpu_torch/csrc/grad_blocked.cu",
+                                "nerfpp_tpu/pallas/hash_encode_blocked.py:451")}
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=counts[name],
                     max_abs_err=s["max_abs_err"], ms=s["ms"],
                     plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-                    bound_by=s["bound_by"], library_ms=None)
+                    bound_by=s["bound_by"],
+                    library_ms=s.get("library_ms"))
                for name, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

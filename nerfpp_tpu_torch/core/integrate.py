@@ -96,3 +96,18 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor,
         rgb_map = rgb_map + (1.0 - acc[..., None])
     return RenderOutputs(rgb=rgb_map, disp=disp, acc=acc, weights=weights,
                          depth=depth)
+
+
+def psnr_from_mse(mse: torch.Tensor) -> torch.Tensor:
+    """PSNR = -10 log10(mse), mse floored at 1e-12."""
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor,
+               delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss, torch convention: 0.5 e^2 inside ``delta``,
+    delta * (|e| - delta / 2) outside."""
+    err = pred - target
+    abs_err = torch.abs(err)
+    return torch.where(abs_err <= delta, 0.5 * err ** 2,
+                       delta * (abs_err - 0.5 * delta))

@@ -1,21 +1,22 @@
-"""Occupancy-grid guided ray sampling, serving side (port of
-nerfpp_tpu/core/occupancy.py).
+"""Occupancy-grid guided ray sampling (port of nerfpp_tpu/core/occupancy.py).
 
 A [G, G, G] density grid over the scene AABB is the sampling prior: per ray
 (or per tile of rays) the grid is read at uniform depth-bin midpoints,
 normalised, blended with a uniform floor, and the sample depths come from the
-inverse CDF. The grid updates (``update_grid``, ``update_grid_phased``)
-belong to training and come with the training slice.
+inverse CDF. Training refreshes it from the field (``update_grid``, or one
+octant per call with ``update_grid_phased``); the jitter of the probe points
+is passed in as a tensor or drawn from a generator.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core.integrate import apply_density_activation  # noqa: F401
-from nerfpp_tpu_torch.core.sampling import sample_pdf, unit_linspace
+from nerfpp_tpu_torch.core.sampling import draw, sample_pdf, unit_linspace
 
 
 @dataclasses.dataclass
@@ -34,6 +35,82 @@ def make_occupancy_grid(resolution: int = 128,
     return OccupancyGrid(density=torch.ones(
         (resolution,) * 3, dtype=torch.float32,
         device=resolve_device(device)))
+
+
+def _jitter(shape, jitter, generator, device) -> torch.Tensor:
+    if jitter is not None:
+        return jitter.to(device)
+    return draw(torch.rand, shape, generator, device)
+
+
+def _brick(x: torch.Tensor, g: int) -> torch.Tensor:
+    """[g, g, g, 3] -> [g^3, 3] in 4x4x8-cell bricks: each 128-point run of
+    the probe is a compact brick, which keeps the blocked encoder's window
+    lists short (g % 8 == 0)."""
+    return (x.reshape(g // 4, 4, g // 4, 4, g // 8, 8, 3)
+            .permute(0, 2, 4, 1, 3, 5, 6).reshape(-1, 3))
+
+
+def _unbrick(s: torch.Tensor, g: int) -> torch.Tensor:
+    return (s.reshape(g // 4, g // 4, g // 8, 4, 4, 8)
+            .permute(0, 3, 1, 4, 2, 5).reshape(g, g, g))
+
+
+def _probe_points(bounding_box, n: int, spacing: float, offset, g: int,
+                  jitter):
+    """box_min + (corner + offset + jitter) * cell for the n^3 corners
+    spacing apart, cell = extent / g."""
+    dev = bounding_box.device
+    cell = (bounding_box[3:] - bounding_box[:3]) / g
+    ii = torch.arange(n, dtype=torch.float32, device=dev) * spacing
+    corners = torch.stack(torch.meshgrid(ii, ii, ii, indexing="ij"), dim=-1)
+    if offset is not None:
+        corners = corners + offset
+    return bounding_box[:3] + (corners + jitter) * cell
+
+
+@torch.no_grad()
+def update_grid(grid: OccupancyGrid, sigma_fn, bounding_box: torch.Tensor,
+                decay: float = 0.95, jitter: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> OccupancyGrid:
+    """EMA-max refresh: density <- max(decay * density, activated sigma at
+    one jittered point per cell). ``sigma_fn(pts [N, 3]) -> [N]``; jitter
+    [G, G, G, 3] uniforms, else drawn from ``generator``."""
+    g = grid.resolution
+    dev = grid.density.device
+    jit = _jitter((g, g, g, 3), jitter, generator, dev)
+    pts = _probe_points(bounding_box, g, 1.0, None, g, jit)
+    sigma = sigma_fn(_brick(pts, g))
+    return OccupancyGrid(density=torch.maximum(decay * grid.density,
+                                               _unbrick(sigma, g)))
+
+
+@torch.no_grad()
+def update_grid_phased(grid: OccupancyGrid, sigma_fn,
+                       bounding_box: torch.Tensor, phase: int,
+                       decay: float = 0.95,
+                       jitter: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> OccupancyGrid:
+    """Octant-phased refresh: probe only the (i%2, j%2, k%2) sub-lattice that
+    ``phase`` selects (1/8 of the cells), while the decay applies to the
+    whole grid at every call. jitter: [G/2, G/2, G/2, 3] uniforms."""
+    g = grid.resolution
+    if g % 16:
+        raise ValueError("phased update needs G % 16 == 0")
+    h = g // 2
+    dev = grid.density.device
+    phase = int(phase) % 8
+    pi, pj, pk = phase & 1, (phase >> 1) & 1, (phase >> 2) & 1
+    off = torch.tensor([pi, pj, pk], dtype=torch.float32, device=dev)
+    jit = _jitter((h, h, h, 3), jitter, generator, dev)
+    pts = _probe_points(bounding_box, h, 2.0, off, g, jit)
+    sigma = sigma_fn(_brick(pts, h))
+    d = grid.density * decay
+    d6 = d.view(h, 2, h, 2, h, 2)
+    d6[:, pi, :, pj, :, pk] = torch.maximum(d6[:, pi, :, pj, :, pk],
+                                            _unbrick(sigma, h))
+    return OccupancyGrid(density=d)
 
 
 def _inv_extent(bounding_box: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,15 @@ def get_directions(h: int, w: int, k: torch.Tensor) -> torch.Tensor:
     return torch.stack([dir_x, dir_y, -ones], dim=-1)
 
 
+def pixel_directions(px_x: torch.Tensor, px_y: torch.Tensor,
+                     k: torch.Tensor) -> torch.Tensor:
+    """Camera-frame directions [B, 3] for a flat batch of pixel coords."""
+    fx, fy, cx, cy = k[0, 0], k[1, 1], k[0, 2], k[1, 2]
+    dir_x = (px_x.to(torch.float32) - cx) / fx
+    dir_y = -(px_y.to(torch.float32) - cy) / fy
+    return torch.stack([dir_x, dir_y, -torch.ones_like(dir_x)], dim=-1)
+
+
 def cone_angle_of(k: torch.Tensor) -> torch.Tensor:
     """Per-camera cone-angle derivative: 1.1 * mean(1/fx, 1/fy)."""
     return 1.1 * (1.0 / k[0, 0] + 1.0 / k[1, 1]) / 2.0
@@ -55,6 +64,14 @@ def intersect_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
     nears = torch.clamp(nears, min=near_plane)
     fars = torch.maximum(fars, nears + 1e-6)
     return nears, fars
+
+
+def get_ray_batch(px_x: torch.Tensor, px_y: torch.Tensor, k: torch.Tensor,
+                  c2w: torch.Tensor):
+    """Rays through a flat batch of pixel coords: (origins [B, 3],
+    directions [B, 3], cone angle)."""
+    rays_d = rotate_dirs(pixel_directions(px_x, px_y, k), c2w)
+    return c2w[:3, -1].expand(rays_d.shape), rays_d, cone_angle_of(k)
 
 
 # -- host-side pose helpers (numpy) ------------------------------------------

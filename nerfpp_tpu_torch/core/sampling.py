@@ -13,6 +13,16 @@ import numpy as np
 import torch
 
 
+def draw(fn, shape, generator: Optional[torch.Generator],
+         device) -> torch.Tensor:
+    """``fn`` (torch.rand / torch.randn) on the generator's device, moved to
+    ``device``: one CPU generator gives the same draws to every device."""
+    if generator is None:
+        raise ValueError("a random draw needs a generator or a passed-in "
+                         "tensor")
+    return fn(shape, generator=generator, device=generator.device).to(device)
+
+
 def unit_linspace(n: int, device=None) -> torch.Tensor:
     """linspace(0, 1, n) in f32 with the JAX package's bits: i * f32(1/(n-1)),
     last value exactly 1."""
@@ -54,14 +64,17 @@ def sample_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
                det: bool = False,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverse-CDF importance sampling. bins [R, m] edges, weights [R, m-1]
     -> [R, n_samples], sorted per ray.
 
     +1e-8 weight floor, zero-prefix CDF, right bisect (``searchsorted``
     with right=True equals the JAX package's count of cdf <= u), bins whose
     CDF span is below 1e-5 fall back to the lower edge, and a final cummax.
-    Stochastic u are sorted uniforms drawn as normalised exponential gaps."""
+    Stochastic u are sorted uniforms made from normalised exponential gaps
+    of ``draws`` ([R, n_samples + 1] uniforms, else drawn from
+    ``generator`` on its device)."""
     weights = weights + 1e-8
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
@@ -70,10 +83,10 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     if det:
         u = unit_linspace(n_samples, cdf.device).expand(u_shape)
     else:
-        if generator is None:
-            raise ValueError("stochastic sample_pdf requires a generator")
-        draws = torch.rand(cdf.shape[:-1] + (n_samples + 1,),
-                           generator=generator, device=cdf.device)
+        if draws is None:
+            draws = draw(torch.rand, cdf.shape[:-1] + (n_samples + 1,),
+                         generator, cdf.device)
+        draws = draws.to(cdf.device)
         gaps = -torch.log(torch.clamp(draws, min=np.finfo(np.float32).tiny))
         s = torch.cumsum(gaps, dim=-1)
         u = s[..., :-1] / s[..., -1:]
@@ -97,10 +110,9 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
 def scatter_uniforms(n_rays: int, n_samples: int,
                      generator: torch.Generator, device) -> tuple:
     """The two uniform draws tangent_scatter consumes, [n_rays, n_samples, 1]
-    each (radius, then angle)."""
+    each (radius, then angle), drawn on the generator's device."""
     shape = (n_rays, n_samples, 1)
-    return (torch.rand(shape, generator=generator, device=device),
-            torch.rand(shape, generator=generator, device=device))
+    return tuple(draw(torch.rand, shape, generator, device) for _ in range(2))
 
 
 def tangent_scatter(pts: torch.Tensor, z_vals: torch.Tensor, cone_angle,

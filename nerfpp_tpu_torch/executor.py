@@ -1,17 +1,32 @@
-"""NeRFExecutor, serving subset (port of nerfpp_tpu/executor.py).
+"""NeRFExecutor (port of nerfpp_tpu/executor.py).
 
 Builds the HashNeRF stack (blocked hash encoder, SH directions, NeRFSmall),
-initialises its parameters and occupancy grid from a seed, loads weights
-carried over from the JAX package (convert.py), and renders views:
-``render_view`` (with RenderFactor and the 8-bit image), ``render_views``
-(a loop over poses), and the auto two-class render budget that picks each
-view's dense fraction from its occupancy tile masses.
+initialises its parameters, one Adam over all of them and the occupancy
+grid from a seed, loads states carried over from the JAX package
+(convert.py) or from the port's checkpoints, trains, and renders views.
 
-Training, the optimizer, checkpoints, LeRF and the other encoders and
-fields belong to later slices of the port and raise NotImplementedError.
+Training mirrors the JAX package's step (``_build_train_step``): tile
+sampling, the occupancy refresh (full during the warmup, one octant per
+refresh after it), the annealed density noise, the two-class tile budget
+after its warmup, the Huber loss, the backward through NeRFSmall and the
+blocked encoder (kernel K3 for the table), and Adam with a continuous
+exponential decay that skips the update when the loss is not finite.
+``train`` is the loop around it: ``steps_per_call`` steps between host
+looks, the [TRAIN] line, checkpoints and the collapse check.
+
+Rendering: ``render_view`` (with RenderFactor and the 8-bit image),
+``render_views`` (a loop over poses), and the auto two-class render budget
+that picks each view's dense fraction from its occupancy tile masses.
+
+Image writing, test-split renders, the bbox refit, LeRF, the hierarchical
+pass, the other encoders and fields, and device meshes belong to later
+slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
+import math
+import time
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -19,14 +34,23 @@ import torch
 
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.config import ExecutorParams, TrainParams
-from nerfpp_tpu_torch.core.occupancy import OccupancyGrid, make_occupancy_grid
+from nerfpp_tpu_torch.core.integrate import (apply_density_activation,
+                                             huber_loss, psnr_from_mse)
+from nerfpp_tpu_torch.core.occupancy import (OccupancyGrid,
+                                             make_occupancy_grid, update_grid,
+                                             update_grid_phased)
+from nerfpp_tpu_torch.data.dataset import RayBatchSampler, SceneData
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.encoders.sh import SHEncoder
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
+from nerfpp_tpu_torch.optim import Adam
 from nerfpp_tpu_torch.render.renderer import (RenderConfig,
                                               make_nerf_integrate_fn,
                                               make_nerf_network_fn,
-                                              probe_tile_mass, render_image)
+                                              probe_tile_mass, render_image,
+                                              render_ray_batch,
+                                              render_ray_batch_budgeted)
+from nerfpp_tpu_torch.utils import checkpoint as ckpt
 
 
 def _not_ported(what: str):
@@ -47,6 +71,8 @@ class NeRFExecutor:
         self.embeddirs: Optional[SHEncoder] = None
         self.model: Optional[NeRFSmall] = None
         self.occupancy: Optional[OccupancyGrid] = None
+        self.optimizer: Optional[Adam] = None
+        self.step = 0                    # steps taken (the JAX state's step)
         self._auto_frac_cache: Dict[Any, float] = {}
 
     # ------------------------------------------------------------ builders
@@ -78,10 +104,13 @@ class NeRFExecutor:
             compute_dtype=p.compute_dtype, init_gain=p.mlp_init_gain,
             device=self.device)
 
-    def initialize(self, bounding_box, seed: int = 0) -> "NeRFExecutor":
+    def initialize(self, bounding_box, lrate_decay: int = 250,
+                   seed: int = 0) -> "NeRFExecutor":
         """Build the stack and draw its parameters from ``seed`` (on a CPU
-        generator, so every device gets the same weights); the occupancy
-        grid starts uniform. No optimizer, no checkpoint restore."""
+        generator, so every device gets the same weights); one Adam over
+        every parameter (lr decaying by 0.1 every lrate_decay * 1000
+        steps); the occupancy grid starts uniform. Restores the latest
+        checkpoint under ``ft_path`` when there is one."""
         p = self.params
         if p.use_lerf:
             raise _not_ported("LeRF")
@@ -101,28 +130,67 @@ class NeRFExecutor:
         if p.use_occupancy_grid:
             self.occupancy = make_occupancy_grid(p.occ_grid_resolution,
                                                  self.device)
+        self.optimizer = Adam(self.named_parameters(), p.learning_rate,
+                              lrate_decay * 1000)
+        self.step = 0
         diag = np.linalg.norm(self.bounding_box[3:] - self.bounding_box[:3])
         self.sp_alpha0 = float(0.02 * diag)
         self._auto_frac_cache = {}
+        if p.ft_path:
+            restored = ckpt.restore_latest(p.ft_path)
+            if restored is not None:
+                self.load_state(restored)
+                print(f"restored checkpoint at step {self.step}")
         return self
 
+    def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
+        """Every trained parameter under its state name (``embed.table``,
+        ``model.<net>.layers.<i>.weight``)."""
+        out = {f"embed.{k}": v for k, v in self.embedder.named_parameters()}
+        out.update({f"model.{k}": v for k, v in self.model.named_parameters()})
+        return out
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The train state, flat: parameters, ``adam.mu.<name>``,
+        ``adam.nu.<name>``, ``adam.count``, ``step`` and ``occupancy``."""
+        st = {k: v.detach() for k, v in self.named_parameters().items()}
+        for k in st.copy():
+            st[f"adam.mu.{k}"] = self.optimizer.mu[k]
+            st[f"adam.nu.{k}"] = self.optimizer.nu[k]
+        st["adam.count"] = self.optimizer.count
+        st["step"] = torch.tensor(self.step, dtype=torch.int64)
+        if self.occupancy is not None:
+            st["occupancy"] = self.occupancy.density
+        return st
+
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
-        """Load a state from convert.state_from_jax: ``embed.*`` into the
-        encoder, ``model.*`` into the field, ``occupancy`` into the grid.
-        Parts absent from ``state`` are left as they are."""
+        """Load a state from convert.state_from_jax or a checkpoint:
+        ``embed.*`` into the encoder, ``model.*`` into the field,
+        ``adam.*`` into the optimizer, ``step``, and ``occupancy`` into the
+        grid. Parts absent from ``state`` are left as they are."""
         sub = {"embed": {}, "model": {}}
         for key, v in state.items():
             if key == "occupancy":
                 self.occupancy = OccupancyGrid(
                     density=v.to(self.device, torch.float32).contiguous())
-                continue
-            head, rest = key.split(".", 1)
-            sub[head][rest] = v
+            elif key == "step":
+                self.step = int(v)
+            elif key == "adam.count":
+                self.optimizer.count.copy_(v)
+            elif key.startswith("adam."):
+                _, moment, name = key.split(".", 2)
+                getattr(self.optimizer, moment)[name].copy_(v)
+            else:
+                head, rest = key.split(".", 1)
+                sub[head][rest] = v
         if sub["embed"]:
             self.embedder.load_state_dict(sub["embed"])
         if sub["model"]:
             self.model.load_state_dict(sub["model"])
         self._auto_frac_cache = {}
+
+    def save_checkpoint(self, path) -> Path:
+        return ckpt.save(path, self.state_dict(), self.step)
 
     # ------------------------------------------------------------- closures
 
@@ -136,6 +204,23 @@ class NeRFExecutor:
     def _nerf_fns(self):
         return make_nerf_network_fn(self.embedder, self.embeddirs, self.model,
                                     sample_major=self._sample_major())
+
+    def _sigma_grid_fn(self):
+        """Activated field density at points, for the occupancy refresh
+        (view directions zero: sigma does not depend on them)."""
+        act = self.params.density_activation
+
+        def sigma_fn(pts):
+            emb, keep = self.embedder(pts)
+            if self.embeddirs is not None:
+                # the SH features of the zero direction, once for all points
+                emb_d, _ = self.embeddirs(pts.new_zeros((1, 3)))
+                emb = torch.cat([emb, emb_d.expand(pts.shape[0], -1)], dim=-1)
+            sigma = self.model(emb)[..., 3]
+            sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
+            return apply_density_activation(sigma, act)
+
+        return sigma_fn
 
     def make_render_config(self, tp: TrainParams, train: bool = True,
                            return_weights: bool = False) -> RenderConfig:
@@ -153,6 +238,202 @@ class NeRFExecutor:
             occ_uniform_frac=self.params.occ_uniform_frac,
             occ_ray_tile=self.params.occ_ray_tile,
             hier_ray_tile=self.params.hier_ray_tile)
+
+    # ---------------------------------------------------------- train step
+
+    def _build_train_step(self, tp: TrainParams):
+        """-> train_step(step, data, generator=None) -> metrics (device
+        scalars: mse, img_loss, pred_std, loss, psnr). ``data`` is a
+        RayBatchSampler (the batch is drawn from ``generator``) or a batch
+        dict (rays_o, rays_d, cone_angle, target_rgb). The generator also
+        draws the refresh jitter, the cone scatter and the density noise.
+        Gradients accumulate chunk by chunk (one chunk's activations live at
+        a time); one Adam update follows, skipped on device when the loss is
+        not finite."""
+        p = self.params
+        if p.use_lerf:
+            raise _not_ported("LeRF")
+        if p.n_importance > 0:
+            raise _not_ported("the hierarchical pass (n_importance > 0)")
+        cfg = self.make_render_config(tp, train=True, return_weights=True)
+        chunk = min(tp.chunk, tp.n_rand)
+        n_chunks = -(-tp.n_rand // chunk)
+        if n_chunks * chunk != tp.n_rand:
+            raise ValueError(f"NRand ({tp.n_rand}) must be divisible by "
+                             f"Chunk ({chunk}) for fixed-shape chunking")
+        use_occ = p.use_occupancy_grid
+        occ_every = p.occ_update_every
+        use_budget = (use_occ and p.occ_tile_budget_frac > 0.0
+                      and cfg.occ_ray_tile > 0
+                      and chunk % cfg.occ_ray_tile == 0
+                      and chunk // cfg.occ_ray_tile >= 2)
+        warm = p.occ_tile_budget_warmup if use_budget else 0
+        network_fn = self._nerf_fns()
+        integrate_fn = make_nerf_integrate_fn(cfg)
+        sigma_fn = self._sigma_grid_fn()
+        bbox = self._tensor(self.bounding_box)
+        params = self.named_parameters()
+        n_pix = float(tp.n_rand * 3)
+        noise_steps = np.float32(tp.n_iters / 8.0)
+
+        def chunk_sums(cb, step, raw_noise_std, generator):
+            """Render one chunk; -> [sq, huber, pred, pred^2] sums."""
+            occ = self.occupancy if use_occ else None
+            target = cb["target_rgb"]
+            if use_budget and step >= warm:
+                res_d, res_s, idx_d, idx_s = render_ray_batch_budgeted(
+                    network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
+                    cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
+                    p.occ_tile_budget_frac, p.occ_sparse_samples, generator)
+                parts = ((res_d.outputs.rgb, target[idx_d]),
+                         (res_s.outputs.rgb, target[idx_s]))
+            else:
+                res = render_ray_batch(
+                    network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
+                    cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
+                    generator)
+                parts = ((res.outputs.rgb, target),)
+            sums = []
+            for rgb, t in parts:
+                rs = rgb.detach()
+                sums.append(torch.stack([
+                    torch.sum((rgb - t) ** 2), torch.sum(huber_loss(rgb, t)),
+                    torch.sum(rs), torch.sum(rs * rs)]))
+            return sums[0] if len(sums) == 1 else sums[0] + sums[1]
+
+        def train_step(step: int, data, generator=None):
+            batch = (data.sample(step, generator)
+                     if isinstance(data, RayBatchSampler) else data)
+            if use_occ and step % occ_every == 0:
+                if p.occ_phased_refresh and step >= p.occ_phased_warmup:
+                    self.occupancy = update_grid_phased(
+                        self.occupancy, sigma_fn, bbox,
+                        (step // occ_every) % 8, p.occ_decay,
+                        generator=generator)
+                else:
+                    self.occupancy = update_grid(
+                        self.occupancy, sigma_fn, bbox, p.occ_decay,
+                        generator=generator)
+            # annealed density noise; the SP alpha anneal feeds only the
+            # fine pass, which is not ported
+            raw_noise_std = float(max(np.float32(0.0), np.float32(1.0)
+                                      - np.float32(step) / noise_steps))
+            for prm in params.values():
+                prm.grad = None
+            total = None
+            for c in range(n_chunks):
+                cb = {k: (v[c * chunk:(c + 1) * chunk]
+                          if v.ndim >= 1 and v.shape[0] == tp.n_rand else v)
+                      for k, v in batch.items()}
+                sums = chunk_sums(cb, step, raw_noise_std, generator)
+                (sums[1] / n_pix).backward()
+                total = sums.detach() if total is None else total + sums.detach()
+            loss = total[1] / n_pix
+            self.optimizer.step(torch.isfinite(loss))
+            self.step = step + 1
+            mse = total[0] / n_pix
+            mu = total[2] / n_pix
+            return {"mse": mse, "img_loss": loss,
+                    "pred_std": torch.sqrt(torch.clamp(
+                        total[3] / n_pix - mu * mu, min=0.0)),
+                    "loss": loss, "psnr": psnr_from_mse(mse)}
+
+        return train_step
+
+    # -------------------------------------------------------------- train
+
+    def train(self, scene: SceneData, tp: TrainParams, seed: int = 0,
+              sampler: Optional[RayBatchSampler] = None,
+              progress_fn=None, steps: Optional[int] = None, mesh=None
+              ) -> Dict[str, float]:
+        """The training loop: steps self.step .. n_iters - 2, as the JAX
+        package runs them, or only the next ``steps`` of them (a later call
+        resumes; the schedules follow n_iters either way). Step i draws
+        from a generator seeded with (seed, i), as the JAX step folds i
+        into its key, so a run in stages draws what one run draws. Returns
+        the last step's metrics."""
+        p = self.params
+        for what, bad in (("a device mesh (data parallelism)",
+                           mesh is not None),
+                          ("i_img (image writing)", tp.i_img > 0),
+                          ("i_testset (test-split renders)", tp.i_testset > 0),
+                          ("bbox_refit_step (the bbox refit)",
+                           tp.bbox_refit_step > 0),
+                          ("render_only", tp.render_only),
+                          ("LeRF", p.use_lerf),
+                          ("the hierarchical pass (n_importance > 0)",
+                           p.n_importance > 0)):
+            if bad:
+                raise _not_ported(what)
+        self.white_bkgr = scene.white_bkgr
+        if self.model is None:
+            self.initialize(scene.bounding_box, tp.lrate_decay, seed)
+        base_dir = Path(tp.base_dir)
+        base_dir.mkdir(parents=True, exist_ok=True)
+        if sampler is None:
+            # tiles: 0 = auto (8x16 where the blocked kernels run), -1 = off
+            th, tw = tp.tile_h, tp.tile_w
+            if th == 0 and tw == 0 and self._sample_major() \
+                    and tp.n_rand % 128 == 0:
+                th, tw = 8, 16
+            sampler = RayBatchSampler.from_scene(
+                scene, tp.n_rand, tp.precorp_iters, tp.precorp_frac,
+                max(th, 0), max(tw, 0), device=self.device)
+        train_step = self._build_train_step(tp)
+        generator = torch.Generator(device=self.device)
+        # steps between host looks: every active interval still lands
+        spc = max(1, tp.steps_per_call)
+        for iv in (tp.i_print, tp.i_weights):
+            if iv > 0:
+                spc = math.gcd(spc, iv)
+        # collapse watch: a near-constant batch render past the check step
+        auto_pending = (p.auto_fine_fallback and p.use_occupancy_grid
+                        and p.n_importance == 0)
+        if auto_pending:
+            imgs = np.asarray(scene.images)
+            if np.issubdtype(imgs.dtype, np.integer):
+                imgs = imgs.astype(np.float32) / 255.0
+            gt_std = float(np.std(imgs[..., :3].astype(np.float32)))
+            next_check = max(int(p.auto_fine_check_from), 1)
+        metrics: Dict[str, torch.Tensor] = {}
+        t_start = time.perf_counter()
+        rays_done = 0
+        i = self.step
+        end = tp.n_iters - 1 if steps is None else min(tp.n_iters - 1,
+                                                       i + steps)
+        while i < end:
+            k = min(spc - (i % spc), end - i)
+            for _ in range(k):
+                generator.manual_seed((seed + 1) * 1_000_003 + i)
+                metrics = train_step(i, sampler, generator)
+                i += 1
+            rays_done += tp.n_rand * k
+            if auto_pending and i >= next_check:
+                ps = float(metrics["pred_std"])
+                if ps < p.auto_fine_rel_std * gt_std:
+                    raise NotImplementedError(
+                        f"collapse detected at step {i} (batch render std "
+                        f"{ps:.4f} vs GT {gt_std:.4f}): the importance fine "
+                        "pass the JAX package engages here is not ported "
+                        "yet (see ROADMAP.md)")
+                next_check = i + max(int(p.auto_fine_check_from), 1)
+                if next_check > tp.n_iters // 2:
+                    auto_pending = False
+            if tp.i_weights > 0 and i % tp.i_weights == 0:
+                self.save_checkpoint(base_dir)
+                print(f"Saved checkpoints at {base_dir}")
+            if tp.i_print > 0 and i % tp.i_print == 0:
+                m = {key: float(v) for key, v in metrics.items()}
+                rps = rays_done / max(time.perf_counter() - t_start, 1e-9)
+                print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
+                      f"Loss: {m.get('loss', 0):.5f} "
+                      f"PSNR: {m.get('psnr', 0):.2f} "
+                      f"rays/s: {rps:,.0f}")
+                if progress_fn is not None:
+                    progress_fn(i, m)
+        if tp.i_weights > 0 and i % tp.i_weights != 0 and i == tp.n_iters - 1:
+            self.save_checkpoint(base_dir)
+        return {key: float(v) for key, v in metrics.items()}
 
     # ------------------------------------------------------------ rendering
 

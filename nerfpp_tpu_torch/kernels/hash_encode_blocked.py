@@ -1,6 +1,6 @@
-"""Blocked hash-encode kernel pair: wrappers, plain versions, table packing.
+"""Blocked hash-encode kernels: wrappers, plain versions, table packing.
 
-Port of nerfpp_tpu/pallas/hash_encode_blocked.py (forward path only):
+Port of nerfpp_tpu/pallas/hash_encode_blocked.py:
 
 - ``window_lists`` (K1, csrc/window_lists.cu): per (128-point group, level)
   the sorted unique 2x2x2-block window Morton codes, sentinel-padded, and the
@@ -8,19 +8,25 @@ Port of nerfpp_tpu/pallas/hash_encode_blocked.py (forward path only):
 - ``encode_blocked`` (K2, csrc/encode_blocked.cu): the trilinear blend over
   the bf16-packed table, one staged 8-row window at a time. Replaces
   ``_fwd_call`` / ``_make_fwd_kernel``.
-- ``hash_encode_blocked``: clamp-free entry (points already clamped): pack the
-  table, pad to whole groups, run K1 then K2, drop the padding.
+- ``grad_blocked`` (K3, csrc/grad_blocked.cu): the f32 table gradient, each
+  point's 8 corners getting ``w_corner * g``. Replaces ``_bwd_call`` /
+  ``_make_bwd_kernel`` (entry ``grad_prepared``).
+- ``HashEncodeBlocked`` / ``hash_encode_blocked``: the differentiable entry
+  (points already clamped): pack the table, pad to whole groups, run K1 then
+  K2; the backward runs K3 for the table and gives the points no gradient.
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches its
 kernel for CUDA tensors or raises; it never falls back. Each keeps a launch
-count (``window_lists.launches``, ``encode_blocked.launches``) that only a
-kernel launch increments.
+count (``window_lists.launches``, ``encode_blocked.launches``,
+``grad_blocked.launches``) that only a kernel launch increments.
 
 Numerics: the plain encode is the gather over the bf16-rounded table with f32
 trilinear weights, as the CUDA kernel computes it. The Pallas kernel instead
 rounds each weight to bf16 in its MXU pattern matrix, so against the Pallas
 kernel the port differs by up to 8 corners x 2^-9 relative weight error x
-|table|max per feature.
+|table|max per feature. The gradient is f32 throughout (the Pallas backward
+rounds the weight pattern and the cotangent to bf16), and it passes straight
+through the bf16 packing to the f32 master table.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import ctypes
 
 import torch
 
-from nerfpp_tpu_torch.encoders.hashgrid import gather_trilerp_reference, morton3
+from nerfpp_tpu_torch.encoders.hashgrid import (gather_trilerp_reference,
+                                               morton3, trilerp_weights)
 from nerfpp_tpu_torch.kernels.build import load
 
 LANES = 128
@@ -174,6 +181,61 @@ def encode_blocked(packed: torch.Tensor, points: torch.Tensor,
 encode_blocked.launches = 0
 
 
+# ------------------------------------------------------------ K3: gradient
+
+def grad_blocked_plain(g: torch.Tensor, points: torch.Tensor, enc
+                       ) -> torch.Tensor:
+    """index_add_ of w_corner * g over corner_indices: the table gradient of
+    the f32 gather (the XLA-autodiff oracle). g: [n, 2L]; points: [M, 3]
+    clamped, M >= n (rows past n, the padding, contribute nothing).
+    Returns [L * 2^T, 2] f32."""
+    n, nl = g.shape[0], enc.n_levels
+    out = torch.zeros((enc.table_rows, 2), dtype=torch.float32,
+                      device=points.device)
+    for i in range(0, n, PLAIN_CHUNK):
+        idx, frac = enc.corner_indices(points[i:min(i + PLAIN_CHUNK, n)])
+        gl = g[i:i + PLAIN_CHUNK].float().reshape(-1, nl, 1, 2)
+        vals = trilerp_weights(frac)[..., None] * gl            # [c, L, 8, 2]
+        out.index_add_(0, idx.reshape(-1), vals.reshape(-1, 2))
+    return out
+
+
+def grad_blocked(g: torch.Tensor, points: torch.Tensor, enc) -> torch.Tensor:
+    """K3 on CUDA tensors, the plain version on CPU tensors. points: padded
+    to whole 128-point groups; g: [n, 2L] for the first n of them."""
+    if points.device.type == "cpu":
+        return grad_blocked_plain(g, points, enc)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    m, n = points.shape[0], g.shape[0]
+    if m % LANES:
+        raise ValueError(f"{m} points is not a multiple of {LANES}")
+    if n > m:
+        raise ValueError(f"cotangent has {n} rows for {m} points")
+    nl, dev = enc.n_levels, points.device
+    if (2 * nl + 1) * LANES * 4 > 48 * 1024:
+        raise ValueError(f"{nl} levels exceed the kernel's shared memory")
+    _check(g, "cotangent", torch.float32, (n, 2 * nl), dev)
+    _check(points, "points", torch.float32, (m, 3), dev)
+    _check(enc.scales, "level scales", torch.float32, (nl,), dev)
+    _check(enc.boffs, "block offsets", torch.int32, (nl, 3), dev)
+    out = torch.zeros((enc.table_rows, 2), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    _launch(load("grad_blocked").grad_blocked_launch,
+            ctypes.c_void_p(g.data_ptr()),
+            ctypes.c_void_p(points.data_ptr()),
+            ctypes.c_void_p(enc.scales.data_ptr()),
+            ctypes.c_void_p(enc.boffs.data_ptr()), *_geometry_args(enc),
+            ctypes.c_int(m // LANES), ctypes.c_int(n), ctypes.c_int(nl),
+            ctypes.c_int(enc.block_slots), ctypes.c_void_p(out.data_ptr()))
+    grad_blocked.launches += 1
+    return out
+
+
+grad_blocked.launches = 0
+
+
 # ------------------------------------------------------------ entry
 
 def pad_points(points: torch.Tensor, enc) -> torch.Tensor:
@@ -187,16 +249,35 @@ def pad_points(points: torch.Tensor, enc) -> torch.Tensor:
     return torch.cat([points, pad.to(points.dtype)]).contiguous()
 
 
-def hash_encode_blocked(table: torch.Tensor, points: torch.Tensor, enc
-                        ) -> torch.Tensor:
-    """Forward encode. table: [L * 2^T, 2] f32; points: [N, 3] f32 already
-    clamped to the bbox. Returns [N, 2L] (level-major, feature-minor)."""
-    if enc.n_features_per_level != 2:
-        raise ValueError("the blocked kernels require 2 features per level")
-    n = points.shape[0]
-    with torch.no_grad():
+class HashEncodeBlocked(torch.autograd.Function):
+    """Forward K1 + K2 over the bf16-packed table; backward K3 into the f32
+    master table, straight through the packing. The points get no gradient,
+    as in the JAX custom_vjp; padded points get zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, table, points, enc):
+        n = points.shape[0]
         packed = pack_table_bf16(table.detach())
-        pts = pad_points(points.float(), enc)
+        pts = pad_points(points.detach().float(), enc)
         wids, counts = window_lists(pts, enc)
         out = encode_blocked(packed, pts, wids, counts, enc)
-    return out[:n]
+        ctx.save_for_backward(pts)
+        ctx.enc = enc
+        ctx.table_dtype = table.dtype
+        return out[:n]
+
+    @staticmethod
+    def backward(ctx, g):
+        (pts,) = ctx.saved_tensors
+        gt = grad_blocked(g.float().contiguous(), pts, ctx.enc)
+        return gt.to(ctx.table_dtype), None, None
+
+
+def hash_encode_blocked(table: torch.Tensor, points: torch.Tensor, enc
+                        ) -> torch.Tensor:
+    """Differentiable encode. table: [L * 2^T, 2] f32; points: [N, 3] f32
+    already clamped to the bbox. Returns [N, 2L] (level-major,
+    feature-minor); a backward pass launches K3 for the table."""
+    if enc.n_features_per_level != 2:
+        raise ValueError("the blocked kernels require 2 features per level")
+    return HashEncodeBlocked.apply(table, points, enc)

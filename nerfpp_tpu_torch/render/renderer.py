@@ -1,15 +1,20 @@
-"""Volume renderer, serving path (port of nerfpp_tpu/render/renderer.py).
+"""Volume renderer (port of nerfpp_tpu/render/renderer.py).
 
 Coarse-only rendering (``n_importance == 0``) of ray batches and full
 images: occupancy-guided depths (per ray or shared per 128-ray tile), the
 8x16 pixel-tile order, the chunk loop (a Python loop where JAX has
-``lax.map``), and the two-class render budget that gives the highest-mass
-tiles the full sample count and the rest a few samples. The hierarchical
-importance pass and NDC rays belong to later slices and raise.
+``lax.map``), and the two-class budget that gives the highest-mass tiles the
+full sample count and the rest a few samples, for serving (``render_image``)
+and for training (``render_ray_batch``, ``render_ray_batch_budgeted``). The
+hierarchical importance pass and NDC rays belong to later slices and raise.
 
-Randomness (the cone scatter, stochastic depths) comes from an explicit
-``torch.Generator``; with ``thin_ray=True`` and ``perturb=0`` a render is
-deterministic.
+Randomness (the cone scatter, the training-time density noise, stochastic
+depths) comes from an explicit ``torch.Generator``, drawn on the generator's
+device and moved to the rays' device, or is passed in as tensors (``draws``:
+``scatter_u``, ``noise``, ``pdf_draws``) so tests can feed the JAX package
+and the port the same numbers. With ``thin_ray=True``, ``perturb=0`` and no
+noise a render is deterministic. Nothing here runs under ``no_grad``: the
+training path differentiates through it.
 """
 from __future__ import annotations
 
@@ -124,11 +129,14 @@ def render_rays(network_fn: Callable, integrate_fn: Callable,
                 viewdirs: Optional[torch.Tensor], cone_angle,
                 cfg: RenderConfig, generator: Optional[torch.Generator] = None,
                 bounding_box: Optional[torch.Tensor] = None,
-                occ_bins=None, scatter_u=None) -> RenderResult:
+                occ_bins=None, scatter_u=None, raw_noise_std: float = 0.0,
+                noise: Optional[torch.Tensor] = None) -> RenderResult:
     """Coarse volume rendering of one ray batch. rays_o/rays_d [R, 3],
     near/far [R, 1]; ``occ_bins`` are precomputed depths [R, S] or a
     per-ray (edges, weights) prior; ``scatter_u`` optionally supplies the
-    cone scatter's two uniform draws (else they come from ``generator``)."""
+    cone scatter's two uniform draws and ``noise`` the standard-normal
+    density noise [R, S] (else both come from ``generator``). The noise is
+    drawn only with cfg.use_raw_noise and a nonzero ``raw_noise_std``."""
     if cfg.n_importance > 0:
         raise NotImplementedError(
             "the hierarchical importance pass (n_importance > 0) is not "
@@ -162,7 +170,9 @@ def render_rays(network_fn: Callable, integrate_fn: Callable,
         pts = S.tangent_scatter(pts, z_vals, cone_angle, rays_d, *scatter_u,
                                 bounding_box)
     raw = network_fn(pts, viewdirs)
-    coarse = integrate_fn(raw, z_vals, rays_d)
+    if cfg.use_raw_noise and noise is None and raw_noise_std != 0.0:
+        noise = S.draw(torch.randn, raw.shape[:-1], generator, raw.device)
+    coarse = integrate_fn(raw, z_vals, rays_d, raw_noise_std, noise)
     return RenderResult(outputs=coarse, coarse=coarse,
                         raw=raw if cfg.return_raw else None, z_vals=z_vals)
 
@@ -170,7 +180,95 @@ def render_rays(network_fn: Callable, integrate_fn: Callable,
 def _uniform(shape, generator, device, det: bool):
     if det:
         return None
-    return torch.rand(shape, generator=generator, device=device)
+    return S.draw(torch.rand, shape, generator, device)
+
+
+def _viewdirs(rays_d: torch.Tensor, cfg: RenderConfig):
+    if not cfg.use_viewdirs:
+        return None
+    return rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+
+def render_ray_batch(network_fn, integrate_fn, rays_o: torch.Tensor,
+                     rays_d: torch.Tensor, cone_angle, cfg: RenderConfig,
+                     bounding_box: torch.Tensor, raw_noise_std: float = 0.0,
+                     occupancy=None,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[dict] = None) -> RenderResult:
+    """Training-path entry: viewdirs, per-ray (near, far) from the AABB,
+    the occupancy prior (tile-shared where the batch divides into tiles),
+    then render_rays. ``draws``: optional ``scatter_u``, ``noise``."""
+    if cfg.ndc:
+        raise NotImplementedError("NDC rays are not ported yet")
+    draws = draws or {}
+    viewdirs = _viewdirs(rays_d, cfg)
+    near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
+    occ_bins = None
+    if occupancy is not None and cfg.n_occ_bins > 0:
+        occ_bins = _occ_bins_or_z(occupancy, rays_o, rays_d, near[:, None],
+                                  far[:, None], bounding_box, cfg, generator)
+    return render_rays(network_fn, integrate_fn, rays_o, rays_d,
+                       near[:, None], far[:, None], viewdirs,
+                       None if cfg.thin_ray else cone_angle, cfg, generator,
+                       bounding_box, occ_bins, draws.get("scatter_u"),
+                       raw_noise_std, draws.get("noise"))
+
+
+def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
+                              rays_d: torch.Tensor, cone_angle,
+                              cfg: RenderConfig, bounding_box: torch.Tensor,
+                              raw_noise_std: float = 0.0, occupancy=None,
+                              dense_frac: float = 0.5,
+                              sparse_samples: int = 16,
+                              generator: Optional[torch.Generator] = None,
+                              draws: Optional[dict] = None):
+    """Two-class per-tile sample budget for training: rank the batch's
+    128-ray tiles by occupancy mass (``tiled_prior``; stable, so empty tiles
+    keep their order), render the top ``dense_frac`` at cfg.n_samples and
+    the rest at ``sparse_samples``, each ray once. ``draws``: optional
+    {"dense": {...}, "sparse": {...}} with ``scatter_u``, ``noise`` and
+    ``pdf_draws`` per class. Returns (res_dense, res_sparse, idx_dense,
+    idx_sparse), idx_* the flat ray indices of each class."""
+    if occupancy is None or cfg.n_occ_bins <= 0 or cfg.occ_ray_tile <= 0:
+        raise ValueError("budgeted rendering needs the tile-shared "
+                         "occupancy sampling path")
+    if cfg.ndc:
+        raise NotImplementedError("NDC rays are not ported yet")
+    tile = cfg.occ_ray_tile
+    r = rays_o.shape[0]
+    if r % tile:
+        raise ValueError(f"batch of {r} rays must divide by tile {tile}")
+    n_tiles = r // tile
+    k_dense = k_dense_of(dense_frac, n_tiles)
+    draws = draws or {}
+    viewdirs = _viewdirs(rays_d, cfg)
+    near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
+    edges_t, w_t, mass = tiled_prior(
+        occupancy, rays_o, rays_d, near[:, None], far[:, None], bounding_box,
+        cfg.n_occ_bins, cfg.occ_uniform_frac, tile)
+    order = torch.argsort(-mass, stable=True)           # dense tiles first
+    lanes = torch.arange(tile, device=rays_o.device)
+
+    def class_render(tiles, n_samples, dr):
+        ridx = (tiles[:, None] * tile + lanes).reshape(-1)
+        z_t = S.sample_pdf(edges_t[tiles], w_t[tiles], n_samples,
+                           det=(cfg.perturb == 0.0), generator=generator,
+                           draws=dr.get("pdf_draws"))
+        ccfg = dataclasses.replace(cfg, n_samples=n_samples)
+        res = render_rays(
+            network_fn, integrate_fn, rays_o[ridx], rays_d[ridx],
+            near[ridx][:, None], far[ridx][:, None],
+            viewdirs[ridx] if viewdirs is not None else None,
+            None if cfg.thin_ray else cone_angle, ccfg, generator,
+            bounding_box, z_t.repeat_interleave(tile, dim=0),
+            dr.get("scatter_u"), raw_noise_std, dr.get("noise"))
+        return res, ridx
+
+    res_d, idx_d = class_render(order[:k_dense], cfg.n_samples,
+                                draws.get("dense", {}))
+    res_s, idx_s = class_render(order[k_dense:], sparse_samples,
+                                draws.get("sparse", {}))
+    return res_d, res_s, idx_d, idx_s
 
 
 def k_dense_of(dense_frac: float, n_tiles: int) -> int:
@@ -246,10 +344,9 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
         return _tile_flatten(x, hp, wp)
 
     rays_o, rays_d, cone_angle = ray_math.get_rays(hp, wp, k, c2w)
-    viewdirs = None
-    if cfg.use_viewdirs:
-        viewdirs = flatten_pixels(
-            rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True))
+    viewdirs = _viewdirs(rays_d, cfg)
+    if viewdirs is not None:
+        viewdirs = flatten_pixels(viewdirs)
     rays_o = flatten_pixels(rays_o)
     rays_d = flatten_pixels(rays_d)
     near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)

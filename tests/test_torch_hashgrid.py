@@ -175,8 +175,11 @@ def test_cpu_wrappers_count_no_launches():
     # plain versions
     reset_launch_counts()
     _, te = _pair(use_kernel=True)
-    te(torch.from_numpy(_pts(300, seed=11)))
-    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0}
+    feats, _ = te(torch.from_numpy(_pts(300, seed=11)))
+    feats.sum().backward()
+    assert te.table.grad is not None
+    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
+                               "grad_blocked": 0}
 
 
 def test_kernel_wrappers_check_inputs():

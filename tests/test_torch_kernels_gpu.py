@@ -1,14 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-These run only where CUDA is available; elsewhere each test skips with a
-reason. The JAX package is not installed beside the card, and the repo's
+These run only where CUDA is available (marker ``cuda``); elsewhere each
+test skips with a reason. The JAX package is not installed beside the card, and the repo's
 tests/conftest.py imports it, so run this file without it:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 chip_smoke.py holds the kernels at the flagship's shapes; these tests cover
 the edges: small tables whose 8-row windows wrap (S < 8), points within a few
-ulps of cell boundaries, out-of-box points, and the wrappers' input checks.
+ulps of cell boundaries, out-of-box points, padded groups, the gradient's
+unused lanes, the launch counters, and the wrappers' input checks.
 """
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
 from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
 BBOX = [-1.5, -1.0, -1.2, 1.5, 1.0, 1.3]
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -113,7 +116,8 @@ def test_encoder_f32_gather_raises_on_cuda(cuda):
     reset_launch_counts()
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         enc(pts)
-    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0}
+    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
+                               "grad_blocked": 0}
 
 
 def test_launch_counts_move_once_per_launch(cuda):
@@ -122,7 +126,8 @@ def test_launch_counts_move_once_per_launch(cuda):
     reset_launch_counts()
     K.hash_encode_blocked(enc.table.detach(), pts, enc)
     K.window_lists_plain(K.pad_points(pts, enc), enc)
-    assert launch_counts() == {"window_lists": 1, "encode_blocked": 1}
+    assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
+                               "grad_blocked": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -140,3 +145,77 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.encode_blocked(packed[:-1], pts, wids, counts, enc)
     with pytest.raises(ValueError, match="window ids is on cpu"):
         K.encode_blocked(packed, pts, wids.cpu(), counts, enc)
+
+
+def _grad_close(got, plain, mag):
+    """K3's atomics sum in a run-dependent order: each entry within 1e-5 of
+    the sum of its terms' magnitudes."""
+    return bool(((got - plain).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+@pytest.mark.parametrize("log2_t", [12, 19])
+def test_grad_kernel_matches_plain_version(cuda, log2_t):
+    # uniform, coherent (the warp-aggregated same-cell case) and
+    # cell-boundary points; lanes 125-127 of every row stay zero
+    enc = _encoder(cuda, log2_t, levels=16 if log2_t == 19 else 4,
+                   finest=1024 if log2_t == 19 else 128)
+    g = torch.Generator().manual_seed(log2_t)
+    for name, pts in _point_sets(enc, cuda).items():
+        cot = torch.randn(pts.shape[0], 2 * enc.n_levels, generator=g).to(cuda)
+        got = K.grad_blocked(cot, pts, enc)
+        torch.cuda.synchronize()
+        plain = K.grad_blocked_plain(cot, pts, enc)
+        mag = K.grad_blocked_plain(cot.abs(), pts, enc)
+        assert _grad_close(got, plain, mag), name
+        assert not bool(got.reshape(-1, 128, 2)[:, 125:].any()), name
+
+
+def test_grad_kernel_padded_points_contribute_nothing(cuda):
+    # 300 points padded to 384: the cotangent covers the first 300 only
+    enc = _encoder(cuda)
+    pts = _point_sets(enc, cuda)["uniform"][:300]
+    cot = torch.randn(300, 8, generator=torch.Generator().manual_seed(5))
+    cot = cot.to(cuda)
+    padded = K.pad_points(pts, enc)
+    assert padded.shape[0] == 384
+    got = K.grad_blocked(cot, padded, enc)
+    torch.cuda.synchronize()
+    plain = K.grad_blocked_plain(cot, pts, enc)
+    assert _grad_close(got, plain, K.grad_blocked_plain(cot.abs(), pts, enc))
+    # the padding sits at box_min: its corner entries get nothing from it
+    lone = K.grad_blocked(cot[:0], padded, enc)
+    assert not bool(lone.any())
+
+
+def test_grad_launch_count_moves_once_per_backward(cuda):
+    enc = _encoder(cuda)
+    pts = _point_sets(enc, cuda)["coherent"][:1000]
+    reset_launch_counts()
+    feats, _ = enc(pts)
+    torch.sin(3.0 * feats).sum().backward()
+    assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
+                               "grad_blocked": 1}
+    # the gradient is K3's: equal to the plain version of the same cotangent
+    cot = 3.0 * torch.cos(3.0 * feats.detach())
+    padded = K.pad_points(pts, enc)
+    plain = K.grad_blocked_plain(cot, padded, enc)
+    mag = K.grad_blocked_plain(cot.abs(), padded, enc)
+    assert _grad_close(enc.table.grad, plain, mag)
+
+
+def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    enc = _encoder(cuda)
+    pts = _point_sets(enc, cuda)["uniform"][:256]
+    cot = torch.zeros(256, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        K.grad_blocked(cot.double(), pts, enc)
+    with pytest.raises(ValueError, match="shape"):
+        K.grad_blocked(cot[:, :6].contiguous(), pts, enc)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.grad_blocked(cot[:200].contiguous(), pts[:200].contiguous(), enc)
+    with pytest.raises(ValueError, match="rows for"):
+        K.grad_blocked(torch.zeros(384, 8, device=cuda), pts, enc)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.grad_blocked(torch.zeros(8, 256, device=cuda).t(), pts, enc)
+    with pytest.raises(ValueError, match="cotangent is on cpu"):
+        K.grad_blocked(cot.cpu(), pts, enc)

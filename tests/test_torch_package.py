@@ -16,6 +16,8 @@ from nerfpp_tpu import config as jax_config
 from nerfpp_tpu_torch import config as port_config
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core.occupancy import make_occupancy_grid
+from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.executor import NeRFExecutor
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
@@ -69,12 +71,17 @@ def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
+    scene = make_synthetic_scene(n_train=1, n_val=0, n_test=0, image_hw=4,
+                                 n_samples=4, device="cpu")
     for make in (lambda: resolve_device(),
                  lambda: HashGridEncoder(BBOX, log2_hashmap_size=10),
                  lambda: MLP([4, 8, 1]),
                  lambda: NeRFSmall(input_ch=4, input_ch_views=4),
                  lambda: make_occupancy_grid(8),
-                 lambda: NeRFExecutor(port_config.hashnerf_blocked_preset())):
+                 lambda: NeRFExecutor(port_config.hashnerf_blocked_preset()),
+                 lambda: make_synthetic_scene(n_train=1, n_val=0, n_test=0,
+                                              image_hw=4),
+                 lambda: RayBatchSampler.from_scene(scene, 128)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu").type == "cpu"
