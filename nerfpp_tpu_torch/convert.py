@@ -12,7 +12,10 @@ state (the ``opt_state`` of ``optax.adam``, as numpy: the element with
 ``mu``, ``nu`` and ``count``) and the step. JAX dense weights are
 [in, out]; they, and their moments, are transposed into nn.Linear's
 [out, in]. The result, loaded with ``NeRFExecutor.load_state``, takes the
-same next step as the JAX state.
+same next step as the JAX state. Every hash scheme keeps its table under
+``embed.table`` with the same shape; what the schemes derive from the seed
+(block offsets, random primes) is drawn anew, identically, by the port's
+encoder and is not carried.
 """
 from __future__ import annotations
 

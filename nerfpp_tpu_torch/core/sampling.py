@@ -107,6 +107,36 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     return torch.cummax(z, dim=-1).values
 
 
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two row-sorted arrays [R, n1], [R, n2] -> [R, n1 + n2] sorted,
+    ties ranking ``a`` first (a stable merge), with a final cummax as in the
+    JAX package. Both inputs MUST be row-sorted. The JAX version places
+    values by a one-hot bf16 3-way-split matmul (~1e-7 relative noise); here
+    each value lands exactly at its rank: rank(a_i) = i + #{b_j < a_i},
+    rank(b_j) = j + #{a_i <= b_j}."""
+    a, b = a.contiguous(), b.contiguous()
+    n1, n2 = a.shape[-1], b.shape[-1]
+    rank_a = (torch.arange(n1, device=a.device)
+              + torch.searchsorted(b, a, right=False))
+    rank_b = (torch.arange(n2, device=b.device)
+              + torch.searchsorted(a, b, right=True))
+    out = torch.empty(a.shape[:-1] + (n1 + n2,), dtype=a.dtype,
+                      device=a.device)
+    out.scatter_(-1, torch.cat([rank_a, rank_b], dim=-1),
+                 torch.cat([a, b], dim=-1))
+    return torch.cummax(out, dim=-1).values
+
+
+def reflect_boundary(pts: torch.Tensor, min_bound: torch.Tensor,
+                     max_bound: torch.Tensor) -> torch.Tensor:
+    """Fold points back into the box by mirror reflection at the faces
+    (stochastic preconditioning keeps its perturbed points in the bbox)."""
+    normalized = (pts - min_bound) / (max_bound - min_bound)
+    x = torch.remainder(normalized, 2.0)
+    x = torch.where(x > 1.0, 2.0 - x, x)
+    return x * (max_bound - min_bound) + min_bound
+
+
 def scatter_uniforms(n_rays: int, n_samples: int,
                      generator: torch.Generator, device) -> tuple:
     """The two uniform draws tangent_scatter consumes, [n_rays, n_samples, 1]

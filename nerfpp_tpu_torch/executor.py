@@ -1,26 +1,31 @@
 """NeRFExecutor (port of nerfpp_tpu/executor.py).
 
-Builds the HashNeRF stack (blocked hash encoder, SH directions, NeRFSmall),
-initialises its parameters, one Adam over all of them and the occupancy
-grid from a seed, loads states carried over from the JAX package
-(convert.py) or from the port's checkpoints, trains, and renders views.
+Builds the HashNeRF stack (blocked, fixed or random hash encoder, SH
+directions, NeRFSmall), initialises its parameters, one Adam over all of
+them and the occupancy grid from a seed, loads states carried over from the
+JAX package (convert.py) or from the port's checkpoints, trains, and renders
+views.
 
 Training mirrors the JAX package's step (``_build_train_step``): tile
 sampling, the occupancy refresh (full during the warmup, one octant per
-refresh after it), the annealed density noise, the two-class tile budget
-after its warmup, the Huber loss, the backward through NeRFSmall and the
-blocked encoder (kernel K3 for the table), and Adam with a continuous
-exponential decay that skips the update when the loss is not finite.
-``train`` is the loop around it: ``steps_per_call`` steps between host
-looks, the [TRAIN] line, checkpoints and the collapse check.
+refresh after it), the annealed density noise and stochastic-
+preconditioning alpha, the two-class tile budget after its warmup (ranked by
+occupancy mass, or for the hierarchical path without a grid by the coarse
+pass's weight mass), the importance pass, the Huber loss, the fixed scheme's
+total-variation loss, the backward through NeRFSmall and the encoder
+(kernel K3 or the small-table gradient kernel for the table), and Adam with
+a continuous exponential decay that skips the update when the loss is not
+finite. ``train`` is the loop around it: ``steps_per_call`` steps between
+host looks, the [TRAIN] line, checkpoints and the collapse check with its
+auto-recovery.
 
 Rendering: ``render_view`` (with RenderFactor and the 8-bit image),
 ``render_views`` (a loop over poses), and the auto two-class render budget
 that picks each view's dense fraction from its occupancy tile masses.
 
-Image writing, test-split renders, the bbox refit, LeRF, the hierarchical
-pass, the other encoders and fields, and device meshes belong to later
-slices of the port and raise NotImplementedError.
+Image writing, test-split renders, the bbox refit, LeRF, the other encoders
+and fields, and device meshes belong to later slices of the port and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +45,9 @@ from nerfpp_tpu_torch.core.occupancy import (OccupancyGrid,
                                              make_occupancy_grid, update_grid,
                                              update_grid_phased)
 from nerfpp_tpu_torch.data.dataset import RayBatchSampler, SceneData
-from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+from nerfpp_tpu_torch.encoders.hashgrid import (HashGridEncoder,
+                                               total_variation_loss,
+                                               tv_cube_size)
 from nerfpp_tpu_torch.encoders.sh import SHEncoder
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.optim import Adam
@@ -49,7 +56,8 @@ from nerfpp_tpu_torch.render.renderer import (RenderConfig,
                                               make_nerf_network_fn,
                                               probe_tile_mass, render_image,
                                               render_ray_batch,
-                                              render_ray_batch_budgeted)
+                                              render_ray_batch_budgeted,
+                                              render_ray_batch_hier_budgeted)
 from nerfpp_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -142,6 +150,23 @@ class NeRFExecutor:
                 self.load_state(restored)
                 print(f"restored checkpoint at step {self.step}")
         return self
+
+    def _restart_state(self, seed: int = 23) -> None:
+        """A from-scratch restart (the JAX package's collapse recovery):
+        fresh tables and MLPs drawn as ``initialize`` draws them from
+        ``seed``, a fresh Adam, a uniform occupancy grid, step 0; the same
+        encoders and bbox."""
+        gen = torch.Generator().manual_seed(seed)
+        self.embedder.reset_parameters(gen)
+        self.model.reset_parameters(gen)
+        opt = self.optimizer
+        self.optimizer = Adam(self.named_parameters(), opt.lr,
+                              opt.decay_steps)
+        if self.params.use_occupancy_grid:
+            self.occupancy = make_occupancy_grid(
+                self.params.occ_grid_resolution, self.device)
+        self.step = 0
+        self._auto_frac_cache = {}
 
     def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
         """Every trained parameter under its state name (``embed.table``,
@@ -242,19 +267,18 @@ class NeRFExecutor:
     # ---------------------------------------------------------- train step
 
     def _build_train_step(self, tp: TrainParams):
-        """-> train_step(step, data, generator=None) -> metrics (device
-        scalars: mse, img_loss, pred_std, loss, psnr). ``data`` is a
+        """-> train_step(step, data, generator=None, draws=None) -> metrics
+        (device scalars: mse, img_loss, pred_std, loss, psnr). ``data`` is a
         RayBatchSampler (the batch is drawn from ``generator``) or a batch
         dict (rays_o, rays_d, cone_angle, target_rgb). The generator also
-        draws the refresh jitter, the cone scatter and the density noise.
-        Gradients accumulate chunk by chunk (one chunk's activations live at
-        a time); one Adam update follows, skipped on device when the loss is
-        not finite."""
+        draws the refresh jitter, the cone scatter, the noises and the TV
+        cube origins; ``draws`` may pass the TV origins instead (``tv``,
+        int [L, 3]). Gradients accumulate chunk by chunk (one chunk's
+        activations live at a time); one Adam update follows, skipped on
+        device when the loss is not finite."""
         p = self.params
         if p.use_lerf:
             raise _not_ported("LeRF")
-        if p.n_importance > 0:
-            raise _not_ported("the hierarchical pass (n_importance > 0)")
         cfg = self.make_render_config(tp, train=True, return_weights=True)
         chunk = min(tp.chunk, tp.n_rand)
         n_chunks = -(-tp.n_rand // chunk)
@@ -267,16 +291,29 @@ class NeRFExecutor:
                       and cfg.occ_ray_tile > 0
                       and chunk % cfg.occ_ray_tile == 0
                       and chunk // cfg.occ_ray_tile >= 2)
-        warm = p.occ_tile_budget_warmup if use_budget else 0
+        # the hierarchical analog: the fine pass's budget ranked by the
+        # coarse pass's own tile-mean weight mass (no occupancy grid)
+        use_hier_budget = (not use_occ and not use_budget
+                           and p.hier_tile_budget_frac > 0.0
+                           and cfg.hier_ray_tile > 0
+                           and cfg.n_importance > 0
+                           and chunk % cfg.hier_ray_tile == 0
+                           and chunk // cfg.hier_ray_tile >= 2)
+        warm = (p.occ_tile_budget_warmup if use_budget
+                else p.hier_budget_warmup if use_hier_budget else 0)
+        use_tv = p.embedder_type == "hash" and p.hash_scheme == "fixed"
         network_fn = self._nerf_fns()
         integrate_fn = make_nerf_integrate_fn(cfg)
         sigma_fn = self._sigma_grid_fn()
         bbox = self._tensor(self.bounding_box)
         params = self.named_parameters()
+        embedder = self.embedder
         n_pix = float(tp.n_rand * 3)
         noise_steps = np.float32(tp.n_iters / 8.0)
+        sp_steps = np.float32(tp.n_iters / 6.0)
+        sp_alpha0 = np.float32(self.sp_alpha0)
 
-        def chunk_sums(cb, step, raw_noise_std, generator):
+        def chunk_sums(cb, step, raw_noise_std, sp_alpha, generator):
             """Render one chunk; -> [sq, huber, pred, pred^2] sums."""
             occ = self.occupancy if use_occ else None
             target = cb["target_rgb"]
@@ -284,14 +321,23 @@ class NeRFExecutor:
                 res_d, res_s, idx_d, idx_s = render_ray_batch_budgeted(
                     network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
                     cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
-                    p.occ_tile_budget_frac, p.occ_sparse_samples, generator)
+                    p.occ_tile_budget_frac, p.occ_sparse_samples, generator,
+                    sp_alpha=sp_alpha)
+                parts = ((res_d.outputs.rgb, target[idx_d]),
+                         (res_s.outputs.rgb, target[idx_s]))
+            elif use_hier_budget and step >= warm:
+                res_d, res_s, idx_d, idx_s = render_ray_batch_hier_budgeted(
+                    network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
+                    cb["cone_angle"], cfg, bbox, raw_noise_std, sp_alpha,
+                    p.hier_tile_budget_frac, p.hier_sparse_importance,
+                    generator)
                 parts = ((res_d.outputs.rgb, target[idx_d]),
                          (res_s.outputs.rgb, target[idx_s]))
             else:
                 res = render_ray_batch(
                     network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
                     cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
-                    generator)
+                    generator, sp_alpha=sp_alpha)
                 parts = ((res.outputs.rgb, target),)
             sums = []
             for rgb, t in parts:
@@ -301,7 +347,26 @@ class NeRFExecutor:
                     torch.sum(rs), torch.sum(rs * rs)]))
             return sums[0] if len(sums) == 1 else sums[0] + sums[1]
 
-        def train_step(step: int, data, generator=None):
+        def tv_term(generator, origins):
+            """1e-6 x the TV loss summed over the levels (fixed scheme)."""
+            tv = 0.0
+            for lvl in range(embedder.n_levels):
+                if origins is not None:
+                    mv = origins[lvl]
+                else:
+                    if generator is None:
+                        raise ValueError("the TV cube origins need a "
+                                         "generator or passed-in draws")
+                    res, cube = tv_cube_size(embedder, lvl)
+                    mv = torch.randint(0, max(res - cube, 1), (3,),
+                                       generator=generator,
+                                       device=generator.device)
+                tv = tv + total_variation_loss(embedder, embedder.table, lvl,
+                                               mv)
+            return 1e-6 * tv
+
+        def train_step(step: int, data, generator=None, draws=None):
+            draws = draws or {}
             batch = (data.sample(step, generator)
                      if isinstance(data, RayBatchSampler) else data)
             if use_occ and step % occ_every == 0:
@@ -314,10 +379,13 @@ class NeRFExecutor:
                     self.occupancy = update_grid(
                         self.occupancy, sigma_fn, bbox, p.occ_decay,
                         generator=generator)
-            # annealed density noise; the SP alpha anneal feeds only the
-            # fine pass, which is not ported
-            raw_noise_std = float(max(np.float32(0.0), np.float32(1.0)
-                                      - np.float32(step) / noise_steps))
+            # annealed density noise and preconditioning alpha, in f32 as
+            # the JAX step computes them
+            stepf = np.float32(step)
+            raw_noise_std = float(max(np.float32(0.0),
+                                      np.float32(1.0) - stepf / noise_steps))
+            sp_alpha = float(sp_alpha0 * max(
+                np.float32(0.0), np.float32(1.0) - stepf / sp_steps))
             for prm in params.values():
                 prm.grad = None
             total = None
@@ -325,15 +393,21 @@ class NeRFExecutor:
                 cb = {k: (v[c * chunk:(c + 1) * chunk]
                           if v.ndim >= 1 and v.shape[0] == tp.n_rand else v)
                       for k, v in batch.items()}
-                sums = chunk_sums(cb, step, raw_noise_std, generator)
+                sums = chunk_sums(cb, step, raw_noise_std, sp_alpha,
+                                  generator)
                 (sums[1] / n_pix).backward()
                 total = sums.detach() if total is None else total + sums.detach()
             loss = total[1] / n_pix
+            img_loss = loss
+            if use_tv and step < tp.n_iters // 2:
+                tv = tv_term(generator, draws.get("tv"))
+                tv.backward()
+                loss = loss + tv.detach()
             self.optimizer.step(torch.isfinite(loss))
             self.step = step + 1
             mse = total[0] / n_pix
             mu = total[2] / n_pix
-            return {"mse": mse, "img_loss": loss,
+            return {"mse": mse, "img_loss": img_loss,
                     "pred_std": torch.sqrt(torch.clamp(
                         total[3] / n_pix - mu * mu, min=0.0)),
                     "loss": loss, "psnr": psnr_from_mse(mse)}
@@ -350,8 +424,10 @@ class NeRFExecutor:
         package runs them, or only the next ``steps`` of them (a later call
         resumes; the schedules follow n_iters either way). Step i draws
         from a generator seeded with (seed, i), as the JAX step folds i
-        into its key, so a run in stages draws what one run draws. Returns
-        the last step's metrics."""
+        into its key, so a run in stages draws what one run draws. A
+        collapse (the batch render's std under auto_fine_rel_std x the
+        images' std at a check) restarts the state as the JAX package does
+        (``_restart_state``). Returns the last step's metrics."""
         p = self.params
         for what, bad in (("a device mesh (data parallelism)",
                            mesh is not None),
@@ -360,9 +436,7 @@ class NeRFExecutor:
                           ("bbox_refit_step (the bbox refit)",
                            tp.bbox_refit_step > 0),
                           ("render_only", tp.render_only),
-                          ("LeRF", p.use_lerf),
-                          ("the hierarchical pass (n_importance > 0)",
-                           p.n_importance > 0)):
+                          ("LeRF", p.use_lerf)):
             if bad:
                 raise _not_ported(what)
         self.white_bkgr = scene.white_bkgr
@@ -398,27 +472,41 @@ class NeRFExecutor:
         metrics: Dict[str, torch.Tensor] = {}
         t_start = time.perf_counter()
         rays_done = 0
+        # i counts the loop's steps; the state's step (self.step, which
+        # drives the schedules and seeds the draws) equals it until a
+        # collapse recovery restarts the state at step 0, as in JAX
         i = self.step
         end = tp.n_iters - 1 if steps is None else min(tp.n_iters - 1,
                                                        i + steps)
         while i < end:
             k = min(spc - (i % spc), end - i)
             for _ in range(k):
-                generator.manual_seed((seed + 1) * 1_000_003 + i)
-                metrics = train_step(i, sampler, generator)
+                generator.manual_seed((seed + 1) * 1_000_003 + self.step)
+                metrics = train_step(self.step, sampler, generator)
                 i += 1
             rays_done += tp.n_rand * k
             if auto_pending and i >= next_check:
                 ps = float(metrics["pred_std"])
                 if ps < p.auto_fine_rel_std * gt_std:
-                    raise NotImplementedError(
-                        f"collapse detected at step {i} (batch render std "
-                        f"{ps:.4f} vs GT {gt_std:.4f}): the importance fine "
-                        "pass the JAX package engages here is not ported "
-                        "yet (see ROADMAP.md)")
-                next_check = i + max(int(p.auto_fine_check_from), 1)
-                if next_check > tp.n_iters // 2:
+                    print(f"[TRAIN] collapse detected at step {i} "
+                          f"(batch render std {ps:.4f} vs GT {gt_std:.4f}): "
+                          f"restarting field with importance fine pass "
+                          f"(n_importance={p.auto_fine_samples}, "
+                          f"tile budget off)")
+                    # the JAX package's recovery, quirks included: it sets
+                    # the caller's params in place, restarts from the
+                    # constant seed 23, and (its render config reads the
+                    # executor's n_importance, fixed at construction) the
+                    # rebuilt step still renders without the fine pass
+                    p.n_importance = p.auto_fine_samples
+                    p.occ_tile_budget_frac = 0.0
+                    self._restart_state()
+                    train_step = self._build_train_step(tp)
                     auto_pending = False
+                else:
+                    next_check = i + max(int(p.auto_fine_check_from), 1)
+                    if next_check > tp.n_iters // 2:
+                        auto_pending = False
             if tp.i_weights > 0 and i % tp.i_weights == 0:
                 self.save_checkpoint(base_dir)
                 print(f"Saved checkpoints at {base_dir}")

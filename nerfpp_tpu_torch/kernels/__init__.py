@@ -3,12 +3,14 @@
 Sources live in ``nerfpp_tpu_torch/csrc``; ``build.py`` compiles them with
 nvcc at first use. Importing this package builds nothing.
 """
+from nerfpp_tpu_torch.kernels.hash_encode import encode_small, grad_small
 from nerfpp_tpu_torch.kernels.hash_encode_blocked import (encode_blocked,
                                                           grad_blocked,
                                                           window_lists)
 
 WRAPPERS = {"window_lists": window_lists, "encode_blocked": encode_blocked,
-            "grad_blocked": grad_blocked}
+            "grad_blocked": grad_blocked, "encode_small": encode_small,
+            "grad_small": grad_small}
 
 
 def launch_counts() -> dict:

@@ -1,20 +1,26 @@
 """Volume renderer (port of nerfpp_tpu/render/renderer.py).
 
-Coarse-only rendering (``n_importance == 0``) of ray batches and full
-images: occupancy-guided depths (per ray or shared per 128-ray tile), the
-8x16 pixel-tile order, the chunk loop (a Python loop where JAX has
-``lax.map``), and the two-class budget that gives the highest-mass tiles the
-full sample count and the rest a few samples, for serving (``render_image``)
-and for training (``render_ray_batch``, ``render_ray_batch_budgeted``). The
-hierarchical importance pass and NDC rays belong to later slices and raise.
+Rendering of ray batches and full images: occupancy-guided depths (per ray
+or shared per 128-ray tile), the 8x16 pixel-tile order, the chunk loop (a
+Python loop where JAX has ``lax.map``), the two-class budget that gives the
+highest-mass tiles the full sample count and the rest a few samples, for
+serving (``render_image``) and for training (``render_ray_batch``,
+``render_ray_batch_budgeted``), and the hierarchical importance pass
+(``n_importance > 0``: inverse-CDF depths from the coarse weights, shared per
+``hier_ray_tile`` rays where the batch divides, merged with the coarse
+depths; stochastic-preconditioning noise; a second network call) with its
+coarse-ranked fine budget for training (``render_ray_batch_hier_budgeted``).
+NDC rays belong to a later slice and raise.
 
 Randomness (the cone scatter, the training-time density noise, stochastic
-depths) comes from an explicit ``torch.Generator``, drawn on the generator's
-device and moved to the rays' device, or is passed in as tensors (``draws``:
-``scatter_u``, ``noise``, ``pdf_draws``) so tests can feed the JAX package
-and the port the same numbers. With ``thin_ray=True``, ``perturb=0`` and no
-noise a render is deterministic. Nothing here runs under ``no_grad``: the
-training path differentiates through it.
+depths, the preconditioning noise) comes from an explicit
+``torch.Generator``, drawn on the generator's device and moved to the rays'
+device, or is passed in as tensors (``draws``: ``scatter_u``, ``noise``,
+``pdf_draws`` for the coarse pass; ``pdf_draws_fine``, ``sp_noise``,
+``scatter_u_fine``, ``noise_fine`` for the importance pass) so tests can feed
+the JAX package and the port the same numbers. With ``thin_ray=True``,
+``perturb=0`` and no noise a render is deterministic. Nothing here runs
+under ``no_grad``: the training path differentiates through it.
 """
 from __future__ import annotations
 
@@ -58,10 +64,10 @@ class RenderConfig:
 
 
 class RenderResult(NamedTuple):
-    outputs: RenderOutputs           # coarse (the only pass ported)
+    outputs: RenderOutputs           # the fine pass if there is one
     coarse: RenderOutputs
-    raw: Optional[torch.Tensor]      # [n_rays, S, C] if return_raw
-    z_vals: torch.Tensor             # [n_rays, S]
+    raw: Optional[torch.Tensor]      # [n_rays, K, C] if return_raw
+    z_vals: torch.Tensor             # [n_rays, K] final sample depths
 
 
 def make_nerf_network_fn(embed_fn, embed_dirs_fn, field_fn,
@@ -129,27 +135,29 @@ def render_rays(network_fn: Callable, integrate_fn: Callable,
                 viewdirs: Optional[torch.Tensor], cone_angle,
                 cfg: RenderConfig, generator: Optional[torch.Generator] = None,
                 bounding_box: Optional[torch.Tensor] = None,
-                occ_bins=None, scatter_u=None, raw_noise_std: float = 0.0,
-                noise: Optional[torch.Tensor] = None) -> RenderResult:
-    """Coarse volume rendering of one ray batch. rays_o/rays_d [R, 3],
+                occ_bins=None, raw_noise_std: float = 0.0,
+                sp_alpha: float = 0.0,
+                draws: Optional[dict] = None) -> RenderResult:
+    """Hierarchical volume rendering of one ray batch. rays_o/rays_d [R, 3],
     near/far [R, 1]; ``occ_bins`` are precomputed depths [R, S] or a
-    per-ray (edges, weights) prior; ``scatter_u`` optionally supplies the
-    cone scatter's two uniform draws and ``noise`` the standard-normal
-    density noise [R, S] (else both come from ``generator``). The noise is
-    drawn only with cfg.use_raw_noise and a nonzero ``raw_noise_std``."""
-    if cfg.n_importance > 0:
-        raise NotImplementedError(
-            "the hierarchical importance pass (n_importance > 0) is not "
-            "ported yet; use n_importance=0")
+    per-ray (edges, weights) prior. ``draws`` optionally supplies the random
+    numbers (module doc), else they come from ``generator``; the density
+    noise is drawn only with cfg.use_raw_noise and a nonzero
+    ``raw_noise_std``, the preconditioning noise (scaled by ``sp_alpha``)
+    only with cfg.use_sp_noise, a bbox and a nonzero ``sp_alpha``."""
+    draws = draws or {}
     det = cfg.perturb == 0.0
     hier_tile = cfg.hier_ray_tile
+    tiled_hier = (occ_bins is None and hier_tile > 0
+                  and rays_o.shape[0] % hier_tile == 0)
     if occ_bins is not None and not isinstance(occ_bins, tuple):
         z_vals = occ_bins
     elif occ_bins is not None:
         edges, w = occ_bins
         z_vals = S.sample_pdf(edges, w, cfg.n_samples, det=det,
-                              generator=generator)
-    elif hier_tile > 0 and rays_o.shape[0] % hier_tile == 0:
+                              generator=generator,
+                              draws=draws.get("pdf_draws"))
+    elif tiled_hier:
         nt = rays_o.shape[0] // hier_tile
         near_t = near.reshape(nt, hier_tile).amin(dim=1, keepdim=True)
         far_t = far.reshape(nt, hier_tile).amax(dim=1, keepdim=True)
@@ -163,18 +171,80 @@ def render_rays(network_fn: Callable, integrate_fn: Callable,
             _uniform((near.shape[0], cfg.n_samples), generator, near.device,
                      det))
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    if not cfg.thin_ray and cone_angle is not None:
-        if scatter_u is None:
-            scatter_u = S.scatter_uniforms(z_vals.shape[0], z_vals.shape[1],
-                                           generator, z_vals.device)
-        pts = S.tangent_scatter(pts, z_vals, cone_angle, rays_d, *scatter_u,
-                                bounding_box)
+    pts = _scatter(pts, z_vals, cone_angle, rays_d, cfg, bounding_box,
+                   generator, draws.get("scatter_u"))
     raw = network_fn(pts, viewdirs)
+    coarse = integrate_fn(raw, z_vals, rays_d, raw_noise_std,
+                          _noise(raw, cfg, raw_noise_std, generator,
+                                 draws.get("noise")))
+    outputs = coarse
+    if cfg.n_importance > 0:
+        z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        cw = coarse.weights[..., 1:-1].detach()
+        if tiled_hier:
+            # one importance CDF per tile from the tile-mean coarse weights
+            nt = rays_o.shape[0] // hier_tile
+            z_samples = S.sample_pdf(
+                z_mids.reshape(nt, hier_tile, -1)[:, 0, :],
+                cw.reshape(nt, hier_tile, -1).mean(dim=1), cfg.n_importance,
+                det=det, generator=generator,
+                draws=draws.get("pdf_draws_fine")
+            ).repeat_interleave(hier_tile, dim=0)
+        else:
+            z_samples = S.sample_pdf(z_mids, cw, cfg.n_importance, det=det,
+                                     generator=generator,
+                                     draws=draws.get("pdf_draws_fine"))
+        z_vals, raw, outputs = _fine_pass(
+            network_fn, integrate_fn, rays_o, rays_d, viewdirs, cone_angle,
+            z_vals, z_samples.detach(), cfg, bounding_box, raw_noise_std,
+            sp_alpha, generator, draws)
+    return RenderResult(outputs=outputs, coarse=coarse,
+                        raw=raw if cfg.return_raw else None, z_vals=z_vals)
+
+
+def _fine_pass(network_fn, integrate_fn, rays_o, rays_d, viewdirs,
+               cone_angle, z_coarse, z_samples, cfg: RenderConfig,
+               bounding_box, raw_noise_std, sp_alpha, generator, draws):
+    """Merge the coarse and importance depths, perturb the points
+    (preconditioning noise reflected into the bbox, cone scatter), and run
+    the network and the integrator again. -> (z_vals, raw, outputs)."""
+    z_vals = S.merge_sorted(z_coarse, z_samples)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    if cfg.use_sp_noise and bounding_box is not None:
+        # the JAX package adds alpha * N(0, 1) and reflects even at alpha 0
+        noise = draws.get("sp_noise")
+        if noise is None and sp_alpha != 0.0:
+            noise = S.draw(torch.randn, pts.shape, generator, pts.device)
+        if noise is not None:
+            pts = pts + noise.to(pts.device) * sp_alpha
+        pts = S.reflect_boundary(pts, bounding_box[:3], bounding_box[3:])
+    pts = _scatter(pts, z_vals, cone_angle, rays_d, cfg, bounding_box,
+                   generator, draws.get("scatter_u_fine"))
+    raw = network_fn(pts, viewdirs)
+    outputs = integrate_fn(raw, z_vals, rays_d, raw_noise_std,
+                           _noise(raw, cfg, raw_noise_std, generator,
+                                  draws.get("noise_fine")))
+    return z_vals, raw, outputs
+
+
+def _scatter(pts, z_vals, cone_angle, rays_d, cfg: RenderConfig,
+             bounding_box, generator, scatter_u):
+    """The cone scatter of one pass (a no-op for thin rays)."""
+    if cfg.thin_ray or cone_angle is None:
+        return pts
+    if scatter_u is None:
+        scatter_u = S.scatter_uniforms(z_vals.shape[0], z_vals.shape[1],
+                                       generator, z_vals.device)
+    return S.tangent_scatter(pts, z_vals, cone_angle, rays_d, *scatter_u,
+                             bounding_box)
+
+
+def _noise(raw, cfg: RenderConfig, raw_noise_std, generator, noise):
+    """The density noise of one pass: the passed draw, else a draw when the
+    noise is on and nonzero, else None."""
     if cfg.use_raw_noise and noise is None and raw_noise_std != 0.0:
         noise = S.draw(torch.randn, raw.shape[:-1], generator, raw.device)
-    coarse = integrate_fn(raw, z_vals, rays_d, raw_noise_std, noise)
-    return RenderResult(outputs=coarse, coarse=coarse,
-                        raw=raw if cfg.return_raw else None, z_vals=z_vals)
+    return noise
 
 
 def _uniform(shape, generator, device, det: bool):
@@ -194,10 +264,11 @@ def render_ray_batch(network_fn, integrate_fn, rays_o: torch.Tensor,
                      bounding_box: torch.Tensor, raw_noise_std: float = 0.0,
                      occupancy=None,
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[dict] = None) -> RenderResult:
+                     draws: Optional[dict] = None,
+                     sp_alpha: float = 0.0) -> RenderResult:
     """Training-path entry: viewdirs, per-ray (near, far) from the AABB,
     the occupancy prior (tile-shared where the batch divides into tiles),
-    then render_rays. ``draws``: optional ``scatter_u``, ``noise``."""
+    then render_rays. ``draws``: optional, as render_rays takes them."""
     if cfg.ndc:
         raise NotImplementedError("NDC rays are not ported yet")
     draws = draws or {}
@@ -210,8 +281,7 @@ def render_ray_batch(network_fn, integrate_fn, rays_o: torch.Tensor,
     return render_rays(network_fn, integrate_fn, rays_o, rays_d,
                        near[:, None], far[:, None], viewdirs,
                        None if cfg.thin_ray else cone_angle, cfg, generator,
-                       bounding_box, occ_bins, draws.get("scatter_u"),
-                       raw_noise_std, draws.get("noise"))
+                       bounding_box, occ_bins, raw_noise_std, sp_alpha, draws)
 
 
 def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
@@ -221,13 +291,14 @@ def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
                               dense_frac: float = 0.5,
                               sparse_samples: int = 16,
                               generator: Optional[torch.Generator] = None,
-                              draws: Optional[dict] = None):
+                              draws: Optional[dict] = None,
+                              sp_alpha: float = 0.0):
     """Two-class per-tile sample budget for training: rank the batch's
     128-ray tiles by occupancy mass (``tiled_prior``; stable, so empty tiles
     keep their order), render the top ``dense_frac`` at cfg.n_samples and
     the rest at ``sparse_samples``, each ray once. ``draws``: optional
-    {"dense": {...}, "sparse": {...}} with ``scatter_u``, ``noise`` and
-    ``pdf_draws`` per class. Returns (res_dense, res_sparse, idx_dense,
+    {"dense": {...}, "sparse": {...}}, per class as render_rays takes them
+    (``pdf_draws`` place the class's tile-shared depths). Returns (res_dense, res_sparse, idx_dense,
     idx_sparse), idx_* the flat ray indices of each class."""
     if occupancy is None or cfg.n_occ_bins <= 0 or cfg.occ_ray_tile <= 0:
         raise ValueError("budgeted rendering needs the tile-shared "
@@ -260,14 +331,95 @@ def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
             near[ridx][:, None], far[ridx][:, None],
             viewdirs[ridx] if viewdirs is not None else None,
             None if cfg.thin_ray else cone_angle, ccfg, generator,
-            bounding_box, z_t.repeat_interleave(tile, dim=0),
-            dr.get("scatter_u"), raw_noise_std, dr.get("noise"))
+            bounding_box, z_t.repeat_interleave(tile, dim=0), raw_noise_std,
+            sp_alpha, dr)
         return res, ridx
 
     res_d, idx_d = class_render(order[:k_dense], cfg.n_samples,
                                 draws.get("dense", {}))
     res_s, idx_s = class_render(order[k_dense:], sparse_samples,
                                 draws.get("sparse", {}))
+    return res_d, res_s, idx_d, idx_s
+
+
+def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
+                                   rays_o: torch.Tensor,
+                                   rays_d: torch.Tensor, cone_angle,
+                                   cfg: RenderConfig,
+                                   bounding_box: torch.Tensor,
+                                   raw_noise_std: float = 0.0,
+                                   sp_alpha: float = 0.0,
+                                   dense_frac: float = 0.5,
+                                   sparse_importance: int = 32,
+                                   generator: Optional[torch.Generator] = None,
+                                   draws: Optional[dict] = None):
+    """Two-class tile budget for the hierarchical fine pass: the coarse pass
+    runs on every ray at cfg.n_samples with depths shared per
+    cfg.hier_ray_tile rays; tiles are ranked by the tile-mean coarse weight
+    mass (stable, so tied tiles keep their order), and the fine pass renders
+    the top ``dense_frac`` at cfg.n_importance, the rest at
+    ``sparse_importance``. ``draws``: optional ``scatter_u``, ``noise`` (the
+    coarse pass) and {"dense": {...}, "sparse": {...}} with
+    ``pdf_draws_fine``, ``sp_noise``, ``scatter_u_fine``, ``noise_fine``.
+    Returns (res_dense, res_sparse, idx_dense, idx_sparse)."""
+    tile = cfg.hier_ray_tile
+    if tile <= 0:
+        raise ValueError("hier budget needs cfg.hier_ray_tile > 0")
+    if cfg.n_importance <= 0:
+        raise ValueError("hier budget needs n_importance > 0")
+    if cfg.ndc:
+        raise NotImplementedError("NDC rays are not ported yet")
+    r = rays_o.shape[0]
+    if r % tile:
+        raise ValueError(f"batch of {r} rays must divide by tile {tile}")
+    nt = r // tile
+    k_dense = k_dense_of(dense_frac, nt)
+    draws = draws or {}
+    det = cfg.perturb == 0.0
+    viewdirs = _viewdirs(rays_d, cfg)
+    near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
+    if cone_angle is None or cfg.thin_ray:
+        cone_angle = None
+    # coarse pass on every ray, tile-shared depths
+    near_t = near.reshape(nt, tile).amin(dim=1, keepdim=True)
+    far_t = far.reshape(nt, tile).amax(dim=1, keepdim=True)
+    z_t = S.sample_z_vals(near_t, far_t, cfg.n_samples, cfg.lin_disp,
+                          cfg.perturb,
+                          _uniform((nt, cfg.n_samples), generator,
+                                   rays_o.device, det))          # [nt, S]
+    z_vals = z_t.repeat_interleave(tile, dim=0)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    pts = _scatter(pts, z_vals, cone_angle, rays_d, cfg, bounding_box,
+                   generator, draws.get("scatter_u"))
+    raw_c = network_fn(pts, viewdirs)
+    coarse = integrate_fn(raw_c, z_vals, rays_d, raw_noise_std,
+                          _noise(raw_c, cfg, raw_noise_std, generator,
+                                 draws.get("noise")))
+    z_mids_t = 0.5 * (z_t[:, 1:] + z_t[:, :-1])
+    w_t = coarse.weights[..., 1:-1].detach().reshape(nt, tile, -1).mean(
+        dim=1)                                                   # [nt, S-2]
+    order = torch.argsort(-w_t.sum(dim=-1), stable=True)
+    lanes = torch.arange(tile, device=rays_o.device)
+
+    def fine_class(tiles, n_imp, dr):
+        ridx = (tiles[:, None] * tile + lanes).reshape(-1)
+        z_samples = S.sample_pdf(
+            z_mids_t[tiles], w_t[tiles], n_imp, det=det, generator=generator,
+            draws=dr.get("pdf_draws_fine")).repeat_interleave(tile, dim=0)
+        z_all, raw_f, out = _fine_pass(
+            network_fn, integrate_fn, rays_o[ridx], rays_d[ridx],
+            viewdirs[ridx] if viewdirs is not None else None, cone_angle,
+            z_t[tiles].repeat_interleave(tile, dim=0), z_samples, cfg,
+            bounding_box, raw_noise_std, sp_alpha, generator, dr)
+        coarse_c = RenderOutputs(*(x[ridx] for x in coarse))
+        return RenderResult(outputs=out, coarse=coarse_c,
+                            raw=raw_f if cfg.return_raw else None,
+                            z_vals=z_all), ridx
+
+    res_d, idx_d = fine_class(order[:k_dense], cfg.n_importance,
+                              draws.get("dense", {}))
+    res_s, idx_s = fine_class(order[k_dense:], sparse_importance,
+                              draws.get("sparse", {}))
     return res_d, res_s, idx_d, idx_s
 
 

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of one full-width 800x800 frame goes, on one GPU.
 
-    python3 profile_serve.py [--frames 2] [--trace serve_trace.json]
+    python3 profile_serve.py [--preset blocked|tpu] [--frames 2]
+                             [--trace serve_trace.json]
 
-Renders the serving cell of chip_smoke.py (hashnerf_blocked_preset with
-n_importance=0 and the 128^3 occupancy grid, 64 samples, auto two-class
-budget, 800x800) once to warm up, then ``--frames`` more under
-torch.profiler. Spans around the hash encoder, the SH direction encoder and
-the NeRFSmall field split the device time by layer; the rest of the frame
-(rays, occupancy prior, inverse CDF, cone scatter, compositing, scatter back
-to image order) is the remainder. Prints, per frame: the wall time, the
+Renders a serving cell of chip_smoke.py at 800x800 once to warm up, then
+``--frames`` more under torch.profiler: ``blocked`` (the default) is
+hashnerf_blocked_preset with n_importance=0 and the 128^3 occupancy grid, 64
+samples, auto two-class budget; ``tpu`` is hashnerf_tpu_preset (small-table
+random scheme, 64 coarse + 192 importance samples, chunk 32,768, no grid)
+from seeded random weights. Spans around the hash encoder, the SH direction
+encoder and the NeRFSmall field split the device time by layer; the rest of
+the frame (rays, occupancy prior or importance sampling and merge, cone
+scatter, compositing, scatter back to image order) is the remainder. Prints, per frame: the wall time, the
 device busy time (sum of kernel times), the idle share, the time in each
 span, and the 25 kernels with the most device time. Needs a CUDA device.
 """
@@ -24,6 +27,8 @@ import chip_smoke as C
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", choices=("blocked", "tpu"),
+                    default="blocked")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--trace", default="",
                     help="write a Chrome trace of the profiled frames here")
@@ -34,8 +39,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: CUDA is not available", file=sys.stderr)
         return 1
-    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
-    from nerfpp_tpu_torch.core.occupancy import OccupancyGrid
+    from nerfpp_tpu_torch.config import (TrainParams, hashnerf_blocked_preset,
+                                         hashnerf_tpu_preset)
     from nerfpp_tpu_torch.executor import NeRFExecutor
     from nerfpp_tpu_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,11 +52,16 @@ def main() -> int:
     build.build_all()
 
     dev = torch.device("cuda")
-    ex = NeRFExecutor(hashnerf_blocked_preset(
-        n_importance=0, use_occupancy_grid=True), device=dev)
-    ex.initialize(C.BBOX, seed=C.SEED)
-    ex.load_state({"occupancy": C.sphere_grid(128, 0.5, 10.0, dev)})
-    assert isinstance(ex.occupancy, OccupancyGrid)
+    if args.preset == "blocked":
+        ex = NeRFExecutor(hashnerf_blocked_preset(
+            n_importance=0, use_occupancy_grid=True), device=dev)
+        ex.initialize(C.BBOX, seed=C.SEED)
+        ex.load_state({"occupancy": C.sphere_grid(128, 0.5, 10.0, dev)})
+        tp = TrainParams(n_samples=64, chunk=65536)
+    else:
+        ex = NeRFExecutor(hashnerf_tpu_preset(), device=dev)
+        ex.initialize(C.BBOX, seed=C.SEED)
+        tp = TrainParams()
     spans = {"hash_encode": ex.embedder, "field_mlp": ex.model}
     for name, mod in spans.items():
         def enter(_m, _a, name=name):
@@ -70,7 +80,6 @@ def main() -> int:
     sh_spanned.output_dims = sh.output_dims
     ex.embeddirs = sh_spanned
     k, pose = C.camera(800)
-    tp = TrainParams(n_samples=64, chunk=65536)
     ex.render_view(pose, 800, 800, k, tp)                 # warm-up + probe
     torch.cuda.synchronize()
 
@@ -99,7 +108,8 @@ def main() -> int:
         i = bisect.bisect_right(starts, e.time_range.start) - 1
         if i >= 0 and e.time_range.start < ranges[i][1]:
             span_ms[ranges[i][2]] += e.time_range.elapsed_us() / 1e3
-    print(f"[profile] {smi} | frame wall {wall_ms:.3f} ms | device busy "
+    print(f"[profile] {args.preset} | {smi} | frame wall {wall_ms:.3f} ms | "
+          f"device busy "
           f"{busy_ms:.3f} ms | idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
     rest = busy_ms
@@ -108,9 +118,8 @@ def main() -> int:
         rest -= ms
         print(f"[profile] span {name}: {ms:.3f} ms/frame on the device "
               f"({ms / busy_ms:.4f} of busy)")
-    print(f"[profile] outside the spans (rays, occupancy prior, sampling, "
-          f"compositing, scatter): {rest:.3f} ms/frame ({rest / busy_ms:.4f}"
-          " of busy)")
+    print(f"[profile] outside the spans (rays, sampling, compositing, "
+          f"scatter): {rest:.3f} ms/frame ({rest / busy_ms:.4f} of busy)")
     print("[profile] top device kernels by time per frame:")
     kern = [a for a in prof.key_averages()
             if a.device_type == DeviceType.CUDA and a.key not in names]

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of one full-width train step goes, on one GPU.
 
-    python3 profile_train.py [--steps 8] [--trace train_trace.json]
+    python3 profile_train.py [--preset blocked|tpu] [--steps 8]
+                             [--trace train_trace.json]
 
-Builds the flagship training configuration of chip_smoke.py phase 8
-(hashnerf_blocked_preset with n_importance=0, the 128^3 occupancy grid
-refreshed every 32 steps, NRand 4096 in 8x16 tiles, 64 samples) on a 200x200
-copy of the synthetic bench scene (the step samples 4,096 rays whatever the
-image size), in two regimes:
+Builds a training configuration of chip_smoke.py on a 200x200 copy of the
+synthetic bench scene (the step samples 4,096 rays whatever the image size).
+``blocked`` (the default) is the flagship of phase 8 (hashnerf_blocked_preset
+with n_importance=0, the 128^3 occupancy grid refreshed every 32 steps,
+NRand 4096 in 8x16 tiles, 64 samples), in two regimes:
 
 - warmup: full refresh and full render, as before step 1,024;
 - budget: phased refresh and the two-class budget, as after step 1,024
   (a second executor whose warmups end at step 0).
+
+``tpu`` is the README's run of phase 11 (hashnerf_tpu_preset: 64 coarse
+samples on every ray, the coarse-ranked fine budget 0.25 / 16 of 192
+importance samples, untiled NRand 4096), one regime, ``hier``.
 
 Each regime trains 40 steps (one refresh at step 32), then:
 
@@ -40,7 +45,7 @@ def split_timer(ex, store):
     import nerfpp_tpu_torch.executor as E
     saved = [(E, k, getattr(E, k)) for k in (
         "update_grid", "update_grid_phased", "render_ray_batch",
-        "render_ray_batch_budgeted")]
+        "render_ray_batch_budgeted", "render_ray_batch_hier_budgeted")]
     saved += [(E.RayBatchSampler, "sample", E.RayBatchSampler.sample),
               (torch.Tensor, "backward", torch.Tensor.backward)]
 
@@ -61,6 +66,8 @@ def split_timer(ex, store):
     E.render_ray_batch = timed("render forward", E.render_ray_batch)
     E.render_ray_batch_budgeted = timed("render forward",
                                         E.render_ray_batch_budgeted)
+    E.render_ray_batch_hier_budgeted = timed(
+        "render forward", E.render_ray_batch_hier_budgeted)
     E.RayBatchSampler.sample = timed("batch", E.RayBatchSampler.sample)
     torch.Tensor.backward = timed("backward", torch.Tensor.backward)
     ex.optimizer.step = timed("adam", ex.optimizer.step)
@@ -73,6 +80,8 @@ def split_timer(ex, store):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", choices=("blocked", "tpu"),
+                    default="blocked")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default="",
                     help="write a Chrome trace of the budget regime here")
@@ -83,7 +92,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
-    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
+    from nerfpp_tpu_torch.config import (TrainParams, hashnerf_blocked_preset,
+                                         hashnerf_tpu_preset)
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
     from nerfpp_tpu_torch.executor import NeRFExecutor
@@ -99,17 +109,23 @@ def main() -> int:
     scene = make_synthetic_scene(n_train=16, n_val=1, n_test=1,
                                  image_hw=200, n_samples=64,
                                  white_bkgr=False, device=dev)
-    tp = TrainParams(n_samples=64, n_rand=4096, n_iters=8100, chunk=4096,
+    tp = TrainParams(n_samples=64, n_rand=4096, chunk=4096,
+                     n_iters=8100 if args.preset == "blocked" else 2000,
                      i_print=0, i_img=0, i_weights=0, i_testset=0)
-    sampler = RayBatchSampler.from_scene(scene, tp.n_rand, tile_h=8,
-                                         tile_w=16, device=dev)
     n = args.steps
-    for regime, warm in (("warmup", {}),
-                         ("budget", dict(occ_phased_warmup=0,
-                                         occ_tile_budget_warmup=0))):
-        ex = NeRFExecutor(hashnerf_blocked_preset(
+    if args.preset == "blocked":
+        sampler = RayBatchSampler.from_scene(scene, tp.n_rand, tile_h=8,
+                                             tile_w=16, device=dev)
+        regimes = [(r, hashnerf_blocked_preset(
             n_importance=0, use_occupancy_grid=True, occ_update_every=32,
-            **warm), device=dev)
+            **warm)) for r, warm in (
+                ("warmup", {}), ("budget", dict(occ_phased_warmup=0,
+                                                occ_tile_budget_warmup=0)))]
+    else:
+        sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev)
+        regimes = [("hier", hashnerf_tpu_preset())]
+    for regime, params in regimes:
+        ex = NeRFExecutor(params, device=dev)
         ex.initialize(scene.bounding_box, tp.lrate_decay, seed=C.SEED)
         ex.train(scene, tp, seed=C.SEED, sampler=sampler, steps=40)
         torch.cuda.synchronize()
@@ -119,7 +135,7 @@ def main() -> int:
             ex.train(scene, tp, seed=C.SEED, sampler=sampler, steps=n)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        if args.trace and regime == "budget":
+        if args.trace and regime == regimes[-1][0]:
             prof.export_chrome_trace(args.trace)
         work = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3 / n

@@ -6,16 +6,21 @@ tests/conftest.py imports it, so run this file without it:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
-chip_smoke.py holds the kernels at the flagship's shapes; these tests cover
+chip_smoke.py holds the kernels at the main paths' shapes; these tests cover
 the edges: small tables whose 8-row windows wrap (S < 8), points within a few
 ulps of cell boundaries, out-of-box points, padded groups, the gradient's
-unused lanes, the launch counters, and the wrappers' input checks.
+unused lanes, the launch counters, and the wrappers' input checks; for the
+small-table kernels (encode_small, grad_small) the table sizes from 2^10 to
+2^15 entries at 4 and 16 levels and one 2^19-entry level (staged and direct
+gathers), point counts that fill no block, points on the box faces, packed
+and f32 tables, the v1 route, and inputs the wrappers refuse.
 """
 import numpy as np
 import pytest
 import torch
 
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+from nerfpp_tpu_torch.kernels import hash_encode as KS
 from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
 from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -116,8 +121,7 @@ def test_encoder_f32_gather_raises_on_cuda(cuda):
     reset_launch_counts()
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         enc(pts)
-    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
-                               "grad_blocked": 0}
+    assert set(launch_counts().values()) == {0}
 
 
 def test_launch_counts_move_once_per_launch(cuda):
@@ -127,7 +131,8 @@ def test_launch_counts_move_once_per_launch(cuda):
     K.hash_encode_blocked(enc.table.detach(), pts, enc)
     K.window_lists_plain(K.pad_points(pts, enc), enc)
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
-                               "grad_blocked": 0}
+                               "grad_blocked": 0, "encode_small": 0,
+                               "grad_small": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -194,7 +199,8 @@ def test_grad_launch_count_moves_once_per_backward(cuda):
     feats, _ = enc(pts)
     torch.sin(3.0 * feats).sum().backward()
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
-                               "grad_blocked": 1}
+                               "grad_blocked": 1, "encode_small": 0,
+                               "grad_small": 0}
     # the gradient is K3's: equal to the plain version of the same cotangent
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     padded = K.pad_points(pts, enc)
@@ -219,3 +225,131 @@ def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         K.grad_blocked(torch.zeros(8, 256, device=cuda).t(), pts, enc)
     with pytest.raises(ValueError, match="cotangent is on cpu"):
         K.grad_blocked(cot.cpu(), pts, enc)
+
+
+# ------------------------------------------------------ small-table kernels
+
+def _small_encoder(dev, scheme, log2_t, levels):
+    return HashGridEncoder(BBOX, levels, 2, log2_t, 16, 1024, scheme=scheme,
+                           use_kernel=True, device=dev)
+
+
+def _small_points(enc, dev, n=4001):
+    """Uniform, coherent, cell-boundary and box-face points; n fills no
+    block of the kernels (1,024 and 128 points)."""
+    g = torch.Generator().manual_seed(n)
+    bb = np.asarray(BBOX, np.float32)
+    lo, ext = torch.tensor(bb[:3]), torch.tensor(bb[3:] - bb[:3])
+    uniform = torch.rand(n, 3, generator=g) * ext + lo
+    coherent = torch.rand(n, 3, generator=g) * 0.02 * ext + lo + 0.4 * ext
+    rng = np.random.RandomState(n)
+    scale = (enc.resolutions if enc.scheme == "fixed"
+             else enc.level_scales)[rng.randint(0, enc.n_levels, n)]
+    scale = np.asarray(scale, np.float64)[:, None]
+    cell = np.floor(rng.uniform(0, 1, (n, 3)) * scale)
+    edges = (bb[:3] + cell / scale * (bb[3:] - bb[:3])).astype(np.float32)
+    edges = np.nextafter(edges, np.where(rng.uniform(size=(n, 3)) < 0.5,
+                                         np.float32(-np.inf),
+                                         np.float32(np.inf)))
+    faces = uniform.clone()
+    axis = torch.arange(n) % 3
+    side = (torch.arange(n) // 3) % 2
+    faces[torch.arange(n), axis] = torch.tensor(bb)[3 * side + axis]
+    sets = {"uniform": uniform, "coherent": coherent, "faces": faces,
+            "edges": torch.from_numpy(np.clip(edges, bb[:3], bb[3:]))}
+    return {k: v.to(dev).contiguous() for k, v in sets.items()}
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 4), (13, 16), (15, 16),
+                                           (19, 1), (10, 64)])
+def test_small_encode_matches_plain_version(cuda, scheme, log2_t, levels):
+    # within 1e-6 at |table| <= 1 for the packed and the f32 table (T = 2^10
+    # and 2^13 stage each level in shared memory, 2^15 and 2^19 gather from
+    # device memory; at 64 levels the output rows no longer fit the tile
+    # and each level's pair is stored directly); v1 is the f32 route, bit
+    # for bit
+    enc = _small_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(log2_t)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    for name, pts in _small_points(enc, cuda).items():
+        for pk, tab in ((True, packed), (False, table)):
+            out = KS.encode_small(tab, pts, enc, pk)
+            torch.cuda.synchronize()
+            err = float((out - KS.encode_small_plain(tab, pts, enc, pk))
+                        .abs().max())
+            assert err <= 1e-6, (name, pk, err)
+        assert torch.equal(KS.hash_encode_fused(table, pts, enc, "v1"),
+                           KS.hash_encode_fused(table, pts, enc, "v2",
+                                                packed=False)), name
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 4), (15, 16), (19, 1)])
+def test_small_grad_matches_plain_version(cuda, scheme, log2_t, levels):
+    # atomics sum in a run-dependent order: each entry within 1e-5 of the
+    # sum of its terms' magnitudes; coherent points exercise the warp's
+    # same-cell sums, 4,001 points a partial block
+    enc = _small_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(log2_t + 1)
+    for name, pts in _small_points(enc, cuda).items():
+        cot = torch.randn(pts.shape[0], 2 * levels, generator=g).to(cuda)
+        got = KS.grad_small(cot, pts, enc)
+        torch.cuda.synchronize()
+        plain = KS.grad_small_plain(cot, pts, enc)
+        mag = KS.grad_small_plain(cot.abs(), pts, enc)
+        assert _grad_close(got, plain, mag), name
+    assert not bool(KS.grad_small(cot[:0], pts[:0], enc).any())
+
+
+def test_small_launch_counts_move_once_per_launch(cuda):
+    # the encoder's forward launches encode_small, its backward grad_small;
+    # the plain versions count nothing; the table gradient is the kernel's
+    enc = _small_encoder(cuda, "random", 13, 16)
+    pts = _small_points(enc, cuda, 3000)["coherent"]
+    reset_launch_counts()
+    feats, _ = enc(pts)
+    torch.sin(3.0 * feats).sum().backward()
+    KS.encode_small_plain(K.pack_table_bf16(enc.table.detach()), pts, enc,
+                          True)
+    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
+                               "grad_blocked": 0, "encode_small": 1,
+                               "grad_small": 1}
+    cot = 3.0 * torch.cos(3.0 * feats.detach())
+    assert _grad_close(enc.table.grad, KS.grad_small_plain(cot, pts, enc),
+                       KS.grad_small_plain(cot.abs(), pts, enc))
+
+
+def test_small_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    # a bad input raises before any launch, and never runs the plain version
+    enc = _small_encoder(cuda, "random", 10, 4)
+    pts = _small_points(enc, cuda, 256)["uniform"]
+    packed = K.pack_table_bf16(enc.table.detach())
+    cot = torch.zeros(256, 8, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(TypeError, match="dtype"):
+        KS.encode_small(packed, pts.double(), enc)
+    with pytest.raises(TypeError, match="dtype"):
+        KS.encode_small(packed.float(), pts, enc)
+    with pytest.raises(ValueError, match="shape"):
+        KS.encode_small(packed[:-4], pts, enc)
+    with pytest.raises(ValueError, match="packed table is on cpu"):
+        KS.encode_small(packed.cpu(), pts, enc)
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.encode_small(packed, pts.t().contiguous().t(), enc)
+    shifted = torch.zeros(enc.table_rows * 2 + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        KS.encode_small(shifted.view(-1, 2), pts, enc, packed=False)
+    with pytest.raises(TypeError, match="dtype"):
+        KS.grad_small(cot.double(), pts, enc)
+    with pytest.raises(ValueError, match="shape"):
+        KS.grad_small(cot[:200].contiguous(), pts, enc)
+    with pytest.raises(ValueError, match="cotangent is on cpu"):
+        KS.grad_small(cot.cpu(), pts, enc)
+    assert set(launch_counts().values()) == {0}
+    # the f32-table gather has no kernel: the encoder raises on the card
+    plain = HashGridEncoder(BBOX, 4, 2, 10, 16, 1024, scheme="fixed",
+                            use_kernel=False, device=cuda)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        plain(pts)

@@ -1,5 +1,6 @@
-"""The port as a package: imports, device rule, config interchange, and the
-parts of the JAX package that are not ported yet failing loudly."""
+"""The port as a package: imports, device rule, config interchange, the
+small-table schemes and the importance pass on the CPU, and the parts of the
+JAX package that are not ported yet failing loudly."""
 import ast
 import dataclasses
 import json
@@ -20,6 +21,7 @@ from nerfpp_tpu_torch.data.dataset import RayBatchSampler
 from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.executor import NeRFExecutor
+from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.nn import MLP
 from nerfpp_tpu_torch.render import renderer as TR
@@ -107,18 +109,46 @@ def test_config_json_interchange(preset, tmp_path):
 
 
 @pytest.mark.parametrize("scheme", ["fixed", "random"])
-def test_small_table_schemes_not_ported_yet(scheme):
-    with pytest.raises(NotImplementedError, match="small-table"):
-        HashGridEncoder(BBOX, log2_hashmap_size=10, scheme=scheme,
-                        device="cpu")
+def test_small_table_schemes_build_and_encode_on_cpu(scheme):
+    # the kernel path by default; on CPU tensors its plain versions, which
+    # count no launches, forward and backward
+    reset_launch_counts()
+    enc = HashGridEncoder(BBOX, n_levels=4, log2_hashmap_size=10,
+                          scheme=scheme, device="cpu")
+    assert enc.use_kernel and enc.level_size == 1024
+    x = torch.rand(100, 3, generator=torch.Generator().manual_seed(0)) * 3 - 1
+    feats, keep = enc(x)
+    assert feats.shape == (100, 8) and bool(torch.isfinite(feats).all())
+    assert bool(keep.any()) and not bool(keep.all())
+    feats.sum().backward()
+    assert enc.table.grad.shape == (4 * 1024, 2)
+    assert bool(enc.table.grad.abs().sum() > 0)
+    assert set(launch_counts().values()) == {0}
 
 
-def test_hierarchical_pass_not_ported_yet():
-    cfg = TR.RenderConfig(n_samples=4, n_importance=8)
-    o = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="n_importance"):
-        TR.render_rays(None, None, o, o, o[:, :1], o[:, :1] + 1, None, None,
-                       cfg)
+def test_render_rays_runs_the_importance_pass():
+    # 8 importance depths per ray merged into the 4 coarse ones, sorted;
+    # outputs are the fine pass's, coarse keeps the first
+    cfg = TR.RenderConfig(n_samples=4, n_importance=8, thin_ray=True,
+                          use_viewdirs=False)
+    seen = []
+
+    def network_fn(pts, viewdirs):
+        seen.append(pts.shape[1])
+        sigma = 5.0 * torch.exp(-(pts ** 2).sum(-1, keepdim=True))
+        return torch.cat([torch.sigmoid(pts), sigma], dim=-1)
+
+    o = torch.tensor([[0.0, 0.0, -3.0], [0.3, 0.0, -3.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.1, 1.0]])
+    res = TR.render_rays(network_fn, TR.make_nerf_integrate_fn(cfg), o, d,
+                         torch.full((2, 1), 1.0), torch.full((2, 1), 5.0),
+                         None, None, cfg)
+    assert seen == [4, 12]
+    assert res.z_vals.shape == (2, 12) and res.outputs.weights.shape == (2, 12)
+    assert res.coarse.weights.shape == (2, 4)
+    assert bool((res.z_vals[:, 1:] >= res.z_vals[:, :-1]).all())
+    # the importance depths gather where the coarse weights are, near z = 3
+    assert float((res.z_vals - 3.0).abs().median()) < 1.0
 
 
 def test_executor_builds_flagship_stack_on_cpu():
