@@ -9,8 +9,10 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel from nerfpp_tpu_torch/csrc, in parallel.
   3. kernels: K1 and K2 against their plain PyTorch versions at flagship
      shapes (16 levels, T = 2^19; one 65,536-ray chunk of the 800x800 view at
-     64 samples, and 2^20 uniformly random points), with their median times
-     over CUDA-event-timed launches, the plain versions' times and bounds.
+     64 samples, 2^20 uniformly random points, and the training chunk of
+     phase 6), with their median times over CUDA-event-timed launches, the
+     plain versions' times and bounds, and K2's library yardstick: one
+     embedding_bag over the precomputed corner indices and weights.
   4. parity: a 64x64 full-width render on the GPU (kernels) against the same
      state on the CPU (plain versions).
   5. serving: render_view of hashnerf_blocked_preset(n_importance=0,
@@ -34,7 +36,9 @@ Phases, each printing its own lines:
   9. small-table kernels: encode_small (K4 and K5) against its plain version
      in every mode (packed and f32 table, fixed and random scheme, the v1
      route) at 16 levels, T = 2^13, on one serving chunk's fine-pass points
-     (32,768 rays x 256 depths) and on 2^20 random points, and at T = 2^15;
+     (32,768 rays x 256 depths), on 2^20 random points and on the dense fine
+     class of a train step (1,024 rays x 256 depths), and at T = 2^15, beside
+     one embedding_bag over the precomputed corner indices and weights;
      grad_small against its plain version on the dense fine class of a
      train step (1,024 rays x 256 depths) and on the 2^20 random points,
      beside one index_add_ of the precomputed corner products.
@@ -69,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 NONTENSOR_OPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 BBOX = [-1.2, -1.2, -1.2, 1.2, 1.2, 1.2]
 SEED = 0
+SPIN_CYCLES = 1 << 22          # ~2 ms of card time ahead of each timing
 SERVE_KERNELS = ("window_lists", "encode_blocked")
 TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked")
 HIER_KERNELS = ("encode_small", "grad_small")
@@ -81,7 +86,10 @@ def log(phase, msg):
 
 def cuda_ms(fn, reps=10, inner=10, warmup=3):
     """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
-    launches, divided by ``inner`` (ms)."""
+    launches, divided by ``inner`` (ms). A spin kernel queued before the
+    first event keeps the card busy while the host enqueues the launches, so
+    that a short kernel is timed on the card and not by its wrapper's host
+    cost."""
     import torch
     for _ in range(warmup):
         fn()
@@ -90,6 +98,7 @@ def cuda_ms(fn, reps=10, inner=10, warmup=3):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         for _ in range(inner):
             fn()
@@ -138,6 +147,42 @@ def chunk_points(enc, occupancy, n_rays, n_samples, device):
     return torch.minimum(torch.maximum(pts, enc.box_min), enc.box_max)
 
 
+def embedding_bag_ms(enc, table_f32, pts, ref):
+    """The library yardstick of K2 and encode_small: one
+    F.embedding_bag(idx, table, per_sample_weights=w, mode="sum") over the
+    precomputed corner indices and weights ([N * L, 8] each; their
+    computation is excluded, as index_add_'s is for the gradients) and the
+    f32 table (the bf16-rounded one for a packed kernel). Checked against
+    the plain version ``ref`` within 1e-6; returns (ms, max |err|)."""
+    import torch
+    import torch.nn.functional as F
+    from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
+    n, nl = pts.shape[0], enc.n_levels
+    idx = torch.empty((n * nl, 8), dtype=torch.int32, device=pts.device)
+    w = torch.empty((n * nl, 8), dtype=torch.float32, device=pts.device)
+    step = 1 << 20
+    for i in range(0, n, step):
+        ci, frac = enc.corner_indices(pts[i:i + step])
+        rows = slice(i * nl, (i + ci.shape[0]) * nl)
+        idx[rows] = ci.reshape(-1, 8).to(torch.int32)
+        w[rows] = trilerp_weights(frac).reshape(-1, 8)
+        del ci, frac
+
+    def call():
+        return F.embedding_bag(idx, table_f32, per_sample_weights=w,
+                               mode="sum")
+    out = call().reshape(n, 2 * nl)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"embedding_bag differs from the plain version "
+                             f"by {err} > 1e-6")
+    del out
+    ms = cuda_ms(call, reps=5, inner=2, warmup=1)
+    del idx, w
+    return ms, err
+
+
 def kernel_phase(enc, table, pts, label):
     """K1 and K2 against their plain versions on one point set."""
     import torch
@@ -160,6 +205,10 @@ def kernel_phase(enc, table, pts, label):
     if not err <= 1e-6:
         raise AssertionError(f"{label}: encode_blocked max |err| {err} "
                              "> 1e-6")
+    del out
+    lib_ms, lib_err = embedding_bag_ms(enc, K.unpack_table_bf16(packed), pts,
+                                       out_p)
+    del out_p
     k1_ms = cuda_ms(lambda: K.window_lists(pts, enc))
     k2_ms = cuda_ms(lambda: K.encode_blocked(packed, pts, wids, counts, enc))
     k1_plain = cuda_ms(lambda: K.window_lists_plain(pts, enc), reps=5,
@@ -189,14 +238,19 @@ def kernel_phase(enc, table, pts, label):
             ("encode_blocked", k2_ms, k2_plain, k2_bytes, k2_ops, err)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+        # no single PyTorch call lists the unique ids per row (K1)
+        lib = lib_ms if name == "encode_blocked" else None
         stats[name] = dict(ms=ms, plain_ms=plain, max_abs_err=e,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops
-                           else "operations")
+                           else "operations", library_ms=lib)
         log("kernels", f"{label} {name}: N={n} ms={ms:.4f} "
             f"plain_ms={plain:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
             f"(bytes {nbytes} -> {t_bytes:.4f} ms, ops {ops:.3g} -> "
-            f"{t_ops:.4f} ms) max_abs_err={e:.3g}")
+            f"{t_ops:.4f} ms) max_abs_err={e:.3g}"
+            + ("" if lib is None else f" embedding_bag_ms={lib:.4f} "
+               f"(excluding the index computation; max |err| "
+               f"{lib_err:.3g})"))
     log("kernels", f"{label}: mean windows per (group, level) "
         f"{mean_count:.2f}, touched table rows {touched} of "
         f"{nl * enc.block_slots}")
@@ -476,7 +530,8 @@ def small_kernel_phase(enc, table, pts, label):
     bound and plain time of the path's mode (packed)."""
     import torch
     from nerfpp_tpu_torch.kernels import hash_encode as KS
-    from nerfpp_tpu_torch.kernels.hash_encode_blocked import pack_table_bf16
+    from nerfpp_tpu_torch.kernels.hash_encode_blocked import (
+        pack_table_bf16, unpack_table_bf16)
     n, nl = pts.shape[0], enc.n_levels
     packed = pack_table_bf16(table)
     errs, outs = {}, {}
@@ -501,6 +556,9 @@ def small_kernel_phase(enc, table, pts, label):
     ms_f32 = cuda_ms(lambda: KS.encode_small(table, pts, enc, False))
     plain = cuda_ms(lambda: KS.encode_small_plain(packed, pts, enc, True),
                     reps=3, inner=1, warmup=1)
+    lib_ms, lib_err = embedding_bag_ms(
+        enc, unpack_table_bf16(packed), pts,
+        KS.encode_small_plain(packed, pts, enc, True))
     # bytes: coordinates read and features written once, the packed table
     # read once; ~100 operations per (point, level): cell, hashes of 8
     # corners, 8 weights, 8 unpacks, 16 FMAs
@@ -510,14 +568,15 @@ def small_kernel_phase(enc, table, pts, label):
     t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
     log("small", f"{label} encode_small {enc.scheme} T=2^"
         f"{enc.log2_hashmap_size}: N={n} ms={ms:.4f} (f32 table "
-        f"{ms_f32:.4f}) plain_ms={plain:.4f} bound_ms="
-        f"{max(t_bytes, t_ops):.4f} (bytes {nbytes} -> {t_bytes:.4f} ms, "
-        f"ops {ops:.3g} -> {t_ops:.4f} ms) max_abs_err "
+        f"{ms_f32:.4f}) plain_ms={plain:.4f} embedding_bag_ms={lib_ms:.4f} "
+        f"(excluding the index computation; max |err| {lib_err:.3g}) "
+        f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes} -> "
+        f"{t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} ms) max_abs_err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-    return dict(ms=ms, plain_ms=plain, max_abs_err=max(errs.values()),
-                bound_ms=max(t_bytes, t_ops),
+    return dict(ms=ms, ms_f32=ms_f32, plain_ms=plain,
+                max_abs_err=max(errs.values()), bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                library_ms=lib_ms)
 
 
 def small_grad_phase(enc, pts, label):
@@ -590,8 +649,11 @@ def small_phase(dev):
         small_kernel_phase(enc, table, pts, "random points")
         if scheme == "random":
             tro, trd = view_rays(1024, dev, seed=SEED + 2)
-            stats["grad_small"] = small_grad_phase(
-                enc, depth_points(enc, tro, trd, 256), "dense fine class")
+            dense = depth_points(enc, tro, trd, 256)
+            small_kernel_phase(enc, table, dense, "dense fine class")
+            stats["grad_small"] = small_grad_phase(enc, dense,
+                                                   "dense fine class")
+            del dense
         small_grad_phase(enc, pts, "random points")
         del pts, table
     enc = small_encoder("random", 15, dev)
@@ -865,6 +927,8 @@ def main() -> int:
     stats = kernel_phase(enc, table, pts_chunk, "chunk")
     pts_rand = (torch.rand(1 << 20, 3, generator=gen) * 2.4 - 1.2).to(dev)
     kernel_phase(enc, table, pts_rand, "random")
+    pts_train = chunk_points(enc, occ, 4096, 64, dev)
+    kernel_phase(enc, table, pts_train, "train chunk")
     del pts_chunk
 
     # 4. full-width 64x64 render: GPU path against the CPU plain path -----
@@ -944,7 +1008,6 @@ def main() -> int:
     del ex, out, res
 
     # 6. K3 against its plain version ---------------------------------------
-    pts_train = chunk_points(enc, occ, 4096, 64, dev)
     stats["grad_blocked"] = grad_phase(enc, pts_train, "train chunk")
     grad_phase(enc, pts_rand, "random")
     del pts_train, pts_rand, table

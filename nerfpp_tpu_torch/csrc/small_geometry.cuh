@@ -34,18 +34,33 @@ __device__ __forceinline__ float small_rel(float x, float bmin, float inv,
     return __fmul_rn(__fmul_rn(d, inv), geom);
 }
 
+// one level's constants: the cell sizes (fixed) or scales (random) g and the
+// primes p of the three axes
+struct SmallLevel {
+    float g[3];
+    unsigned p[3];
+};
+
 // geom: [L, 3] cell sizes (fixed) or scales (random); primes: [L, 3]
+__device__ __forceinline__ SmallLevel small_level(int l, const float* geom,
+                                                  const unsigned* primes) {
+    SmallLevel v;
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        v.g[a] = __ldg(geom + 3 * l + a);
+        v.p[a] = __ldg(primes + 3 * l + a);
+    }
+    return v;
+}
+
 template <int SCHEME>
-__device__ __forceinline__ void small_cell(float x0, float x1, float x2,
-                                           int l, const float* geom,
-                                           const unsigned* primes,
-                                           const SmallGeom& s, unsigned mask,
-                                           SmallCell& c) {
-    const float r0 = small_rel<SCHEME>(x0, s.bx, s.ix, __ldg(geom + 3 * l));
-    const float r1 = small_rel<SCHEME>(x1, s.by, s.iy,
-                                       __ldg(geom + 3 * l + 1));
-    const float r2 = small_rel<SCHEME>(x2, s.bz, s.iz,
-                                       __ldg(geom + 3 * l + 2));
+__device__ __forceinline__ void small_cell_at(float x0, float x1, float x2,
+                                              const SmallLevel& v,
+                                              const SmallGeom& s,
+                                              unsigned mask, SmallCell& c) {
+    const float r0 = small_rel<SCHEME>(x0, s.bx, s.ix, v.g[0]);
+    const float r1 = small_rel<SCHEME>(x1, s.by, s.iy, v.g[1]);
+    const float r2 = small_rel<SCHEME>(x2, s.bz, s.iz, v.g[2]);
     const float fl0 = floorf(r0), fl1 = floorf(r1), fl2 = floorf(r2);
     const unsigned u0 = (unsigned)(int)fl0;
     const unsigned u1 = (unsigned)(int)fl1;
@@ -53,9 +68,7 @@ __device__ __forceinline__ void small_cell(float x0, float x1, float x2,
     const float f0 = __fsub_rn(r0, fl0);
     const float f1 = __fsub_rn(r1, fl1);
     const float f2 = __fsub_rn(r2, fl2);
-    const unsigned pa = __ldg(primes + 3 * l);
-    const unsigned pb = __ldg(primes + 3 * l + 1);
-    const unsigned pc = __ldg(primes + 3 * l + 2);
+    const unsigned pa = v.p[0], pb = v.p[1], pc = v.p[2];
     const float wx[2] = {__fsub_rn(1.0f, f0), f0};
     const float wy[2] = {__fsub_rn(1.0f, f1), f1};
     const float wz[2] = {__fsub_rn(1.0f, f2), f2};
@@ -69,4 +82,14 @@ __device__ __forceinline__ void small_cell(float x0, float x1, float x2,
     }
     c.key = (unsigned long long)u0 | ((unsigned long long)u1 << 21)
             | ((unsigned long long)u2 << 42);
+}
+
+template <int SCHEME>
+__device__ __forceinline__ void small_cell(float x0, float x1, float x2,
+                                           int l, const float* geom,
+                                           const unsigned* primes,
+                                           const SmallGeom& s, unsigned mask,
+                                           SmallCell& c) {
+    small_cell_at<SCHEME>(x0, x1, x2, small_level(l, geom, primes), s, mask,
+                          c);
 }

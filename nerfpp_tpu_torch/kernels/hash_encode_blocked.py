@@ -6,7 +6,9 @@ Port of nerfpp_tpu/pallas/hash_encode_blocked.py:
   the sorted unique 2x2x2-block window Morton codes, sentinel-padded, and the
   unique count. Replaces ``_windows_call`` / ``_make_windows_kernel``.
 - ``encode_blocked`` (K2, csrc/encode_blocked.cu): the trilinear blend over
-  the bf16-packed table, one staged 8-row window at a time. Replaces
+  the bf16-packed table; each 128-point group walks all levels in one team,
+  stages the first table rows its window list says it uses, reads the rest
+  from L2, and writes its rows in 32-byte slices of 4 levels. Replaces
   ``_fwd_call`` / ``_make_fwd_kernel``.
 - ``grad_blocked`` (K3, csrc/grad_blocked.cu): the f32 table gradient, each
   point's 8 corners getting ``w_corner * g``. Replaces ``_bwd_call`` /

@@ -13,7 +13,10 @@ unused lanes, the launch counters, and the wrappers' input checks; for the
 small-table kernels (encode_small, grad_small) the table sizes from 2^10 to
 2^15 entries at 4 and 16 levels and one 2^19-entry level (staged and direct
 gathers), point counts that fill no block, points on the box faces, packed
-and f32 tables, the v1 route, and inputs the wrappers refuse.
+and f32 tables, the v1 route, and inputs the wrappers refuse; the launch
+plans at their edges: encode_small's persistent grid at 1 to many tiles,
+1-64 levels (odd counts too) and every staging mode, encode_blocked at 1-64
+levels, a partial block of teams, and 1 and 128 windows per group.
 """
 import numpy as np
 import pytest
@@ -353,3 +356,125 @@ def test_small_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             use_kernel=False, device=cuda)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         plain(pts)
+
+
+# ------------------------------------------- launch plans at their edges
+
+def _with_box_max(pts, enc):
+    """Every 7th point moved onto box_max (the last cell of each level)."""
+    pts = pts.clone()
+    pts[::7] = enc.box_max
+    return pts.contiguous()
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+@pytest.mark.parametrize("levels,log2_t", [(1, 10), (3, 11), (16, 12),
+                                           (17, 13), (64, 13), (16, 14),
+                                           (16, 15), (8, 16), (1, 19)])
+def test_small_encode_plans_cover_every_tile_and_level(cuda, scheme, levels,
+                                                       log2_t):
+    # persistent blocks over level groups: N of 1, one 1,024-point tile
+    # less one, one more than a tile, and three times the persistent grid's
+    # tiles; groups staged whole (2^10-2^13 packed), in part (2^13 f32,
+    # 2^14-2^15 packed) and not at all (2^15 f32, 2^16, 2^19); odd L
+    # (8-byte slices); points on box_max
+    enc = _small_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(levels * 100 + log2_t)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    full = KS.device_small_plan(1 << 30, enc, True, cuda)
+    n_many = 3 * KS.TILE * full.grid // full.n_groups
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    for n in (1, KS.TILE - 1, KS.TILE + 1, n_many):
+        pts = (torch.rand(n, 3, generator=g) * ext + lo).to(cuda)
+        pts = _with_box_max(pts, enc)
+        for pk, tab in ((True, packed), (False, table)):
+            out = KS.encode_small(tab, pts, enc, pk)
+            torch.cuda.synchronize()
+            err = float((out - KS.encode_small_plain(tab, pts, enc, pk))
+                        .abs().max())
+            assert err <= 1e-6, (n, pk, err)
+        assert torch.equal(KS.hash_encode_fused(table, pts, enc, "v1"),
+                           KS.hash_encode_fused(table, pts, enc, "v2",
+                                                packed=False)), n
+
+
+def test_small_encode_refuses_a_plan_it_cannot_run(cuda):
+    # a grid that is no multiple of the level groups, an empty group, a
+    # stage larger than the plan's shared memory, or more staged levels
+    # than a group holds, raises before anything runs
+    enc = _small_encoder(cuda, "random", 13, 16)
+    pts = _small_points(enc, cuda, 1000)["uniform"]
+    packed = K.pack_table_bf16(enc.table.detach())
+    plan = KS.device_small_plan(1000, enc, True, cuda)
+    assert (plan.n_groups, plan.group_levels, plan.staged_levels) == (4, 4,
+                                                                      4)
+    for bad in (dict(grid=plan.grid + 1), dict(group_levels=0),
+                dict(smem=plan.smem // 2), dict(staged_levels=5)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            KS.encode_small_planned(packed, pts, enc, True,
+                                    KS.SmallPlan(**{**plan.__dict__, **bad}))
+
+
+@pytest.mark.parametrize("levels", [1, 3, 16, 17, 64])
+def test_blocked_encode_levels_and_group_counts(cuda, levels):
+    # one group; one block of 4 teams less one team; many groups; points on
+    # box_max; T = 2^19 at 16 levels, 2^12 otherwise
+    enc = HashGridEncoder(BBOX, levels, 2, 19 if levels == 16 else 12, 16,
+                          1024, use_kernel=True, device=cuda)
+    g = torch.Generator().manual_seed(levels)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    for n in (128, 3 * 128, 1 << 15):
+        pts = _with_box_max((torch.rand(n, 3, generator=g) * ext
+                             + lo).to(cuda), enc)
+        wids, counts = K.window_lists(pts, enc)
+        out = K.encode_blocked(packed, pts, wids, counts, enc)
+        torch.cuda.synchronize()
+        err = float((out - K.encode_blocked_plain(packed, pts, wids, counts,
+                                                  enc)).abs().max())
+        assert err <= 1e-6, (n, err)
+
+
+def test_blocked_encode_one_and_128_windows_per_group(cuda):
+    # each group's 128 points at one place (one window at every level), and
+    # scattered points (128 windows per group at the finest levels, so most
+    # used rows are read from L2 past the staged ones)
+    enc = HashGridEncoder(BBOX, 16, 2, 19, 16, 1024, use_kernel=True,
+                          device=cuda)
+    g = torch.Generator().manual_seed(7)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    same = (torch.rand(64, 1, 3, generator=g) * ext + lo).expand(64, 128, 3)
+    scattered = torch.rand(64 * 128, 3, generator=g) * ext + lo
+    for name, pts, want in (("one window", same.reshape(-1, 3), 1),
+                            ("scattered", scattered, 128)):
+        pts = torch.minimum(torch.maximum(pts.to(cuda), enc.box_min),
+                            enc.box_max).contiguous()
+        wids, counts = K.window_lists(pts, enc)
+        assert int(counts.max()) == want, name
+        ref = K.encode_blocked_plain(packed, pts, wids, counts, enc)
+        out = K.encode_blocked(packed, pts, wids, counts, enc)
+        torch.cuda.synchronize()
+        assert float((out - ref).abs().max()) <= 1e-6, name
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+def test_small_encode_points_outside_the_box(cuda, scheme):
+    # points up to one extent outside the box (negative cell coordinates,
+    # which the hash wraps in uint32): the kernel still equals its plain
+    # version
+    enc = _small_encoder(cuda, scheme, 13, 16)
+    g = torch.Generator().manual_seed(11)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    packed = K.pack_table_bf16(table)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    pts = ((torch.rand(50_000, 3, generator=g) * 3 - 1) * ext + lo).to(cuda)
+    for pk, tab in ((True, packed), (False, table)):
+        out = KS.encode_small(tab, pts, enc, pk)
+        torch.cuda.synchronize()
+        err = float((out - KS.encode_small_plain(tab, pts, enc, pk))
+                    .abs().max())
+        assert err <= 1e-6, (pk, err)

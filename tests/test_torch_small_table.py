@@ -303,3 +303,66 @@ def test_kernel_accepts_what_the_jax_kernel_accepts():
                         torch.zeros(8, 3, device="meta"), te)
     with pytest.raises(ValueError, match="not a small-table"):
         KS._check_enc(_pair("blocked", log2_hashmap_size=12)[1], "cpu")
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("log2_t", range(10, 20))
+def test_small_plan_covers_every_level_and_tile_once(log2_t, packed):
+    # every (L, T, packed) that supports() admits at this T: the level
+    # groups partition the levels, each group's slice of a row is a whole
+    # 32-byte sector or more (or the whole row), the persistent blocks of
+    # each group visit every 1,024-point tile exactly once (as the kernel
+    # strides them), and a block's stage and output tiles fit its 232,448
+    # bytes
+    size = 1 << log2_t
+    esize = 4 if packed else 8
+    for levels in range(1, (1 << 19) // size + 1):
+        assert KS.supports(levels, size, 2)
+        g, staged, smem = KS.small_stage(levels, size, packed)
+        assert 0 <= staged <= g <= levels
+        assert smem == staged * size * esize + KS.small_tile_bytes(g)
+        assert smem + KS.SMEM_STATIC <= 232448
+        # a row slice is a whole sector or more, or the whole row
+        assert g >= min(4, levels)
+        if staged == g > min(4, levels):
+            assert g & (g - 1) == 0
+        if staged < g:       # as many levels staged as fit
+            assert smem + size * esize + KS.SMEM_STATIC > 232448
+        for n in (1, 1023, 1025, 1_000_003, 3_000_000):
+            for blocks in (132, 264, 3):
+                plan = KS.small_plan(n, levels, size, packed, blocks)
+                assert (plan.group_levels, plan.staged_levels,
+                        plan.smem) == (g, staged, smem)
+                first = np.arange(plan.n_groups) * plan.group_levels
+                span = np.minimum(first + plan.group_levels, levels) - first
+                assert span.min() >= 1 and span.sum() == levels
+                # block b: group b % n_groups, tiles b // n_groups + k *
+                # grid / n_groups
+                assert plan.grid % plan.n_groups == 0
+                assert plan.grid <= max(blocks, plan.n_groups)
+                b = np.arange(plan.grid)
+                per_group = plan.grid // plan.n_groups
+                tiles = -(-n // KS.TILE)
+                assert per_group <= tiles
+                t = (b // plan.n_groups)[:, None] + per_group * np.arange(
+                    -(-tiles // per_group))[None, :]
+                grp = np.broadcast_to((b % plan.n_groups)[:, None], t.shape)
+                cell = (grp * tiles + t)[t < tiles]
+                assert np.array_equal(
+                    np.bincount(cell, minlength=plan.n_groups * tiles),
+                    np.ones(plan.n_groups * tiles, np.int64))
+
+
+def test_small_plan_at_the_serving_shape():
+    # 16 levels, T = 2^13: four levels a group (one 32-byte sector of each
+    # row), all staged packed, three of four with the f32 table. T = 2^15:
+    # four levels a group, one staged packed; the f32 table is gathered
+    # from L2 in whole rows
+    serving = 8_388_608
+    assert KS.small_stage(16, 1 << 13, True) == (4, 4, 163840)
+    assert KS.small_stage(16, 1 << 13, False) == (4, 3, 229376)
+    assert KS.small_stage(16, 1 << 15, True) == (4, 1, 163840)
+    assert KS.small_stage(16, 1 << 15, False) == (16, 0, 131072)
+    plan = KS.small_plan(serving, 16, 1 << 13, True, 132)
+    assert (plan.n_groups, plan.grid) == (4, 132)
+    assert KS.small_plan(1000, 16, 1 << 13, True, 132).grid == 4
