@@ -8,115 +8,251 @@
 // its table entry. The result is the flat f32 gradient [L * T, 2]; weights
 // and sums are f32 throughout.
 //
-// Bound on the H100: bytes. Per point it reads 12 B of coordinates and 8L B
-// of cotangent; the gradient (L * T * 8 B, 1 MB at L = 16, T = 2^13) is
-// written once. The arithmetic is a few dozen operations per point and
-// level.
+// Bound on the H100: bytes, 0.0113 ms on a train step's dense fine class
+// (262,144 points, 16 levels, T = 2^13): 12 B of coordinates and 8L B of
+// cotangent a point read, the 1 MB gradient written once. What limits the
+// kernel is the scatter: 16 float adds a point and level onto L * T
+// entries, 67 M at that shape, before the merge below.
 //
-// Design: K3's (grad_blocked.cu). One block of 128 threads per 128 points,
-// one point per thread, a loop over the levels. The block's cotangent rows
-// are read once, coalesced, into shared memory with a row stride of 2L + 1
-// words. The cell and hash arithmetic is the forward's
-// (small_geometry.cuh), so every point scatters into the entries its
-// features came from. Coarse levels collide heavily (level 0 has 17^3
-// vertices for thousands of points), and 32 same-address atomics would
-// serialise: so the lanes of a warp in the same cell (equal integer cell
-// coordinates, __match_any_sync) first sum their 16 products in a shuffle
-// tree, and only the group's lowest lane issues the 8 float2 atomicAdds.
-// Atomic order varies between runs, so sums are not bitwise reproducible.
+// Design: the adds land in shared memory, not in L2. A level's entries are
+// cut into ranges of at most GS_RANGE (16,384) entries, 128 KB of float2;
+// at T = 2^13 a range is the whole level (64 KB). A (level, range) has
+// `blocks` blocks of GS_THREADS; block b adds the corners of the b-th slice
+// of the points into its private copy of the range (corners outside the
+// range are dropped, so larger tables need no second code path), then adds
+// its copy, 16 bytes at a time and skipping zeros, into the zero-filled
+// output by global atomics. The card has no shared-memory float add: a
+// float atomicAdd there compiles to a compare-and-swap loop
+// (ATOMS.CAST.SPIN), and that loop is what the kernel's time is made of.
+// So a warp first merges what it can: where >= merge_min of its lanes hold
+// a point in the same cell as the lane before (ray-major samples at the
+// coarse levels), each run of such lanes sums its 16 products by a
+// segmented shuffle scan and only its first lane adds. With `cluster`, the
+// blocks of a (level, range) form a thread-block cluster instead and, after
+// cluster.sync(), each sums its share of the entries over the cluster's
+// copies in distributed shared memory and stores them: no zero-fill and no
+// global atomic, but a level's blocks all wait for its slowest, and the
+// levels' work differs (the coarse levels merge most of theirs), so the
+// default launch is the atomic flush. The cell and hash arithmetic is the
+// forward's (small_geometry.cuh), so every point scatters into the entries
+// its features came from. The order of the adds varies between runs, so
+// sums are not bitwise reproducible.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (profile_kernels.py,
+// this design against the one thread a point with warp-merged float2
+// global atomics before it, in one run; PERF.md): 0.2229 / 0.2227 ms
+// against 0.2364 / 0.2368 on the dense fine class (random scheme; the
+// fixed scheme's 0.2313 / 0.2312 against 0.2238 / 0.2235 is slower), 1.0026
+// against 1.5263 on 2^20 random points, 1.2954 against 1.5328 at T = 2^15;
+// clusters of 8 and 16 blocks 0.3859 and 0.3159 on the dense class, no
+// run merge 0.5424.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "small_geometry.cuh"
 
-#define GS_THREADS 128
+namespace cg = cooperative_groups;
+
+#define GS_THREADS 1024
+#define GS_RANGE 16384              // entries of one block's private copy
+#define GS_BLOCKS 16                // blocks of a (level, range), default
+#define GS_MERGE_MIN 4              // lanes in runs that turn the merge on
 #define GS_FULL_MASK 0xFFFFFFFFu
 
-template <int SCHEME>
+// A lane whose point lies in the same cell as the lane before it continues
+// that lane's run; lanes past the slice never do. Where the warp holds
+// merge_min such lanes, each run's first lane gathers the run's 16
+// products by a segmented suffix sum (Hillis-Steele: distance k while some
+// run is longer than k). Returns whether this lane adds.
+__device__ __forceinline__ bool gs_merge_runs(float v[16],
+                                              unsigned long long cell_key,
+                                              bool valid, int lane,
+                                              int merge_min) {
+    const unsigned long long key = valid ? cell_key : ~0ull - lane;
+    const unsigned long long up = __shfl_up_sync(GS_FULL_MASK, key, 1);
+    const bool cont = lane > 0 && key == up;
+    unsigned x = __ballot_sync(GS_FULL_MASK, cont);
+    if (__popc(x) < merge_min) return valid;
+    // x: bit j set iff lanes j .. j + k - 1 all continue
+    for (int k = 1; k < 32 && x != 0u; k <<= 1) {
+        const bool take = lane + k < 32 && ((x >> lane) & 2u) != 0u;
+        #pragma unroll
+        for (int q = 0; q < 16; ++q) {
+            const float o = __shfl_down_sync(GS_FULL_MASK, v[q], k);
+            if (take) v[q] += o;
+        }
+        x &= x >> k;
+    }
+    return valid && !cont;
+}
+
+template <int SCHEME, bool CLUSTER>
 __global__ void __launch_bounds__(GS_THREADS)
 grad_small_kernel(const float* __restrict__ g,        // [N, 2L]
                   const float* __restrict__ pts,      // [N, 3]
                   const float* __restrict__ geom,     // [L, 3]
                   const unsigned* __restrict__ primes,  // [L, 3]
                   SmallGeom s, int n, int n_levels, int level_size,
+                  int range, int merge_min,
                   float* __restrict__ grad) {         // [L * T, 2]
-    extern __shared__ float gs[];                     // [128, 2L + 1]
+    extern __shared__ float4 acc4[];                  // [range / 2]
+    float* acc = reinterpret_cast<float*>(acc4);
+    const int blocks = gridDim.x;
+    const int b = blockIdx.x;
+    const int r0 = blockIdx.y * range;
+    const int l = blockIdx.z;
+    const int rn = min(range, level_size - r0);       // entries, % 1024 == 0
     const int t = threadIdx.x;
     const int lane = t & 31;
-    const long long p0 = (long long)blockIdx.x * GS_THREADS;
-    const int row = 2 * n_levels;
-    const int stride = row + 1;
-    const long long left = (long long)n - p0;
-    const int rows = left < GS_THREADS ? (int)left : GS_THREADS;
-    for (int i = t; i < GS_THREADS * row; i += GS_THREADS) {
-        const int r = i / row;
-        gs[r * stride + (i - r * row)] = r < rows ? g[p0 * row + i] : 0.0f;
-    }
+    for (int i = t; i < rn / 2; i += GS_THREADS)
+        acc4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
 
-    const bool valid = t < rows;
-    const float* p = pts + (p0 + t) * 3;
-    const float x0 = valid ? p[0] : s.bx;
-    const float x1 = valid ? p[1] : s.by;
-    const float x2 = valid ? p[2] : s.bz;
+    const long long per = ((long long)n + blocks - 1) / blocks;
+    const long long p_begin = per * b;
+    const long long p_end = min((long long)n, p_begin + per);
+    const SmallLevel lv = small_level(l, geom, primes);
     const unsigned mask = (unsigned)level_size - 1u;
-    const unsigned below = (1u << lane) - 1u;
-    for (int l = 0; l < n_levels; ++l) {
+    const int row = 2 * n_levels;
+    // warp-uniform steps: a warp's 32 consecutive points at a time
+    for (long long p0 = p_begin + (t & ~31); p0 < p_end; p0 += GS_THREADS) {
+        const long long p = p0 + lane;
+        const bool valid = p < p_end;
+        float x0 = s.bx, x1 = s.by, x2 = s.bz;
+        float g0 = 0.0f, g1 = 0.0f;
+        if (valid) {
+            x0 = __ldg(pts + 3 * p);
+            x1 = __ldg(pts + 3 * p + 1);
+            x2 = __ldg(pts + 3 * p + 2);
+            g0 = __ldg(g + p * row + 2 * l);
+            g1 = __ldg(g + p * row + 2 * l + 1);
+        }
         SmallCell c;
-        small_cell<SCHEME>(x0, x1, x2, l, geom, primes, s, mask, c);
-        const float g0 = gs[t * stride + 2 * l];
-        const float g1 = gs[t * stride + 2 * l + 1];
+        small_cell_at<SCHEME>(x0, x1, x2, lv, s, mask, c);
         float v[16];
         #pragma unroll
         for (int d = 0; d < 8; ++d) {
             v[2 * d] = c.w[d] * g0;
             v[2 * d + 1] = c.w[d] * g1;
         }
-
-        // sum over the lanes in the same cell into the lowest of them: each
-        // round, every lane adds the next remaining peer above it, then the
-        // odd ranks drop out (log2 of the group size rounds). Lanes past n
-        // form their own group and never write.
-        const unsigned long long key = valid ? c.key : ~0ull;
-        const unsigned peers = __match_any_sync(GS_FULL_MASK, key);
-        int rank = __popc(peers & below);
-        unsigned rest = peers & ~(below | (1u << lane));
-        while (__any_sync(GS_FULL_MASK, rest != 0u)) {
-            const int next = __ffs(rest) - 1;
+        if (gs_merge_runs(v, c.key, valid, lane, merge_min)) {
             #pragma unroll
-            for (int k = 0; k < 16; ++k) {
-                const float o = __shfl_sync(GS_FULL_MASK, v[k], next & 31);
-                if (next >= 0) v[k] += o;
+            for (int d = 0; d < 8; ++d) {
+                const unsigned e = c.idx[d] - (unsigned)r0;
+                if (e < (unsigned)rn) {
+                    atomicAdd(acc + 2 * e, v[2 * d]);
+                    atomicAdd(acc + 2 * e + 1, v[2 * d + 1]);
+                }
             }
-            rest &= __ballot_sync(GS_FULL_MASK, (rank & 1) == 0);
-            rank >>= 1;
         }
-        if (valid && (peers & below) == 0u) {
-            float2* out = reinterpret_cast<float2*>(grad)
-                          + (size_t)l * level_size;
-            #pragma unroll
-            for (int d = 0; d < 8; ++d)
-                atomicAdd(out + c.idx[d], make_float2(v[2 * d], v[2 * d + 1]));
+    }
+
+    float4* out = reinterpret_cast<float4*>(
+        grad + 2 * ((long long)l * level_size + r0));
+    if constexpr (CLUSTER) {
+        // block b sums its share of the range over the cluster's copies
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();
+        const int share = rn / 2 / blocks;            // float4 a block
+        for (int i = t; i < share; i += GS_THREADS) {
+            const int e = b * share + i;
+            float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            for (int r = 0; r < blocks; ++r) {
+                const float4 o = cluster.map_shared_rank(acc4, r)[e];
+                sum.x += o.x;
+                sum.y += o.y;
+                sum.z += o.z;
+                sum.w += o.w;
+            }
+            out[e] = sum;
+        }
+        cluster.sync();                // no copy is left while it is read
+    } else {
+        __syncthreads();
+        for (int i = t; i < rn / 2; i += GS_THREADS) {
+            const float4 o = acc4[i];
+            if (o.x != 0.0f || o.y != 0.0f || o.z != 0.0f || o.w != 0.0f)
+                atomicAdd(out + i, o);
         }
     }
 }
 
-// scheme: 0 fixed, 1 random. grad must be zero-filled by the caller.
+template <int SCHEME, bool CLUSTER>
+static int grad_small_go(const float* g, const float* pts, const float* geom,
+                         const unsigned* primes, SmallGeom s, int n,
+                         int n_levels, int level_size, int blocks,
+                         int merge_min, float* grad, cudaStream_t st) {
+    auto kernel = grad_small_kernel<SCHEME, CLUSTER>;
+    const int range = level_size < GS_RANGE ? level_size : GS_RANGE;
+    const size_t smem = sizeof(float2) * range;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, (level_size + range - 1) / range, n_levels);
+    cfg.blockDim = dim3(GS_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    if (CLUSTER) {
+        if (blocks > 8) {
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (err != cudaSuccess) return (int)err;
+        }
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = blocks;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+    }
+    err = cudaLaunchKernelEx(&cfg, kernel, g, pts, geom, primes, s, n,
+                             n_levels, level_size, range, merge_min, grad);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+// scheme: 0 fixed, 1 random; blocks: the blocks of a (level, range), with
+// cluster a power of two up to 16 (else up to 64); without cluster, grad
+// must be zero-filled by the caller; merge_min: 33 never merges.
+extern "C" int grad_small_launch_plan(const float* g, const float* pts,
+                                      const float* geom, const int* primes,
+                                      float bx, float by, float bz, float ix,
+                                      float iy, float iz, int n,
+                                      int n_levels, int level_size,
+                                      int scheme, int blocks, int cluster,
+                                      int merge_min, float* grad,
+                                      void* stream) {
+    const SmallGeom s{bx, by, bz, ix, iy, iz};
+    const unsigned* pr = reinterpret_cast<const unsigned*>(primes);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (blocks < 1 || blocks > 64 || level_size % 1024 != 0
+        || (cluster && (blocks > 16 || (blocks & (blocks - 1)) != 0)))
+        return (int)cudaErrorInvalidValue;
+    if (scheme == 0)
+        return cluster ? grad_small_go<0, true>(g, pts, geom, pr, s, n,
+                                                n_levels, level_size, blocks,
+                                                merge_min, grad, st)
+                       : grad_small_go<0, false>(g, pts, geom, pr, s, n,
+                                                 n_levels, level_size, blocks,
+                                                 merge_min, grad, st);
+    return cluster ? grad_small_go<1, true>(g, pts, geom, pr, s, n, n_levels,
+                                            level_size, blocks, merge_min,
+                                            grad, st)
+                   : grad_small_go<1, false>(g, pts, geom, pr, s, n, n_levels,
+                                             level_size, blocks, merge_min,
+                                             grad, st);
+}
+
+// grad must be zero-filled by the caller
 extern "C" int grad_small_launch(const float* g, const float* pts,
                                  const float* geom, const int* primes,
                                  float bx, float by, float bz, float ix,
                                  float iy, float iz, int n, int n_levels,
                                  int level_size, int scheme, float* grad,
                                  void* stream) {
-    const SmallGeom s{bx, by, bz, ix, iy, iz};
-    const unsigned* pr = reinterpret_cast<const unsigned*>(primes);
-    const size_t smem = sizeof(float) * GS_THREADS * (2 * n_levels + 1);
-    const int blocks = (int)(((long long)n + GS_THREADS - 1) / GS_THREADS);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (scheme == 0)
-        grad_small_kernel<0><<<blocks, GS_THREADS, smem, st>>>(
-            g, pts, geom, pr, s, n, n_levels, level_size, grad);
-    else
-        grad_small_kernel<1><<<blocks, GS_THREADS, smem, st>>>(
-            g, pts, geom, pr, s, n, n_levels, level_size, grad);
-    return (int)cudaGetLastError();
+    return grad_small_launch_plan(g, pts, geom, primes, bx, by, bz, ix, iy,
+                                  iz, n, n_levels, level_size, scheme,
+                                  GS_BLOCKS, 0, GS_MERGE_MIN, grad, stream);
 }

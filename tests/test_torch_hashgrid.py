@@ -14,6 +14,7 @@ from nerfpp_tpu.encoders.hashgrid import HashGridEncoder as JaxEncoder
 from nerfpp_tpu.encoders.hashgrid import gather_trilerp_reference as jax_gather
 from nerfpp_tpu.encoders.hashgrid import morton3 as jax_morton3
 from nerfpp_tpu.pallas.hash_encode import pack_table_bf16 as jax_pack
+from nerfpp_tpu.pallas import hash_encode_blocked as JB
 from nerfpp_tpu.pallas.hash_encode_blocked import build_window_lists
 from nerfpp_tpu.pallas.hash_encode_blocked import hash_encode_blocked as jax_heb
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder, morton3
@@ -119,6 +120,77 @@ def test_window_lists_plain_matches_build_window_lists(coherent):
     np.testing.assert_array_equal(wids_t.numpy(), wids_j)
     np.testing.assert_array_equal(
         counts_t.numpy(), (wids_j != K.SENTINEL).sum(-1).astype(np.int32))
+
+
+def _pallas_form_codes(pts, je):
+    """Window Morton codes [L, NG, 128] with the Pallas K1's cell form,
+    (x - min) * (f32(inv) * scale) truncated (_make_windows_kernel), in
+    jitted XLA on the same f32 inputs."""
+    bmin = [float(v) for v in je.bounding_box[:3]]
+    inv = [1.0 / (float(je.bounding_box[3 + a]) - bmin[a]) for a in range(3)]
+    scales = jnp.asarray(je.level_scales, jnp.float32)
+    boffs = jnp.asarray(je.block_offsets, jnp.int32)
+
+    def codes(x):
+        m = 0
+        for a in range(3):
+            c = ((x[:, a:a + 1] - bmin[a]) * (inv[a] * scales)).astype(
+                jnp.int32)                                      # [N, L]
+            m = m | (JB._spread_bits(((c >> 2) + boffs[:, a]) >> 1) << a)
+        return m
+    m = np.asarray(jax.jit(codes)(jnp.asarray(pts)))
+    return m.reshape(-1, 128, je.n_levels).transpose(2, 0, 1)
+
+
+@pytest.mark.parametrize("points", ["random", "coherent", "boundary"])
+def test_window_lists_plain_matches_pallas_kernel(points):
+    # the Pallas K1 itself (_windows_call, interpret mode) against the
+    # port's plain K1 at 2 levels on 2,048 points: ids and counts equal in
+    # every (level, group) except where a point's cell differs between the
+    # Pallas form (x - min) * (inv * scale) and the port's jitted form
+    # (x - min) * inv * scale (ROADMAP.md section 3); such points are
+    # counted, and their groups must hold the Pallas form's own lists.
+    # Scales 24 and 200: at powers of two the two forms round alike.
+    je, te = _pair(n_levels=2, base_resolution=24, finest_resolution=200)
+    n, nl = 2048, 2
+    if points == "coherent":
+        pts = _pts(n, seed=13, lo=np.float32([0.1, 0.1, 0.1]),
+                   hi=np.float32([0.25, 0.2, 0.3]))
+    elif points == "boundary":
+        pts = _boundary_pts(te, n, 14)
+    else:
+        pts = _pts(n, seed=15)
+    gp = JB.PREPASS_GROUPS
+    pts_p = jnp.asarray(pts).reshape(n // (gp * 128), gp, 128, 3).transpose(
+        0, 3, 1, 2)
+    wids_k, cnts_k = JB._windows_call(
+        pts_p, jnp.asarray(je.level_scales, jnp.float32),
+        jnp.asarray(je.block_offsets, jnp.int32).reshape(-1), n_levels=nl,
+        box_min=tuple(float(v) for v in je.bounding_box[:3]),
+        box_max=tuple(float(v) for v in je.bounding_box[3:]))
+    # [blocks, L, 8 groups, 128] -> [L, NG, 128]
+    wids_k = np.asarray(wids_k).transpose(1, 0, 2, 3).reshape(nl, -1, 128)
+    cnts_k = np.asarray(cnts_k)[..., 0].transpose(1, 0, 2).reshape(nl, -1)
+    wids_t, counts_t = (v.numpy() for v in
+                        K.window_lists(torch.from_numpy(pts), te))
+    cell, _ = te.blocked_cell_frac(torch.from_numpy(pts))
+    o = te.blocked_oct(cell) >> 1
+    port = morton3(o[..., 0], o[..., 1], o[..., 2]).numpy().reshape(
+        -1, 128, nl).transpose(2, 0, 1)
+    pallas = _pallas_form_codes(pts, je)
+    moved = port != pallas                                  # [L, NG, 128]
+    differs = moved.any(-1)
+    same = ~differs
+    np.testing.assert_array_equal(wids_t[same], wids_k[same])
+    np.testing.assert_array_equal(counts_t[same], cnts_k[same])
+    for l, grp in zip(*np.nonzero(differs)):
+        u = np.unique(pallas[l, grp])
+        np.testing.assert_array_equal(wids_k[l, grp, :u.size], u)
+        assert (wids_k[l, grp, u.size:] == K.SENTINEL).all()
+        assert cnts_k[l, grp] == u.size
+    # the two forms disagree only at cell boundaries
+    assert int(moved.sum()) <= (n * nl // 10 if points == "boundary"
+                                else n * nl // 1000), int(moved.sum())
 
 
 def test_plain_encode_matches_xla_oracle():

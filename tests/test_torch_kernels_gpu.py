@@ -16,7 +16,11 @@ gathers), point counts that fill no block, points on the box faces, packed
 and f32 tables, the v1 route, and inputs the wrappers refuse; the launch
 plans at their edges: encode_small's persistent grid at 1 to many tiles,
 1-64 levels (odd counts too) and every staging mode, encode_blocked at 1-64
-levels, a partial block of teams, and 1 and 128 windows per group.
+levels, a partial block of teams, and 1 and 128 windows per group; K1
+(window_lists) bit-exact with one window per group, 128 distinct windows in
+ascending, descending and shuffled order, box faces, 1-64 levels and 1-257
+groups; grad_small with every point in one cell (the worst collisions) at
+T = 2^10-2^19, a ragged last block of a level's cluster, and no points.
 """
 import numpy as np
 import pytest
@@ -478,3 +482,86 @@ def test_small_encode_points_outside_the_box(cuda, scheme):
         err = float((out - KS.encode_small_plain(tab, pts, enc, pk))
                     .abs().max())
         assert err <= 1e-6, (pk, err)
+
+
+# ------------------------------------ K1 and grad_small at their worst cases
+
+def _window_points(enc, order, g):
+    """128 points a group whose windows at the finest level are 128 distinct
+    x-windows (cells 8i + 4 along x, i = 0..127), in ascending, descending
+    or shuffled order of their codes, three groups."""
+    scale = float(enc.level_scales[-1])
+    lo, ext = enc.box_min.cpu().double(), (enc.box_max - enc.box_min).cpu()
+    i = torch.arange(128, dtype=torch.float64)
+    if order == "descending":
+        i = i.flip(0)
+    elif order == "shuffled":
+        i = i[torch.randperm(128, generator=g)]
+    pts = lo.expand(128, 3).clone()
+    pts[:, 0] += (8 * i + 4.5) / scale * float(ext[0])
+    pts[:, 1:] += 0.5 * ext[1:].double()
+    return pts.float().repeat(3, 1)
+
+
+@pytest.mark.parametrize("levels", [1, 16, 64])
+def test_window_lists_exact_at_its_edges(cuda, levels):
+    # bit-exact against the plain version: every point of a group in one
+    # window (the no-sort exit at every level), 128 distinct windows in
+    # ascending, descending and shuffled order, points on the box faces,
+    # uniform points; 1, 3 and 257 groups
+    # one level: at the finest resolution, so that 128 windows fit an axis
+    enc = HashGridEncoder(BBOX, levels, 2, 19 if levels == 16 else 12,
+                          1024 if levels == 1 else 16, 1024, use_kernel=True,
+                          device=cuda)
+    g = torch.Generator().manual_seed(100 + levels)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    one = (torch.rand(257, 1, 3, generator=g) * ext + lo).expand(257, 128, 3)
+    faces = torch.rand(3 * 128, 3, generator=g) * ext + lo
+    k = torch.arange(3 * 128)
+    faces[k, k % 3] = torch.where((k // 3) % 2 == 0, enc.box_min.cpu()[k % 3],
+                                  enc.box_max.cpu()[k % 3])
+    sets = {"one window": one.reshape(-1, 3),
+            "faces": faces,
+            "uniform": torch.rand(128, 3, generator=g) * ext + lo}
+    for order in ("ascending", "descending", "shuffled"):
+        sets[order] = _window_points(enc, order, g)
+    for name, pts in sets.items():
+        pts = torch.minimum(torch.maximum(pts.to(cuda), enc.box_min),
+                            enc.box_max).contiguous()
+        wids, counts = K.window_lists(pts, enc)
+        torch.cuda.synchronize()
+        wids_p, counts_p = K.window_lists_plain(pts, enc)
+        assert torch.equal(wids, wids_p), name
+        assert torch.equal(counts, counts_p), name
+        if name == "one window":
+            assert bool((counts == 1).all())
+        if name in ("ascending", "descending", "shuffled"):
+            assert bool((counts[-1] == 128).all()), name
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 4), (13, 16), (15, 16),
+                                           (19, 1)])
+def test_small_grad_all_points_in_one_cell(cuda, scheme, log2_t, levels):
+    # the worst collisions: every point in one cell of the finest level (so
+    # in one or two cells at every level), each entry within 1e-5 of the sum
+    # of its terms' magnitudes; 4,001 points leave a ragged last block of
+    # each (level, range); 0 points give zeros
+    enc = _small_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(log2_t * 10 + levels)
+    res = float(enc.resolutions[-1] if scheme == "fixed"
+                else enc.level_scales[-1])
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    cell = torch.floor(torch.rand(1, 3, generator=g) * (res - 1))
+    frac = 0.1 + 0.8 * torch.rand(4001, 3, generator=g)
+    pts = ((cell + frac) / res * ext + lo).to(cuda).contiguous()
+    cot = torch.randn(4001, 2 * levels, generator=g).to(cuda)
+    got = KS.grad_small(cot, pts, enc)
+    torch.cuda.synchronize()
+    plain = KS.grad_small_plain(cot, pts, enc)
+    assert _grad_close(got, plain, KS.grad_small_plain(cot.abs(), pts, enc))
+    # the kernel writes every entry: what no corner touches is zero
+    assert torch.equal(got != 0, plain != 0)
+    assert int((plain != 0).any(-1).sum()) <= 16 * levels
+    empty = KS.grad_small(cot[:0], pts[:0], enc)
+    assert empty.shape == (enc.table_rows, 2) and not bool(empty.any())
