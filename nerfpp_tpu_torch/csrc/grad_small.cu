@@ -17,62 +17,53 @@
 // Design: the adds land in shared memory, not in L2. A level's entries are
 // cut into ranges of at most GS_RANGE (16,384) entries, 128 KB of float2;
 // at T = 2^13 a range is the whole level (64 KB). A (level, range) has
-// `blocks` blocks of GS_THREADS; block b adds the corners of the b-th slice
-// of the points into its private copy of the range (corners outside the
-// range are dropped, so larger tables need no second code path), then adds
-// its copy, 16 bytes at a time and skipping zeros, into the zero-filled
-// output by global atomics. The card has no shared-memory float add: a
-// float atomicAdd there compiles to a compare-and-swap loop
+// GS_BLOCKS (16) blocks of GS_THREADS; block b adds the corners of the b-th
+// slice of the points into its private copy of the range (corners outside
+// the range are dropped, so larger tables need no second code path), then
+// adds its copy, 16 bytes at a time and skipping zeros, into the
+// zero-filled output by global atomics. The card has no shared-memory
+// float add: a float atomicAdd there compiles to a compare-and-swap loop
 // (ATOMS.CAST.SPIN), and that loop is what the kernel's time is made of.
-// So a warp first merges what it can: where >= merge_min of its lanes hold
-// a point in the same cell as the lane before (ray-major samples at the
-// coarse levels), each run of such lanes sums its 16 products by a
-// segmented shuffle scan and only its first lane adds. With `cluster`, the
-// blocks of a (level, range) form a thread-block cluster instead and, after
-// cluster.sync(), each sums its share of the entries over the cluster's
-// copies in distributed shared memory and stores them: no zero-fill and no
-// global atomic, but a level's blocks all wait for its slowest, and the
-// levels' work differs (the coarse levels merge most of theirs), so the
-// default launch is the atomic flush. The cell and hash arithmetic is the
-// forward's (small_geometry.cuh), so every point scatters into the entries
-// its features came from. The order of the adds varies between runs, so
-// sums are not bitwise reproducible.
+// So a warp first merges what it can: where >= GS_MERGE_MIN (4) of its
+// lanes hold a point in the same cell as the lane before (ray-major
+// samples at the coarse levels), each run of such lanes sums its 16
+// products by a segmented shuffle scan and only its first lane adds. A
+// thread-block cluster summing a level's copies in distributed shared
+// memory (no zero-fill, no global atomic) measured slower: a level's
+// blocks all wait for its slowest, and the levels' work differs (PERF.md).
+// The cell and hash arithmetic is the forward's (small_geometry.cuh), so
+// every point scatters into the entries its features came from. The order
+// of the adds varies between runs, so sums are not bitwise reproducible.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (profile_kernels.py,
 // this design against the one thread a point with warp-merged float2
 // global atomics before it, in one run; PERF.md): 0.2229 / 0.2227 ms
 // against 0.2364 / 0.2368 on the dense fine class (random scheme; the
 // fixed scheme's 0.2313 / 0.2312 against 0.2238 / 0.2235 is slower), 1.0026
-// against 1.5263 on 2^20 random points, 1.2954 against 1.5328 at T = 2^15;
-// clusters of 8 and 16 blocks 0.3859 and 0.3159 on the dense class, no
-// run merge 0.5424.
-#include <cooperative_groups.h>
+// against 1.5263 on 2^20 random points, 1.2954 against 1.5328 at T = 2^15.
 #include <cuda_runtime.h>
 
 #include "small_geometry.cuh"
 
-namespace cg = cooperative_groups;
-
 #define GS_THREADS 1024
 #define GS_RANGE 16384              // entries of one block's private copy
-#define GS_BLOCKS 16                // blocks of a (level, range), default
+#define GS_BLOCKS 16                // blocks of a (level, range)
 #define GS_MERGE_MIN 4              // lanes in runs that turn the merge on
 #define GS_FULL_MASK 0xFFFFFFFFu
 
 // A lane whose point lies in the same cell as the lane before it continues
 // that lane's run; lanes past the slice never do. Where the warp holds
-// merge_min such lanes, each run's first lane gathers the run's 16
+// GS_MERGE_MIN such lanes, each run's first lane gathers the run's 16
 // products by a segmented suffix sum (Hillis-Steele: distance k while some
 // run is longer than k). Returns whether this lane adds.
 __device__ __forceinline__ bool gs_merge_runs(float v[16],
                                               unsigned long long cell_key,
-                                              bool valid, int lane,
-                                              int merge_min) {
+                                              bool valid, int lane) {
     const unsigned long long key = valid ? cell_key : ~0ull - lane;
     const unsigned long long up = __shfl_up_sync(GS_FULL_MASK, key, 1);
     const bool cont = lane > 0 && key == up;
     unsigned x = __ballot_sync(GS_FULL_MASK, cont);
-    if (__popc(x) < merge_min) return valid;
+    if (__popc(x) < GS_MERGE_MIN) return valid;
     // x: bit j set iff lanes j .. j + k - 1 all continue
     for (int k = 1; k < 32 && x != 0u; k <<= 1) {
         const bool take = lane + k < 32 && ((x >> lane) & 2u) != 0u;
@@ -86,18 +77,17 @@ __device__ __forceinline__ bool gs_merge_runs(float v[16],
     return valid && !cont;
 }
 
-template <int SCHEME, bool CLUSTER>
+template <int SCHEME>
 __global__ void __launch_bounds__(GS_THREADS)
 grad_small_kernel(const float* __restrict__ g,        // [N, 2L]
                   const float* __restrict__ pts,      // [N, 3]
                   const float* __restrict__ geom,     // [L, 3]
                   const unsigned* __restrict__ primes,  // [L, 3]
                   SmallGeom s, int n, int n_levels, int level_size,
-                  int range, int merge_min,
+                  int range,
                   float* __restrict__ grad) {         // [L * T, 2]
     extern __shared__ float4 acc4[];                  // [range / 2]
     float* acc = reinterpret_cast<float*>(acc4);
-    const int blocks = gridDim.x;
     const int b = blockIdx.x;
     const int r0 = blockIdx.y * range;
     const int l = blockIdx.z;
@@ -108,7 +98,7 @@ grad_small_kernel(const float* __restrict__ g,        // [N, 2L]
         acc4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
 
-    const long long per = ((long long)n + blocks - 1) / blocks;
+    const long long per = ((long long)n + GS_BLOCKS - 1) / GS_BLOCKS;
     const long long p_begin = per * b;
     const long long p_end = min((long long)n, p_begin + per);
     const SmallLevel lv = small_level(l, geom, primes);
@@ -135,7 +125,7 @@ grad_small_kernel(const float* __restrict__ g,        // [N, 2L]
             v[2 * d] = c.w[d] * g0;
             v[2 * d + 1] = c.w[d] * g1;
         }
-        if (gs_merge_runs(v, c.key, valid, lane, merge_min)) {
+        if (gs_merge_runs(v, c.key, valid, lane)) {
             #pragma unroll
             for (int d = 0; d < 8; ++d) {
                 const unsigned e = c.idx[d] - (unsigned)r0;
@@ -149,110 +139,45 @@ grad_small_kernel(const float* __restrict__ g,        // [N, 2L]
 
     float4* out = reinterpret_cast<float4*>(
         grad + 2 * ((long long)l * level_size + r0));
-    if constexpr (CLUSTER) {
-        // block b sums its share of the range over the cluster's copies
-        cg::cluster_group cluster = cg::this_cluster();
-        cluster.sync();
-        const int share = rn / 2 / blocks;            // float4 a block
-        for (int i = t; i < share; i += GS_THREADS) {
-            const int e = b * share + i;
-            float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            for (int r = 0; r < blocks; ++r) {
-                const float4 o = cluster.map_shared_rank(acc4, r)[e];
-                sum.x += o.x;
-                sum.y += o.y;
-                sum.z += o.z;
-                sum.w += o.w;
-            }
-            out[e] = sum;
-        }
-        cluster.sync();                // no copy is left while it is read
-    } else {
-        __syncthreads();
-        for (int i = t; i < rn / 2; i += GS_THREADS) {
-            const float4 o = acc4[i];
-            if (o.x != 0.0f || o.y != 0.0f || o.z != 0.0f || o.w != 0.0f)
-                atomicAdd(out + i, o);
-        }
+    __syncthreads();
+    for (int i = t; i < rn / 2; i += GS_THREADS) {
+        const float4 o = acc4[i];
+        if (o.x != 0.0f || o.y != 0.0f || o.z != 0.0f || o.w != 0.0f)
+            atomicAdd(out + i, o);
     }
 }
 
-template <int SCHEME, bool CLUSTER>
+template <int SCHEME>
 static int grad_small_go(const float* g, const float* pts, const float* geom,
                          const unsigned* primes, SmallGeom s, int n,
-                         int n_levels, int level_size, int blocks,
-                         int merge_min, float* grad, cudaStream_t st) {
-    auto kernel = grad_small_kernel<SCHEME, CLUSTER>;
+                         int n_levels, int level_size, float* grad,
+                         cudaStream_t st) {
+    auto kernel = grad_small_kernel<SCHEME>;
     const int range = level_size < GS_RANGE ? level_size : GS_RANGE;
     const size_t smem = sizeof(float2) * range;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks, (level_size + range - 1) / range, n_levels);
-    cfg.blockDim = dim3(GS_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    if (CLUSTER) {
-        if (blocks > 8) {
-            err = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-            if (err != cudaSuccess) return (int)err;
-        }
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = blocks;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg.attrs = attr;
-        cfg.numAttrs = 1;
-    }
-    err = cudaLaunchKernelEx(&cfg, kernel, g, pts, geom, primes, s, n,
-                             n_levels, level_size, range, merge_min, grad);
-    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(GS_BLOCKS, (level_size + range - 1) / range, n_levels);
+    kernel<<<grid, GS_THREADS, smem, st>>>(g, pts, geom, primes, s, n,
+                                           n_levels, level_size, range, grad);
     return (int)cudaGetLastError();
 }
 
-// scheme: 0 fixed, 1 random; blocks: the blocks of a (level, range), with
-// cluster a power of two up to 16 (else up to 64); without cluster, grad
-// must be zero-filled by the caller; merge_min: 33 never merges.
-extern "C" int grad_small_launch_plan(const float* g, const float* pts,
-                                      const float* geom, const int* primes,
-                                      float bx, float by, float bz, float ix,
-                                      float iy, float iz, int n,
-                                      int n_levels, int level_size,
-                                      int scheme, int blocks, int cluster,
-                                      int merge_min, float* grad,
-                                      void* stream) {
-    const SmallGeom s{bx, by, bz, ix, iy, iz};
-    const unsigned* pr = reinterpret_cast<const unsigned*>(primes);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (blocks < 1 || blocks > 64 || level_size % 1024 != 0
-        || (cluster && (blocks > 16 || (blocks & (blocks - 1)) != 0)))
-        return (int)cudaErrorInvalidValue;
-    if (scheme == 0)
-        return cluster ? grad_small_go<0, true>(g, pts, geom, pr, s, n,
-                                                n_levels, level_size, blocks,
-                                                merge_min, grad, st)
-                       : grad_small_go<0, false>(g, pts, geom, pr, s, n,
-                                                 n_levels, level_size, blocks,
-                                                 merge_min, grad, st);
-    return cluster ? grad_small_go<1, true>(g, pts, geom, pr, s, n, n_levels,
-                                            level_size, blocks, merge_min,
-                                            grad, st)
-                   : grad_small_go<1, false>(g, pts, geom, pr, s, n, n_levels,
-                                             level_size, blocks, merge_min,
-                                             grad, st);
-}
-
-// grad must be zero-filled by the caller
+// scheme: 0 fixed, 1 random; grad must be zero-filled by the caller
 extern "C" int grad_small_launch(const float* g, const float* pts,
                                  const float* geom, const int* primes,
                                  float bx, float by, float bz, float ix,
                                  float iy, float iz, int n, int n_levels,
                                  int level_size, int scheme, float* grad,
                                  void* stream) {
-    return grad_small_launch_plan(g, pts, geom, primes, bx, by, bz, ix, iy,
-                                  iz, n, n_levels, level_size, scheme,
-                                  GS_BLOCKS, 0, GS_MERGE_MIN, grad, stream);
+    const SmallGeom s{bx, by, bz, ix, iy, iz};
+    const unsigned* pr = reinterpret_cast<const unsigned*>(primes);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (level_size % 1024 != 0) return (int)cudaErrorInvalidValue;
+    return scheme == 0
+        ? grad_small_go<0>(g, pts, geom, pr, s, n, n_levels, level_size,
+                           grad, st)
+        : grad_small_go<1>(g, pts, geom, pr, s, n, n_levels, level_size,
+                           grad, st);
 }

@@ -43,9 +43,7 @@
 
 #define WL_WARPS 8                 // warps of a block (levels walked at once)
 #define WL_FULL 0xFFFFFFFFu
-#ifndef WL_FEW                     // profile_kernels.py --variants sets it
 #define WL_FEW 16                  // unique codes found by warp minima
-#endif
 
 // compare-exchange of two elements of one lane: a gets the smaller if asc
 __device__ __forceinline__ void wl_ce(int& a, int& b, bool asc) {

@@ -15,9 +15,7 @@ random hash schemes with the whole table resident on chip:
 - ``grad_small`` (csrc/grad_small.cu): the f32 table gradient, each point's
   8 corners getting ``w_corner * g``. The JAX package computes it outside
   Pallas, as a factorised bf16 one-hot matmul (ops/scatter_matmul.py,
-  called from encoders/hashgrid.py's custom VJP). ``GradPlan`` and
-  ``grad_small_planned`` launch it with other plans, for the profile
-  scripts.
+  called from encoders/hashgrid.py's custom VJP).
 - ``HashEncodeSmall`` / ``hash_encode_small``: the differentiable entry
   (points already clamped): the forward packs the table and runs
   ``encode_small``, the backward runs ``grad_small`` straight through the
@@ -54,7 +52,7 @@ from nerfpp_tpu_torch.kernels.hash_encode_blocked import (_check, _launch,
 
 MAX_TABLE_BYTES = 4 * 1024 * 1024    # the JAX kernel's VMEM-resident limit
 PLAIN_CHUNK = 1 << 20                # points per plain step (bounds memory)
-GRAD_LEVELS_MAX = 47                 # levels grad_small takes (unchanged)
+GRAD_LEVELS_MAX = 47                 # levels grad_small takes
 TILE = 1024                          # encode_small's points per tile (ES_TILE)
 SMEM_BLOCK_MAX = 232448              # H100: dynamic shared memory per block
 SLICE_LEVELS = 4                     # levels whose features fill a sector
@@ -291,56 +289,26 @@ def grad_small(g: torch.Tensor, points: torch.Tensor, enc) -> torch.Tensor:
     tensors. g: [N, 2L] f32; points: [N, 3] f32 clamped."""
     if points.device.type == "cpu":
         return grad_small_plain(g, points, enc)
-    return grad_small_planned(g, points, enc, None)
-
-
-@dataclass(frozen=True)
-class GradPlan:
-    """A launch plan of grad_small (csrc/grad_small.cu): ``blocks`` blocks a
-    (level, range of entries), each adding a slice of the points into its
-    own shared-memory copy of the range; ``cluster``: the blocks form a
-    thread-block cluster that sums the copies in distributed shared memory,
-    else each copy is added into the zero-filled output by global atomics;
-    ``merge_min``: the lanes of a warp whose cell equals their lower
-    neighbour's from which the warp first sums each run's products (33:
-    never). The default is the kernel's own launch."""
-    blocks: int = 16
-    cluster: bool = False
-    merge_min: int = 4
-
-
-def grad_small_planned(g: torch.Tensor, points: torch.Tensor, enc,
-                       plan: GradPlan | None) -> torch.Tensor:
-    """grad_small's launch on CUDA tensors with ``plan`` (None: the
-    kernel's own), so that a script can time other plans; counts as
-    grad_small's."""
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     dev, n, nl = points.device, points.shape[0], enc.n_levels
     _check_enc(enc, dev)
     if nl > GRAD_LEVELS_MAX:
-        raise ValueError(f"{nl} levels exceed the kernel's shared memory")
+        raise ValueError(f"grad_small takes at most {GRAD_LEVELS_MAX} "
+                         f"levels, not {nl}")
     _check(g, "cotangent", torch.float32, (n, 2 * nl), dev)
     _check(points, "points", torch.float32, (n, 3), dev)
-    # a cluster writes every entry once; the atomic flush adds into zeros
-    cluster = plan is not None and plan.cluster
-    out = (torch.empty if cluster and n else torch.zeros)(
-        (enc.table_rows, 2), dtype=torch.float32, device=dev)
+    # the kernel adds each block's shared-memory copy into zeros
+    out = torch.zeros((enc.table_rows, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    args = [ctypes.c_void_p(g.data_ptr()),
+    _launch(load("grad_small").grad_small_launch,
+            ctypes.c_void_p(g.data_ptr()),
             ctypes.c_void_p(points.data_ptr()),
             ctypes.c_void_p(enc.level_geom.data_ptr()),
             ctypes.c_void_p(enc.primes_bits.data_ptr()), *_geometry_args(enc),
             ctypes.c_int(n), ctypes.c_int(nl), ctypes.c_int(enc.level_size),
-            ctypes.c_int(_scheme_id(enc))]
-    lib = load("grad_small")
-    if plan is None:
-        _launch(lib.grad_small_launch, *args, ctypes.c_void_p(out.data_ptr()))
-    else:
-        _launch(lib.grad_small_launch_plan, *args, ctypes.c_int(plan.blocks),
-                ctypes.c_int(int(plan.cluster)), ctypes.c_int(plan.merge_min),
-                ctypes.c_void_p(out.data_ptr()))
+            ctypes.c_int(_scheme_id(enc)), ctypes.c_void_p(out.data_ptr()))
     grad_small.launches += 1
     return out
 

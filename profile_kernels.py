@@ -31,9 +31,7 @@ that tree's functions (``--train-only``: the train steps alone):
 at the serving shapes: two of each group's four levels gathered from L2 and
 all four (no stage, the simplest alternative), and groups of fewer levels
 (row slices under a sector), on the packed and the f32 table and at T =
-2^15; K1 built to sort every list or to take up to 4-32 codes by warp
-minima first; and grad_small's (blocks a level, the cluster sum, the warp
-merge's threshold) at its three shapes. Each pass prints chip_smoke.py's log lines, then one JSON line of its
+2^15. Each pass prints chip_smoke.py's log lines, then one JSON line of its
 times; the last line is the card's name and power limit; before it, per time, the median of each tree's passes.
 """
 import argparse
@@ -90,8 +88,6 @@ def run_pass(tree: Path, variants: bool, train_only: bool) -> dict:
         s = C.kernel_phase(enc, table, pts, label)
         times[f"window_lists {label}"] = s["window_lists"]["ms"]
         times[f"encode_blocked {label}"] = s["encode_blocked"]["ms"]
-    if variants:
-        k1_variants(enc, sets)
     del sets, table
 
     # phase-9 shapes: encode_small
@@ -136,9 +132,6 @@ def run_pass(tree: Path, variants: bool, train_only: bool) -> dict:
         if scheme == "random":
             small(enc, table, dense, "random dense fine class")
         grad(enc, dense, f"{scheme} dense fine class")
-        if variants:
-            grad_variants(enc, dense)
-            grad_variants(enc, pts)
         del pts, table, dense
     enc = C.small_encoder("random", 15, dev)
     table = (torch.rand(enc.table_rows, 2, generator=gen) * 2 - 1).to(dev)
@@ -159,8 +152,6 @@ def run_pass(tree: Path, variants: bool, train_only: bool) -> dict:
     for scheme in ("random", "fixed"):
         grad(C.small_encoder(scheme, 15, dev), pts,
              f"{scheme} T=2^15 random points")
-        if variants:
-            grad_variants(C.small_encoder(scheme, 15, dev), pts)
     del pts, table
     torch.cuda.empty_cache()
 
@@ -257,77 +248,6 @@ def small_variants(enc, table, pts, packed, plans):
         _log("variants", f"encode_small T=2^{enc.log2_hashmap_size} "
              f"{'packed' if packed else 'f32 table'} {label} {plan}: N={n} "
              f"ms={ms:.4f} max_abs_err={err:.3g}")
-
-
-def k1_variants(enc, sets):
-    """K1 built with WL_FEW = 0 (every list sorted), 4, 8, 16 (the
-    kernel's own) and 32 codes taken by warp minima before the sort, at
-    each point set; each held equal to the plain version."""
-    import ctypes
-    import torch
-    from nerfpp_tpu_torch.kernels import build
-    from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
-    libs = {}
-    for few in (0, 4, 8, 16, 32):
-        out = build.BUILD_DIR / f"libwindow_lists_few{few}.so"
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
-                        f"-DWL_FEW={few}", "-o", str(out),
-                        str(build.CSRC / "window_lists.cu")], check=True)
-        libs[few] = ctypes.CDLL(str(out))
-    for label, pts in sets.items():
-        ng, nl = pts.shape[0] // K.LANES, enc.n_levels
-        want = K.window_lists_plain(pts, enc)
-        for few, lib in libs.items():
-            wids = torch.empty((nl, ng, K.LANES), dtype=torch.int32,
-                               device=pts.device)
-            counts = torch.empty((nl, ng), dtype=torch.int32,
-                                 device=pts.device)
-
-            def run():
-                K._launch(lib.window_lists_launch,
-                          ctypes.c_void_p(pts.data_ptr()),
-                          ctypes.c_void_p(enc.scales.data_ptr()),
-                          ctypes.c_void_p(enc.boffs.data_ptr()),
-                          *K._geometry_args(enc), ctypes.c_int(ng),
-                          ctypes.c_int(nl), ctypes.c_void_p(wids.data_ptr()),
-                          ctypes.c_void_p(counts.data_ptr()))
-            run()
-            torch.cuda.synchronize()
-            if not (torch.equal(wids, want[0])
-                    and torch.equal(counts, want[1])):
-                raise AssertionError(f"K1 with WL_FEW={few} differs")
-            _log("variants", f"window_lists {label} WL_FEW={few}: "
-                 f"ms={_ms(run):.4f}")
-
-
-def grad_variants(enc, pts):
-    """grad_small's launch plans at one shape: 8, 16 (the kernel's own) and
-    32 blocks a (level, range) flushing their copies by global atomics,
-    clusters of 8 and 16 blocks summing them in distributed shared memory,
-    and the warp's run merge from 8 lanes in runs and never."""
-    import torch
-    from nerfpp_tpu_torch.kernels import hash_encode as KS
-    n, nl = pts.shape[0], enc.n_levels
-    g = torch.randn(n, 2 * nl, generator=torch.Generator().manual_seed(9))
-    g = g.to(pts.device)
-    plain = KS.grad_small_plain(g, pts, enc)
-    mag = KS.grad_small_plain(g.abs(), pts, enc)
-    for plan in (KS.GradPlan(8), KS.GradPlan(), KS.GradPlan(32),
-                 KS.GradPlan(8, cluster=True), KS.GradPlan(16, cluster=True),
-                 KS.GradPlan(merge_min=8), KS.GradPlan(merge_min=33)):
-        try:
-            out = KS.grad_small_planned(g, pts, enc, plan)
-        except RuntimeError as e:               # a cluster the card refuses
-            _log("variants", f"grad_small {plan}: {e}")
-            continue
-        torch.cuda.synchronize()
-        rel = float(((out - plain).abs() / mag.clamp(min=1e-30)).max())
-        ms = _ms(lambda: KS.grad_small_planned(g, pts, enc, plan))
-        _log("variants", f"grad_small {enc.scheme} T=2^"
-             f"{enc.log2_hashmap_size} {plan}: N={n} ms={ms:.4f} "
-             f"max_err/sum|w*g|={rel:.3g}")
-        if not rel <= 1e-5:
-            raise AssertionError(f"grad_small {plan} differs by {rel}")
 
 
 def _ms(fn):
