@@ -2,6 +2,7 @@
 """GPU smoke run of nerfpp_tpu_torch, the PyTorch/CUDA port (one H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --repeat-train K [--seed S]
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -19,9 +20,11 @@ Phases, each printing its own lines:
      use_occupancy_grid=True) at full width, 800x800, 64 samples, auto
      two-class budget, 1 + 5 frames; the kernels' launch counts are reset
      just before and read just after.
-  6. gradient: K3 against its plain version at the training chunk (4,096
-     tile-ordered rays x 64 samples, sample-major) and on the 2^20 random
-     points, beside one index_add_ of the precomputed corner products.
+  6. gradient: K3 (grad_blocked, and its index kernel grad_blocked_index)
+     against its plain versions at the training chunk (4,096 tile-ordered
+     rays x 64 samples, sample-major) and on the 2^20 random points, beside
+     one index_add_ of the precomputed corner products; two launches must be
+     bitwise equal and the index exact.
   7. train parity: one step of a tiny configuration on the GPU and on the
      CPU from the same seeded state with the same draws.
   8. training: the flagship configuration of bench.py (the 800x800
@@ -32,7 +35,10 @@ Phases, each printing its own lines:
      bench.py times them) and 1,056-1,087 are timed windows; launch counts are reset before step 0
      and read after the last step; the loss curve must fall; the held-out
      PSNR of the unbudgeted test view after 1,088 and 2,100 steps (the JAX
-     reference's 2,100-step quality point).
+     reference's 2,100-step quality point). Then determinism: the same
+     configuration trained twice from seed 0 for 64 steps, fresh executors
+     and samplers; the losses must be bitwise equal at every step and the
+     parameters, Adam state and occupancy grid after the last.
   9. small-table kernels: encode_small (K4 and K5) against its plain version
      in every mode (packed and f32 table, fixed and random scheme, the v1
      route) at 16 levels, T = 2^13, on one serving chunk's fine-pass points
@@ -56,10 +62,18 @@ Phases, each printing its own lines:
      of the test view, launch counts reset just before and read just after;
      its held-out PSNR.
 The line before the last is the kernel summary JSON; the last line is
-{"ok": true, "device": {...}}. Any failed check raises, and the script exits
+{"ok": true, "device": {...}}.
+
+``--repeat-train K`` runs only phases 1-2 and then phase 8 K times in one
+process from seed S (``--seed``, default 0), each run with a fresh executor
+and sampler, and prints per run its held-out PSNRs after 1,088 and 2,100
+steps, the first step whose loss differs bitwise from run 1's and the
+largest |table - run 1's table| after step 64; it ends with the same last
+line. Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
+import argparse
 import json
 import math
 import statistics
@@ -75,7 +89,8 @@ BBOX = [-1.2, -1.2, -1.2, 1.2, 1.2, 1.2]
 SEED = 0
 SPIN_CYCLES = 1 << 22          # ~2 ms of card time ahead of each timing
 SERVE_KERNELS = ("window_lists", "encode_blocked")
-TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked")
+TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked_index",
+                 "grad_blocked")
 HIER_KERNELS = ("encode_small", "grad_small")
 TIME_BUDGET_S = 960            # the hierarchical run is cut to stay inside
 
@@ -258,31 +273,61 @@ def kernel_phase(enc, table, pts, label):
 
 
 def grad_phase(enc, pts, label):
-    """K3 against its plain version on one point set, beside one PyTorch
-    call (index_add_ of the precomputed corner products)."""
+    """K3 (its index kernel and the owner kernel, over K1's lists of the
+    points) against its plain version on one point set: two launches
+    bitwise equal, the index exactly its plain version's; beside one
+    PyTorch call (index_add_ of the precomputed corner products). Returns
+    the stats of grad_blocked (index build included) and of its index."""
     import torch
     from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
     from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
     n, nl = pts.shape[0], enc.n_levels
+    ng = n // 128
     gen = torch.Generator().manual_seed(SEED + 3)
     g = torch.randn(n, 2 * nl, generator=gen).to(pts.device)
-    out = K.grad_blocked(g, pts, enc)
+    wids, counts = K.window_lists(pts, enc)
+    out = K.grad_blocked(g, pts, wids, counts, enc)
+    again = K.grad_blocked(g, pts, wids, counts, enc)
+    index = K.grad_blocked_index(pts, wids, counts, enc)
     torch.cuda.synchronize()
+    index_p = K.grad_blocked_index_plain(pts, wids, counts, enc)
+    # mask, permutation and plan exactly; the run table where the mask is
+    # set (the kernel writes nothing elsewhere)
+    lst = K.listed(index_p[0], ng)
+    if not (torch.equal(index[0], index_p[0])
+            and torch.equal(index[1], index_p[1])
+            and torch.equal(index[2][lst], index_p[2][lst])
+            and torch.equal(index[3], index_p[3])):
+        raise AssertionError(f"{label}: grad_blocked_index differs from its "
+                             "plain version")
+    n_items, n_slots = int(index[3][0]), int(index[3][1])
+    most = int(index[3][4:4 + nl * K.index_shape(enc, ng)[1]].max())
+    n_runs = int(lst.sum())
+    del lst
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two grad_blocked launches on the "
+                             "same inputs differ")
     out_p = K.grad_blocked_plain(g, pts, enc)
-    # atomics sum in a different order each run: hold each entry against
-    # the sum of its terms' magnitudes, sum |w * g| (w >= 0)
+    # the kernel and index_add_ add each entry's terms in other orders:
+    # hold each entry against the sum of its terms' magnitudes, sum |w * g|
+    # (w >= 0); where no term falls, exactly zero
     mag = K.grad_blocked_plain(g.abs(), pts, enc)
     diff = (out - out_p).abs()
     err = float(diff.max())
     rel = float((diff / mag.clamp(min=1e-30)).max())
-    lanes_zero = bool((out.reshape(-1, 128, 2)[:, 125:] == 0).all())
-    if not (rel <= 1e-5 and lanes_zero and bool(torch.isfinite(out).all())):
+    zeros = not bool(out[mag == 0].any())
+    if not (rel <= 1e-5 and zeros and bool(torch.isfinite(out).all())):
         raise AssertionError(f"{label}: grad_blocked max |err| {err}, "
-                             f"max |err| / sum|w*g| {rel} > 1e-5, or "
-                             f"lanes 125-127 not zero ({lanes_zero})")
-    k3_ms = cuda_ms(lambda: K.grad_blocked(g, pts, enc))
+                             f"max |err| / sum|w*g| {rel} > 1e-5, or an "
+                             f"entry with no term not zero ({zeros})")
+    del out, again, out_p, mag, diff, index, index_p
+    k3_ms = cuda_ms(lambda: K.grad_blocked(g, pts, wids, counts, enc))
+    idx_ms = cuda_ms(lambda: K.grad_blocked_index(pts, wids, counts, enc))
     k3_plain = cuda_ms(lambda: K.grad_blocked_plain(g, pts, enc), reps=5,
                        inner=1, warmup=1)
+    idx_plain = cuda_ms(lambda: K.grad_blocked_index_plain(pts, wids, counts,
+                                                           enc),
+                        reps=5, inner=1, warmup=1)
     idx, frac = enc.corner_indices(pts)
     vals = (trilerp_weights(frac)[..., None]
             * g.reshape(n, nl, 1, 2)).reshape(-1, 2)
@@ -292,20 +337,43 @@ def grad_phase(enc, pts, label):
         (enc.table_rows, 2), device=pts.device).index_add_(0, idx, vals),
         reps=5, inner=2, warmup=1)
     del idx, vals
-    # bytes: coordinates and cotangent read once, the gradient written once
-    nbytes = n * 12 + n * 8 * nl + enc.table_rows * 8 + nl * 16
-    # ~60 operations per (point, level): cell, slot, 8 weights, 16 products
-    ops = 60.0 * n * nl
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
-    log("grad", f"{label} grad_blocked: N={n} ms={k3_ms:.4f} "
-        f"plain_ms={k3_plain:.4f} index_add_ms={lib_ms:.4f} (excluding "
-        f"the index computation) bound_ms={max(t_bytes, t_ops):.4f} (bytes "
-        f"{nbytes} -> {t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} ms) "
-        f"max_abs_err={err:.3g} max_err/sum|w*g|={rel:.3g}")
-    return dict(ms=k3_ms, plain_ms=k3_plain, library_ms=lib_ms,
-                max_abs_err=err, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    # bytes: coordinates and cotangent read once, K1's counts and unique
+    # window ids read once, the gradient written once; the index writes a
+    # permutation byte a point and level, a run a (level, window, group),
+    # the bitmask and the plan
+    _, nw, words, _ = K.index_shape(enc, ng)
+    k1_ids = nl * ng * 4 + 4 * int(counts.sum())
+    small = nl * 16
+    k3_bytes = n * 12 + n * 8 * nl + k1_ids + enc.table_rows * 8 + small
+    idx_bytes = (n * 12 + k1_ids + n * nl + 2 * n_runs
+                 + nl * nw * words * 4 + (16 + 12 * nl * nw + 8 * n_items)
+                 + small)
+    # operations per (point, level): K3 ~60 (cell, slot, 8 weights, 16
+    # products), its index ~20 (cell, window code)
+    stats = {}
+    for name, ms, plain, nbytes, ops, e, lib in (
+            ("grad_blocked_index", idx_ms, idx_plain, idx_bytes,
+             20.0 * n * nl, 0.0, None),
+            ("grad_blocked", k3_ms, k3_plain, k3_bytes, 60.0 * n * nl, err,
+             lib_ms)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+        stats[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           max_abs_err=e, bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+        log("grad", f"{label} {name}: N={n} ms={ms:.4f} plain_ms="
+            f"{plain:.4f} bound_ms={max(t_bytes, t_ops):.4f} (bytes "
+            f"{nbytes} -> {t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} "
+            f"ms) max_abs_err={e:.3g}"
+            + ("" if lib is None else f" max_err/sum|w*g|={rel:.3g} "
+               f"index_add_ms={lib:.4f} (excluding the index computation)"))
+    log("grad", f"{label}: two grad_blocked launches bitwise equal; index "
+        f"exact; mean windows per (group, level) "
+        f"{float(counts.float().mean()):.2f}; the most points in one window "
+        f"{most}; {n_items} parts of windows, {n_slots} of them partial "
+        f"sums")
+    return stats
 
 
 def compare(label, a, b, tol):
@@ -325,8 +393,9 @@ def train_parity():
     seeded state; one CPU generator gives both runs the same draws. The MLP
     runs in f32 so that the comparison sees the kernels and the step, not
     bf16 rounding. Tolerances: the loss to 1e-4 of itself; gradients and
-    first moments to 1e-3 of each tensor's largest (K3's atomics and the
-    card's matrix products sum in other orders); second moments to 2e-3;
+    first moments to 1e-3 of each tensor's largest (K3 and the card's
+    matrix products sum in other orders than the CPU); second moments to
+    2e-3;
     the refreshed grid to 1e-4."""
     import torch
     from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
@@ -388,35 +457,90 @@ def bench_scene(dev):
     return scene
 
 
-def train_phase(scene, dev):
-    """The flagship train run; returns the launch counts of steps 0-2,099."""
-    import numpy as np
-    import torch
-    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
-    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
-    from nerfpp_tpu_torch.executor import NeRFExecutor
-    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
-    p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
-                                occ_update_every=32)
-    tmp = tempfile.TemporaryDirectory()
-    tp = TrainParams(n_samples=64, n_rand=4096, n_iters=8100, chunk=4096,
-                     i_print=32, i_img=0, i_weights=0, i_testset=0,
-                     steps_per_call=25, base_dir=tmp.name)
-    ex = NeRFExecutor(p, device=dev)
-    ex.white_bkgr = scene.white_bkgr
-    ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
-    sampler = RayBatchSampler.from_scene(scene, tp.n_rand, tile_h=8,
-                                         tile_w=16, device=dev)
-    curve = []
+class Flagship:
+    """The flagship configuration of bench.py (``make_flagship``) on the
+    bench scene, from ``seed``: a fresh executor and sampler, and the loss
+    of every step it trains (device scalars, read only by the caller)."""
 
-    def run(n):
-        torch.cuda.synchronize()
+    def __init__(self, scene, dev, seed):
+        import torch
+        from nerfpp_tpu_torch.config import (TrainParams,
+                                             hashnerf_blocked_preset)
+        from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+        from nerfpp_tpu_torch.executor import NeRFExecutor
+        p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
+                                    occ_update_every=32)
+        self.tmp = tempfile.TemporaryDirectory()
+        self.tp = TrainParams(n_samples=64, n_rand=4096, n_iters=8100,
+                              chunk=4096, i_print=32, i_img=0, i_weights=0,
+                              i_testset=0, steps_per_call=25,
+                              base_dir=self.tmp.name)
+        self.scene, self.seed = scene, seed
+        ex = NeRFExecutor(p, device=dev)
+        ex.white_bkgr = scene.white_bkgr
+        ex.initialize(scene.bounding_box, self.tp.lrate_decay, seed=seed)
+        self.sampler = RayBatchSampler.from_scene(scene, self.tp.n_rand,
+                                                  tile_h=8, tile_w=16,
+                                                  device=dev)
+        self.losses, self.curve = [], []
+        build = ex._build_train_step
+
+        def recording(tp):
+            step = build(tp)
+
+            def run_step(*args, **kwargs):
+                m = step(*args, **kwargs)
+                self.losses.append(m["loss"].detach().reshape(1))
+                return m
+            return run_step
+        # the collapse recovery rebuilds the step through this attribute too
+        ex._build_train_step = recording
+        self.ex = ex
+        self.sync = torch.cuda.synchronize
+
+    def run(self, n):
+        """Train the next n steps; returns their wall time (s)."""
+        self.sync()
         t = time.perf_counter()
-        ex.train(scene, tp, seed=SEED, sampler=sampler, steps=n,
-                 progress_fn=lambda i, m: curve.append((i, m["loss"],
-                                                        m["psnr"])))
-        torch.cuda.synchronize()
+        self.ex.train(self.scene, self.tp, seed=self.seed,
+                      sampler=self.sampler, steps=n,
+                      progress_fn=lambda i, m: self.curve.append(
+                          (i, m["loss"], m["psnr"])))
+        self.sync()
         return time.perf_counter() - t
+
+    def loss_bits(self):
+        """The losses so far as int32 bit patterns (bitwise comparison)."""
+        import torch
+        return torch.cat(self.losses).view(torch.int32).cpu()
+
+    def held_out_psnr(self):
+        """PSNR of the unbudgeted 800x800 test view, as bench.py renders it
+        for its quality numbers."""
+        import numpy as np
+        import torch
+        from nerfpp_tpu_torch.config import TrainParams
+        ex, scene = self.ex, self.scene
+        view = scene.views[list(scene.split_indices("test"))[0]]
+        budget = ex.params.render_dense_frac
+        ex.params.render_dense_frac = 0.0
+        out = ex.render_view(view.pose, view.h, view.w, view.k,
+                             TrainParams(n_samples=64, chunk=65536))
+        ex.params.render_dense_frac = budget
+        rgb = torch.clamp(out["nerf"].rgb, 0.0, 1.0).cpu().numpy()
+        mse = float(np.mean((rgb - scene.images[view.id]) ** 2))
+        return -10.0 * math.log10(max(mse, 1e-10)), view.id
+
+
+def train_phase(scene, dev, seed=SEED, observe=None):
+    """The flagship train run, steps 0-2,099. Returns the launch counts,
+    the held-out PSNRs after 1,088 and 2,100 steps and the list of failed
+    checks (empty when it passed). ``observe(run)`` is called after step 64
+    (the table then is the 65-step state)."""
+    import torch
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    f = Flagship(scene, dev, seed)
+    ex, tp, run, curve = f.ex, f.tp, f.run, f.curve
 
     def per_step(a, b, n):
         return {k: (b[k] - a[k]) / n for k in TRAIN_KERNELS}
@@ -427,37 +551,22 @@ def train_phase(scene, dev):
     c0 = launch_counts()
     early_s = run(32)                         # steps 33-64: one full refresh
     c1 = launch_counts()
+    if observe is not None:
+        observe(f)
     run(1056 - 65)                            # steps 65-1055: warmups end
     c2 = launch_counts()
     late_s = run(32)                          # steps 1056-1087: one phased
     c3 = launch_counts()
-    test_view = scene.views[list(scene.split_indices("test"))[0]]
-
-    def held_out_psnr():
-        """PSNR of the unbudgeted 800x800 test view, as bench.py renders
-        it for its quality numbers."""
-        budget = ex.params.render_dense_frac
-        ex.params.render_dense_frac = 0.0
-        out = ex.render_view(test_view.pose, test_view.h, test_view.w,
-                             test_view.k,
-                             TrainParams(n_samples=64, chunk=65536))
-        ex.params.render_dense_frac = budget
-        rgb = torch.clamp(out["nerf"].rgb, 0.0, 1.0).cpu().numpy()
-        mse = float(np.mean((rgb - scene.images[test_view.id]) ** 2))
-        return -10.0 * math.log10(max(mse, 1e-10))
-
     peak = torch.cuda.max_memory_allocated()
-    psnr_1088 = held_out_psnr()               # outside the counts and peak
+    psnr_1088, view_id = f.held_out_psnr()    # outside the counts and peak
     c4 = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     run(2100 - 1088)                          # steps 1088-2099
     counts = {k: v + launch_counts()[k] - c4[k] for k, v in c3.items()}
     peak = max(peak, torch.cuda.max_memory_allocated())
-    tmp.cleanup()
-    for name in TRAIN_KERNELS:
-        if counts[name] == 0:
-            raise AssertionError(f"{name} was not launched on the training "
-                                 "path")
+    f.tmp.cleanup()
+    failed = [f"{name} was not launched on the training path"
+              for name in TRAIN_KERNELS if counts[name] == 0]
     for label, secs, a, b in (("steps 33-64 (warmups: full refresh, full "
                                "render; density noise on)", early_s, c0, c1),
                               ("steps 1056-1087 (phased refresh, two-class "
@@ -474,16 +583,106 @@ def train_phase(scene, dev):
     first = statistics.mean(l for _, l, _ in curve[:4])
     last = statistics.mean(l for _, l, _ in curve[-4:])
     if not (math.isfinite(last) and last < 0.5 * first):
-        raise AssertionError(f"training loss did not fall: mean of the "
-                             f"first four readings {first}, last four {last}")
-    psnr = held_out_psnr()
+        failed.append(f"training loss did not fall: mean of the first four "
+                      f"readings {first}, last four {last}")
+    psnr, _ = f.held_out_psnr()
     log("train", f"loss mean {first:.5f} (first four readings) -> "
         f"{last:.5f} (last four); held-out PSNR {psnr_1088:.2f} dB after "
         f"1088 steps, {psnr:.2f} dB after {ex.step} steps (test view "
-        f"{test_view.id}, 800x800, unbudgeted)")
+        f"{view_id}, 800x800, unbudgeted)")
     if not psnr > 20.0:
-        raise AssertionError(f"held-out PSNR {psnr:.2f} dB <= 20 dB")
-    return counts
+        failed.append(f"held-out PSNR {psnr:.2f} dB <= 20 dB")
+    return counts, (psnr_1088, psnr), failed
+
+
+def state_of(ex):
+    """Copies of the parameters, Adam's moments and step count, and the
+    occupancy grid of an executor."""
+    st = {f"param {k}": v.detach().clone()
+          for k, v in ex.named_parameters().items()}
+    st.update({f"mu {k}": v.clone() for k, v in ex.optimizer.mu.items()})
+    st.update({f"nu {k}": v.clone() for k, v in ex.optimizer.nu.items()})
+    st["adam count"] = ex.optimizer.count.clone()
+    st["occupancy"] = ex.occupancy.density.clone()
+    return st
+
+
+def first_difference(a, b):
+    """The first index at which two int32 bit-pattern vectors differ, or
+    None."""
+    import torch
+    n = min(a.numel(), b.numel())
+    diff = torch.nonzero(a[:n] != b[:n]).flatten()
+    if diff.numel():
+        return int(diff[0])
+    return None if a.numel() == b.numel() else n
+
+
+def determinism_phase(scene, dev, steps=64):
+    """The flagship configuration trained twice from seed 0 for ``steps``
+    steps, each run with a fresh executor and sampler: the losses must be
+    bitwise equal at every step, and the parameters, Adam state and
+    occupancy grid bitwise equal after the last step."""
+    import torch
+    runs = []
+    for _ in range(2):
+        f = Flagship(scene, dev, SEED)
+        f.run(steps)
+        runs.append((f.loss_bits(), state_of(f.ex)))
+        f.tmp.cleanup()
+        del f
+    (la, sa), (lb, sb) = runs
+    step = first_difference(la, lb)
+    if step is not None:
+        raise AssertionError(f"determinism: the losses of two seed-{SEED} "
+                             f"runs first differ at step {step}")
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if bad:
+        raise AssertionError(f"determinism: after {steps} steps two runs "
+                             f"differ in {', '.join(bad)}")
+    log("determinism", f"two seed-{SEED} runs of {steps} steps: losses "
+        f"bitwise equal at every step ({la.numel()} steps), parameters, "
+        f"Adam state and occupancy grid bitwise equal ({len(sa)} tensors)")
+
+
+def repeat_train(scene, dev, k, seed):
+    """The experiment of ``--repeat-train K``: phase 8 K times from one
+    seed, each with a fresh executor and sampler; per run its held-out
+    PSNRs, the first step whose loss differs bitwise from run 1's and the
+    largest |table - run 1's table| after step 64. Raises after the last
+    run if a run failed phase 8's checks."""
+    import torch
+    ref, failures, rows = {}, [], []
+    for r in range(k):
+        seen = {}
+
+        def observe(f):
+            seen["run"] = f
+            table = f.ex.embedder.table.detach()
+            if r == 0:
+                ref["table"] = table.clone()
+            seen["dtable"] = float((table - ref["table"]).abs().max())
+
+        _, (p1088, p2100), failed = train_phase(scene, dev, seed, observe)
+        bits = seen.pop("run").loss_bits()
+        if r == 0:
+            ref["bits"] = bits
+        step = first_difference(bits, ref["bits"])
+        rows.append(dict(run=r + 1, seed=seed, psnr_1088=p1088,
+                         psnr_2100=p2100, first_differing_step=step,
+                         max_abs_dtable_after_step_64=seen["dtable"],
+                         steps=bits.numel()))
+        log("repeat", json.dumps(rows[-1]))
+        failures += [f"run {r + 1}: {m}" for m in failed]
+        torch.cuda.empty_cache()
+    log("repeat", f"seed {seed}, {k} runs: held-out PSNR after 2,100 steps "
+        + ", ".join(f"{row['psnr_2100']:.2f}" for row in rows)
+        + " dB; after 1,088 steps "
+        + ", ".join(f"{row['psnr_1088']:.2f}" for row in rows)
+        + " dB; first step whose loss differs from run 1's: "
+        + ", ".join(str(row["first_differing_step"]) for row in rows[1:]))
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def view_rays(n_rays, dev, seed=None):
@@ -524,10 +723,11 @@ def small_encoder(scheme, log2_t, dev):
                            use_kernel=True, device=dev)
 
 
-def small_kernel_phase(enc, table, pts, label):
+def small_kernel_phase(enc, table, pts, label, f32_figures=False):
     """encode_small against its plain version in every mode on one point
     set (packed and f32 table through v2, and the v1 route); the times,
-    bound and plain time of the path's mode (packed)."""
+    bound and plain time of the path's mode (packed). ``f32_figures``: also
+    the f32 table's (K5's) bound, plain time and embedding_bag time."""
     import torch
     from nerfpp_tpu_torch.kernels import hash_encode as KS
     from nerfpp_tpu_torch.kernels.hash_encode_blocked import (
@@ -573,6 +773,19 @@ def small_kernel_phase(enc, table, pts, label):
         f"bound_ms={max(t_bytes, t_ops):.4f} (bytes {nbytes} -> "
         f"{t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} ms) max_abs_err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if f32_figures:
+        # K5 reads the f32 table: 8 B an entry
+        plain32 = cuda_ms(lambda: KS.encode_small_plain(table, pts, enc,
+                                                        False),
+                          reps=3, inner=1, warmup=1)
+        lib32, err32 = embedding_bag_ms(
+            enc, table, pts, KS.encode_small_plain(table, pts, enc, False))
+        bytes32 = nbytes + enc.table_rows * 4
+        t32 = bytes32 / HBM_BYTES_PER_S * 1e3
+        log("small", f"{label} encode_small {enc.scheme} f32 table (K5): "
+            f"ms={ms_f32:.4f} plain_ms={plain32:.4f} embedding_bag_ms="
+            f"{lib32:.4f} (max |err| {err32:.3g}) bound_ms="
+            f"{max(t32, t_ops):.4f} (bytes {bytes32} -> {t32:.4f} ms)")
     return dict(ms=ms, ms_f32=ms_f32, plain_ms=plain,
                 max_abs_err=max(errs.values()), bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -641,7 +854,8 @@ def small_phase(dev):
         table = (torch.rand(enc.table_rows, 2, generator=gen) * 2
                  - 1).to(dev)
         pts = depth_points(enc, ro, rd, 256)
-        s = small_kernel_phase(enc, table, pts, "serving chunk")
+        s = small_kernel_phase(enc, table, pts, "serving chunk",
+                               f32_figures=scheme == "random")
         if scheme == "random":
             stats["encode_small"] = s
         del pts
@@ -873,7 +1087,15 @@ def hier_phase(scene, dev, t_start):
     return {k: counts[k] + serve_counts[k] for k in HIER_KERNELS}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="GPU smoke run of "
+                                 "nerfpp_tpu_torch (one H100)")
+    ap.add_argument("--repeat-train", type=int, default=0, metavar="K",
+                    help="only phases 1-2, then phase 8 K times from one "
+                    "seed: the repeatability experiment")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="the seed of --repeat-train's runs (default 0)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
@@ -883,7 +1105,6 @@ def main() -> int:
         print("chip_smoke: the nerfpp_tpu_torch package is not beside this "
               "script", file=sys.stderr)
         return 1
-    import numpy as np
     from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
     from nerfpp_tpu_torch.core.occupancy import OccupancyGrid
     from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
@@ -905,6 +1126,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log("device", f"{kind} | {smi} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
+    last_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}})
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -916,6 +1140,12 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+
+    if args.repeat_train > 0:
+        repeat_train(bench_scene(dev), dev, args.repeat_train, args.seed)
+        log("repeat", f"total run {time.perf_counter() - t_start:.1f} s")
+        print(last_line, flush=True)
+        return 0
 
     # 3. kernels against their plain versions -----------------------------
     enc = HashGridEncoder(BBOX, 16, 2, 19, 16, 1024, use_kernel=True,
@@ -1008,7 +1238,7 @@ def main() -> int:
     del ex, out, res
 
     # 6. K3 against its plain version ---------------------------------------
-    stats["grad_blocked"] = grad_phase(enc, pts_train, "train chunk")
+    stats.update(grad_phase(enc, pts_train, "train chunk"))
     grad_phase(enc, pts_rand, "random")
     del pts_train, pts_rand, table
     torch.cuda.empty_cache()
@@ -1018,7 +1248,10 @@ def main() -> int:
 
     # 8. full-width training ----------------------------------------------
     scene = bench_scene(dev)
-    counts = train_phase(scene, dev)
+    counts, _, failed = train_phase(scene, dev)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    determinism_phase(scene, dev)
     log("train", f"total run {time.perf_counter() - t_start:.1f} s")
 
     # 9. small-table kernels against their plain versions ------------------
@@ -1035,6 +1268,9 @@ def main() -> int:
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),
                "encode_blocked": ("nerfpp_tpu_torch/csrc/encode_blocked.cu",
                                   "nerfpp_tpu/pallas/hash_encode_blocked.py:270"),
+               "grad_blocked_index": (
+                   "nerfpp_tpu_torch/csrc/grad_blocked.cu",
+                   "nerfpp_tpu/pallas/hash_encode_blocked.py:451"),
                "grad_blocked": ("nerfpp_tpu_torch/csrc/grad_blocked.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:451"),
                "encode_small": ("nerfpp_tpu_torch/csrc/encode_small.cu",
@@ -1050,9 +1286,7 @@ def main() -> int:
                     library_ms=s.get("library_ms"))
                for name, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(last_line, flush=True)
     return 0
 
 

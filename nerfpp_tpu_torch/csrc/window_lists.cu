@@ -21,7 +21,8 @@
 // flagship chunk, 104 on 2^20 random points): up to WL_FEW (16) codes are
 // taken in ascending order as the warp's minimum (one __reduce_min_sync
 // each), its copies dropped. A list longer than that is sorted: an
-// ascending bitonic sort whose stages of distance 1 and 2 run inside the
+// ascending bitonic sort (nerf_sort128, blocked_geometry.cuh, shared with
+// K3's index) whose stages of distance 1 and 2 run inside the
 // lane's registers and the 15 of distance >= 4 by __shfl_xor_sync (60
 // shuffles); first
 // occurrences compare with the previous element (__shfl_up_sync for
@@ -44,43 +45,6 @@
 #define WL_WARPS 8                 // warps of a block (levels walked at once)
 #define WL_FULL 0xFFFFFFFFu
 #define WL_FEW 16                  // unique codes found by warp minima
-
-// compare-exchange of two elements of one lane: a gets the smaller if asc
-__device__ __forceinline__ void wl_ce(int& a, int& b, bool asc) {
-    const int lo = min(a, b), hi = max(a, b);
-    a = asc ? lo : hi;
-    b = asc ? hi : lo;
-}
-
-// the in-lane stages (distance 2 then 1) of a bitonic merge
-__device__ __forceinline__ void wl_lane_merge(int v[4], bool asc) {
-    wl_ce(v[0], v[2], asc);
-    wl_ce(v[1], v[3], asc);
-    wl_ce(v[0], v[1], asc);
-    wl_ce(v[2], v[3], asc);
-}
-
-// ascending bitonic sort of a warp's 128 codes, element i = 4 * lane + k;
-// a size-s run sorts ascending iff (i & s) == 0
-__device__ __forceinline__ void wl_sort(int v[4], int lane) {
-    wl_ce(v[0], v[1], true);
-    wl_ce(v[2], v[3], false);
-    wl_lane_merge(v, (lane & 1) == 0);
-    #pragma unroll
-    for (int s = 8; s <= NERF_LANES; s <<= 1) {
-        const bool asc = (lane & (s >> 2)) == 0;
-        #pragma unroll
-        for (int d = s >> 3; d >= 1; d >>= 1) {         // lane distance j / 4
-            const bool keep_min = ((lane & d) == 0) == asc;
-            #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                const int p = __shfl_xor_sync(WL_FULL, v[k], d);
-                v[k] = keep_min ? min(v[k], p) : max(v[k], p);
-            }
-        }
-        wl_lane_merge(v, asc);
-    }
-}
 
 // first occurrences of the sorted codes, compacted in order into row;
 // returns their count
@@ -185,7 +149,7 @@ window_lists_kernel(const float* __restrict__ pts,      // [NG * 128, 3]
                 rest[k] = rest[k] == m ? NERF_SENTINEL : rest[k];
         }
         if (!few) {
-            wl_sort(v, lane);
+            nerf_sort128(v, lane);
             total = wl_compact(v, lane, row);
         }
         __syncwarp();

@@ -6,9 +6,11 @@ nvcc at first use. Importing this package builds nothing.
 from nerfpp_tpu_torch.kernels.hash_encode import encode_small, grad_small
 from nerfpp_tpu_torch.kernels.hash_encode_blocked import (encode_blocked,
                                                           grad_blocked,
+                                                          grad_blocked_index,
                                                           window_lists)
 
 WRAPPERS = {"window_lists": window_lists, "encode_blocked": encode_blocked,
+            "grad_blocked_index": grad_blocked_index,
             "grad_blocked": grad_blocked, "encode_small": encode_small,
             "grad_small": grad_small}
 

@@ -13,6 +13,8 @@ that tree's functions (``--train-only``: the train steps alone):
   - kernel_phase (K1, K2) on chip_smoke.py's phase-3 point sets: one
     65,536-ray chunk of the 800x800 view at 64 samples (4,194,304 points),
     2^20 random points, and the 4,096-ray training chunk (262,144 points);
+  - grad_phase (K3, its index build included) on the training chunk and
+    the 2^20 random points;
   - small_kernel_phase (encode_small in every mode) on phase 9's point sets:
     the serving chunk (32,768 rays x 256 depths), 2^20 random points and the
     dense fine class of a train step (1,024 rays x 256), both schemes at T =
@@ -88,6 +90,11 @@ def run_pass(tree: Path, variants: bool, train_only: bool) -> dict:
         s = C.kernel_phase(enc, table, pts, label)
         times[f"window_lists {label}"] = s["window_lists"]["ms"]
         times[f"encode_blocked {label}"] = s["encode_blocked"]["ms"]
+    # phase-6 shapes: K3 (a tree before the order-fixed K3 returns its
+    # stats alone)
+    for label in ("train chunk", "random"):
+        s = C.grad_phase(enc, sets[label], label)
+        times[f"grad_blocked {label}"] = s.get("grad_blocked", s)["ms"]
     del sets, table
 
     # phase-9 shapes: encode_small

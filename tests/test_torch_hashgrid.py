@@ -251,8 +251,8 @@ def test_cpu_wrappers_count_no_launches():
     feats.sum().backward()
     assert te.table.grad is not None
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
-                               "grad_blocked": 0, "encode_small": 0,
-                               "grad_small": 0}
+                               "grad_blocked_index": 0, "grad_blocked": 0,
+                               "encode_small": 0, "grad_small": 0}
 
 
 def test_kernel_wrappers_check_inputs():
@@ -263,3 +263,82 @@ def test_kernel_wrappers_check_inputs():
     wids, counts = K.window_lists(pts, te)
     assert wids.shape == (KW["n_levels"], 2, 128)
     assert counts.dtype == torch.int32 and wids.dtype == torch.int32
+
+
+@pytest.mark.parametrize("points", ["uniform", "coherent", "aliasing"])
+def test_grad_index_plain_matches_k1_lists(points):
+    # K3's window index (plain version) against a numpy construction from
+    # the plain K1 lists: one bit per (level, window, group), each segment
+    # the window's groups in ascending order, each once; each listed
+    # window's run in the group's permutation holds exactly the group's
+    # points in that window, ascending; the plan splits a window of n points
+    # into ceil(n / 2048) parts, in window order (8,192 coherent points put
+    # more than 2,048 in a coarse window). At T = 2^12 a level has 4
+    # windows, so many of the uniform points' distinct codes alias
+    log2_t = 12 if points == "aliasing" else 16
+    _, te = _pair(log2_hashmap_size=log2_t)
+    if points == "coherent":
+        pts = _pts(8192, seed=21, lo=np.float32([0.1, 0.1, 0.1]),
+                   hi=np.float32([0.25, 0.2, 0.3]))
+    else:
+        pts = _pts(4096, seed=22)
+    pts = torch.from_numpy(pts)
+    wids, counts = K.window_lists_plain(pts, te)
+    mask, perm, table, plan = K.grad_blocked_index_plain(pts, wids, counts,
+                                                         te)
+    nl, ng = counts.shape
+    nw = max(te.block_slots // 8, 1)
+    assert mask.shape == (nl, nw, -(-ng // 32)) and mask.dtype == torch.int32
+    assert perm.shape == (nl, ng * 128) and perm.dtype == torch.uint8
+    assert table.shape == (nl, nw, ng) and table.dtype == torch.int16
+    cell, _ = te.blocked_cell_frac(pts)
+    pwin = (te.blocked_slot(cell) >> 3).t().numpy()          # [L, N]
+    perm, table = perm.numpy().astype(np.int64), table.numpy()
+    wids, counts = wids.numpy(), counts.numpy()
+    want = np.zeros(mask.shape, np.uint32)
+    segments = {}
+    aliased = 0
+    for lvl in range(nl):
+        for grp in range(ng):
+            listed = wids[lvl, grp, :counts[lvl, grp]] & (nw - 1)
+            aliased += len(listed) - len(set(listed.tolist()))
+            for w in listed:
+                want[lvl, w, grp // 32] |= np.uint32(1 << (grp % 32))
+                segments.setdefault((lvl, int(w)), []).append(grp)
+            own = pwin[lvl, grp * 128:(grp + 1) * 128]
+            assert set(own.tolist()) == set(listed.tolist()), (lvl, grp)
+            row = perm[lvl, grp * 128:(grp + 1) * 128]
+            assert sorted(row.tolist()) == list(range(128))
+            for w in set(listed.tolist()):
+                run = int(table[lvl, w, grp])
+                got = row[run & 255:(run >> 8) + 1]
+                np.testing.assert_array_equal(got, np.flatnonzero(own == w))
+    np.testing.assert_array_equal(mask.numpy().view(np.uint32), want)
+    bits = np.unpackbits(mask.numpy().view(np.uint8), bitorder="little")
+    bits = bits.reshape(nl, nw, -1)[..., :ng]
+    for (lvl, w), grps in segments.items():
+        seg = np.flatnonzero(bits[lvl, w])
+        assert seg.tolist() == sorted(set(grps)), (lvl, w)
+    assert bits.sum() == sum(len(set(g)) for g in segments.values())
+    assert aliased > 0 or points != "aliasing"
+    # the plan, built in numpy from each point's window
+    plan = plan.numpy()
+    npts = np.stack([np.bincount(pwin[lvl], minlength=nw)
+                     for lvl in range(nl)]).reshape(-1)
+    assert ((npts > 0) == bits.any(-1).reshape(-1)).all()
+    items, slots, n_slots = [], [], 0
+    for wi, c in enumerate(npts):
+        n_parts = max(1, -(-int(c) // K.GRAD_PART_POINTS))
+        items += [(wi, p) for p in range(n_parts)]
+        slots.append(n_slots if n_parts > 1 else 0)
+        n_slots += n_parts if n_parts > 1 else 0
+    parts = np.maximum(1, -(-npts // K.GRAD_PART_POINTS))
+    assert (parts > 1).any() == (points == "coherent")
+    lw = nl * nw
+    np.testing.assert_array_equal(plan[:4], [len(items), n_slots, 0, 0])
+    np.testing.assert_array_equal(plan[4:4 + 3 * lw],
+                                  np.concatenate([npts, parts, slots]))
+    tail = plan[4 + 3 * lw:]
+    np.testing.assert_array_equal(tail[:2 * len(items)],
+                                  np.asarray(items).reshape(-1))
+    assert not tail[2 * len(items):].any()

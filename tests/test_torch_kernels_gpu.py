@@ -20,7 +20,11 @@ levels, a partial block of teams, and 1 and 128 windows per group; K1
 (window_lists) bit-exact with one window per group, 128 distinct windows in
 ascending, descending and shuffled order, box faces, 1-64 levels and 1-257
 groups; grad_small with every point in one cell (the worst collisions) at
-T = 2^10-2^19, a ragged last block of a level's cluster, and no points.
+T = 2^10-2^19, a ragged last block of a level's cluster, and no points; K3
+(grad_blocked and its index) bitwise equal over two launches, its index
+exactly its plain version's, exact zeros in untouched windows, groups whose
+window codes alias, every group in one window (8,300 groups), 128 windows
+per group, no cotangent rows and a partial last group.
 """
 import numpy as np
 import pytest
@@ -138,8 +142,8 @@ def test_launch_counts_move_once_per_launch(cuda):
     K.hash_encode_blocked(enc.table.detach(), pts, enc)
     K.window_lists_plain(K.pad_points(pts, enc), enc)
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
-                               "grad_blocked": 0, "encode_small": 0,
-                               "grad_small": 0}
+                               "grad_blocked_index": 0, "grad_blocked": 0,
+                               "encode_small": 0, "grad_small": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -160,26 +164,58 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def _grad_close(got, plain, mag):
-    """K3's atomics sum in a run-dependent order: each entry within 1e-5 of
-    the sum of its terms' magnitudes."""
+    """The kernels and index_add_ sum each entry's terms in different
+    orders (K3 in an order fixed by its inputs, grad_small with atomics):
+    each entry within 1e-5 of the sum of its terms' magnitudes."""
     return bool(((got - plain).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def _k3(cot, pts, enc):
+    """K3 over the points' own K1 lists."""
+    wids, counts = K.window_lists(pts, enc)
+    return K.grad_blocked(cot, pts, wids, counts, enc)
+
+
+def _index_equal(a, b):
+    """K3's index kernel against its plain version: mask, permutation and
+    plan exactly, the run table where the mask is set (the kernel writes
+    nothing elsewhere)."""
+    lst = K.listed(b[0], b[2].shape[-1])
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2][lst], b[2][lst]) and torch.equal(a[3], b[3]))
+
+
+def _k3_checked(cot, pts, enc, name):
+    """K3 against its plain version, bitwise equal over two launches, its
+    index exactly its plain version's, exact zeros wherever no term falls
+    (untouched windows and lanes 125-127 among them)."""
+    wids, counts = K.window_lists(pts, enc)
+    got = K.grad_blocked(cot, pts, wids, counts, enc)
+    again = K.grad_blocked(cot, pts, wids, counts, enc)
+    index = K.grad_blocked_index(pts, wids, counts, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), name
+    assert _index_equal(index, K.grad_blocked_index_plain(pts, wids, counts,
+                                                          enc)), name
+    plain = K.grad_blocked_plain(cot, pts, enc)
+    mag = K.grad_blocked_plain(cot.abs(), pts, enc)
+    assert _grad_close(got, plain, mag), name
+    assert not bool(got[mag == 0].any()), name
+    assert not bool(got.reshape(-1, 128, 2)[:, 125:].any()), name
+    return got, counts
 
 
 @pytest.mark.parametrize("log2_t", [12, 19])
 def test_grad_kernel_matches_plain_version(cuda, log2_t):
     # uniform, coherent (the warp-aggregated same-cell case) and
-    # cell-boundary points; lanes 125-127 of every row stay zero
+    # cell-boundary points; two launches bitwise equal; lanes 125-127 of
+    # every row and every untouched window exactly zero
     enc = _encoder(cuda, log2_t, levels=16 if log2_t == 19 else 4,
                    finest=1024 if log2_t == 19 else 128)
     g = torch.Generator().manual_seed(log2_t)
     for name, pts in _point_sets(enc, cuda).items():
         cot = torch.randn(pts.shape[0], 2 * enc.n_levels, generator=g).to(cuda)
-        got = K.grad_blocked(cot, pts, enc)
-        torch.cuda.synchronize()
-        plain = K.grad_blocked_plain(cot, pts, enc)
-        mag = K.grad_blocked_plain(cot.abs(), pts, enc)
-        assert _grad_close(got, plain, mag), name
-        assert not bool(got.reshape(-1, 128, 2)[:, 125:].any()), name
+        _k3_checked(cot, pts, enc, name)
 
 
 def test_grad_kernel_padded_points_contribute_nothing(cuda):
@@ -190,12 +226,12 @@ def test_grad_kernel_padded_points_contribute_nothing(cuda):
     cot = cot.to(cuda)
     padded = K.pad_points(pts, enc)
     assert padded.shape[0] == 384
-    got = K.grad_blocked(cot, padded, enc)
+    got = _k3(cot, padded, enc)
     torch.cuda.synchronize()
     plain = K.grad_blocked_plain(cot, pts, enc)
     assert _grad_close(got, plain, K.grad_blocked_plain(cot.abs(), pts, enc))
     # the padding sits at box_min: its corner entries get nothing from it
-    lone = K.grad_blocked(cot[:0], padded, enc)
+    lone = _k3(cot[:0], padded, enc)
     assert not bool(lone.any())
 
 
@@ -206,8 +242,8 @@ def test_grad_launch_count_moves_once_per_backward(cuda):
     feats, _ = enc(pts)
     torch.sin(3.0 * feats).sum().backward()
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
-                               "grad_blocked": 1, "encode_small": 0,
-                               "grad_small": 0}
+                               "grad_blocked_index": 1, "grad_blocked": 1,
+                               "encode_small": 0, "grad_small": 0}
     # the gradient is K3's: equal to the plain version of the same cotangent
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     padded = K.pad_points(pts, enc)
@@ -220,18 +256,31 @@ def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     enc = _encoder(cuda)
     pts = _point_sets(enc, cuda)["uniform"][:256]
     cot = torch.zeros(256, 8, device=cuda)
+    wids, counts = K.window_lists(pts, enc)
+    lists = (wids, counts)
     with pytest.raises(TypeError, match="dtype"):
-        K.grad_blocked(cot.double(), pts, enc)
+        K.grad_blocked(cot.double(), pts, *lists, enc)
     with pytest.raises(ValueError, match="shape"):
-        K.grad_blocked(cot[:, :6].contiguous(), pts, enc)
+        K.grad_blocked(cot[:, :6].contiguous(), pts, *lists, enc)
     with pytest.raises(ValueError, match="multiple of 128"):
-        K.grad_blocked(cot[:200].contiguous(), pts[:200].contiguous(), enc)
+        K.grad_blocked(cot[:200].contiguous(), pts[:200].contiguous(),
+                       *lists, enc)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.grad_blocked(cot[:0], pts[:0], wids[:, :0].contiguous(),
+                       counts[:, :0].contiguous(), enc)
     with pytest.raises(ValueError, match="rows for"):
-        K.grad_blocked(torch.zeros(384, 8, device=cuda), pts, enc)
+        K.grad_blocked(torch.zeros(384, 8, device=cuda), pts, *lists, enc)
     with pytest.raises(ValueError, match="contiguous"):
-        K.grad_blocked(torch.zeros(8, 256, device=cuda).t(), pts, enc)
+        K.grad_blocked(torch.zeros(8, 256, device=cuda).t(), pts, *lists,
+                       enc)
     with pytest.raises(ValueError, match="cotangent is on cpu"):
-        K.grad_blocked(cot.cpu(), pts, enc)
+        K.grad_blocked(cot.cpu(), pts, *lists, enc)
+    with pytest.raises(ValueError, match="window ids is on cpu"):
+        K.grad_blocked(cot, pts, wids.cpu(), counts, enc)
+    with pytest.raises(ValueError, match="window counts has shape"):
+        K.grad_blocked(cot, pts, wids, counts[:, :1].contiguous(), enc)
+    with pytest.raises(ValueError, match="window ids has shape"):
+        K.grad_blocked_index(pts, wids[:1].contiguous(), counts, enc)
 
 
 # ------------------------------------------------------ small-table kernels
@@ -321,8 +370,8 @@ def test_small_launch_counts_move_once_per_launch(cuda):
     KS.encode_small_plain(K.pack_table_bf16(enc.table.detach()), pts, enc,
                           True)
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
-                               "grad_blocked": 0, "encode_small": 1,
-                               "grad_small": 1}
+                               "grad_blocked_index": 0, "grad_blocked": 0,
+                               "encode_small": 1, "grad_small": 1}
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     assert _grad_close(enc.table.grad, KS.grad_small_plain(cot, pts, enc),
                        KS.grad_small_plain(cot.abs(), pts, enc))
@@ -565,3 +614,86 @@ def test_small_grad_all_points_in_one_cell(cuda, scheme, log2_t, levels):
     assert int((plain != 0).any(-1).sum()) <= 16 * levels
     empty = KS.grad_small(cot[:0], pts[:0], enc)
     assert empty.shape == (enc.table_rows, 2) and not bool(empty.any())
+
+
+# ------------------------------------------------------ K3 at its worst cases
+
+def _flagship(dev):
+    return HashGridEncoder(BBOX, 16, 2, 19, 16, 1024, use_kernel=True,
+                           device=dev)
+
+
+def _clamped(pts, enc):
+    return torch.minimum(torch.maximum(pts, enc.box_min),
+                         enc.box_max).contiguous()
+
+
+def test_grad_kernel_groups_whose_codes_alias(cuda):
+    # T = 2^12: 4 windows a level, so a group's distinct window codes alias
+    # to one window (the index lists the group once, each point counts once)
+    enc = _encoder(cuda, 12)
+    pts = _point_sets(enc, cuda)["uniform"]
+    wids, counts = K.window_lists(pts, enc)
+    nw = enc.block_slots // 8
+    aliased = [len(set((row[:c] & (nw - 1)).tolist())) < int(c)
+               for row, c in zip(wids.reshape(-1, 128).cpu(),
+                                 counts.reshape(-1).cpu())]
+    assert any(aliased)
+    cot = torch.randn(pts.shape[0], 8,
+                      generator=torch.Generator().manual_seed(31)).to(cuda)
+    _k3_checked(cot, pts, enc, "aliasing")
+
+
+def test_grad_kernel_every_group_in_one_window(cuda):
+    # 8,300 groups at one point: one window's segment lists every group
+    # (two chunks of 256 mask words), all lanes of a warp in one cell
+    enc = _flagship(cuda)
+    g = torch.Generator().manual_seed(32)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    one = torch.rand(1, 3, generator=g) * ext + lo
+    pts = _clamped(one.expand(8300 * 128, 3).to(cuda), enc)
+    cot = torch.randn(pts.shape[0], 32, generator=g).to(cuda)
+    _, counts = _k3_checked(cot, pts, enc, "one window")
+    assert bool((counts == 1).all())
+
+
+def test_grad_kernel_128_windows_per_group(cuda):
+    # at the finest level each group's 128 points in 128 distinct windows
+    # (octants k + c per axis, k over 8 x 8 x 2), and the orders of the
+    # K1 edge test (128 codes that alias to 8 windows)
+    enc = _flagship(cuda)
+    scale = float(enc.level_scales[-1])
+    lo, ext = enc.box_min.cpu().double(), (enc.box_max - enc.box_min).cpu()
+    i = torch.arange(128)
+    k = torch.stack([i & 7, (i >> 3) & 7, i >> 6], dim=-1).double()
+    spread = (lo + (8 * k + 4.5) / scale * ext.double()).float().repeat(3, 1)
+    g = torch.Generator().manual_seed(33)
+    sets = {"128 windows": spread}
+    for order in ("ascending", "descending", "shuffled"):
+        sets[order] = _window_points(enc, order, g)
+    for name, pts in sets.items():
+        pts = _clamped(pts.to(cuda), enc)
+        cot = torch.randn(pts.shape[0], 32, generator=g).to(cuda)
+        _, counts = _k3_checked(cot, pts, enc, name)
+        assert bool((counts[-1] == 128).all()), name
+        if name == "128 windows":
+            wids, _ = K.window_lists(pts, enc)
+            for row in wids[-1] & (enc.block_slots // 8 - 1):
+                assert torch.unique(row).numel() == 128
+
+
+@pytest.mark.parametrize("n_valid", [0, 4001])
+def test_grad_kernel_no_cotangent_and_a_partial_group(cuda, n_valid):
+    # n = 0: every entry zero; 4,001 of 4,096 points: a partial last group
+    enc = _flagship(cuda)
+    g = torch.Generator().manual_seed(34 + n_valid)
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    pts = (torch.rand(4096, 3, generator=g) * ext + lo).to(cuda)
+    cot = torch.randn(n_valid, 32, generator=g).to(cuda)
+    got = _k3(cot, pts, enc)
+    torch.cuda.synchronize()
+    plain = K.grad_blocked_plain(cot, pts, enc)
+    mag = K.grad_blocked_plain(cot.abs(), pts, enc)
+    assert _grad_close(got, plain, mag)
+    assert not bool(got[mag == 0].any())
+    assert bool(got.any()) == (n_valid > 0)

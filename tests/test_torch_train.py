@@ -111,8 +111,9 @@ def test_grad_plain_matches_xla_autodiff():
     # the padding of a partial group contributes nothing
     padded = K.pad_points(t(pts), te)
     assert padded.shape[0] == 1536
-    np.testing.assert_array_equal(K.grad_blocked(t(g), padded, te).numpy(),
-                                  got)
+    wids, counts = K.window_lists(padded, te)
+    np.testing.assert_array_equal(
+        K.grad_blocked(t(g), padded, wids, counts, te).numpy(), got)
     # lanes 125-127 of every 128-lane row are never a corner
     assert not got.reshape(-1, 128, 2)[:, 125:].any()
 
