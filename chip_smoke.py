@@ -56,11 +56,31 @@ Phases, each printing its own lines:
      script's time budget cuts them (the cut is printed); steps 1,024-1,055
      are timed; launch counts are reset before step 0 and read after the
      last step; the loss curve must fall. Then a 64x64 render of the
-     trained state with the f32 MLP, GPU against CPU.
+     trained state with the f32 MLP, GPU against CPU. (Cut before 600 s of
+     the script, to leave phases 12-15 their time.)
  12. hierarchical serving: render_view of the trained state at full width,
      800x800, TrainParams() (64 + 192 samples, chunk 32,768), 1 + 3 frames
      of the test view, launch counts reset just before and read just after;
      its held-out PSNR.
+ 13. large-table kernels: encode_large and grad_large against their plain
+     versions at hashnerf_preset()'s table (16 levels x 2^19 f32 entries),
+     fixed and random schemes, on a serving chunk's fine pass (32,768 rays
+     x 256 depths), a train step's coarse pass (4,096 rays x 64) and dense
+     fine class (1,024 x 256) and 2^20 random points, beside one
+     embedding_bag or index_add_; whether two gradient launches are
+     bitwise equal (float atomics: printed, not required).
+ 14. reference-parity preset: a tiny hashnerf_preset() train step GPU
+     against CPU; then the README's command line in-process: the bench
+     scene exported as a Blender tree, ``cli train --preset hashnerf
+     --set-train NIters=2000`` (launch counts reset before step 0 and read
+     after; steps 1,024-1,055 timed; the loss must fall; only encode_large
+     and grad_large may launch), ``cli render`` of the test split read back
+     with the port's PNG reader (held-out PSNR), ``cli render
+     --spherical-path --n-poses 2`` (the PNGs decode and are not constant),
+     and 1 + 3 800x800 frames of the trained state at TrainParams().
+ 15. classic NeRF: a tiny classic_nerf_preset() train step GPU against CPU,
+     then bench.py's classic configuration at full width (8 x 256, 64 + 64
+     samples, NRand 4,096), 1 + 10 timed steps; no kernel may launch.
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -92,7 +112,8 @@ SERVE_KERNELS = ("window_lists", "encode_blocked")
 TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked_index",
                  "grad_blocked")
 HIER_KERNELS = ("encode_small", "grad_small")
-TIME_BUDGET_S = 960            # the hierarchical run is cut to stay inside
+LARGE_KERNELS = ("encode_large", "grad_large")
+TIME_BUDGET_S = 600            # phase 11 is cut to leave phases 12-15 room
 
 
 def log(phase, msg):
@@ -917,26 +938,20 @@ def hier_render_parity(state):
                                  "tolerance")
 
 
-def hier_parity():
-    """One tiny hier-budget train step (L = 4, T = 2^12, NRand 512, 8 + 16
-    samples, sparse class 4, the preconditioning noise and cone scatter on)
-    on the card and on the CPU from the same seeded state; one CPU generator
-    gives both runs the same draws. The loss to 1e-4 of itself, gradients
-    and first moments to 1e-3 of each tensor's largest (the card's kernels
-    and matrix products sum in other orders, the gradient with atomics),
-    second moments to 2e-3."""
+def step_parity(label, p, tp, kernels):
+    """One tiny train step on the card and on the CPU from the same seeded
+    state; one CPU generator gives both runs the same draws. ``kernels``
+    must launch on the card (with none, no kernel may launch). The loss to
+    1e-4 of itself, gradients and first moments to 1e-3 of each tensor's
+    largest (the card's kernels and matrix products sum in other orders,
+    the hash gradients with atomics), second moments to 2e-3."""
     import torch
-    from nerfpp_tpu_torch.config import TrainParams, hashnerf_tpu_preset
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
     from nerfpp_tpu_torch.executor import NeRFExecutor
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
     scene = make_synthetic_scene(n_train=2, n_val=1, n_test=1, image_hw=32,
                                  n_samples=32, white_bkgr=False, device="cpu")
-    p = hashnerf_tpu_preset(n_levels=4, log2_hashmap_size=12,
-                            n_importance=16, hier_sparse_importance=4,
-                            compute_dtype="float32")
-    tp = TrainParams(n_samples=8, n_rand=512, chunk=512, n_iters=100)
     runs = {}
     for name in ("cuda", "cpu"):
         ex = NeRFExecutor(p, device=name)
@@ -946,10 +961,11 @@ def hier_parity():
         reset_launch_counts()
         m = ex._build_train_step(tp)(
             0, sampler, torch.Generator().manual_seed(SEED + 7))
-        if name == "cuda" and 0 in [launch_counts()[k]
-                                    for k in HIER_KERNELS]:
-            raise AssertionError(f"hier train parity: a kernel did not "
-                                 f"launch on the card ({launch_counts()})")
+        counts = launch_counts()
+        if name == "cuda" and (0 in [counts[k] for k in kernels] or (
+                not kernels and any(counts.values()))):
+            raise AssertionError(f"{label}: launches on the card {counts}, "
+                                 f"expected {list(kernels) or 'none'}")
         run = {"loss": m["loss"].cpu().reshape(1)}
         for k, v in ex.named_parameters().items():
             run[f"grad {k}"] = v.grad.cpu()
@@ -961,19 +977,30 @@ def hier_parity():
         kind = key.split(" ")[0]
         tol = {"loss": 1e-4, "grad": 1e-3, "mu": 1e-3, "nu": 2e-3}[kind]
         worst[kind] = max(worst.get(kind, 0.0),
-                          compare(f"hier train parity: {key}", a,
-                                  runs["cpu"][key], tol))
-    log("hier-parity", f"train step loss gpu "
-        f"{float(runs['cuda']['loss']):.6f} cpu "
+                          compare(f"{label}: {key}", a, runs["cpu"][key],
+                                  tol))
+    log(label, f"train step loss gpu {float(runs['cuda']['loss']):.6f} cpu "
         f"{float(runs['cpu']['loss']):.6f}; worst |gpu - cpu| / max|cpu|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def hier_parity():
+    """Phase 10: one tiny hier-budget train step of hashnerf_tpu_preset()
+    (L = 4, T = 2^12, NRand 512, 8 + 16 samples, sparse class 4, the
+    preconditioning noise and cone scatter on), GPU against CPU."""
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_tpu_preset
+    p = hashnerf_tpu_preset(n_levels=4, log2_hashmap_size=12,
+                            n_importance=16, hier_sparse_importance=4,
+                            compute_dtype="float32")
+    step_parity("hier-parity", p,
+                TrainParams(n_samples=8, n_rand=512, chunk=512, n_iters=100),
+                HIER_KERNELS)
 
 
 def hier_phase(scene, dev, t_start):
     """Phases 11 and 12: the README's training run of hashnerf_tpu_preset()
     on the bench scene, then serving of the trained state. Returns the
     launch counts of both runs."""
-    import numpy as np
     import torch
     from nerfpp_tpu_torch.config import TrainParams, hashnerf_tpu_preset
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
@@ -1065,14 +1092,12 @@ def hier_phase(scene, dev, t_start):
     if serve_counts["encode_small"] == 0:
         raise AssertionError("encode_small was not launched on the "
                              "hierarchical serving path")
-    def psnr_of(v, out):
-        rgb = torch.clamp(out["nerf"].rgb, 0.0, 1.0).cpu().numpy()
-        mse = float(np.mean((rgb - scene.images[v.id]) ** 2))
-        return -10.0 * math.log10(max(mse, 1e-10))
+    def view_psnr(v, out):
+        return psnr_of(out["nerf"].rgb.cpu().numpy(), scene.images[v.id])
 
-    psnr = psnr_of(view, out)
+    psnr = view_psnr(view, out)
     train_view = scene.views[list(scene.split_indices("train"))[0]]
-    psnr_train = psnr_of(train_view, ex.render_view(
+    psnr_train = view_psnr(train_view, ex.render_view(
         train_view.pose, train_view.h, train_view.w, train_view.k, serve_tp))
     med = statistics.median(frame_ms[1:])
     log("hier-serve", f"800x800 frames ms {[round(t, 3) for t in frame_ms]}; "
@@ -1085,6 +1110,374 @@ def hier_phase(scene, dev, t_start):
         f"(test view {view.id}, 800x800); training view {train_view.id} "
         f"{psnr_train:.2f} dB")
     return {k: counts[k] + serve_counts[k] for k in HIER_KERNELS}
+
+
+def large_encoder(scheme, dev):
+    """hashnerf_preset()'s encoder: 16 levels x 2^19 f32 entries, base 16
+    -> finest 1024, the large-table kernels (use_pallas_encoder=False)."""
+    from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+    return HashGridEncoder(BBOX, 16, 2, 19, 16, 1024, scheme=scheme,
+                           use_kernel=False, device=dev)
+
+
+def touched_sectors(enc, pts):
+    """Distinct 32-byte sectors (4 entries of 8 B) of the f32 table that
+    the points' corners touch: what a launch must read (or write) of it."""
+    import torch
+    seen = torch.zeros(enc.table_rows // 4, dtype=torch.bool,
+                       device=pts.device)
+    for i in range(0, pts.shape[0], 1 << 20):
+        idx, _ = enc.corner_indices(pts[i:i + (1 << 20)])
+        seen[idx.reshape(-1) >> 2] = True
+        del idx
+    return int(seen.sum())
+
+
+def large_bound(enc, pts, ops_per):
+    """(bound ms, bound_by, bytes, touched sectors) of a large-table kernel:
+    12 B of coordinates and 8L B of features or cotangent a point, the
+    touched 32-byte sectors of the table (at most the whole table), the
+    level constants; ``ops_per`` operations a (point, level)."""
+    n, nl = pts.shape[0], enc.n_levels
+    sectors = touched_sectors(enc, pts)
+    nbytes = n * 12 + n * 8 * nl + sectors * 32 + nl * 24
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_per * n * nl / NONTENSOR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, sectors)
+
+
+def large_kernel_phase(enc, table, pts, label):
+    """encode_large against its plain version on one point set, beside one
+    embedding_bag over the precomputed corner indices and weights."""
+    import torch
+    from nerfpp_tpu_torch.kernels import hash_encode_large as KL
+    n = pts.shape[0]
+    out = KL.encode_large(table, pts, enc)
+    torch.cuda.synchronize()
+    ref = KL.encode_large_plain(table, pts, enc)
+    # f32 weights on both sides, |table| <= 1: only the order of the eight
+    # corner products (and fused multiply-adds) differs
+    err = float((out - ref).abs().max())
+    if not (err <= 1e-6 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{label} {enc.scheme}: encode_large max |err| "
+                             f"{err} > 1e-6")
+    del out
+    ms = cuda_ms(lambda: KL.encode_large(table, pts, enc))
+    plain = cuda_ms(lambda: KL.encode_large_plain(table, pts, enc), reps=3,
+                    inner=1, warmup=1)
+    lib_ms, lib_err = embedding_bag_ms(enc, table, pts, ref)
+    del ref
+    # ~100 operations a (point, level): cell, 8 hashes, 8 weights, 16 FMAs
+    bound, by, nbytes, sectors = large_bound(enc, pts, 100.0)
+    log("large", f"{label} encode_large {enc.scheme}: N={n} ms={ms:.4f} "
+        f"plain_ms={plain:.4f} embedding_bag_ms={lib_ms:.4f} (excluding "
+        f"the index computation; max |err| {lib_err:.3g}) bound_ms="
+        f"{bound:.4f} ({by}; bytes {nbytes}, touched sectors {sectors} of "
+        f"{enc.table_rows // 4}) max_abs_err={err:.3g}")
+    return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def large_grad_phase(enc, pts, label):
+    """grad_large against its plain version on one point set, beside one
+    index_add_ of the precomputed corner products; whether two launches
+    are bitwise equal (float atomics: not required)."""
+    import torch
+    from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
+    from nerfpp_tpu_torch.kernels import hash_encode_large as KL
+    n, nl = pts.shape[0], enc.n_levels
+    gen = torch.Generator().manual_seed(SEED + 13)
+    g = torch.randn(n, 2 * nl, generator=gen).to(pts.device)
+    out = KL.grad_large(g, pts, enc)
+    again = KL.grad_large(g, pts, enc)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, again))
+    repeat = float((out - again).abs().max())
+    del again
+    out_p = KL.grad_large_plain(g, pts, enc)
+    # atomics sum in a different order each run: hold each entry against
+    # the sum of its terms' magnitudes, sum |w * g| (w >= 0)
+    mag = KL.grad_large_plain(g.abs(), pts, enc)
+    diff = (out - out_p).abs()
+    err = float(diff.max())
+    rel = float((diff / mag.clamp(min=1e-30)).max())
+    if not (rel <= 1e-5 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{label} {enc.scheme}: grad_large max |err| "
+                             f"{err}, max |err| / sum|w*g| {rel} > 1e-5")
+    del out, out_p, mag, diff
+    ms = cuda_ms(lambda: KL.grad_large(g, pts, enc))
+    plain = cuda_ms(lambda: KL.grad_large_plain(g, pts, enc), reps=3,
+                    inner=1, warmup=1)
+    idx, frac = enc.corner_indices(pts)
+    vals = (trilerp_weights(frac)[..., None]
+            * g.reshape(n, nl, 1, 2)).reshape(-1, 2)
+    idx = idx.reshape(-1)
+    del frac
+    lib_ms = cuda_ms(lambda: torch.zeros(
+        (enc.table_rows, 2), device=pts.device).index_add_(0, idx, vals),
+        reps=5, inner=2, warmup=1)
+    del idx, vals
+    # ~60 operations a (point, level): cell, 8 hashes, 8 weights, 16
+    # products; the zero fill of the gradient is the wrapper's, outside
+    bound, by, nbytes, sectors = large_bound(enc, pts, 60.0)
+    log("large", f"{label} grad_large {enc.scheme}: N={n} ms={ms:.4f} "
+        f"(zero fill included) plain_ms={plain:.4f} index_add_ms={lib_ms:.4f} "
+        f"(excluding the index computation) bound_ms={bound:.4f} ({by}; "
+        f"bytes {nbytes}, touched sectors {sectors}) max_abs_err={err:.3g} "
+        f"max_err/sum|w*g|={rel:.3g}; two launches bitwise equal: {same} "
+        f"(largest difference {repeat:.3g})")
+    return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def large_phase(dev):
+    """Phase 13: both large-table kernels against their plain versions at
+    hashnerf_preset()'s table (16 x 2^19 f32), both schemes: a serving
+    chunk's fine pass (32,768 rays x 256 depths), a train step's coarse
+    pass (4,096 random pixels x 64) and dense fine class (1,024 x 256),
+    and 2^20 random points. Returns the stats of the serving chunk
+    (encode_large) and of the dense fine class (grad_large), random
+    scheme."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 11)
+    stats = {}
+    ro, rd = view_rays(32768, dev)
+    cro, crd = view_rays(4096, dev, seed=SEED + 2)
+    for scheme in ("random", "fixed"):
+        enc = large_encoder(scheme, dev)
+        table = (torch.rand(enc.table_rows, 2, generator=gen) * 2
+                 - 1).to(dev)
+        pts = depth_points(enc, ro, rd, 256)
+        s = large_kernel_phase(enc, table, pts, "serving chunk")
+        if scheme == "random":
+            stats["encode_large"] = s
+        del pts
+        dense = depth_points(enc, cro[:1024], crd[:1024], 256)
+        s = large_grad_phase(enc, dense, "dense fine class")
+        if scheme == "random":
+            stats["grad_large"] = s
+            large_kernel_phase(enc, table, dense, "dense fine class")
+            coarse = depth_points(enc, cro, crd, 64)
+            large_kernel_phase(enc, table, coarse, "train coarse")
+            large_grad_phase(enc, coarse, "train coarse")
+            del coarse
+        del dense
+        rnd = (torch.rand(1 << 20, 3, generator=gen) * 2.4 - 1.2).to(dev)
+        large_kernel_phase(enc, table, rnd, "random points")
+        large_grad_phase(enc, rnd, "random points")
+        del rnd, table
+    torch.cuda.empty_cache()
+    return stats
+
+
+def psnr_of(a, b):
+    """PSNR of the image a (clipped to [0, 1]) against b."""
+    import numpy as np
+    mse = float(np.mean((np.clip(a, 0.0, 1.0) - b) ** 2))
+    return -10.0 * math.log10(max(mse, 1e-10))
+
+
+def cli_phase(scene, dev):
+    """Phase 14, after a tiny hashnerf_preset() train step GPU against CPU:
+    the README's command line in-process. The bench scene is exported as a
+    Blender tree; ``cli train --preset hashnerf --set-train NIters=2000``
+    (TrainParams() otherwise: NRand 4,096, 64 + 192 samples, validation
+    images every 500 steps), steps 1,024-1,055 timed; ``cli render`` of the
+    test split, read back with the port's PNG reader (held-out PSNR); ``cli
+    render --spherical-path --n-poses 2``; then 1 + 3 800x800 frames of
+    the trained state at TrainParams(). Returns the launch counts of the
+    training and the frames."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import cli
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_preset
+    from nerfpp_tpu_torch.data.blender import (export_blender_scene,
+                                               load_blender_data)
+    from nerfpp_tpu_torch.data.dataset import load_images
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils.png import read_png
+    step_parity("large-parity", hashnerf_preset(
+        n_levels=4, log2_hashmap_size=12, n_importance=16,
+        hier_sparse_importance=4, compute_dtype="float32"),
+        TrainParams(n_samples=8, n_rand=512, chunk=512, n_iters=100),
+        LARGE_KERNELS)
+    tmp = tempfile.TemporaryDirectory()
+    data, out = Path(tmp.name) / "blender", Path(tmp.name) / "out"
+    t0 = time.perf_counter()
+    export_blender_scene(scene, data)
+    log("cli", f"bench scene exported as a Blender tree (16 + 1 + 1 "
+        f"800x800 PNGs) in {time.perf_counter() - t0:.2f} s")
+    common = ["--dataset-type", "blender", "--data-dir", str(data),
+              "--preset", "hashnerf", "--base-dir", str(out)]
+    # the train loop's step, wrapped to record every loss and to mark
+    # steps 1,024 and 1,056 (synchronised) with the time and the counts
+    losses, marks = [], {}
+    build = NeRFExecutor._build_train_step
+
+    def recording(self, tp):
+        step = build(self, tp)
+
+        def run_step(i, *args, **kwargs):
+            if i in (1024, 1056):
+                torch.cuda.synchronize()
+                marks[i] = (time.perf_counter(), launch_counts())
+            m = step(i, *args, **kwargs)
+            losses.append(m["loss"].detach().reshape(1))
+            return m
+        return run_step
+    NeRFExecutor._build_train_step = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["train", *common, "--set-train", "NIters=2000"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        NeRFExecutor._build_train_step = build
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = torch.cat(losses).cpu().numpy()
+    (ta, ca), (tb, cb) = marks[1024], marks[1056]
+    ms = (tb - ta) / 32 * 1e3
+    log("cli", f"cli train: {loss.size} steps in {train_s:.1f} s (export "
+        f"excluded; validation images at 500, 1000, 1500 included); steps "
+        f"1024-1055: {ms:.3f} ms/step, {4096 / (ms / 1e3):.1f} rays/s; "
+        f"launches per step "
+        + ", ".join(f"{k} {(cb[k] - ca[k]) / 32:.3f}" for k in LARGE_KERNELS))
+    log("cli", f"steps 0-{loss.size - 1}: launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+    log("cli", "loss every 100 steps: " + " ".join(
+        f"({i}, {loss[i]:.5f})" for i in range(0, loss.size, 100)))
+    if not (loss.size == 1999 and math.isfinite(last) and last < 0.5 * first):
+        raise AssertionError(f"cli train: {loss.size} steps, loss mean "
+                             f"{first} (steps 0-31) -> {last} (last 32)")
+    for name in LARGE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by cli train")
+    others = {k: v for k, v in counts.items() if k not in LARGE_KERNELS}
+    if any(others.values()):
+        raise AssertionError(f"cli train launched other kernels: {others}")
+    saved = sorted(p.name for p in out.iterdir())
+    for name in ("executor_params.json", "executor_train_params.json",
+                 "data.json", "metrics.csv", "step_1999"):
+        if name not in saved:
+            raise AssertionError(f"cli train did not write {name}: {saved}")
+
+    # held-out PSNR through cli render and the PNG reader
+    reset_launch_counts()
+    cli.main(["render", *common])
+    sc = load_blender_data(data, testskip=False)
+    test_i = list(sc.split_indices("test"))[0]
+    gt = load_images(sc, [test_i])[0]
+    pred = read_png(out / "renders" / "0.png").astype(np.float32) / 255.0
+    psnr_cli = psnr_of(pred, gt)
+    cli.main(["render", *common, "--spherical-path", "--n-poses", "2"])
+    for i in range(2):
+        for name, shape in ((f"{i}.png", (800, 800, 3)),
+                            (f"disp_{i}.png", (800, 800)),
+                            (f"depth_{i}.png", (800, 800))):
+            img = read_png(out / "renders" / name)
+            if img.shape != shape or not img.std() > 0:
+                raise AssertionError(f"cli render: {name} has shape "
+                                     f"{img.shape}, std {img.std()}")
+    render_counts = launch_counts()
+    if render_counts["encode_large"] == 0 or any(
+            v for k, v in render_counts.items() if k != "encode_large"):
+        raise AssertionError(f"cli render launches {render_counts}")
+    log("cli", f"cli render: test view {test_i} held-out PSNR {psnr_cli:.2f} "
+        f"dB (8-bit PNG against the exported PNG); spherical path, 2 poses: "
+        f"rgb, disp and depth PNGs decode, not constant; launches "
+        + ", ".join(f"{k} {render_counts[k]}" for k in LARGE_KERNELS))
+
+    # 800x800 frames of the trained state
+    ex = NeRFExecutor(hashnerf_preset(ft_path=str(out)), device=dev)
+    ex.white_bkgr = sc.white_bkgr
+    ex.initialize(sc.bounding_box)
+    view = sc.views[test_i]
+    serve_tp = TrainParams()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    frame_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.render_view(view.pose, view.h, view.w, view.k,
+                             serve_tp)["nerf"]
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    serve = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if (tuple(res.rgb.shape) != (800, 800, 3)
+            or not bool(torch.isfinite(res.rgb).all())):
+        raise AssertionError("hashnerf 800x800 frame: shape or values")
+    if serve["encode_large"] == 0 or any(
+            v for k, v in serve.items() if k != "encode_large"):
+        raise AssertionError(f"hashnerf frame launches {serve}")
+    rgb = res.rgb.cpu().numpy()
+    med = statistics.median(frame_ms[1:])
+    n_pts = 800 * 800 * (2 * serve_tp.n_samples + ex.n_importance)
+    log("cli", f"800x800 frames ms {[round(t, 3) for t in frame_ms]}; "
+        f"median {med:.3f} ms/frame, {0.64 / (med / 1e3):.4f} Mpix/s, "
+        f"{n_pts / (med / 1e3) / 1e6:.1f} M points/s; chunk "
+        f"{serve_tp.chunk} rays; launches per frame: encode_large "
+        f"{serve['encode_large'] / 4:.2f}; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); held-out PSNR {psnr_of(rgb, gt):.2f} dB "
+        f"(f32 image)")
+    tmp.cleanup()
+    return {k: counts[k] + serve[k] for k in LARGE_KERNELS}
+
+
+def classic_phase(scene, dev):
+    """Phase 15: a tiny classic_nerf_preset() train step GPU against CPU
+    (8 layers of 32, coarse only), then bench.py:381-395's configuration
+    at full width (8 x 256, frequency encodings 10 / 4, 64 + 64 samples,
+    trunc_exp, gain 1; NRand 4,096, chunk 4,096) on the bench scene: 1 + 10
+    timed steps. No hand-written kernel runs: none may launch."""
+    import torch
+    from nerfpp_tpu_torch.config import TrainParams, classic_nerf_preset
+    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    step_parity("classic-parity", classic_nerf_preset(
+        net_width=32, compute_dtype="float32", mlp_init_gain=1.0,
+        density_activation="trunc_exp"),
+        TrainParams(n_samples=8, n_rand=256, chunk=256, n_iters=100), ())
+    p = classic_nerf_preset(n_importance=64, density_activation="trunc_exp",
+                            mlp_init_gain=1.0)
+    tp = TrainParams(n_samples=64, n_rand=4096, n_iters=800, chunk=4096,
+                     i_print=0, i_weights=0, i_testset=0)
+    ex = NeRFExecutor(p, device=dev)
+    ex.white_bkgr = scene.white_bkgr
+    ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
+    sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev)
+    step = ex._build_train_step(tp)
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    for i in range(11):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        gen.manual_seed((SEED + 1) * 1_000_003 + i)
+        losses.append(step(i, sampler, gen)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    loss = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss):
+        raise AssertionError(f"classic train: losses {loss}")
+    if any(launch_counts().values()):
+        raise AssertionError(f"classic train launched {launch_counts()}")
+    log("classic", f"bench.py's classic configuration: steps 1-10 "
+        f"{ms:.3f} ms/step, {tp.n_rand / (ms / 1e3):.1f} rays/s; peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB); losses "
+        + " ".join(f"{v:.5f}" for v in loss))
 
 
 def main(argv=None) -> int:
@@ -1264,6 +1657,18 @@ def main(argv=None) -> int:
     counts.update(hier_phase(scene, dev, t_start))
     log("hier-serve", f"total run {time.perf_counter() - t_start:.1f} s")
 
+    # 13. large-table kernels against their plain versions -----------------
+    stats.update(large_phase(dev))
+    log("large", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 14. hashnerf_preset(): a train step GPU against CPU, the CLI path ----
+    counts.update(cli_phase(scene, dev))
+    log("cli", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 15. classic NeRF ---------------------------------------------------------
+    classic_phase(scene, dev)
+    log("classic", f"total run {time.perf_counter() - t_start:.1f} s")
+
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),
                "encode_blocked": ("nerfpp_tpu_torch/csrc/encode_blocked.cu",
@@ -1277,7 +1682,11 @@ def main(argv=None) -> int:
                                 "nerfpp_tpu/pallas/hash_encode.py:127 and "
                                 "nerfpp_tpu/pallas/hash_encode.py:48"),
                "grad_small": ("nerfpp_tpu_torch/csrc/grad_small.cu",
-                              "nerfpp_tpu/encoders/hashgrid.py:334")}
+                              "nerfpp_tpu/encoders/hashgrid.py:334"),
+               "encode_large": ("nerfpp_tpu_torch/csrc/encode_large.cu",
+                                "nerfpp_tpu/encoders/hashgrid.py:408"),
+               "grad_large": ("nerfpp_tpu_torch/csrc/grad_large.cu",
+                              "nerfpp_tpu/encoders/hashgrid.py:408")}
     kernels = [dict(name=name, route="cuda", source=sources[name][0],
                     replaces=sources[name][1], launches=counts[name],
                     max_abs_err=s["max_abs_err"], ms=s["ms"],

@@ -1,0 +1,189 @@
+"""Command-line interface of the port (the counterpart of
+nerfpp_tpu/cli.py): the same subcommands, flags, presets and JSON overrides,
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+
+  python -m nerfpp_tpu_torch.cli train --dataset-type blender --data-dir <dir> \\
+      --preset hashnerf --base-dir out [--executor-params p.json] \\
+      [--train-params tp.json] [--set learning_rate=1e-2] [--set-train NIters=8100]
+  python -m nerfpp_tpu_torch.cli render --dataset-type blender --data-dir <dir> \\
+      --preset hashnerf --base-dir out [--spherical-path --n-poses 40]
+
+``train`` trains, saves the final checkpoint and writes the three JSON
+configs (executor_params.json, executor_train_params.json, data.json) to
+the base directory; ``render`` restores the latest checkpoint (ft_path, by
+default the base directory) and writes {i,disp_i,depth_i}.png to
+<base>/renders. COLMAP data, data parallelism (--n-devices other than 1)
+and the ``bench`` subcommand are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+
+from nerfpp_tpu_torch.executor import _not_ported
+
+
+def _apply_overrides(obj, pairs, keymap_reverse=None):
+    for pair in pairs or []:
+        k, _, v = pair.partition("=")
+        field = k
+        if keymap_reverse and k in keymap_reverse:
+            field = keymap_reverse[k]
+        if not hasattr(obj, field):
+            raise SystemExit(f"unknown config field: {k}")
+        cur = getattr(obj, field)
+        if isinstance(cur, bool):
+            val = v.lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            val = int(v)
+        elif isinstance(cur, float):
+            val = float(v)
+        elif isinstance(cur, list):
+            val = json.loads(v)
+        else:
+            val = v
+        setattr(obj, field, val)
+    return obj
+
+
+def _check_ported(args) -> None:
+    if args.n_devices != 1:
+        raise _not_ported(f"--n-devices {args.n_devices} (data parallelism)")
+    if args.dataset_type == "colmap":
+        raise _not_ported("--dataset-type colmap (the COLMAP loader)")
+
+
+def _load_scene(args):
+    from nerfpp_tpu_torch.data.blender import load_blender_data
+    from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+    if args.dataset_type == "blender":
+        return load_blender_data(args.data_dir, half_res=args.half_res,
+                                 testskip=args.test_skip,
+                                 white_bkgr=args.white_bkgr)
+    if args.dataset_type == "synthetic":
+        return make_synthetic_scene(white_bkgr=args.white_bkgr,
+                                    device=args.device)
+    raise SystemExit(f"unknown dataset type {args.dataset_type}")
+
+
+def _build_params(args):
+    from nerfpp_tpu_torch.config import (ExecutorParams, TrainParams,
+                                         classic_nerf_preset,
+                                         hashnerf_blocked_preset,
+                                         hashnerf_preset, hashnerf_tpu_preset)
+    presets = {"hashnerf": hashnerf_preset,
+               "hashnerf_blocked": hashnerf_blocked_preset,
+               "hashnerf_tpu": hashnerf_tpu_preset,
+               "classic": classic_nerf_preset, "none": ExecutorParams}
+    if args.executor_params:
+        p = ExecutorParams.load(args.executor_params)
+    else:
+        p = presets[args.preset]()
+    tp = (TrainParams.load(args.train_params) if args.train_params
+          else TrainParams())
+    if getattr(args, "base_dir", None):
+        tp.base_dir = args.base_dir
+    _apply_overrides(p, args.set)
+    rev = {v: k for k, v in TrainParams.KEYMAP.items()}
+    _apply_overrides(tp, args.set_train, rev)
+    return p, tp
+
+
+def cmd_train(args) -> None:
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    _check_ported(args)
+    scene = _load_scene(args)
+    p, tp = _build_params(args)
+    ex = NeRFExecutor(p, device=args.device)
+    base_dir = Path(tp.base_dir)
+    base_dir.mkdir(parents=True, exist_ok=True)
+    ex.train(scene, tp)
+    ex.save_checkpoint(base_dir)
+    # the three configs, as the reference saves them
+    p.save(base_dir / "executor_params.json")
+    tp.save(base_dir / "executor_train_params.json")
+    scene.save(base_dir / "data.json")
+    print(f"done; artifacts in {base_dir}")
+
+
+def cmd_render(args) -> None:
+    from nerfpp_tpu_torch.core.rays import pose_spherical
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    _check_ported(args)
+    scene = _load_scene(args)
+    p, tp = _build_params(args)
+    if not p.ft_path:
+        p.ft_path = tp.base_dir
+    ex = NeRFExecutor(p, device=args.device)
+    ex.white_bkgr = scene.white_bkgr
+    ex.initialize(scene.bounding_box, tp.lrate_decay)
+    v0 = scene.views[0]
+    if args.spherical_path:
+        poses = [pose_spherical(th, -30.0, 4.0)
+                 for th in np.linspace(-180, 180, args.n_poses,
+                                       endpoint=False)]
+    else:
+        poses = ([scene.views[i].pose for i in scene.split_indices("test")]
+                 or [v.pose for v in scene.views[:args.n_poses]])
+    out_dir = Path(tp.base_dir) / "renders"
+    ex.render_path(poses, v0.h, v0.w, v0.k, tp, out_dir)
+    print(f"wrote {len(poses)} renders to {out_dir}")
+
+
+def cmd_bench(args) -> None:
+    raise _not_ported("the bench subcommand")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="nerfpp_tpu_torch",
+                                 description="NeRF/HashNeRF on PyTorch and "
+                                 "CUDA")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def common(s):
+        s.add_argument("--dataset-type", default="synthetic",
+                       choices=["blender", "colmap", "synthetic"])
+        s.add_argument("--data-dir", default="")
+        s.add_argument("--half-res", action="store_true")
+        s.add_argument("--test-skip", action="store_true")
+        s.add_argument("--white-bkgr", action="store_true")
+        s.add_argument("--preset", default="hashnerf",
+                       choices=["hashnerf", "hashnerf_blocked", "hashnerf_tpu",
+                                "classic", "none"])
+        s.add_argument("--executor-params", default="")
+        s.add_argument("--train-params", default="")
+        s.add_argument("--n-devices", type=int, default=1, metavar="N",
+                       help="data-parallel device count (only 1 is ported)")
+        s.add_argument("--base-dir", default="output")
+        s.add_argument("--set", action="append", metavar="FIELD=VALUE",
+                       help="override an ExecutorParams field")
+        s.add_argument("--set-train", action="append", metavar="FIELD=VALUE",
+                       help="override a TrainParams field (JSON key names ok)")
+        s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="cuda (the kernels) or cpu (plain PyTorch)")
+
+    t = sub.add_parser("train", help="train a radiance field")
+    common(t)
+    t.set_defaults(fn=cmd_train)
+
+    r = sub.add_parser("render", help="render a trained field")
+    common(r)
+    r.add_argument("--spherical-path", action="store_true")
+    r.add_argument("--n-poses", type=int, default=40)
+    r.set_defaults(fn=cmd_render)
+
+    b = sub.add_parser("bench", help="run the benchmark (not ported)")
+    b.set_defaults(fn=cmd_bench)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

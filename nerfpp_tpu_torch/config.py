@@ -3,9 +3,10 @@
 The PyTorch port's own copy of ``nerfpp_tpu/config.py`` (the two packages do
 not import each other). Field names, defaults and JSON keys are identical, so
 one config file drives either package. In the port, ``use_pallas_encoder``
-selects the hand-written CUDA encode kernels (kernels/hash_encode_blocked.py)
-in place of the Pallas ones; without it the blocked encoder runs its f32
-gather, on the CPU only (it raises on the GPU).
+selects the hand-written CUDA kernels that replace the Pallas ones
+(kernels/hash_encode_blocked.py, kernels/hash_encode.py); without it the
+hash encoder reads the f32 table through the large-table kernels
+(kernels/hash_encode_large.py), where the JAX package runs XLA.
 
 Mirrors the reference's JSON-serializable config structs and their exact
 key sets so configs interchange with the reference's artifacts:
@@ -378,6 +379,18 @@ def hashnerf_blocked_preset(**overrides) -> ExecutorParams:
                         occ_tile_budget_frac=0.5, occ_sparse_samples=16,
                         render_dense_frac=-1.0, render_sparse_samples=2,
                         occ_phased_refresh=True)
+    for k, v in overrides.items():
+        setattr(p, k, v)
+    return p
+
+
+def classic_nerf_preset(**overrides) -> ExecutorParams:
+    """The classic-NeRF stack (Embedder positions + Embedder dirs + NeRF MLP)."""
+    p = ExecutorParams(
+        net_depth=8, net_width=256, multires=10, multires_views=4,
+        n_importance=0, learning_rate=5e-4,
+        embedder_type="frequency", embeddirs_type="frequency",
+        model_type="nerf")
     for k, v in overrides.items():
         setattr(p, k, v)
     return p

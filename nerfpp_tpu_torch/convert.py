@@ -1,21 +1,28 @@
 """Carry a JAX-package state across to the port.
 
 The caller hands in numpy arrays (this module never imports JAX): the JAX
-state's ``params`` pytree as numpy,
+state's ``params`` pytree as numpy, for NeRFSmall
 
     {"embed": {"table": [L * 2^T, 2]},
      "model": {"sigma_net": [{"w": [in, out]}, ...],
                "color_net": [{"w": [in, out]}, ...]}}
 
+and for the classic NeRFMLP (the frequency encoder has no parameters)
+
+    {"embed": {},
+     "model": {"pts_linears": [{"w": [in, out], "b": [out]}, ...],
+               "views_linears": [...], "feature_linear": {"w", "b"},
+               "alpha_linear": ..., "rgb_linear": ...}}   (or "output_linear")
+
 and optionally the occupancy grid's [G, G, G] density array, the optax Adam
 state (the ``opt_state`` of ``optax.adam``, as numpy: the element with
 ``mu``, ``nu`` and ``count``) and the step. JAX dense weights are
 [in, out]; they, and their moments, are transposed into nn.Linear's
-[out, in]. The result, loaded with ``NeRFExecutor.load_state``, takes the
-same next step as the JAX state. Every hash scheme keeps its table under
-``embed.table`` with the same shape; what the schemes derive from the seed
-(block offsets, random primes) is drawn anew, identically, by the port's
-encoder and is not carried.
+[out, in]; biases keep their shape. The result, loaded with
+``NeRFExecutor.load_state``, takes the same next step as the JAX state.
+Every hash scheme keeps its table under ``embed.table`` with the same
+shape; what the schemes derive from the seed (block offsets, random primes)
+is drawn anew, identically, by the port's encoder and is not carried.
 """
 from __future__ import annotations
 
@@ -32,16 +39,24 @@ def _port_names(tree: dict, dev) -> Dict[str, torch.Tensor]:
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=dev)
 
-    out = {"embed.table": t(tree["embed"]["table"])}
-    for net in ("sigma_net", "color_net"):
-        for i, layer in enumerate(tree["model"][net]):
-            if "b" in layer:
+    out = {}
+    if "table" in tree.get("embed", {}):
+        out["embed.table"] = t(tree["embed"]["table"])
+    model = tree["model"]
+    if "normals_net" in model:
+        raise NotImplementedError("the normals head is not ported yet")
+    for net, layers in model.items():
+        small = net in ("sigma_net", "color_net")       # NeRFSmall
+        listed = isinstance(layers, (list, tuple))
+        for i, layer in enumerate(layers if listed else [layers]):
+            if small and "b" in layer:
                 raise ValueError(f"{net}[{i}] has a bias; NeRFSmall is "
                                  "bias-free")
-            out[f"model.{net}.layers.{i}.weight"] = t(
-                np.asarray(layer["w"]).T).contiguous()
-    if "normals_net" in tree["model"]:
-        raise NotImplementedError("the normals head is not ported yet")
+            name = (f"model.{net}.layers.{i}" if small
+                    else f"model.{net}.{i}" if listed else f"model.{net}")
+            out[f"{name}.weight"] = t(np.asarray(layer["w"]).T).contiguous()
+            if "b" in layer:
+                out[f"{name}.bias"] = t(layer["b"])
     return out
 
 
@@ -56,8 +71,9 @@ def _adam_of(opt_state: Any):
 def state_from_jax(params: dict, occupancy: Optional[np.ndarray] = None,
                    opt_state: Any = None, step: Optional[int] = None,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """-> a state for ``NeRFExecutor.load_state``: ``embed.table``,
-    ``model.<net>.layers.<i>.weight``, and as given ``occupancy``,
+    """-> a state for ``NeRFExecutor.load_state``: ``embed.table`` (hash
+    encoders), ``model.<net>.layers.<i>.weight`` (NeRFSmall) or
+    ``model.<layer>[.<i>].{weight,bias}`` (NeRFMLP), and as given ``occupancy``,
     ``adam.mu.<name>``, ``adam.nu.<name>``, ``adam.count`` and ``step``."""
     dev = resolve_device(device)
     state = _port_names(params, dev)

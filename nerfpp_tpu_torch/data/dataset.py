@@ -8,8 +8,11 @@ trains on train view i % n_train, in random 8x16 pixel tiles (or single
 pixels), from the centre crop while step < precrop_iters.
 
 Images attached to the scene (``SceneData.images``, as the synthetic scene
-has them) are used as they are. Image files, and views whose size differs
-from view 0's, need the loaders, which are not ported yet: they raise.
+has them) are used as they are; image files (PNG) are decoded by
+utils/png.py. The only resize is the Blender loader's half_res, an exact
+halving: the mean of each 2x2 block of 8-bit pixels, rounded half up, as
+OpenCV's INTER_LINEAR computes it at a scale of exactly 1/2. Any other
+resize (COLMAP's multi-size captures) raises.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core import rays as ray_math
 from nerfpp_tpu_torch.core.sampling import draw
+from nerfpp_tpu_torch.utils.png import read_png
 
 
 @dataclasses.dataclass
@@ -109,23 +113,53 @@ class SceneData:
         return cls.from_json(json.loads(Path(path).read_text()))
 
 
-def attached_images(scene: SceneData, indices) -> np.ndarray:
-    """The scene's attached images of ``indices`` as one [n, H, W, 3] f32
-    stack. Raises for image files and for views sized unlike view 0."""
-    if scene.images is None:
+def _halve(img: np.ndarray, want, path) -> np.ndarray:
+    """uint8 [H, W, C] -> [H / 2, W / 2, C], the mean of each 2x2 block
+    rounded half up; other sizes raise."""
+    h, w = want
+    if img.shape[:2] != (2 * h, 2 * w):
         raise NotImplementedError(
-            "reading image files needs the loaders, which are not ported "
-            "to nerfpp_tpu_torch yet (see ROADMAP.md)")
-    v0 = scene.views[indices[0]]
+            f"{path}: resizing {img.shape[0]}x{img.shape[1]} to {h}x{w} is "
+            "not ported to nerfpp_tpu_torch yet (only the exact halving of "
+            "half_res; see ROADMAP.md)")
+    blocks = img.astype(np.uint16).reshape(h, 2, w, 2, -1)
+    return ((blocks.sum(axis=(1, 3)) + 2) >> 2).astype(np.uint8)
+
+
+def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
+                target_hw: Optional[tuple] = None) -> np.ndarray:
+    """Decode view images into one [n, H, W, 3] f32 stack in [0, 1]. RGBA
+    images lose their alpha, or with ``white_bkgr`` (default: the scene's)
+    are composited onto white; gray images are repeated to 3 channels. Each
+    image takes its view's (h, w), or ``target_hw``: a file of twice that
+    size is halved (half_res); any other size mismatch raises."""
+    if white_bkgr is None:
+        white_bkgr = scene.white_bkgr
+    out = []
     for i in indices:
         v = scene.views[i]
-        if (v.h, v.w) != (v0.h, v0.w) or \
-                tuple(np.shape(scene.images[i])[:2]) != (v0.h, v0.w):
-            raise NotImplementedError(
-                f"view {i} is {v.h}x{v.w}, view {indices[0]} {v0.h}x{v0.w}: "
-                "resizing needs the loaders, not ported yet")
-    return np.stack([np.asarray(scene.images[i], np.float32)
-                     for i in indices])
+        want = tuple(target_hw or (v.h, v.w))
+        if scene.images is not None:
+            img = np.asarray(scene.images[i], np.float32)
+            if img.shape[:2] != want:
+                raise NotImplementedError(
+                    f"view {i}: resizing attached images is not ported to "
+                    "nerfpp_tpu_torch yet (see ROADMAP.md)")
+            out.append(img)
+            continue
+        img = read_png(v.image_path)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[:2] != want:
+            img = _halve(img, want, v.image_path)
+        img = img.astype(np.float32) / 255.0
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        if img.shape[-1] == 4:
+            rgb, a = img[..., :3], img[..., 3:4]
+            img = rgb * a + (1.0 - a) if white_bkgr else rgb
+        out.append(img)
+    return np.stack(out)
 
 
 class RayBatchSampler:
@@ -151,9 +185,18 @@ class RayBatchSampler:
                    device="cuda") -> "RayBatchSampler":
         dev = resolve_device(device)
         idx = list(scene.split_indices("train"))
-        images = attached_images(scene, idx)
+        v0 = scene.views[idx[0]]
+        # every view at view 0's size, its intrinsics scaled to match
+        images = load_images(scene, idx, target_hw=(v0.h, v0.w))
         poses = np.stack([scene.views[i].pose for i in idx])
-        ks = np.stack([scene.views[i].k for i in idx])
+        ks = []
+        for i in idx:
+            v = scene.views[i]
+            k = np.asarray(v.k, np.float32).copy()
+            k[0, :] *= v0.w / v.w
+            k[1, :] *= v0.h / v.h
+            ks.append(k)
+        ks = np.stack(ks)
 
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=dev)

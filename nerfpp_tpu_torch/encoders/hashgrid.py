@@ -143,12 +143,12 @@ class HashGridEncoder(nn.Module):
     """Multiresolution hash encoder; the table is a parameter.
 
     ``use_kernel`` routes the forward through the hand-written CUDA kernels
-    (blocked: kernels/hash_encode_blocked.py; fixed and random: the small-
-    table kernel of kernels/hash_encode.py, which accepts exactly what the
-    JAX package's fused kernel accepts), whose wrappers run their plain
-    versions on CPU tensors. Without it the plain gather reads the f32 table
-    (the JAX XLA path); that function has no CUDA kernel, so it runs on CPU
-    tensors only and raises on CUDA ones.
+    of the JAX package's Pallas path (blocked: kernels/hash_encode_blocked.py;
+    fixed and random: the small-table kernel of kernels/hash_encode.py, which
+    accepts exactly what the JAX package's fused kernel accepts). Without it
+    the encoder reads the f32 table of any size, the JAX XLA path, through
+    the large-table kernels (kernels/hash_encode_large.py). Every wrapper
+    runs its plain version on CPU tensors and its kernel on CUDA tensors.
     """
 
     def __init__(self, bounding_box, n_levels: int = 16,
@@ -192,6 +192,10 @@ class HashGridEncoder(nn.Module):
             self.register_buffer("scales", torch.tensor(self.level_scales,
                                                         device=dev),
                                  persistent=False)
+            # the scale per (level, axis), for the large-table kernels
+            self.register_buffer("level_geom", torch.tensor(
+                np.repeat(self.level_scales[:, None], 3, axis=1), device=dev),
+                persistent=False)
         elif scheme == "fixed":
             self.resolutions = fixed_resolutions_of(
                 n_levels, base_resolution, finest_resolution)
@@ -322,14 +326,9 @@ class HashGridEncoder(nn.Module):
         if self.use_kernel:
             from nerfpp_tpu_torch.kernels.hash_encode import hash_encode_small
             return hash_encode_small(self.table, xc, self), keep_mask
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "the f32-table gather (use_pallas_encoder=False) has no CUDA "
-                "kernel in nerfpp_tpu_torch; use the kernel path "
-                "(use_kernel=True / use_pallas_encoder=True) on the GPU")
-        idx, frac = self.corner_indices(xc)
-        feats = gather_trilerp_reference(self.table, idx, frac)
-        return feats.reshape(x.shape[0], self.output_dims), keep_mask
+        from nerfpp_tpu_torch.kernels.hash_encode_large import (
+            hash_encode_large)
+        return hash_encode_large(self.table, xc, self), keep_mask
 
 
 def total_variation_loss(encoder: HashGridEncoder, table: torch.Tensor,

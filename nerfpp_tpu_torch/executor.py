@@ -1,10 +1,10 @@
 """NeRFExecutor (port of nerfpp_tpu/executor.py).
 
 Builds the HashNeRF stack (blocked, fixed or random hash encoder, SH
-directions, NeRFSmall), initialises its parameters, one Adam over all of
-them and the occupancy grid from a seed, loads states carried over from the
-JAX package (convert.py) or from the port's checkpoints, trains, and renders
-views.
+directions, NeRFSmall) or the classic NeRF stack (frequency encoders,
+NeRFMLP), initialises its parameters, one Adam over all of them and the
+occupancy grid from a seed, loads states carried over from the JAX package
+(convert.py) or from the port's checkpoints, trains, and renders views.
 
 Training mirrors the JAX package's step (``_build_train_step``): tile
 sampling, the occupancy refresh (full during the warmup, one octant per
@@ -16,16 +16,17 @@ total-variation loss, the backward through NeRFSmall and the encoder
 (kernel K3 or the small-table gradient kernel for the table), and Adam with
 a continuous exponential decay that skips the update when the loss is not
 finite. ``train`` is the loop around it: ``steps_per_call`` steps between
-host looks, the [TRAIN] line, checkpoints and the collapse check with its
-auto-recovery.
+host looks, the [TRAIN] line and metrics.csv, checkpoints, validation images
+(IImg), test-split renders (ITestset), RenderOnly, and the collapse check
+with its auto-recovery.
 
 Rendering: ``render_view`` (with RenderFactor and the 8-bit image),
-``render_views`` (a loop over poses), and the auto two-class render budget
-that picks each view's dense fraction from its occupancy tile masses.
+``render_views`` (a loop over poses), ``render_path`` (PNG files),
+``render_test_split``, and the auto two-class render budget that picks each
+view's dense fraction from its occupancy tile masses.
 
-Image writing, test-split renders, the bbox refit, LeRF, the other encoders
-and fields, and device meshes belong to later slices of the port and raise
-NotImplementedError.
+The bbox refit, LeRF, the normals head and device meshes belong to later
+slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -45,10 +46,12 @@ from nerfpp_tpu_torch.core.occupancy import (OccupancyGrid,
                                              make_occupancy_grid, update_grid,
                                              update_grid_phased)
 from nerfpp_tpu_torch.data.dataset import RayBatchSampler, SceneData
+from nerfpp_tpu_torch.encoders.frequency import FrequencyEncoder
 from nerfpp_tpu_torch.encoders.hashgrid import (HashGridEncoder,
                                                total_variation_loss,
                                                tv_cube_size)
 from nerfpp_tpu_torch.encoders.sh import SHEncoder
+from nerfpp_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.optim import Adam
 from nerfpp_tpu_torch.render.renderer import (RenderConfig,
@@ -59,6 +62,8 @@ from nerfpp_tpu_torch.render.renderer import (RenderConfig,
                                               render_ray_batch_budgeted,
                                               render_ray_batch_hier_budgeted)
 from nerfpp_tpu_torch.utils import checkpoint as ckpt
+from nerfpp_tpu_torch.utils.metrics import MetricsWriter
+from nerfpp_tpu_torch.utils.png import write_png
 
 
 def _not_ported(what: str):
@@ -75,9 +80,9 @@ class NeRFExecutor:
         self.bounding_box: Optional[np.ndarray] = None
         self.white_bkgr = False
         self.sp_alpha0 = 0.0
-        self.embedder: Optional[HashGridEncoder] = None
-        self.embeddirs: Optional[SHEncoder] = None
-        self.model: Optional[NeRFSmall] = None
+        self.embedder = None
+        self.embeddirs = None
+        self.model = None
         self.occupancy: Optional[OccupancyGrid] = None
         self.optimizer: Optional[Adam] = None
         self.step = 0                    # steps taken (the JAX state's step)
@@ -85,26 +90,36 @@ class NeRFExecutor:
 
     # ------------------------------------------------------------ builders
 
-    def _build_embedder(self, bounding_box: np.ndarray) -> HashGridEncoder:
+    def _build_embedder(self, bounding_box: np.ndarray):
         p = self.params
-        if p.embedder_type != "hash":
-            raise _not_ported(f"embedder_type {p.embedder_type!r}")
-        return HashGridEncoder(
-            bounding_box, p.n_levels, p.n_features_per_level,
-            p.log2_hashmap_size, p.base_resolution, p.finest_resolution,
-            scheme=p.hash_scheme, use_kernel=p.use_pallas_encoder,
-            device=self.device)
+        if p.embedder_type == "frequency":
+            return FrequencyEncoder(p.multires, float(p.multires - 1))
+        if p.embedder_type == "hash":
+            return HashGridEncoder(
+                bounding_box, p.n_levels, p.n_features_per_level,
+                p.log2_hashmap_size, p.base_resolution, p.finest_resolution,
+                scheme=p.hash_scheme, use_kernel=p.use_pallas_encoder,
+                device=self.device)
+        raise ValueError(f"unknown embedder_type {p.embedder_type!r}")
 
-    def _build_embeddirs(self) -> SHEncoder:
+    def _build_embeddirs(self):
         p = self.params
-        if p.embeddirs_type != "sh":
-            raise _not_ported(f"embeddirs_type {p.embeddirs_type!r}")
-        return SHEncoder(degree=p.multires_views)
+        if p.embeddirs_type == "frequency":
+            return FrequencyEncoder(p.multires_views,
+                                    float(p.multires_views - 1))
+        if p.embeddirs_type == "sh":
+            return SHEncoder(degree=p.multires_views)
+        raise ValueError(f"unknown embeddirs_type {p.embeddirs_type!r}")
 
-    def _build_model(self, input_ch: int, input_ch_views: int) -> NeRFSmall:
+    def _build_model(self, input_ch: int, input_ch_views: int):
         p = self.params
+        if p.model_type == "nerf":
+            return NeRFMLP(p.net_depth, p.net_width, input_ch, input_ch_views,
+                           5 if p.n_importance > 0 else 4, frozenset({4}),
+                           p.use_viewdirs, init_gain=p.mlp_init_gain,
+                           compute_dtype=p.compute_dtype, device=self.device)
         if p.model_type != "nerf_small":
-            raise _not_ported(f"model_type {p.model_type!r}")
+            raise ValueError(f"unknown model_type {p.model_type!r}")
         return NeRFSmall(
             p.net_depth, p.net_width, p.geo_feat_dim, p.num_layers_color,
             p.hidden_dim_color, (p.n_importance == 0) and p.use_pred_normal,
@@ -127,7 +142,7 @@ class NeRFExecutor:
         self.bounding_box = np.asarray(bounding_box, np.float32).reshape(6)
         gen = torch.Generator().manual_seed(seed)
         self.embedder = self._build_embedder(self.bounding_box)
-        self.embedder.reset_parameters(gen)
+        self._reset_embedder(gen)
         input_ch_views = 0
         if p.use_viewdirs:
             self.embeddirs = self._build_embeddirs()
@@ -157,7 +172,7 @@ class NeRFExecutor:
         ``seed``, a fresh Adam, a uniform occupancy grid, step 0; the same
         encoders and bbox."""
         gen = torch.Generator().manual_seed(seed)
-        self.embedder.reset_parameters(gen)
+        self._reset_embedder(gen)
         self.model.reset_parameters(gen)
         opt = self.optimizer
         self.optimizer = Adam(self.named_parameters(), opt.lr,
@@ -168,10 +183,19 @@ class NeRFExecutor:
         self.step = 0
         self._auto_frac_cache = {}
 
+    def _reset_embedder(self, gen: torch.Generator) -> None:
+        # the frequency encoder has no parameters
+        if isinstance(self.embedder, torch.nn.Module):
+            self.embedder.reset_parameters(gen)
+
     def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
         """Every trained parameter under its state name (``embed.table``,
-        ``model.<net>.layers.<i>.weight``)."""
-        out = {f"embed.{k}": v for k, v in self.embedder.named_parameters()}
+        ``model.<net>.layers.<i>.weight``, ``model.pts_linears.<i>.bias``,
+        ...)."""
+        out = {}
+        if isinstance(self.embedder, torch.nn.Module):
+            out = {f"embed.{k}": v
+                   for k, v in self.embedder.named_parameters()}
         out.update({f"model.{k}": v for k, v in self.model.named_parameters()})
         return out
 
@@ -222,7 +246,7 @@ class NeRFExecutor:
     def _sample_major(self) -> bool:
         """Sample-major flattening pairs with tile-ordered rays to keep the
         blocked kernel's window lists short."""
-        return (self.embedder is not None
+        return (isinstance(self.embedder, HashGridEncoder)
                 and self.embedder.scheme == "blocked"
                 and self.embedder.use_kernel)
 
@@ -242,7 +266,8 @@ class NeRFExecutor:
                 emb_d, _ = self.embeddirs(pts.new_zeros((1, 3)))
                 emb = torch.cat([emb, emb_d.expand(pts.shape[0], -1)], dim=-1)
             sigma = self.model(emb)[..., 3]
-            sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
+            if keep is not None:
+                sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
             return apply_density_activation(sigma, act)
 
         return sigma_fn
@@ -427,15 +452,17 @@ class NeRFExecutor:
         into its key, so a run in stages draws what one run draws. A
         collapse (the batch render's std under auto_fine_rel_std x the
         images' std at a check) restarts the state as the JAX package does
-        (``_restart_state``). Returns the last step's metrics."""
+        (``_restart_state``). Every i_print steps the metrics go to the
+        [TRAIN] line and base_dir/metrics.csv; every i_img steps the first
+        validation view to base_dir/images; every i_testset steps the test
+        split to base_dir (unless test_skip). With render_only the test
+        split is rendered to base_dir/renderonly and nothing is trained.
+        Returns the last step's metrics."""
         p = self.params
         for what, bad in (("a device mesh (data parallelism)",
                            mesh is not None),
-                          ("i_img (image writing)", tp.i_img > 0),
-                          ("i_testset (test-split renders)", tp.i_testset > 0),
                           ("bbox_refit_step (the bbox refit)",
                            tp.bbox_refit_step > 0),
-                          ("render_only", tp.render_only),
                           ("LeRF", p.use_lerf)):
             if bad:
                 raise _not_ported(what)
@@ -444,6 +471,9 @@ class NeRFExecutor:
             self.initialize(scene.bounding_box, tp.lrate_decay, seed)
         base_dir = Path(tp.base_dir)
         base_dir.mkdir(parents=True, exist_ok=True)
+        if tp.render_only:
+            self.render_test_split(scene, tp, base_dir / "renderonly")
+            return {}
         if sampler is None:
             # tiles: 0 = auto (8x16 where the blocked kernels run), -1 = off
             th, tw = tp.tile_h, tp.tile_w
@@ -457,9 +487,12 @@ class NeRFExecutor:
         generator = torch.Generator(device=self.device)
         # steps between host looks: every active interval still lands
         spc = max(1, tp.steps_per_call)
-        for iv in (tp.i_print, tp.i_weights):
+        for iv in (tp.i_print, tp.i_img, tp.i_weights, tp.i_testset):
             if iv > 0:
                 spc = math.gcd(spc, iv)
+        writer = MetricsWriter(base_dir)
+        val_idx = (list(scene.split_indices("val"))
+                   or list(scene.split_indices("train")))
         # collapse watch: a near-constant batch render past the check step
         auto_pending = (p.auto_fine_fallback and p.use_occupancy_grid
                         and p.n_importance == 0)
@@ -510,8 +543,16 @@ class NeRFExecutor:
             if tp.i_weights > 0 and i % tp.i_weights == 0:
                 self.save_checkpoint(base_dir)
                 print(f"Saved checkpoints at {base_dir}")
+            if (tp.i_testset > 0 and i % tp.i_testset == 0 and i > 0
+                    and not tp.test_skip):
+                self.render_test_split(scene, tp, base_dir)
+            if tp.i_img > 0 and i % tp.i_img == 0 and i > 0:
+                v = scene.views[val_idx[0]]
+                out = self.render_view(v.pose, v.h, v.w, v.k, tp)
+                writer.write_image(i, "val_rgb", out["nerf"].rgb)
             if tp.i_print > 0 and i % tp.i_print == 0:
                 m = {key: float(v) for key, v in metrics.items()}
+                writer.write_scalars(i, m)
                 rps = rays_done / max(time.perf_counter() - t_start, 1e-9)
                 print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
                       f"Loss: {m.get('loss', 0):.5f} "
@@ -568,6 +609,40 @@ class NeRFExecutor:
                      generator: Optional[torch.Generator] = None):
         """Render a list of views, one after another (no device mesh)."""
         return [self.render_view(p, h, w, k, tp, generator) for p in poses]
+
+    def render_path(self, poses, h: int, w: int, k, tp: TrainParams,
+                    save_dir) -> None:
+        """Render a pose list and write {i}.png (the 8-bit image),
+        disp_{i}.png (disparity over its maximum) and depth_{i}.png (depth
+        between the view's near and far), as the JAX package writes them."""
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        for i, pose in enumerate(poses):
+            out = self.render_view(pose, h, w, k, tp)
+            res = out["nerf"]
+            near, far = (float(out["near_far"][0]), float(out["near_far"][1]))
+            write_png(save_dir / f"{i}.png", out["rgb8"].cpu().numpy())
+            disp = res.disp.float().cpu().numpy()
+            disp = disp / max(float(disp.max()), 1e-10)
+            write_png(save_dir / f"disp_{i}.png",
+                      (np.clip(disp, 0, 1) * 255).astype(np.uint8))
+            depth = ((res.depth.float().cpu().numpy() - near)
+                     / max(far - near, 1e-10))
+            write_png(save_dir / f"depth_{i}.png",
+                      (np.clip(depth, 0, 1) * 255).astype(np.uint8))
+
+    def render_test_split(self, scene: SceneData, tp: TrainParams,
+                          save_dir) -> None:
+        """Render the test split (the train split when the test split is
+        empty or as large as the validation split, as in the JAX package)
+        with render_path."""
+        test_idx = list(scene.split_indices("test"))
+        if not test_idx or scene.splits_idx[2] == scene.splits_idx[1]:
+            test_idx = list(scene.split_indices("train"))
+        v0 = scene.views[test_idx[0]]
+        poses = [scene.views[i].pose for i in test_idx]
+        self.render_path(poses, v0.h, v0.w, v0.k, tp, save_dir)
+        print("Saved test set")
 
     def _auto_frac_eligible(self, cfg: RenderConfig) -> bool:
         """Auto (render_dense_frac < 0) resolves only where the budget path

@@ -43,15 +43,14 @@ from dataclasses import dataclass
 
 import torch
 
-from nerfpp_tpu_torch.encoders.hashgrid import (gather_trilerp_reference,
-                                               trilerp_weights)
 from nerfpp_tpu_torch.kernels.build import load
 from nerfpp_tpu_torch.kernels.hash_encode_blocked import (_check, _launch,
                                                           pack_table_bf16,
                                                           unpack_table_bf16)
+from nerfpp_tpu_torch.kernels.hash_encode_large import (encode_large_plain,
+                                                        grad_large_plain)
 
 MAX_TABLE_BYTES = 4 * 1024 * 1024    # the JAX kernel's VMEM-resident limit
-PLAIN_CHUNK = 1 << 20                # points per plain step (bounds memory)
 GRAD_LEVELS_MAX = 47                 # levels grad_small takes
 TILE = 1024                          # encode_small's points per tile (ES_TILE)
 SMEM_BLOCK_MAX = 232448              # H100: dynamic shared memory per block
@@ -143,17 +142,11 @@ def small_stage(n_levels: int, level_size: int, packed: bool):
 def encode_small_plain(table: torch.Tensor, points: torch.Tensor, enc,
                        packed: bool) -> torch.Tensor:
     """Gather + trilinear blend with f32 weights over the bf16-unpacked
-    (``packed``: table [R] int32) or the f32 table ([R, 2]). points: [N, 3]
-    clamped. Returns [N, 2L] level-major, feature-minor."""
-    tab = unpack_table_bf16(table) if packed else table
-    outs = []
-    for i in range(0, points.shape[0], PLAIN_CHUNK):
-        idx, frac = enc.corner_indices(points[i:i + PLAIN_CHUNK])
-        outs.append(gather_trilerp_reference(tab, idx, frac)
-                    .reshape(idx.shape[0], -1))
-    if not outs:
-        return points.new_zeros((0, 2 * enc.n_levels))
-    return torch.cat(outs) if len(outs) != 1 else outs[0]
+    (``packed``: table [R] int32) or the f32 table ([R, 2]): the large-table
+    plain version over that table. points: [N, 3] clamped. Returns [N, 2L]
+    level-major, feature-minor."""
+    return encode_large_plain(unpack_table_bf16(table) if packed else table,
+                              points, enc)
 
 
 def small_plan(n: int, n_levels: int, level_size: int, packed: bool,
@@ -268,20 +261,9 @@ def hash_encode_fused(table: torch.Tensor, points: torch.Tensor, enc,
 
 # ------------------------------------------------------------ gradient
 
-def grad_small_plain(g: torch.Tensor, points: torch.Tensor, enc
-                     ) -> torch.Tensor:
-    """index_add_ of w_corner * g over corner_indices: the table gradient of
-    the f32 gather (the XLA-autodiff oracle). g: [N, 2L]; points: [N, 3]
-    clamped. Returns [L * T, 2] f32."""
-    n, nl = g.shape[0], enc.n_levels
-    out = torch.zeros((enc.table_rows, 2), dtype=torch.float32,
-                      device=points.device)
-    for i in range(0, n, PLAIN_CHUNK):
-        idx, frac = enc.corner_indices(points[i:i + PLAIN_CHUNK])
-        gl = g[i:i + PLAIN_CHUNK].float().reshape(-1, nl, 1, 2)
-        vals = trilerp_weights(frac)[..., None] * gl            # [c, L, 8, 2]
-        out.index_add_(0, idx.reshape(-1), vals.reshape(-1, 2))
-    return out
+# the table gradient of the f32 gather (the XLA-autodiff oracle), the same
+# function for a table of any size
+grad_small_plain = grad_large_plain
 
 
 def grad_small(g: torch.Tensor, points: torch.Tensor, enc) -> torch.Tensor:

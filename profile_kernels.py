@@ -21,6 +21,10 @@ that tree's functions (``--train-only``: the train steps alone):
     2^13, and 2^20 random points at T = 2^15;
   - small_grad_phase (grad_small) on the dense fine class and 2^20 random
     points at T = 2^13, and on 2^20 random points at T = 2^15, both schemes;
+  - large_kernel_phase and large_grad_phase (encode_large, grad_large) on
+    phase 13's point sets at hashnerf_preset()'s table (16 x 2^19 f32):
+    the serving chunk, the dense fine class, a train step's coarse pass and
+    2^20 random points, both schemes (a tree without them skips this);
   - the serving frames of phases 5 and 12 from seeded random weights:
     hashnerf_blocked_preset with the sphere grid (1 + 5 frames) and
     hashnerf_tpu_preset (64 + 192 samples, 1 + 3 frames);
@@ -161,6 +165,29 @@ def run_pass(tree: Path, variants: bool, train_only: bool) -> dict:
              f"{scheme} T=2^15 random points")
     del pts, table
     torch.cuda.empty_cache()
+
+    # phase-13 shapes: encode_large and grad_large
+    if hasattr(C, "large_kernel_phase"):
+        gen = torch.Generator().manual_seed(C.SEED + 11)
+        cro, crd = C.view_rays(4096, dev, seed=C.SEED + 2)
+        for scheme in ("random", "fixed"):
+            enc = C.large_encoder(scheme, dev)
+            table = (torch.rand(enc.table_rows, 2, generator=gen) * 2
+                     - 1).to(dev)
+            sets = {"serving chunk": C.depth_points(enc, ro, rd, 256),
+                    "dense fine class": C.depth_points(enc, cro[:1024],
+                                                       crd[:1024], 256),
+                    "train coarse": C.depth_points(enc, cro, crd, 64),
+                    "random points": (torch.rand(1 << 20, 3, generator=gen)
+                                      * 2.4 - 1.2).to(dev)}
+            for label, pts in sets.items():
+                times[f"encode_large {scheme} {label}"] = (
+                    C.large_kernel_phase(enc, table, pts, label)["ms"])
+                if label != "serving chunk":
+                    times[f"grad_large {scheme} {label}"] = (
+                        C.large_grad_phase(enc, pts, label)["ms"])
+            del sets, table
+            torch.cuda.empty_cache()
 
     # phases 5 and 12: serving frames from seeded random weights
     k, pose = C.camera(800)

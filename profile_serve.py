@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one full-width 800x800 frame goes, on one GPU.
 
-    python3 profile_serve.py [--preset blocked|tpu] [--frames 2]
+    python3 profile_serve.py [--preset blocked|tpu|hashnerf] [--frames 2]
                              [--trace serve_trace.json]
 
 Renders a serving cell of chip_smoke.py at 800x800 once to warm up, then
 ``--frames`` more under torch.profiler: ``blocked`` (the default) is
 hashnerf_blocked_preset with n_importance=0 and the 128^3 occupancy grid, 64
 samples, auto two-class budget; ``tpu`` is hashnerf_tpu_preset (small-table
-random scheme, 64 coarse + 192 importance samples, chunk 32,768, no grid)
-from seeded random weights. Spans around the hash encoder, the SH direction
+random scheme, 64 coarse + 192 importance samples, chunk 32,768, no grid),
+``hashnerf`` hashnerf_preset (the same with the 16 x 2^19 f32 table through
+the large-table kernels), both from seeded random weights. Spans around the hash encoder, the SH direction
 encoder and the NeRFSmall field split the device time by layer; the rest of
 the frame (rays, occupancy prior or importance sampling and merge, cone
 scatter, compositing, scatter back to image order) is the remainder. Prints, per frame: the wall time, the
@@ -27,7 +28,7 @@ import chip_smoke as C
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", choices=("blocked", "tpu"),
+    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf"),
                     default="blocked")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--trace", default="",
@@ -40,7 +41,7 @@ def main() -> int:
         print("profile_serve: CUDA is not available", file=sys.stderr)
         return 1
     from nerfpp_tpu_torch.config import (TrainParams, hashnerf_blocked_preset,
-                                         hashnerf_tpu_preset)
+                                         hashnerf_preset, hashnerf_tpu_preset)
     from nerfpp_tpu_torch.executor import NeRFExecutor
     from nerfpp_tpu_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,7 +60,8 @@ def main() -> int:
         ex.load_state({"occupancy": C.sphere_grid(128, 0.5, 10.0, dev)})
         tp = TrainParams(n_samples=64, chunk=65536)
     else:
-        ex = NeRFExecutor(hashnerf_tpu_preset(), device=dev)
+        ex = NeRFExecutor(hashnerf_tpu_preset() if args.preset == "tpu"
+                          else hashnerf_preset(), device=dev)
         ex.initialize(C.BBOX, seed=C.SEED)
         tp = TrainParams()
     spans = {"hash_encode": ex.embedder, "field_mlp": ex.model}

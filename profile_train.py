@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one full-width train step goes, on one GPU.
 
-    python3 profile_train.py [--preset blocked|tpu] [--steps 8]
+    python3 profile_train.py [--preset blocked|tpu|hashnerf] [--steps 8]
                              [--trace train_trace.json]
 
 Builds a training configuration of chip_smoke.py on a 200x200 copy of the
@@ -16,7 +16,9 @@ NRand 4096 in 8x16 tiles, 64 samples), in two regimes:
 
 ``tpu`` is the README's run of phase 11 (hashnerf_tpu_preset: 64 coarse
 samples on every ray, the coarse-ranked fine budget 0.25 / 16 of 192
-importance samples, untiled NRand 4096), one regime, ``hier``.
+importance samples, untiled NRand 4096), one regime, ``hier``;
+``hashnerf`` the same run of hashnerf_preset() (phase 14: the 16 x 2^19 f32
+table through the large-table kernels), one regime, ``large``.
 
 Each regime trains 40 steps (one refresh at step 32), then:
 
@@ -80,7 +82,7 @@ def split_timer(ex, store):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", choices=("blocked", "tpu"),
+    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf"),
                     default="blocked")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default="",
@@ -93,7 +95,7 @@ def main() -> int:
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
     from nerfpp_tpu_torch.config import (TrainParams, hashnerf_blocked_preset,
-                                         hashnerf_tpu_preset)
+                                         hashnerf_preset, hashnerf_tpu_preset)
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
     from nerfpp_tpu_torch.executor import NeRFExecutor
@@ -123,7 +125,8 @@ def main() -> int:
                                                 occ_tile_budget_warmup=0)))]
     else:
         sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev)
-        regimes = [("hier", hashnerf_tpu_preset())]
+        regimes = [("hier", hashnerf_tpu_preset()) if args.preset == "tpu"
+                   else ("large", hashnerf_preset())]
     for regime, params in regimes:
         ex = NeRFExecutor(params, device=dev)
         ex.initialize(scene.bounding_box, tp.lrate_decay, seed=C.SEED)

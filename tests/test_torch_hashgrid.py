@@ -252,7 +252,8 @@ def test_cpu_wrappers_count_no_launches():
     assert te.table.grad is not None
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
                                "grad_blocked_index": 0, "grad_blocked": 0,
-                               "encode_small": 0, "grad_small": 0}
+                               "encode_small": 0, "grad_small": 0,
+                               "encode_large": 0, "grad_large": 0}
 
 
 def test_kernel_wrappers_check_inputs():

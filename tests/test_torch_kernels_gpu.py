@@ -33,6 +33,7 @@ import torch
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.kernels import hash_encode as KS
 from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
+from nerfpp_tpu_torch.kernels import hash_encode_large as KL
 from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
 BBOX = [-1.5, -1.0, -1.2, 1.5, 1.0, 1.3]
@@ -124,15 +125,20 @@ def test_encoder_forward_kernel_matches_plain_gather(cuda):
 
 
 def test_encoder_f32_gather_raises_on_cuda(cuda):
-    # the f32-table gather has no kernel: on the card the encoder launches
-    # the bf16 kernel pair or raises, never the plain gather
+    # the f32-table gather (use_kernel=False) no longer raises on the card:
+    # it launches the large-table kernel pair, never the plain gather
     enc = HashGridEncoder(BBOX, 4, 2, 12, 16, 128, use_kernel=False,
                           device=cuda)
     pts = _point_sets(enc, cuda)["uniform"][:256]
     reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        enc(pts)
-    assert set(launch_counts().values()) == {0}
+    feats, _ = enc(pts)
+    feats.sum().backward()
+    counts = launch_counts()
+    assert counts.pop("encode_large") == 1 and counts.pop("grad_large") == 1
+    assert set(counts.values()) == {0}
+    torch.cuda.synchronize()
+    ref = KL.encode_large_plain(enc.table.detach(), pts, enc)
+    assert float((feats.detach() - ref).abs().max()) <= 1e-6
 
 
 def test_launch_counts_move_once_per_launch(cuda):
@@ -143,7 +149,8 @@ def test_launch_counts_move_once_per_launch(cuda):
     K.window_lists_plain(K.pad_points(pts, enc), enc)
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
                                "grad_blocked_index": 0, "grad_blocked": 0,
-                               "encode_small": 0, "grad_small": 0}
+                               "encode_small": 0, "grad_small": 0,
+                               "encode_large": 0, "grad_large": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -243,7 +250,8 @@ def test_grad_launch_count_moves_once_per_backward(cuda):
     torch.sin(3.0 * feats).sum().backward()
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
                                "grad_blocked_index": 1, "grad_blocked": 1,
-                               "encode_small": 0, "grad_small": 0}
+                               "encode_small": 0, "grad_small": 0,
+                               "encode_large": 0, "grad_large": 0}
     # the gradient is K3's: equal to the plain version of the same cotangent
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     padded = K.pad_points(pts, enc)
@@ -371,7 +379,8 @@ def test_small_launch_counts_move_once_per_launch(cuda):
                           True)
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
                                "grad_blocked_index": 0, "grad_blocked": 0,
-                               "encode_small": 1, "grad_small": 1}
+                               "encode_small": 1, "grad_small": 1,
+                               "encode_large": 0, "grad_large": 0}
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     assert _grad_close(enc.table.grad, KS.grad_small_plain(cot, pts, enc),
                        KS.grad_small_plain(cot.abs(), pts, enc))
@@ -404,11 +413,11 @@ def test_small_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="cotangent is on cpu"):
         KS.grad_small(cot.cpu(), pts, enc)
     assert set(launch_counts().values()) == {0}
-    # the f32-table gather has no kernel: the encoder raises on the card
+    # the f32-table gather goes to the large-table kernel on the card
     plain = HashGridEncoder(BBOX, 4, 2, 10, 16, 1024, scheme="fixed",
                             use_kernel=False, device=cuda)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        plain(pts)
+    plain(pts)
+    assert launch_counts()["encode_large"] == 1
 
 
 # ------------------------------------------- launch plans at their edges
@@ -697,3 +706,119 @@ def test_grad_kernel_no_cotangent_and_a_partial_group(cuda, n_valid):
     assert _grad_close(got, plain, mag)
     assert not bool(got[mag == 0].any())
     assert bool(got.any()) == (n_valid > 0)
+
+
+# ------------------------------------------------------ large-table kernels
+
+def _large_encoder(dev, scheme, log2_t, levels):
+    return HashGridEncoder(BBOX, levels, 2, log2_t, 16, 1024, scheme=scheme,
+                           use_kernel=False, device=dev)
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 1), (10, 4), (12, 16),
+                                           (19, 16), (20, 16), (19, 5)])
+def test_large_kernels_match_plain_versions(cuda, scheme, log2_t, levels):
+    # encode within 1e-6 at |table| <= 1 (f32 weights and products on both
+    # sides; the order of the 8 corner sums differs); the gradient, summed
+    # with atomics, each entry within 1e-5 of the sum of its terms'
+    # magnitudes; uniform, coherent, cell-boundary and box-face points,
+    # 4,001 of them, and a single point
+    enc = _large_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(log2_t * 100 + levels)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    sets = _small_points(enc, cuda)
+    sets["single"] = sets["uniform"][:1].contiguous()
+    for name, pts in sets.items():
+        out = KL.encode_large(table, pts, enc)
+        cot = torch.randn(pts.shape[0], 2 * levels, generator=g).to(cuda)
+        got = KL.grad_large(cot, pts, enc)
+        torch.cuda.synchronize()
+        ref = KL.encode_large_plain(table, pts, enc)
+        assert float((out - ref).abs().max()) <= 1e-6, name
+        plain = KL.grad_large_plain(cot, pts, enc)
+        mag = KL.grad_large_plain(cot.abs(), pts, enc)
+        assert _grad_close(got, plain, mag), name
+        assert torch.equal(got != 0, plain != 0), name
+    empty = KL.grad_large(cot[:0], pts[:0], enc)
+    assert empty.shape == (enc.table_rows, 2) and not bool(empty.any())
+    assert KL.encode_large(table, pts[:0], enc).shape == (0, 2 * levels)
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+def test_large_grad_all_points_in_one_cell(cuda, scheme):
+    # every point in one cell of the finest level: the atomics of 4,001
+    # points meet on the same 8 entries of every level
+    enc = _large_encoder(cuda, scheme, 19, 16)
+    g = torch.Generator().manual_seed(7)
+    res = float(enc.resolutions[-1] if scheme == "fixed"
+                else enc.level_scales[-1])
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    cell = torch.floor(torch.rand(1, 3, generator=g) * (res - 1))
+    frac = 0.1 + 0.8 * torch.rand(4001, 3, generator=g)
+    pts = ((cell + frac) / res * ext + lo).to(cuda).contiguous()
+    cot = torch.randn(4001, 32, generator=g).to(cuda)
+    got = KL.grad_large(cot, pts, enc)
+    torch.cuda.synchronize()
+    plain = KL.grad_large_plain(cot, pts, enc)
+    assert _grad_close(got, plain, KL.grad_large_plain(cot.abs(), pts, enc))
+    assert torch.equal(got != 0, plain != 0)
+    assert int((plain != 0).any(-1).sum()) <= 16 * 16
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+def test_large_launch_counts_move_once_per_launch(cuda, scheme):
+    # the encoder's forward launches encode_large, its backward grad_large;
+    # the plain versions count nothing; the table gradient is the kernel's
+    enc = _large_encoder(cuda, scheme, 14, 8)
+    with torch.no_grad():
+        enc.table.uniform_(-1, 1)
+    pts = _small_points(enc, cuda, 3000)["coherent"]
+    reset_launch_counts()
+    feats, _ = enc(pts)
+    torch.sin(3.0 * feats).sum().backward()
+    KL.encode_large_plain(enc.table.detach(), pts, enc)
+    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
+                               "grad_blocked_index": 0, "grad_blocked": 0,
+                               "encode_small": 0, "grad_small": 0,
+                               "encode_large": 1, "grad_large": 1}
+    cot = 3.0 * torch.cos(3.0 * feats.detach())
+    assert _grad_close(enc.table.grad, KL.grad_large_plain(cot, pts, enc),
+                       KL.grad_large_plain(cot.abs(), pts, enc))
+    assert enc.table.grad.dtype == torch.float32
+
+
+def test_large_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    # a bad input raises before any launch, and never runs the plain version
+    enc = _large_encoder(cuda, "random", 10, 4)
+    pts = _small_points(enc, cuda, 256)["uniform"]
+    table = enc.table.detach()
+    cot = torch.zeros(256, 8, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(TypeError, match="dtype"):
+        KL.encode_large(table, pts.double(), enc)
+    with pytest.raises(TypeError, match="dtype"):
+        KL.encode_large(table.double(), pts, enc)
+    with pytest.raises(ValueError, match="shape"):
+        KL.encode_large(table[:-1], pts, enc)
+    with pytest.raises(ValueError, match="table is on cpu"):
+        KL.encode_large(table.cpu(), pts, enc)
+    with pytest.raises(ValueError, match="contiguous"):
+        KL.encode_large(table, pts.t().contiguous().t(), enc)
+    shifted = torch.zeros(enc.table_rows * 2 + 2, device=cuda)[2:]
+    with pytest.raises(ValueError, match="aligned"):
+        KL.encode_large(shifted.view(-1, 2), pts, enc)
+    with pytest.raises(TypeError, match="dtype"):
+        KL.grad_large(cot.double(), pts, enc)
+    with pytest.raises(ValueError, match="shape"):
+        KL.grad_large(cot[:200].contiguous(), pts, enc)
+    with pytest.raises(ValueError, match="cotangent is on cpu"):
+        KL.grad_large(cot.cpu(), pts, enc)
+    shifted = torch.zeros(256 * 8 + 2, device=cuda)[2:]
+    with pytest.raises(ValueError, match="aligned"):
+        KL.grad_large(shifted.view(256, 8), pts, enc)
+    many = HashGridEncoder(BBOX, 65, 2, 10, 16, 1024, scheme="random",
+                           use_kernel=False, device=cuda)
+    with pytest.raises(ValueError, match="levels"):
+        KL.encode_large(many.table.detach(), pts, many)
+    assert set(launch_counts().values()) == {0}

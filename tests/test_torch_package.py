@@ -34,8 +34,11 @@ BBOX = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
 
 
 def _banned(module: str) -> bool:
-    return (module in ("jax", "jaxlib", "nerfpp_tpu")
-            or module.startswith(("jax.", "jaxlib.", "nerfpp_tpu.")))
+    # the port reads and writes images itself (utils/png.py): no OpenCV or
+    # Pillow, which the machine with the card does not have
+    return (module in ("jax", "jaxlib", "nerfpp_tpu", "cv2", "PIL")
+            or module.startswith(("jax.", "jaxlib.", "nerfpp_tpu.", "cv2.",
+                                  "PIL.")))
 
 
 def test_import_loads_neither_jax_nor_nerfpp_tpu():
@@ -91,7 +94,8 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("preset", ["hashnerf_preset",
                                     "hashnerf_blocked_preset",
-                                    "hashnerf_tpu_preset"])
+                                    "hashnerf_tpu_preset",
+                                    "classic_nerf_preset"])
 def test_config_json_interchange(preset, tmp_path):
     # same fields, defaults and JSON keys: a file written by one package
     # loads in the other

@@ -45,6 +45,7 @@ from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.render import renderer as TR
 from nerfpp_tpu_torch.utils import checkpoint as ckpt
+from nerfpp_tpu_torch.utils.png import write_png
 
 torch.set_num_threads(1)
 
@@ -381,10 +382,17 @@ def test_ray_sampler_matches_jax(tiles, step):
         assert ys.max() - ys.min() == th - 1 and xs.max() - xs.min() == tw - 1
 
 
-def test_sampler_refuses_what_needs_the_loaders():
+def test_sampler_refuses_what_needs_the_loaders(tmp_path):
+    # an image file that is not there, and a resize other than half_res's
+    # exact halving (COLMAP's multi-size views, not ported yet)
     sc = TD.SceneData(views=[TD.View(0, 8, 8, 8.0, 1, 2, np.eye(3),
-                                     np.eye(4))], splits_idx=[1, 0, 0])
-    with pytest.raises(NotImplementedError, match="loaders"):
+                                     np.eye(4),
+                                     image_path=str(tmp_path / "a.png"))],
+                      splits_idx=[1, 0, 0])
+    with pytest.raises(FileNotFoundError):
+        TD.RayBatchSampler.from_scene(sc, 128, device="cpu")
+    write_png(tmp_path / "a.png", np.zeros((12, 12, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="resizing"):
         TD.RayBatchSampler.from_scene(sc, 128, device="cpu")
 
 
@@ -606,8 +614,13 @@ def test_train_loop(tmp_path, capsys):
     m = ex.train(sc, tp, progress_fn=lambda i, mm: seen.append(i))
     # steps 0..10 as in the JAX loop; steps_per_call 4 shrinks to gcd 1
     assert ex.step == 11 and seen == [5, 10]
-    assert sorted(d.name for d in tmp_path.iterdir()) == ["step_10",
+    assert sorted(d.name for d in tmp_path.iterdir()) == ["metrics.csv",
+                                                          "step_10",
                                                           "step_11"]
+    # metrics.csv holds the i_print rows
+    rows = (tmp_path / "metrics.csv").read_text().splitlines()
+    assert rows[0] == "step,mse,img_loss,pred_std,loss,psnr"
+    assert [r.split(",")[0] for r in rows[1:]] == ["5", "10"]
     # the same run in stages (7 steps, then the rest) ends in the same
     # state: step i's draws depend on (seed, i) only
     staged = _tiny_port()
@@ -624,9 +637,10 @@ def test_train_loop(tmp_path, capsys):
     # both refresh branches ran (full before step 4, phased after) and the
     # grid is no longer the uniform prior
     assert not torch.equal(ex.occupancy.density, torch.ones(16, 16, 16))
-    for bad in (dict(i_img=5), dict(i_testset=5), dict(bbox_refit_step=5)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ex.train(sc, TrainParams(**{**tp.__dict__, **bad}))
+    # the bbox refit is not ported (tests/test_torch_cli.py covers i_img
+    # and i_testset)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ex.train(sc, TrainParams(**{**tp.__dict__, "bbox_refit_step": 5}))
     with pytest.raises(NotImplementedError, match="mesh"):
         ex.train(sc, tp, mesh=object())
 
