@@ -2,7 +2,7 @@
 """GPU smoke run of nerfpp_tpu_torch, the PyTorch/CUDA port (one H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --repeat-train K [--seed S]
+    python3 chip_smoke.py --repeat-train K [--preset P] [--seed S]
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -45,9 +45,11 @@ Phases, each printing its own lines:
      (32,768 rays x 256 depths), on 2^20 random points and on the dense fine
      class of a train step (1,024 rays x 256 depths), and at T = 2^15, beside
      one embedding_bag over the precomputed corner indices and weights;
-     grad_small against its plain version on the dense fine class of a
-     train step (1,024 rays x 256 depths) and on the 2^20 random points,
-     beside one index_add_ of the precomputed corner products.
+     grad_small (the order-fixed gradient's bin pass and owner pass)
+     against its plain version on the dense fine class of a train step
+     (1,024 rays x 256 depths) and on the 2^20 random points, beside one
+     index_add_ of the precomputed corner products; two launches must be
+     bitwise equal.
  10. hierarchical train parity: one tiny hier-budget train step, GPU
      against CPU from the same seeded state with the same draws.
  11. hierarchical training: NeRFExecutor.train of hashnerf_tpu_preset() on
@@ -61,16 +63,23 @@ Phases, each printing its own lines:
  12. hierarchical serving: render_view of the trained state at full width,
      800x800, TrainParams() (64 + 192 samples, chunk 32,768), 1 + 3 frames
      of the test view, launch counts reset just before and read just after;
-     its held-out PSNR.
- 13. large-table kernels: encode_large and grad_large against their plain
-     versions at hashnerf_preset()'s table (16 levels x 2^19 f32 entries),
-     fixed and random schemes, on a serving chunk's fine pass (32,768 rays
-     x 256 depths), a train step's coarse pass (4,096 rays x 64) and dense
-     fine class (1,024 x 256) and 2^20 random points, beside one
-     embedding_bag or index_add_; whether two gradient launches are
-     bitwise equal (float atomics: printed, not required).
+     its held-out PSNR. Then determinism of hashnerf_tpu_preset(): phase
+     8's check, two 64-step runs from seed 0 bitwise equal.
+ 13. large-table kernels: encode_large, grad_large and its bin pass
+     grad_large_bins against their plain versions at hashnerf_preset()'s
+     table (16 levels x 2^19 f32 entries), fixed and random schemes, on a
+     serving chunk's fine pass (32,768 rays x 256 depths), a train step's
+     coarse pass (4,096 rays x 64) and dense fine class (1,024 x 256) and
+     2^20 random points, beside one embedding_bag or index_add_; two
+     gradient launches must be bitwise equal, the bin pass's records, run
+     offsets and plan exactly its plain version's; the mean distinct 128-byte
+     table lines a warp's gather touches in encode_large's former layout
+     (a thread a (point, level)) and its level-major one, from the serving
+     chunk's corner indices.
  14. reference-parity preset: a tiny hashnerf_preset() train step GPU
-     against CPU; then the README's command line in-process: the bench
+     against CPU; determinism of hashnerf_preset() (two 64-step runs from
+     seed 0 on the bench scene bitwise equal); then the README's command
+     line in-process: the bench
      scene exported as a Blender tree, ``cli train --preset hashnerf
      --set-train NIters=2000`` (launch counts reset before step 0 and read
      after; steps 1,024-1,055 timed; the loss must fall; only encode_large
@@ -81,15 +90,24 @@ Phases, each printing its own lines:
  15. classic NeRF: a tiny classic_nerf_preset() train step GPU against CPU,
      then bench.py's classic configuration at full width (8 x 256, 64 + 64
      samples, NRand 4,096), 1 + 10 timed steps; no kernel may launch.
-The line before the last is the kernel summary JSON; the last line is
+The line before the last is the kernel summary JSON, each kernel's
+launches those of the main path it runs on: phase 3's serving for K1/K2,
+phase 8's training for K3 and its index, phase 11's for encode_small and
+grad_small, phase 14's cli train for encode_large, grad_large and the bin
+pass grad_large_bins (which phase 11's path launches too, once per
+grad_small: its count is printed there). The last line is
 {"ok": true, "device": {...}}.
 
-``--repeat-train K`` runs only phases 1-2 and then phase 8 K times in one
-process from seed S (``--seed``, default 0), each run with a fresh executor
-and sampler, and prints per run its held-out PSNRs after 1,088 and 2,100
-steps, the first step whose loss differs bitwise from run 1's and the
-largest |table - run 1's table| after step 64; it ends with the same last
-line. Any failed check raises, and the script exits
+``--repeat-train K`` runs only phases 1-2 and then one preset's training K
+times in one process from seed S (``--seed``, default 0), each run with a
+fresh executor and sampler: ``--preset flagship`` (the default) phase 8,
+with its held-out PSNRs after 1,088 and 2,100 steps; ``tpu`` or
+``hashnerf`` hashnerf_tpu_preset() or hashnerf_preset() with phase 11's
+run (the README's TrainParams(n_iters=2000) on the bench scene, steps
+0-1,998), with the held-out PSNR of the test view at TrainParams() after
+it. Per run it prints the first step whose loss differs bitwise from run
+1's and the largest |table - run 1's table| after step 64; it ends with
+the same last line. Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
@@ -111,8 +129,8 @@ SPIN_CYCLES = 1 << 22          # ~2 ms of card time ahead of each timing
 SERVE_KERNELS = ("window_lists", "encode_blocked")
 TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked_index",
                  "grad_blocked")
-HIER_KERNELS = ("encode_small", "grad_small")
-LARGE_KERNELS = ("encode_large", "grad_large")
+HIER_KERNELS = ("encode_small", "grad_large_bins", "grad_small")
+LARGE_KERNELS = ("encode_large", "grad_large_bins", "grad_large")
 TIME_BUDGET_S = 600            # phase 11 is cut to leave phases 12-15 room
 
 
@@ -478,31 +496,48 @@ def bench_scene(dev):
     return scene
 
 
-class Flagship:
-    """The flagship configuration of bench.py (``make_flagship``) on the
-    bench scene, from ``seed``: a fresh executor and sampler, and the loss
-    of every step it trains (device scalars, read only by the caller)."""
+PRESETS = ("flagship", "tpu", "hashnerf")
 
-    def __init__(self, scene, dev, seed):
+
+class Trainer:
+    """One training run of a preset on the bench scene from ``seed``: a
+    fresh executor and sampler, and the loss of every step it trains
+    (device scalars, read only by the caller). ``flagship``: bench.py's
+    make_flagship (NRand 4,096 in 8x16 tiles, 64 occupancy-guided samples,
+    the 8,100-step schedule); ``tpu`` and ``hashnerf``:
+    hashnerf_tpu_preset() and hashnerf_preset() with the README's
+    TrainParams(n_iters=2000) (NRand 4,096 random pixels, 64 + 192
+    samples)."""
+
+    def __init__(self, scene, dev, seed, preset="flagship"):
         import torch
         from nerfpp_tpu_torch.config import (TrainParams,
-                                             hashnerf_blocked_preset)
+                                             hashnerf_blocked_preset,
+                                             hashnerf_preset,
+                                             hashnerf_tpu_preset)
         from nerfpp_tpu_torch.data.dataset import RayBatchSampler
         from nerfpp_tpu_torch.executor import NeRFExecutor
-        p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
-                                    occ_update_every=32)
         self.tmp = tempfile.TemporaryDirectory()
-        self.tp = TrainParams(n_samples=64, n_rand=4096, n_iters=8100,
-                              chunk=4096, i_print=32, i_img=0, i_weights=0,
-                              i_testset=0, steps_per_call=25,
-                              base_dir=self.tmp.name)
-        self.scene, self.seed = scene, seed
+        common = dict(n_samples=64, n_rand=4096, chunk=4096, i_img=0,
+                      i_print=32, i_weights=0, i_testset=0,
+                      base_dir=self.tmp.name)
+        tiles = {}
+        if preset == "flagship":
+            p = hashnerf_blocked_preset(n_importance=0,
+                                        use_occupancy_grid=True,
+                                        occ_update_every=32)
+            self.tp = TrainParams(n_iters=8100, steps_per_call=25, **common)
+            tiles = dict(tile_h=8, tile_w=16)
+        else:
+            p = (hashnerf_tpu_preset if preset == "tpu"
+                 else hashnerf_preset)()
+            self.tp = TrainParams(n_iters=2000, **common)
+        self.scene, self.seed, self.preset = scene, seed, preset
         ex = NeRFExecutor(p, device=dev)
         ex.white_bkgr = scene.white_bkgr
         ex.initialize(scene.bounding_box, self.tp.lrate_decay, seed=seed)
         self.sampler = RayBatchSampler.from_scene(scene, self.tp.n_rand,
-                                                  tile_h=8, tile_w=16,
-                                                  device=dev)
+                                                  device=dev, **tiles)
         self.losses, self.curve = [], []
         build = ex._build_train_step
 
@@ -536,21 +571,25 @@ class Flagship:
         return torch.cat(self.losses).view(torch.int32).cpu()
 
     def held_out_psnr(self):
-        """PSNR of the unbudgeted 800x800 test view, as bench.py renders it
-        for its quality numbers."""
-        import numpy as np
-        import torch
+        """PSNR of the 800x800 test view: for the flagship unbudgeted at 64
+        samples, as bench.py renders it for its quality numbers; for the
+        hierarchical presets at TrainParams() (64 + 192 samples, chunk
+        32,768), as phase 12 serves it."""
         from nerfpp_tpu_torch.config import TrainParams
         ex, scene = self.ex, self.scene
         view = scene.views[list(scene.split_indices("test"))[0]]
+        if self.preset != "flagship":
+            out = ex.render_view(view.pose, view.h, view.w, view.k,
+                                 TrainParams())
+            return psnr_of(out["nerf"].rgb.cpu().numpy(),
+                           scene.images[view.id]), view.id
         budget = ex.params.render_dense_frac
         ex.params.render_dense_frac = 0.0
         out = ex.render_view(view.pose, view.h, view.w, view.k,
                              TrainParams(n_samples=64, chunk=65536))
         ex.params.render_dense_frac = budget
-        rgb = torch.clamp(out["nerf"].rgb, 0.0, 1.0).cpu().numpy()
-        mse = float(np.mean((rgb - scene.images[view.id]) ** 2))
-        return -10.0 * math.log10(max(mse, 1e-10)), view.id
+        return psnr_of(out["nerf"].rgb.cpu().numpy(),
+                       scene.images[view.id]), view.id
 
 
 def train_phase(scene, dev, seed=SEED, observe=None):
@@ -560,7 +599,7 @@ def train_phase(scene, dev, seed=SEED, observe=None):
     (the table then is the 65-step state)."""
     import torch
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
-    f = Flagship(scene, dev, seed)
+    f = Trainer(scene, dev, seed)
     ex, tp, run, curve = f.ex, f.tp, f.run, f.curve
 
     def per_step(a, b, n):
@@ -618,13 +657,14 @@ def train_phase(scene, dev, seed=SEED, observe=None):
 
 def state_of(ex):
     """Copies of the parameters, Adam's moments and step count, and the
-    occupancy grid of an executor."""
+    occupancy grid (where the preset has one) of an executor."""
     st = {f"param {k}": v.detach().clone()
           for k, v in ex.named_parameters().items()}
     st.update({f"mu {k}": v.clone() for k, v in ex.optimizer.mu.items()})
     st.update({f"nu {k}": v.clone() for k, v in ex.optimizer.nu.items()})
     st["adam count"] = ex.optimizer.count.clone()
-    st["occupancy"] = ex.occupancy.density.clone()
+    if ex.occupancy is not None:
+        st["occupancy"] = ex.occupancy.density.clone()
     return st
 
 
@@ -639,39 +679,60 @@ def first_difference(a, b):
     return None if a.numel() == b.numel() else n
 
 
-def determinism_phase(scene, dev, steps=64):
-    """The flagship configuration trained twice from seed 0 for ``steps``
-    steps, each run with a fresh executor and sampler: the losses must be
-    bitwise equal at every step, and the parameters, Adam state and
-    occupancy grid bitwise equal after the last step."""
+def determinism_phase(scene, dev, preset="flagship", steps=64):
+    """A preset (Trainer) trained twice from seed 0 for ``steps`` steps,
+    each run with a fresh executor and sampler: the losses must be bitwise
+    equal at every step, and the parameters, Adam state and occupancy grid
+    bitwise equal after the last step. Names the first differing step and
+    the tensors that differ."""
     import torch
     runs = []
     for _ in range(2):
-        f = Flagship(scene, dev, SEED)
+        f = Trainer(scene, dev, SEED, preset)
         f.run(steps)
         runs.append((f.loss_bits(), state_of(f.ex)))
         f.tmp.cleanup()
         del f
     (la, sa), (lb, sb) = runs
     step = first_difference(la, lb)
-    if step is not None:
-        raise AssertionError(f"determinism: the losses of two seed-{SEED} "
-                             f"runs first differ at step {step}")
     bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
-    if bad:
-        raise AssertionError(f"determinism: after {steps} steps two runs "
-                             f"differ in {', '.join(bad)}")
-    log("determinism", f"two seed-{SEED} runs of {steps} steps: losses "
-        f"bitwise equal at every step ({la.numel()} steps), parameters, "
-        f"Adam state and occupancy grid bitwise equal ({len(sa)} tensors)")
+    if step is not None or bad:
+        raise AssertionError(f"determinism ({preset}): the losses of two "
+                             f"seed-{SEED} runs first differ at step {step}; "
+                             f"after {steps} steps they differ in "
+                             f"{', '.join(bad) or 'no tensor'}")
+    log("determinism", f"{preset}: two seed-{SEED} runs of {steps} steps: "
+        f"losses bitwise equal at every step ({la.numel()} steps), "
+        f"parameters, Adam state"
+        + (" and occupancy grid" if "occupancy" in sa else "")
+        + f" bitwise equal ({len(sa)} tensors)")
 
 
-def repeat_train(scene, dev, k, seed):
-    """The experiment of ``--repeat-train K``: phase 8 K times from one
-    seed, each with a fresh executor and sampler; per run its held-out
+def hier_run(scene, dev, seed, preset, observe):
+    """Phase 11's training run of a hierarchical preset (steps 0-1,998 of
+    the README's TrainParams(n_iters=2000)), ``observe(run)`` after step
+    64. Returns the run, its held-out PSNR and the failed checks."""
+    f = Trainer(scene, dev, seed, preset)
+    f.run(65)
+    observe(f)
+    f.run(f.tp.n_iters - 1 - 65)
+    first = statistics.mean(l for _, l, _ in f.curve[:4])
+    last = statistics.mean(l for _, l, _ in f.curve[-4:])
+    failed = [] if math.isfinite(last) and last < 0.5 * first else [
+        f"training loss did not fall: mean of the first four readings "
+        f"{first}, last four {last}"]
+    psnr, _ = f.held_out_psnr()
+    f.tmp.cleanup()
+    return f, psnr, failed
+
+
+def repeat_train(scene, dev, k, seed, preset="flagship"):
+    """The experiment of ``--repeat-train K``: a preset's training K times
+    from one seed, each with a fresh executor and sampler (the flagship:
+    phase 8; ``tpu`` and ``hashnerf``: hier_run); per run its held-out
     PSNRs, the first step whose loss differs bitwise from run 1's and the
     largest |table - run 1's table| after step 64. Raises after the last
-    run if a run failed phase 8's checks."""
+    run if a run failed its checks."""
     import torch
     ref, failures, rows = {}, [], []
     for r in range(k):
@@ -684,23 +745,29 @@ def repeat_train(scene, dev, k, seed):
                 ref["table"] = table.clone()
             seen["dtable"] = float((table - ref["table"]).abs().max())
 
-        _, (p1088, p2100), failed = train_phase(scene, dev, seed, observe)
+        if preset == "flagship":
+            _, (p1088, p2100), failed = train_phase(scene, dev, seed,
+                                                    observe)
+            psnrs = dict(psnr_1088=p1088, psnr_2100=p2100)
+        else:
+            _, psnr, failed = hier_run(scene, dev, seed, preset, observe)
+            psnrs = dict(psnr_1999=psnr)
         bits = seen.pop("run").loss_bits()
         if r == 0:
             ref["bits"] = bits
         step = first_difference(bits, ref["bits"])
-        rows.append(dict(run=r + 1, seed=seed, psnr_1088=p1088,
-                         psnr_2100=p2100, first_differing_step=step,
+        rows.append(dict(run=r + 1, preset=preset, seed=seed, **psnrs,
+                         first_differing_step=step,
                          max_abs_dtable_after_step_64=seen["dtable"],
                          steps=bits.numel()))
         log("repeat", json.dumps(rows[-1]))
         failures += [f"run {r + 1}: {m}" for m in failed]
         torch.cuda.empty_cache()
-    log("repeat", f"seed {seed}, {k} runs: held-out PSNR after 2,100 steps "
-        + ", ".join(f"{row['psnr_2100']:.2f}" for row in rows)
-        + " dB; after 1,088 steps "
-        + ", ".join(f"{row['psnr_1088']:.2f}" for row in rows)
-        + " dB; first step whose loss differs from run 1's: "
+    log("repeat", f"{preset}, seed {seed}, {k} runs: held-out PSNR "
+        + "; ".join(f"after {key[5:]} steps "
+                    + ", ".join(f"{row[key]:.2f}" for row in rows) + " dB"
+                    for key in rows[0] if key.startswith("psnr_"))
+        + "; first step whose loss differs from run 1's: "
         + ", ".join(str(row["first_differing_step"]) for row in rows[1:]))
     if failures:
         raise AssertionError("; ".join(failures))
@@ -815,18 +882,26 @@ def small_kernel_phase(enc, table, pts, label, f32_figures=False):
 
 def small_grad_phase(enc, pts, label):
     """grad_small against its plain version on one point set, beside one
-    PyTorch call (index_add_ of the precomputed corner products)."""
+    PyTorch call (index_add_ of the precomputed corner products); two
+    launches bitwise equal."""
     import torch
     from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
     from nerfpp_tpu_torch.kernels import hash_encode as KS
+    from nerfpp_tpu_torch.kernels import hash_encode_large as KL
     n, nl = pts.shape[0], enc.n_levels
     gen = torch.Generator().manual_seed(SEED + 5)
     g = torch.randn(n, 2 * nl, generator=gen).to(pts.device)
     out = KS.grad_small(g, pts, enc)
+    again = KS.grad_small(g, pts, enc)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label} {enc.scheme}: two grad_small launches "
+                             "on the same inputs differ")
+    del again
     out_p = KS.grad_small_plain(g, pts, enc)
-    # atomics sum in a different order each run: hold each entry against
-    # the sum of its terms' magnitudes, sum |w * g| (w >= 0)
+    # the kernel and index_add_ add each entry's terms in other orders: hold
+    # each entry against the sum of its terms' magnitudes, sum |w * g|
+    # (w >= 0)
     mag = KS.grad_small_plain(g.abs(), pts, enc)
     diff = (out - out_p).abs()
     err = float(diff.max())
@@ -857,7 +932,9 @@ def small_grad_phase(enc, pts, label):
         f"plain_ms={plain:.4f} index_add_ms={lib_ms:.4f} (excluding the "
         f"index computation) bound_ms={max(t_bytes, t_ops):.4f} (bytes "
         f"{nbytes} -> {t_bytes:.4f} ms, ops {ops:.3g} -> {t_ops:.4f} ms) "
-        f"max_abs_err={err:.3g} max_err/sum|w*g|={rel:.3g}")
+        f"max_abs_err={err:.3g} max_err/sum|w*g|={rel:.3g}; two launches "
+        f"bitwise equal; its bin pass alone "
+        f"{cuda_ms(lambda: KL.grad_large_bins(pts, enc)):.4f} ms")
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, max_abs_err=err,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -943,8 +1020,8 @@ def step_parity(label, p, tp, kernels):
     state; one CPU generator gives both runs the same draws. ``kernels``
     must launch on the card (with none, no kernel may launch). The loss to
     1e-4 of itself, gradients and first moments to 1e-3 of each tensor's
-    largest (the card's kernels and matrix products sum in other orders,
-    the hash gradients with atomics), second moments to 2e-3."""
+    largest (the card's kernels and matrix products sum in other orders),
+    second moments to 2e-3."""
     import torch
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
@@ -1002,31 +1079,11 @@ def hier_phase(scene, dev, t_start):
     on the bench scene, then serving of the trained state. Returns the
     launch counts of both runs."""
     import torch
-    from nerfpp_tpu_torch.config import TrainParams, hashnerf_tpu_preset
-    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
-    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.config import TrainParams
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
-    p = hashnerf_tpu_preset()
-    tmp = tempfile.TemporaryDirectory()
-    # the README's run; i_img 0: image writing is not ported
-    tp = TrainParams(n_iters=2000, n_rand=4096, n_samples=64, chunk=4096,
-                     i_print=32, i_img=0, i_weights=0, i_testset=0,
-                     base_dir=tmp.name)
-    ex = NeRFExecutor(p, device=dev)
-    ex.white_bkgr = scene.white_bkgr
-    ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
-    sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev)
-    curve = []
-
-    def run(n):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ex.train(scene, tp, seed=SEED, sampler=sampler, steps=n,
-                 progress_fn=lambda i, m: curve.append((i, m["loss"],
-                                                        m["psnr"])))
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
+    # the README's run (i_img 0: no images written)
+    f = Trainer(scene, dev, SEED, "tpu")
+    ex, tp, run, curve, p = f.ex, f.tp, f.run, f.curve, f.ex.params
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     run(1024)                                 # steps 0-1023
@@ -1044,7 +1101,7 @@ def hier_phase(scene, dev, t_start):
         run(min(128, last - ex.step))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    tmp.cleanup()
+    f.tmp.cleanup()
     ms = window_s / 32 * 1e3
     log("hier-train", f"steps 1024-1055: {ms:.3f} ms/step, "
         f"{tp.n_rand / (ms / 1e3):.1f} rays/s; launches per step "
@@ -1179,10 +1236,36 @@ def large_kernel_phase(enc, table, pts, label):
                 bound_by=by, library_ms=lib_ms)
 
 
+def warp_lines(enc, pts, n_max=1 << 21):
+    """Mean distinct 128-byte lines of the f32 table that one warp's gather
+    of one corner touches, over the first n_max points: in encode_large's
+    former layout (a thread a (point, level), a point's levels on
+    consecutive threads) and in its level-major one (32 consecutive points
+    of one level), from the corner indices."""
+    import torch
+    n, nl = min(pts.shape[0], n_max) // 32 * 32, enc.n_levels
+
+    def distinct(lines):                        # [warps, 32, 8]
+        s = torch.sort(lines, dim=1).values
+        return (1 + (s[:, 1:] != s[:, :-1]).sum(1)).float().sum()
+
+    old = new = 0.0
+    for i in range(0, n, 1 << 16):
+        idx, _ = enc.corner_indices(pts[i:min(i + (1 << 16), n)])
+        line = idx >> 4                         # 16 entries of 8 B a line
+        old += float(distinct(line.reshape(-1, 32, 8)))
+        new += float(distinct(line.transpose(0, 1).reshape(-1, 32, 8)))
+        del idx, line
+    loads = n * nl / 32 * 8
+    return old / loads, new / loads
+
+
 def large_grad_phase(enc, pts, label):
-    """grad_large against its plain version on one point set, beside one
-    index_add_ of the precomputed corner products; whether two launches
-    are bitwise equal (float atomics: not required)."""
+    """grad_large (its bin pass and owner pass) against its plain version
+    on one point set, beside one index_add_ of the precomputed corner
+    products: two launches bitwise equal, the bin pass exactly its plain
+    version. Returns the stats of grad_large (bin pass included) and of
+    the bin pass."""
     import torch
     from nerfpp_tpu_torch.encoders.hashgrid import trilerp_weights
     from nerfpp_tpu_torch.kernels import hash_encode_large as KL
@@ -1191,24 +1274,46 @@ def large_grad_phase(enc, pts, label):
     g = torch.randn(n, 2 * nl, generator=gen).to(pts.device)
     out = KL.grad_large(g, pts, enc)
     again = KL.grad_large(g, pts, enc)
+    recs, offs, plan = KL.grad_large_bins(pts, enc)
     torch.cuda.synchronize()
-    same = bool(torch.equal(out, again))
-    repeat = float((out - again).abs().max())
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label} {enc.scheme}: two grad_large launches "
+                             "on the same inputs differ")
     del again
+    recs_p, offs_p, plan_p = KL.grad_large_bins_plain(pts, enc)
+    _, nb, _, part, nt, _ = KL.bins_shape(n, enc)
+    n_items, n_slots = int(plan_p[0]), int(plan_p[1])
+    head = 4 + 4 * nl * nb + 2 * n_items
+    # the records, run offsets and plan head against the plain version's:
+    # the largest absolute difference of any of them, which must be 0
+    bins_err = max(float((a.long() - b.long()).abs().max())
+                   for a, b in ((recs, recs_p), (offs, offs_p),
+                                (plan[:head], plan_p[:head])))
+    if bins_err != 0:
+        raise AssertionError(f"{label} {enc.scheme}: grad_large_bins differs "
+                             f"from its plain version by {bins_err}")
+    most = int(plan_p[4:4 + nl * nb].max())
+    del recs, offs, plan, recs_p, offs_p
     out_p = KL.grad_large_plain(g, pts, enc)
-    # atomics sum in a different order each run: hold each entry against
-    # the sum of its terms' magnitudes, sum |w * g| (w >= 0)
+    # the kernel and index_add_ add each entry's terms in other orders: hold
+    # each entry against the sum of its terms' magnitudes, sum |w * g|
+    # (w >= 0); where no term falls, exactly zero
     mag = KL.grad_large_plain(g.abs(), pts, enc)
     diff = (out - out_p).abs()
     err = float(diff.max())
     rel = float((diff / mag.clamp(min=1e-30)).max())
-    if not (rel <= 1e-5 and bool(torch.isfinite(out).all())):
+    zeros = not bool(out[mag == 0].any())
+    if not (rel <= 1e-5 and zeros and bool(torch.isfinite(out).all())):
         raise AssertionError(f"{label} {enc.scheme}: grad_large max |err| "
-                             f"{err}, max |err| / sum|w*g| {rel} > 1e-5")
+                             f"{err}, max |err| / sum|w*g| {rel} > 1e-5, or an "
+                             f"entry with no term not zero ({zeros})")
     del out, out_p, mag, diff
     ms = cuda_ms(lambda: KL.grad_large(g, pts, enc))
+    bins_ms = cuda_ms(lambda: KL.grad_large_bins(pts, enc))
     plain = cuda_ms(lambda: KL.grad_large_plain(g, pts, enc), reps=3,
                     inner=1, warmup=1)
+    bins_plain = cuda_ms(lambda: KL.grad_large_bins_plain(pts, enc), reps=3,
+                         inner=1, warmup=1)
     idx, frac = enc.corner_indices(pts)
     vals = (trilerp_weights(frac)[..., None]
             * g.reshape(n, nl, 1, 2)).reshape(-1, 2)
@@ -1219,26 +1324,44 @@ def large_grad_phase(enc, pts, label):
         reps=5, inner=2, warmup=1)
     del idx, vals
     # ~60 operations a (point, level): cell, 8 hashes, 8 weights, 16
-    # products; the zero fill of the gradient is the wrapper's, outside
+    # products; the gradient's touched sectors written
     bound, by, nbytes, sectors = large_bound(enc, pts, 60.0)
-    log("large", f"{label} grad_large {enc.scheme}: N={n} ms={ms:.4f} "
-        f"(zero fill included) plain_ms={plain:.4f} index_add_ms={lib_ms:.4f} "
+    # the bin pass: coordinates read, a 4-byte record a (point, level,
+    # corner), the run offsets and the plan written; ~60 operations a
+    # (point, level): cell, 8 hashes and bins
+    b_bytes = (n * 12 + 32 * n * nl + 4 * nl * nb * nt + 4 * head
+               + nl * 24)
+    b_bound = max(b_bytes / HBM_BYTES_PER_S * 1e3,
+                  60.0 * n * nl / NONTENSOR_OPS_PER_S * 1e3)
+    b_by = ("bytes" if b_bytes / HBM_BYTES_PER_S
+            >= 60.0 * n * nl / NONTENSOR_OPS_PER_S else "operations")
+    log("large", f"{label} grad_large {enc.scheme}: N={n} ms={ms:.4f} (bin "
+        f"pass included) plain_ms={plain:.4f} index_add_ms={lib_ms:.4f} "
         f"(excluding the index computation) bound_ms={bound:.4f} ({by}; "
         f"bytes {nbytes}, touched sectors {sectors}) max_abs_err={err:.3g} "
-        f"max_err/sum|w*g|={rel:.3g}; two launches bitwise equal: {same} "
-        f"(largest difference {repeat:.3g})")
-    return dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms)
+        f"max_err/sum|w*g|={rel:.3g}; two launches bitwise equal")
+    log("large", f"{label} grad_large_bins {enc.scheme}: ms={bins_ms:.4f} "
+        f"plain_ms={bins_plain:.4f} bound_ms={b_bound:.4f} ({b_by}; bytes "
+        f"{b_bytes}); max |err| of records, offsets and plan {bins_err}; "
+        f"{nb} bins a level, {nt} tiles, {n_items} parts "
+        f"of at most {part} records, {n_slots} of them partial sums; the "
+        f"most records in one bin {most}")
+    return {"grad_large": dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                               bound_ms=bound, bound_by=by,
+                               library_ms=lib_ms),
+            "grad_large_bins": dict(ms=bins_ms, plain_ms=bins_plain,
+                                    max_abs_err=bins_err, bound_ms=b_bound,
+                                    bound_by=b_by, library_ms=None)}
 
 
 def large_phase(dev):
-    """Phase 13: both large-table kernels against their plain versions at
+    """Phase 13: the large-table kernels against their plain versions at
     hashnerf_preset()'s table (16 x 2^19 f32), both schemes: a serving
     chunk's fine pass (32,768 rays x 256 depths), a train step's coarse
     pass (4,096 random pixels x 64) and dense fine class (1,024 x 256),
     and 2^20 random points. Returns the stats of the serving chunk
-    (encode_large) and of the dense fine class (grad_large), random
-    scheme."""
+    (encode_large) and of the dense fine class (grad_large and its bin
+    pass), random scheme."""
     import torch
     gen = torch.Generator().manual_seed(SEED + 11)
     stats = {}
@@ -1250,13 +1373,17 @@ def large_phase(dev):
                  - 1).to(dev)
         pts = depth_points(enc, ro, rd, 256)
         s = large_kernel_phase(enc, table, pts, "serving chunk")
+        old, new = warp_lines(enc, pts)
+        log("large", f"serving chunk {scheme}: mean distinct 128-byte table "
+            f"lines a warp's gather touches (first 2^21 points): {old:.3f} "
+            f"a thread a (point, level), {new:.3f} level-major")
         if scheme == "random":
             stats["encode_large"] = s
         del pts
         dense = depth_points(enc, cro[:1024], crd[:1024], 256)
         s = large_grad_phase(enc, dense, "dense fine class")
         if scheme == "random":
-            stats["grad_large"] = s
+            stats.update(s)
             large_kernel_phase(enc, table, dense, "dense fine class")
             coarse = depth_points(enc, cro, crd, 64)
             large_kernel_phase(enc, table, coarse, "train coarse")
@@ -1279,8 +1406,9 @@ def psnr_of(a, b):
 
 
 def cli_phase(scene, dev):
-    """Phase 14, after a tiny hashnerf_preset() train step GPU against CPU:
-    the README's command line in-process. The bench scene is exported as a
+    """Phase 14, after a tiny hashnerf_preset() train step GPU against CPU
+    and its determinism check (two 64-step runs from seed 0 on the bench
+    scene bitwise equal): the README's command line in-process. The bench scene is exported as a
     Blender tree; ``cli train --preset hashnerf --set-train NIters=2000``
     (TrainParams() otherwise: NRand 4,096, 64 + 192 samples, validation
     images every 500 steps), steps 1,024-1,055 timed; ``cli render`` of the
@@ -1303,6 +1431,7 @@ def cli_phase(scene, dev):
         hier_sparse_importance=4, compute_dtype="float32"),
         TrainParams(n_samples=8, n_rand=512, chunk=512, n_iters=100),
         LARGE_KERNELS)
+    determinism_phase(scene, dev, "hashnerf")
     tmp = tempfile.TemporaryDirectory()
     data, out = Path(tmp.name) / "blender", Path(tmp.name) / "out"
     t0 = time.perf_counter()
@@ -1484,8 +1613,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
     ap.add_argument("--repeat-train", type=int, default=0, metavar="K",
-                    help="only phases 1-2, then phase 8 K times from one "
-                    "seed: the repeatability experiment")
+                    help="only phases 1-2, then one preset's training K "
+                    "times from one seed: the repeatability experiment")
+    ap.add_argument("--preset", choices=PRESETS, default="flagship",
+                    help="the preset of --repeat-train (flagship: phase 8; "
+                    "tpu, hashnerf: phase 11's run of hashnerf_tpu_preset()"
+                    " or hashnerf_preset())")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="the seed of --repeat-train's runs (default 0)")
     args = ap.parse_args(argv)
@@ -1535,7 +1668,8 @@ def main(argv=None) -> int:
                 log("build", f"{name}: {line.strip()}")
 
     if args.repeat_train > 0:
-        repeat_train(bench_scene(dev), dev, args.repeat_train, args.seed)
+        repeat_train(bench_scene(dev), dev, args.repeat_train, args.seed,
+                     args.preset)
         log("repeat", f"total run {time.perf_counter() - t_start:.1f} s")
         print(last_line, flush=True)
         return 0
@@ -1644,7 +1778,7 @@ def main(argv=None) -> int:
     counts, _, failed = train_phase(scene, dev)
     if failed:
         raise AssertionError("; ".join(failed))
-    determinism_phase(scene, dev)
+    determinism_phase(scene, dev, "flagship")
     log("train", f"total run {time.perf_counter() - t_start:.1f} s")
 
     # 9. small-table kernels against their plain versions ------------------
@@ -1653,15 +1787,19 @@ def main(argv=None) -> int:
     # 10. a hierarchical train step, GPU against CPU -----------------------
     hier_parity()
 
-    # 11, 12. hierarchical training and serving ----------------------------
+    # 11, 12. hierarchical training and serving, determinism ---------------
     counts.update(hier_phase(scene, dev, t_start))
+    determinism_phase(scene, dev, "tpu")
     log("hier-serve", f"total run {time.perf_counter() - t_start:.1f} s")
 
     # 13. large-table kernels against their plain versions -----------------
     stats.update(large_phase(dev))
     log("large", f"total run {time.perf_counter() - t_start:.1f} s")
 
-    # 14. hashnerf_preset(): a train step GPU against CPU, the CLI path ----
+    # 14. hashnerf_preset(): a train step GPU against CPU, determinism, the
+    # CLI path
+    # grad_large_bins runs on both hierarchical paths: its entry in the
+    # kernels line counts phase 14's cli train (phase 11 prints its own)
     counts.update(cli_phase(scene, dev))
     log("cli", f"total run {time.perf_counter() - t_start:.1f} s")
 
@@ -1681,10 +1819,12 @@ def main(argv=None) -> int:
                "encode_small": ("nerfpp_tpu_torch/csrc/encode_small.cu",
                                 "nerfpp_tpu/pallas/hash_encode.py:127 and "
                                 "nerfpp_tpu/pallas/hash_encode.py:48"),
-               "grad_small": ("nerfpp_tpu_torch/csrc/grad_small.cu",
+               "grad_small": ("nerfpp_tpu_torch/csrc/grad_large.cu",
                               "nerfpp_tpu/encoders/hashgrid.py:334"),
                "encode_large": ("nerfpp_tpu_torch/csrc/encode_large.cu",
                                 "nerfpp_tpu/encoders/hashgrid.py:408"),
+               "grad_large_bins": ("nerfpp_tpu_torch/csrc/grad_large.cu",
+                                   "nerfpp_tpu/encoders/hashgrid.py:408"),
                "grad_large": ("nerfpp_tpu_torch/csrc/grad_large.cu",
                               "nerfpp_tpu/encoders/hashgrid.py:408")}
     kernels = [dict(name=name, route="cuda", source=sources[name][0],

@@ -14,10 +14,89 @@
 // small-table encoder's cell sizes or scales and primes. Weights are
 // (wx * wy) * wz with round-to-nearest products, as trilerp_weights takes
 // them.
+//
+// large_cell_of computes what a (point, level)'s corners share, and
+// large_corner one corner from it: the encode and the gradient's bin pass
+// take all 8 corners (large_cell), the gradient's owner pass one, and all
+// of them get the same bits.
 #pragma once
 
 #include "blocked_geometry.cuh"
 #include "small_geometry.cuh"
+
+struct LargeCell {
+    unsigned u[3];         // cell coordinates (SCHEME 0, 1)
+    unsigned p[3];         // the level's primes (SCHEME 0, 1)
+    unsigned base;         // corner 0's entry (SCHEME 2)
+    float f[3];            // fractions within the cell
+};
+
+template <int SCHEME>
+__device__ __forceinline__ LargeCell large_cell_of(float x0, float x1,
+                                                   float x2, int l,
+                                                   const float* geom,
+                                                   const int* ints,
+                                                   const SmallGeom& s,
+                                                   int level_size) {
+    LargeCell c;
+    const float xs[3] = {x0, x1, x2};
+    const float mins[3] = {s.bx, s.by, s.bz};
+    const float invs[3] = {s.ix, s.iy, s.iz};
+    if (SCHEME != 2) {
+        #pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const float r = small_rel<SCHEME>(xs[a], mins[a], invs[a],
+                                              __ldg(geom + 3 * l + a));
+            const float fl = floorf(r);
+            c.u[a] = (unsigned)(int)fl;
+            c.f[a] = __fsub_rn(r, fl);
+            c.p[a] = (unsigned)__ldg(ints + 3 * l + a);
+        }
+        c.base = 0u;
+        return c;
+    }
+    const float sc = __ldg(geom + 3 * l);
+    int cell[3];
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        const float r = nerf_rel(xs[a], mins[a], invs[a], sc);
+        const float fl = floorf(r);
+        cell[a] = (int)fl;
+        c.f[a] = __fsub_rn(r, fl);
+        c.u[a] = 0u;
+        c.p[a] = 0u;
+    }
+    const int o0 = (cell[0] >> 2) + __ldg(ints + 3 * l + 0);
+    const int o1 = (cell[1] >> 2) + __ldg(ints + 3 * l + 1);
+    const int o2 = (cell[2] >> 2) + __ldg(ints + 3 * l + 2);
+    const unsigned slot = (nerf_spread10((unsigned)o0)
+                           | (nerf_spread10((unsigned)o1) << 1)
+                           | (nerf_spread10((unsigned)o2) << 2))
+                          & ((unsigned)(level_size / NERF_LANES) - 1u);
+    c.base = slot * NERF_LANES + (cell[0] & 3) * 25 + (cell[1] & 3) * 5
+             + (cell[2] & 3);
+    return c;
+}
+
+// corner d (z fastest: bits (x, y, z) = (d >> 2, d >> 1, d) & 1): its entry
+// within the level and its weight
+template <int SCHEME>
+__device__ __forceinline__ void large_corner(const LargeCell& c, int d,
+                                             int level_size, unsigned& idx,
+                                             float& w) {
+    const unsigned dx = (d >> 2) & 1, dy = (d >> 1) & 1, dz = d & 1;
+    if (SCHEME != 2) {
+        const unsigned h = ((c.u[0] + dx) * c.p[0]) ^ ((c.u[1] + dy) * c.p[1])
+                           ^ ((c.u[2] + dz) * c.p[2]);
+        idx = h & ((unsigned)level_size - 1u);
+    } else {
+        idx = c.base + dx * 25 + dy * 5 + dz;
+    }
+    const float wx = dx ? c.f[0] : __fsub_rn(1.0f, c.f[0]);
+    const float wy = dy ? c.f[1] : __fsub_rn(1.0f, c.f[1]);
+    const float wz = dz ? c.f[2] : __fsub_rn(1.0f, c.f[2]);
+    w = __fmul_rn(__fmul_rn(wx, wy), wz);
+}
 
 template <int SCHEME>
 __device__ __forceinline__ void large_cell(float x0, float x1, float x2,
@@ -26,43 +105,9 @@ __device__ __forceinline__ void large_cell(float x0, float x1, float x2,
                                            const SmallGeom& s,
                                            int level_size, unsigned idx[8],
                                            float w[8]) {
-    if (SCHEME != 2) {
-        SmallCell c;
-        small_cell<SCHEME>(x0, x1, x2, l, geom,
-                           reinterpret_cast<const unsigned*>(ints), s,
-                           (unsigned)level_size - 1u, c);
-        #pragma unroll
-        for (int d = 0; d < 8; ++d) {
-            idx[d] = c.idx[d];
-            w[d] = c.w[d];
-        }
-        return;
-    }
-    const float sc = __ldg(geom + 3 * l);
-    const float r0 = nerf_rel(x0, s.bx, s.ix, sc);
-    const float r1 = nerf_rel(x1, s.by, s.iy, sc);
-    const float r2 = nerf_rel(x2, s.bz, s.iz, sc);
-    const float fl0 = floorf(r0), fl1 = floorf(r1), fl2 = floorf(r2);
-    const int c0 = (int)fl0, c1 = (int)fl1, c2 = (int)fl2;
-    const float f0 = __fsub_rn(r0, fl0);
-    const float f1 = __fsub_rn(r1, fl1);
-    const float f2 = __fsub_rn(r2, fl2);
-    const int o0 = (c0 >> 2) + __ldg(ints + 3 * l + 0);
-    const int o1 = (c1 >> 2) + __ldg(ints + 3 * l + 1);
-    const int o2 = (c2 >> 2) + __ldg(ints + 3 * l + 2);
-    const unsigned slot = (nerf_spread10((unsigned)o0)
-                           | (nerf_spread10((unsigned)o1) << 1)
-                           | (nerf_spread10((unsigned)o2) << 2))
-                          & ((unsigned)(level_size / NERF_LANES) - 1u);
-    const unsigned base = slot * NERF_LANES + (c0 & 3) * 25 + (c1 & 3) * 5
-                          + (c2 & 3);
-    const float wx[2] = {__fsub_rn(1.0f, f0), f0};
-    const float wy[2] = {__fsub_rn(1.0f, f1), f1};
-    const float wz[2] = {__fsub_rn(1.0f, f2), f2};
+    const LargeCell c = large_cell_of<SCHEME>(x0, x1, x2, l, geom, ints, s,
+                                              level_size);
     #pragma unroll
-    for (int d = 0; d < 8; ++d) {
-        const int dx = (d >> 2) & 1, dy = (d >> 1) & 1, dz = d & 1;
-        idx[d] = base + dx * 25 + dy * 5 + dz;
-        w[d] = __fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]);
-    }
+    for (int d = 0; d < 8; ++d)
+        large_corner<SCHEME>(c, d, level_size, idx[d], w[d]);
 }

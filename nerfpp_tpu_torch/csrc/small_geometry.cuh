@@ -1,5 +1,6 @@
 // Shared cell and hash arithmetic of the small-table (fixed and random)
-// schemes, for the forward encode and the table gradient
+// schemes, for the small-table encode and, through large_geometry.cuh, the
+// large-table encode and the table gradient
 // (nerfpp_tpu_torch/encoders/hashgrid.py holds the plain version).
 //
 // The cell coordinate is the form jax.jit(corner_indices) computes, with
@@ -23,7 +24,6 @@ struct SmallGeom {
 struct SmallCell {
     unsigned idx[8];       // entry within the level, [0, T)
     float w[8];            // trilinear weights, (wx * wy) * wz
-    unsigned long long key;  // the cell's integer coordinates, packed
 };
 
 template <int SCHEME>
@@ -80,16 +80,4 @@ __device__ __forceinline__ void small_cell_at(float x0, float x1, float x2,
         c.idx[d] = h & mask;
         c.w[d] = __fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]);
     }
-    c.key = (unsigned long long)u0 | ((unsigned long long)u1 << 21)
-            | ((unsigned long long)u2 << 42);
-}
-
-template <int SCHEME>
-__device__ __forceinline__ void small_cell(float x0, float x1, float x2,
-                                           int l, const float* geom,
-                                           const unsigned* primes,
-                                           const SmallGeom& s, unsigned mask,
-                                           SmallCell& c) {
-    small_cell_at<SCHEME>(x0, x1, x2, small_level(l, geom, primes), s, mask,
-                          c);
 }

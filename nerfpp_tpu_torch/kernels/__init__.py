@@ -5,7 +5,8 @@ nvcc at first use. Importing this package builds nothing.
 """
 from nerfpp_tpu_torch.kernels.hash_encode import encode_small, grad_small
 from nerfpp_tpu_torch.kernels.hash_encode_large import (encode_large,
-                                                        grad_large)
+                                                        grad_large,
+                                                        grad_large_bins)
 from nerfpp_tpu_torch.kernels.hash_encode_blocked import (encode_blocked,
                                                           grad_blocked,
                                                           grad_blocked_index,
@@ -15,7 +16,7 @@ WRAPPERS = {"window_lists": window_lists, "encode_blocked": encode_blocked,
             "grad_blocked_index": grad_blocked_index,
             "grad_blocked": grad_blocked, "encode_small": encode_small,
             "grad_small": grad_small, "encode_large": encode_large,
-            "grad_large": grad_large}
+            "grad_large_bins": grad_large_bins, "grad_large": grad_large}
 
 
 def launch_counts() -> dict:

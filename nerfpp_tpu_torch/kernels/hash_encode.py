@@ -12,10 +12,16 @@ random hash schemes with the whole table resident on chip:
   one kernel (v1, as in the JAX package, always reads the f32 table).
   ``small_plan`` is its launch plan: persistent blocks, each staging one
   group of levels' tables once and writing that group's slice of the rows.
-- ``grad_small`` (csrc/grad_small.cu): the f32 table gradient, each point's
-  8 corners getting ``w_corner * g``. The JAX package computes it outside
-  Pallas, as a factorised bf16 one-hot matmul (ops/scatter_matmul.py,
-  called from encoders/hashgrid.py's custom VJP).
+- ``grad_small``: the f32 table gradient, each point's 8 corners getting
+  ``w_corner * g``. The JAX package computes it outside Pallas, as a
+  factorised bf16 one-hot matmul (ops/scatter_matmul.py, called from
+  encoders/hashgrid.py's custom VJP). It runs the large-table gradient's
+  two kernels (csrc/grad_large.cu through hash_encode_large.grad_hashed:
+  the bin pass, counted as grad_large_bins', and the owner pass) at the
+  small table's bins of 512 entries, summed in an order fixed by the
+  inputs with no float atomics, so two launches give bitwise equal
+  gradients (the shared-memory copies flushed by float atomics of the
+  earlier csrc/grad_small.cu did not).
 - ``HashEncodeSmall`` / ``hash_encode_small``: the differentiable entry
   (points already clamped): the forward packs the table and runs
   ``encode_small``, the backward runs ``grad_small`` straight through the
@@ -48,10 +54,10 @@ from nerfpp_tpu_torch.kernels.hash_encode_blocked import (_check, _launch,
                                                           pack_table_bf16,
                                                           unpack_table_bf16)
 from nerfpp_tpu_torch.kernels.hash_encode_large import (encode_large_plain,
+                                                        grad_hashed,
                                                         grad_large_plain)
 
 MAX_TABLE_BYTES = 4 * 1024 * 1024    # the JAX kernel's VMEM-resident limit
-GRAD_LEVELS_MAX = 47                 # levels grad_small takes
 TILE = 1024                          # encode_small's points per tile (ES_TILE)
 SMEM_BLOCK_MAX = 232448              # H100: dynamic shared memory per block
 SLICE_LEVELS = 4                     # levels whose features fill a sector
@@ -267,31 +273,17 @@ grad_small_plain = grad_large_plain
 
 
 def grad_small(g: torch.Tensor, points: torch.Tensor, enc) -> torch.Tensor:
-    """The gradient kernel on CUDA tensors, the plain version on CPU
-    tensors. g: [N, 2L] f32; points: [N, 3] f32 clamped."""
+    """The gradient kernels on CUDA tensors, the plain version on CPU
+    tensors. g: [N, 2L] f32; points: [N, 3] f32 clamped. Two launches on
+    the same inputs give bitwise equal results."""
     if points.device.type == "cpu":
         return grad_small_plain(g, points, enc)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    dev, n, nl = points.device, points.shape[0], enc.n_levels
-    _check_enc(enc, dev)
-    if nl > GRAD_LEVELS_MAX:
-        raise ValueError(f"grad_small takes at most {GRAD_LEVELS_MAX} "
-                         f"levels, not {nl}")
-    _check(g, "cotangent", torch.float32, (n, 2 * nl), dev)
-    _check(points, "points", torch.float32, (n, 3), dev)
-    # the kernel adds each block's shared-memory copy into zeros
-    out = torch.zeros((enc.table_rows, 2), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    _launch(load("grad_small").grad_small_launch,
-            ctypes.c_void_p(g.data_ptr()),
-            ctypes.c_void_p(points.data_ptr()),
-            ctypes.c_void_p(enc.level_geom.data_ptr()),
-            ctypes.c_void_p(enc.primes_bits.data_ptr()), *_geometry_args(enc),
-            ctypes.c_int(n), ctypes.c_int(nl), ctypes.c_int(enc.level_size),
-            ctypes.c_int(_scheme_id(enc)), ctypes.c_void_p(out.data_ptr()))
-    grad_small.launches += 1
+    _check_enc(enc, points.device)
+    out = grad_hashed(g, points, enc)
+    if points.shape[0]:
+        grad_small.launches += 1
     return out
 
 

@@ -253,7 +253,8 @@ def test_cpu_wrappers_count_no_launches():
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
                                "grad_blocked_index": 0, "grad_blocked": 0,
                                "encode_small": 0, "grad_small": 0,
-                               "encode_large": 0, "grad_large": 0}
+                               "encode_large": 0, "grad_large_bins": 0,
+                               "grad_large": 0}
 
 
 def test_kernel_wrappers_check_inputs():

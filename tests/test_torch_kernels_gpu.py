@@ -126,7 +126,8 @@ def test_encoder_forward_kernel_matches_plain_gather(cuda):
 
 def test_encoder_f32_gather_raises_on_cuda(cuda):
     # the f32-table gather (use_kernel=False) no longer raises on the card:
-    # it launches the large-table kernel pair, never the plain gather
+    # it launches the large-table kernels (the gradient through its bin
+    # pass), never the plain gather
     enc = HashGridEncoder(BBOX, 4, 2, 12, 16, 128, use_kernel=False,
                           device=cuda)
     pts = _point_sets(enc, cuda)["uniform"][:256]
@@ -135,6 +136,7 @@ def test_encoder_f32_gather_raises_on_cuda(cuda):
     feats.sum().backward()
     counts = launch_counts()
     assert counts.pop("encode_large") == 1 and counts.pop("grad_large") == 1
+    assert counts.pop("grad_large_bins") == 1
     assert set(counts.values()) == {0}
     torch.cuda.synchronize()
     ref = KL.encode_large_plain(enc.table.detach(), pts, enc)
@@ -150,7 +152,8 @@ def test_launch_counts_move_once_per_launch(cuda):
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
                                "grad_blocked_index": 0, "grad_blocked": 0,
                                "encode_small": 0, "grad_small": 0,
-                               "encode_large": 0, "grad_large": 0}
+                               "encode_large": 0, "grad_large_bins": 0,
+                               "grad_large": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -172,8 +175,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 def _grad_close(got, plain, mag):
     """The kernels and index_add_ sum each entry's terms in different
-    orders (K3 in an order fixed by its inputs, grad_small with atomics):
-    each entry within 1e-5 of the sum of its terms' magnitudes."""
+    orders (K3, grad_small and grad_large each in an order fixed by its
+    inputs): each entry within 1e-5 of the sum of its terms' magnitudes."""
     return bool(((got - plain).abs() <= 1e-5 * mag + 1e-30).all())
 
 
@@ -251,7 +254,8 @@ def test_grad_launch_count_moves_once_per_backward(cuda):
     assert launch_counts() == {"window_lists": 1, "encode_blocked": 1,
                                "grad_blocked_index": 1, "grad_blocked": 1,
                                "encode_small": 0, "grad_small": 0,
-                               "encode_large": 0, "grad_large": 0}
+                               "encode_large": 0, "grad_large_bins": 0,
+                               "grad_large": 0}
     # the gradient is K3's: equal to the plain version of the same cotangent
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     padded = K.pad_points(pts, enc)
@@ -352,9 +356,9 @@ def test_small_encode_matches_plain_version(cuda, scheme, log2_t, levels):
 @pytest.mark.parametrize("scheme", ["fixed", "random"])
 @pytest.mark.parametrize("log2_t,levels", [(10, 4), (15, 16), (19, 1)])
 def test_small_grad_matches_plain_version(cuda, scheme, log2_t, levels):
-    # atomics sum in a run-dependent order: each entry within 1e-5 of the
-    # sum of its terms' magnitudes; coherent points exercise the warp's
-    # same-cell sums, 4,001 points a partial block
+    # the kernels sum in another order than index_add_: each entry within
+    # 1e-5 of the sum of its terms' magnitudes; coherent points exercise the
+    # warp's same-entry sums, 4,001 points a partial tile
     enc = _small_encoder(cuda, scheme, log2_t, levels)
     g = torch.Generator().manual_seed(log2_t + 1)
     for name, pts in _small_points(enc, cuda).items():
@@ -368,8 +372,9 @@ def test_small_grad_matches_plain_version(cuda, scheme, log2_t, levels):
 
 
 def test_small_launch_counts_move_once_per_launch(cuda):
-    # the encoder's forward launches encode_small, its backward grad_small;
-    # the plain versions count nothing; the table gradient is the kernel's
+    # the encoder's forward launches encode_small, its backward grad_small
+    # (through the bin pass, grad_large_bins); the plain versions count
+    # nothing; the table gradient is the kernel's
     enc = _small_encoder(cuda, "random", 13, 16)
     pts = _small_points(enc, cuda, 3000)["coherent"]
     reset_launch_counts()
@@ -380,7 +385,8 @@ def test_small_launch_counts_move_once_per_launch(cuda):
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
                                "grad_blocked_index": 0, "grad_blocked": 0,
                                "encode_small": 1, "grad_small": 1,
-                               "encode_large": 0, "grad_large": 0}
+                               "encode_large": 0, "grad_large_bins": 1,
+                               "grad_large": 0}
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     assert _grad_close(enc.table.grad, KS.grad_small_plain(cot, pts, enc),
                        KS.grad_small_plain(cot.abs(), pts, enc))
@@ -717,13 +723,15 @@ def _large_encoder(dev, scheme, log2_t, levels):
 
 @pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
 @pytest.mark.parametrize("log2_t,levels", [(10, 1), (10, 4), (12, 16),
-                                           (19, 16), (20, 16), (19, 5)])
+                                           (19, 16), (20, 16), (19, 5),
+                                           (7, 3), (23, 2), (24, 2)])
 def test_large_kernels_match_plain_versions(cuda, scheme, log2_t, levels):
     # encode within 1e-6 at |table| <= 1 (f32 weights and products on both
     # sides; the order of the 8 corner sums differs); the gradient, summed
-    # with atomics, each entry within 1e-5 of the sum of its terms'
-    # magnitudes; uniform, coherent, cell-boundary and box-face points,
-    # 4,001 of them, and a single point
+    # in another order than index_add_, each entry within 1e-5 of the sum
+    # of its terms' magnitudes; uniform, coherent, cell-boundary and
+    # box-face points, 4,001 of them, and a single point; T = 2^7 is one
+    # bin a level, T = 2^23 and 2^24 count their bins in 2 and 4 chunks
     enc = _large_encoder(cuda, scheme, log2_t, levels)
     g = torch.Generator().manual_seed(log2_t * 100 + levels)
     table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
@@ -747,7 +755,7 @@ def test_large_kernels_match_plain_versions(cuda, scheme, log2_t, levels):
 
 @pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
 def test_large_grad_all_points_in_one_cell(cuda, scheme):
-    # every point in one cell of the finest level: the atomics of 4,001
+    # every point in one cell of the finest level: the terms of 4,001
     # points meet on the same 8 entries of every level
     enc = _large_encoder(cuda, scheme, 19, 16)
     g = torch.Generator().manual_seed(7)
@@ -768,8 +776,9 @@ def test_large_grad_all_points_in_one_cell(cuda, scheme):
 
 @pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
 def test_large_launch_counts_move_once_per_launch(cuda, scheme):
-    # the encoder's forward launches encode_large, its backward grad_large;
-    # the plain versions count nothing; the table gradient is the kernel's
+    # the encoder's forward launches encode_large, its backward grad_large
+    # (and its bin pass, grad_large_bins); the plain versions count nothing;
+    # the table gradient is the kernel's
     enc = _large_encoder(cuda, scheme, 14, 8)
     with torch.no_grad():
         enc.table.uniform_(-1, 1)
@@ -781,7 +790,8 @@ def test_large_launch_counts_move_once_per_launch(cuda, scheme):
     assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
                                "grad_blocked_index": 0, "grad_blocked": 0,
                                "encode_small": 0, "grad_small": 0,
-                               "encode_large": 1, "grad_large": 1}
+                               "encode_large": 1, "grad_large_bins": 1,
+                               "grad_large": 1}
     cot = 3.0 * torch.cos(3.0 * feats.detach())
     assert _grad_close(enc.table.grad, KL.grad_large_plain(cot, pts, enc),
                        KL.grad_large_plain(cot.abs(), pts, enc))
@@ -814,11 +824,145 @@ def test_large_wrappers_reject_what_the_kernels_do_not_take(cuda):
         KL.grad_large(cot[:200].contiguous(), pts, enc)
     with pytest.raises(ValueError, match="cotangent is on cpu"):
         KL.grad_large(cot.cpu(), pts, enc)
-    shifted = torch.zeros(256 * 8 + 2, device=cuda)[2:]
-    with pytest.raises(ValueError, match="aligned"):
-        KL.grad_large(shifted.view(256, 8), pts, enc)
     many = HashGridEncoder(BBOX, 65, 2, 10, 16, 1024, scheme="random",
                            use_kernel=False, device=cuda)
     with pytest.raises(ValueError, match="levels"):
         KL.encode_large(many.table.detach(), pts, many)
+    assert set(launch_counts().values()) == {0}
+    # a cotangent at any 4-byte offset is taken: the owner pass reads a
+    # level-major copy of it
+    shifted = torch.zeros(256 * 8 + 2, device=cuda)[2:].view(256, 8)
+    shifted.copy_(torch.randn(256, 8, generator=torch.Generator()
+                              .manual_seed(3)).to(cuda))
+    got = KL.grad_large(shifted, pts, enc)
+    torch.cuda.synchronize()
+    assert _grad_close(got, KL.grad_large_plain(shifted, pts, enc),
+                       KL.grad_large_plain(shifted.abs(), pts, enc))
+
+
+# ------------------------------- the order-fixed gradient and its bin pass
+
+def _bins_equal(got, plain, n, enc):
+    """The bin pass against its plain version: the records, the run
+    offsets, and the plan up to its last item (the kernels write nothing
+    past it)."""
+    recs, offs, plan = got
+    recs_p, offs_p, plan_p = plain
+    nb = KL.bins_shape(n, enc)[1]
+    head = 4 + 4 * enc.n_levels * nb + 2 * int(plan_p[0])
+    return (torch.equal(recs, recs_p) and torch.equal(offs, offs_p)
+            and torch.equal(plan[:head], plan_p[:head]))
+
+
+def _one_cell(enc, n, seed):
+    """n points in one cell of the finest level."""
+    g = torch.Generator().manual_seed(seed)
+    res = float(enc.resolutions[-1] if enc.scheme == "fixed"
+                else enc.level_scales[-1])
+    lo, ext = enc.box_min.cpu(), (enc.box_max - enc.box_min).cpu()
+    cell = torch.floor(torch.rand(1, 3, generator=g) * (res - 1))
+    frac = 0.1 + 0.8 * torch.rand(n, 3, generator=g)
+    return ((cell + frac) / res * ext + lo).contiguous()
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 4), (13, 16), (19, 16),
+                                           (20, 3), (7, 2), (23, 2)])
+def test_grad_large_bins_match_plain_version(cuda, scheme, log2_t, levels):
+    # the records, run offsets and plan exactly: uniform points (empty bins
+    # at T = 2^19 and more), coherent, cell-boundary and box-face points
+    # (4,001: a partial last tile), a single point, and 20,000 points in one
+    # cell (its corners' bins hold more records than a part: split bins);
+    # T = 2^7 is one bin a level, T = 2^23 two chunks of bins
+    enc = _large_encoder(cuda, scheme, log2_t, levels)
+    sets = _small_points(enc, cuda)
+    sets["single"] = sets["uniform"][:1].contiguous()
+    sets["one cell"] = _one_cell(enc, 20000, log2_t).to(cuda)
+    reset_launch_counts()
+    for name, pts in sets.items():
+        got = KL.grad_large_bins(pts, enc)
+        torch.cuda.synchronize()
+        plain = KL.grad_large_bins_plain(pts, enc)
+        assert _bins_equal(got, plain, pts.shape[0], enc), name
+        if name == "one cell":
+            assert int(plain[2][1]) > 0, "no bin was split"
+    assert launch_counts()["grad_large_bins"] == len(sets)
+
+
+def _repeat_checked(fn, plain_fn, cot, pts, enc):
+    """Two launches bitwise equal, each entry within 1e-5 of the sum of its
+    terms' magnitudes, zero exactly where no term falls."""
+    got = fn(cot, pts, enc)
+    again = fn(cot, pts, enc)
+    torch.cuda.synchronize()
+    plain = plain_fn(cot, pts, enc)
+    mag = plain_fn(cot.abs(), pts, enc)
+    return (torch.equal(got, again) and _grad_close(got, plain, mag)
+            and torch.equal(got != 0, plain != 0))
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+def test_large_grad_two_launches_bitwise_equal(cuda, scheme):
+    # 16 x 2^19 (hashnerf_preset()'s table) and 3 x 2^10: uniform,
+    # coherent, cell-boundary and box-face points, and 20,000 in one cell
+    # (split bins, their partial tiles added in part order)
+    for log2_t, levels in ((19, 16), (10, 3)):
+        enc = _large_encoder(cuda, scheme, log2_t, levels)
+        g = torch.Generator().manual_seed(levels)
+        sets = _small_points(enc, cuda)
+        sets["one cell"] = _one_cell(enc, 20000, levels).to(cuda)
+        for name, pts in sets.items():
+            cot = torch.randn(pts.shape[0], 2 * levels, generator=g).to(cuda)
+            assert _repeat_checked(KL.grad_large, KL.grad_large_plain, cot,
+                                   pts, enc), (log2_t, name)
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random"])
+@pytest.mark.parametrize("log2_t,levels", [(10, 4), (13, 16), (15, 16)])
+def test_small_grad_two_launches_bitwise_equal(cuda, scheme, log2_t, levels):
+    # the small table's bins (512 entries) are crowded: a part of 4,096
+    # records at most, so most bins are split; 20,000 points in one cell
+    enc = _small_encoder(cuda, scheme, log2_t, levels)
+    g = torch.Generator().manual_seed(log2_t + levels)
+    sets = _small_points(enc, cuda)
+    sets["one cell"] = _one_cell(enc, 20000, log2_t).to(cuda)
+    for name, pts in sets.items():
+        cot = torch.randn(pts.shape[0], 2 * levels, generator=g).to(cuda)
+        assert _repeat_checked(KS.grad_small, KS.grad_small_plain, cot, pts,
+                               enc), name
+
+
+@pytest.mark.parametrize("scheme", ["fixed", "random", "blocked"])
+@pytest.mark.parametrize("levels", [1, 2, 3, 5, 6, 7, 9, 13, 17])
+def test_large_encode_level_groups(cuda, scheme, levels):
+    # a block serves 4 levels: levels not a multiple of 4 leave a short last
+    # group, and odd levels rows that are not 16-byte aligned; 4,001 and 255
+    # points leave a partial last tile; T = 2^10 and 2^19
+    for log2_t in (10, 19):
+        enc = _large_encoder(cuda, scheme, log2_t, levels)
+        g = torch.Generator().manual_seed(levels)
+        table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+        for name, pts in _small_points(enc, cuda).items():
+            for m in (pts.shape[0], 255):
+                out = KL.encode_large(table, pts[:m], enc)
+                torch.cuda.synchronize()
+                ref = KL.encode_large_plain(table, pts[:m], enc)
+                assert float((out - ref).abs().max()) <= 1e-6, (name, m)
+
+
+def test_grad_large_bins_rejects_what_it_does_not_take(cuda):
+    enc = _large_encoder(cuda, "random", 10, 4)
+    pts = _small_points(enc, cuda, 256)["uniform"]
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="at least one point"):
+        KL.grad_large_bins(pts[:0], enc)
+    with pytest.raises(TypeError, match="dtype"):
+        KL.grad_large_bins(pts.double(), enc)
+    # 8 x 2^28 records do not fit the 32-bit records
+    huge = torch.zeros(1, 3, device=cuda).expand(1 << 28, 3)
+    with pytest.raises(ValueError, match="records"):
+        KL.grad_large_bins(huge, enc)
+    with pytest.raises(ValueError, match="records"):
+        KL.grad_large(torch.zeros(1, 8, device=cuda).expand(1 << 28, 8),
+                      huge, enc)
     assert set(launch_counts().values()) == {0}
