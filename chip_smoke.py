@@ -90,12 +90,35 @@ Phases, each printing its own lines:
  15. classic NeRF: a tiny classic_nerf_preset() train step GPU against CPU,
      then bench.py's classic configuration at full width (8 x 256, 64 + 64
      samples, NRand 4,096), 1 + 10 timed steps; no kernel may launch.
+ 16. LeRF, hashnerf_preset(use_lerf=True): (a) a tiny LeRF train step GPU
+     against CPU (99 % of each gradient within phase 7's limits, every
+     entry within ten times them: the importance depths of near-empty bins
+     move with the rounding), then a 64x64 LeRF render of the stepped state
+     with relevancy within phase 4's limits; (b) encode_large, grad_large
+     and grad_large_bins against their plain versions at the language
+     table (14 levels x 2^16 f32, primes seed 1) on a step's fine pass
+     (4,096 random pixels x 256 depths), beside embedding_bag and
+     index_add_; two gradient launches bitwise equal; (c) the stand-in CLIP
+     pyramid of the bench scene at E = 768 as ``cli train`` builds it
+     (windows of 168 / 336 / 672 px), then 512 steps with launch counts
+     reset before step 0 and read after the last, steps 449-512 timed,
+     both the image and the language loss falling (means of the last 32
+     steps below the first 32), peak memory; (d) 1 + 2 800x800 frames with
+     relevancy at TrainParams() (the prompts stand-in embeddings of flat
+     patches of the blue prim against the red one and black), relevancy
+     [800, 800, 1] finite in [0, 1] and not constant, its AUC and IoU
+     against the blue prim's mask, render_path's relevancy_0.png read back;
+     (e) two 32-step seed-0 LeRF runs bitwise equal; (f) bench.py's LeRF
+     quality configuration (128 px, 8 views, 24-d stand-in, 32 + 16
+     samples, 1,000 steps): both losses must fall and the held-out map
+     must not be constant; its relevancy AUC and IoU@0.5 are printed.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
 phase 8's training for K3 and its index, phase 11's for encode_small and
-grad_small, phase 14's cli train for encode_large, grad_large and the bin
-pass grad_large_bins (which phase 11's path launches too, once per
-grad_small: its count is printed there). The last line is
+grad_small, phase 14's cli train and phase 16's LeRF training and frames
+for encode_large, grad_large and the bin pass grad_large_bins (which phase
+11's path launches too, once per grad_small: its count is printed there);
+its times are phases 3, 6, 9 and 13's. The last line is
 {"ok": true, "device": {...}}.
 
 ``--repeat-train K`` runs only phases 1-2 and then one preset's training K
@@ -425,6 +448,17 @@ def compare(label, a, b, tol):
     return ratio
 
 
+def compare_bulk(label, a, b, top, bulk, frac=0.99):
+    """compare() with ``top`` for every entry, and at least ``frac`` of the
+    entries within ``bulk`` of max|b|."""
+    ratio = compare(label, a, b, top)
+    share = float(((a - b).abs() <= bulk * b.abs().max()).float().mean())
+    if not share >= frac:
+        raise AssertionError(f"{label}: {share:.4f} of the entries within "
+                             f"{bulk} of its largest value (limit {frac})")
+    return ratio
+
+
 def train_parity():
     """One train step of a tiny configuration (L = 4, T = 2^12, NRand 256,
     8 samples, the two-class budget, the full refresh of step 0, density
@@ -497,6 +531,7 @@ def bench_scene(dev):
 
 
 PRESETS = ("flagship", "tpu", "hashnerf")
+BLUE, RED = (0.2, 0.5, 0.9), (0.9, 0.25, 0.2)    # two of the scene's prims
 
 
 class Trainer:
@@ -507,9 +542,12 @@ class Trainer:
     the 8,100-step schedule); ``tpu`` and ``hashnerf``:
     hashnerf_tpu_preset() and hashnerf_preset() with the README's
     TrainParams(n_iters=2000) (NRand 4,096 random pixels, 64 + 192
-    samples)."""
+    samples); ``lerf``: hashnerf_preset(use_lerf=True) with the same
+    TrainParams against ``pyramid`` (its image and language losses are
+    recorded too). ``p`` and ``tp`` replace the preset's parameters."""
 
-    def __init__(self, scene, dev, seed, preset="flagship"):
+    def __init__(self, scene, dev, seed, preset="flagship", pyramid=None,
+                 p=None, tp=None):
         import torch
         from nerfpp_tpu_torch.config import (TrainParams,
                                              hashnerf_blocked_preset,
@@ -528,6 +566,9 @@ class Trainer:
                                         occ_update_every=32)
             self.tp = TrainParams(n_iters=8100, steps_per_call=25, **common)
             tiles = dict(tile_h=8, tile_w=16)
+        elif preset == "lerf":
+            p = p or hashnerf_preset(use_lerf=True)
+            self.tp = tp or TrainParams(n_iters=2000, **common)
         else:
             p = (hashnerf_tpu_preset if preset == "tpu"
                  else hashnerf_preset)()
@@ -537,8 +578,9 @@ class Trainer:
         ex.white_bkgr = scene.white_bkgr
         ex.initialize(scene.bounding_box, self.tp.lrate_decay, seed=seed)
         self.sampler = RayBatchSampler.from_scene(scene, self.tp.n_rand,
-                                                  device=dev, **tiles)
-        self.losses, self.curve = [], []
+                                                  device=dev, pyramid=pyramid,
+                                                  **tiles)
+        self.losses, self.curve, self.parts = [], [], []
         build = ex._build_train_step
 
         def recording(tp):
@@ -547,6 +589,9 @@ class Trainer:
             def run_step(*args, **kwargs):
                 m = step(*args, **kwargs)
                 self.losses.append(m["loss"].detach().reshape(1))
+                if "lang_loss" in m:
+                    self.parts.append(torch.stack([m["img_loss"],
+                                                   m["lang_loss"]]))
                 return m
             return run_step
         # the collapse recovery rebuilds the step through this attribute too
@@ -679,7 +724,8 @@ def first_difference(a, b):
     return None if a.numel() == b.numel() else n
 
 
-def determinism_phase(scene, dev, preset="flagship", steps=64):
+def determinism_phase(scene, dev, preset="flagship", steps=64,
+                      pyramid=None):
     """A preset (Trainer) trained twice from seed 0 for ``steps`` steps,
     each run with a fresh executor and sampler: the losses must be bitwise
     equal at every step, and the parameters, Adam state and occupancy grid
@@ -688,7 +734,7 @@ def determinism_phase(scene, dev, preset="flagship", steps=64):
     import torch
     runs = []
     for _ in range(2):
-        f = Trainer(scene, dev, SEED, preset)
+        f = Trainer(scene, dev, SEED, preset, pyramid)
         f.run(steps)
         runs.append((f.loss_bits(), state_of(f.ex)))
         f.tmp.cleanup()
@@ -1015,13 +1061,18 @@ def hier_render_parity(state):
                                  "tolerance")
 
 
-def step_parity(label, p, tp, kernels):
+def step_parity(label, p, tp, kernels, pyramid_of=None):
     """One tiny train step on the card and on the CPU from the same seeded
     state; one CPU generator gives both runs the same draws. ``kernels``
     must launch on the card (with none, no kernel may launch). The loss to
     1e-4 of itself, gradients and first moments to 1e-3 of each tensor's
     largest (the card's kernels and matrix products sum in other orders),
-    second moments to 2e-3."""
+    second moments to 2e-3. ``pyramid_of(scene, device)``: the LeRF
+    supervision; a LeRF step holds 99 % of each gradient and moment to
+    those limits and every entry to ten times them, because its two
+    importance passes move depths in near-empty bins with the rounding of
+    the weights (2 ulps of them move the table gradients by up to 4.7e-3 of
+    their largest on the CPU alone). Returns the two stepped executors."""
     import torch
     from nerfpp_tpu_torch.data.dataset import RayBatchSampler
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
@@ -1029,12 +1080,14 @@ def step_parity(label, p, tp, kernels):
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
     scene = make_synthetic_scene(n_train=2, n_val=1, n_test=1, image_hw=32,
                                  n_samples=32, white_bkgr=False, device="cpu")
-    runs = {}
+    runs, exs = {}, {}
     for name in ("cuda", "cpu"):
-        ex = NeRFExecutor(p, device=name)
+        ex = exs[name] = NeRFExecutor(p, device=name)
         ex.white_bkgr = scene.white_bkgr
         ex.initialize(scene.bounding_box, tp.lrate_decay, seed=SEED)
-        sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=name)
+        sampler = RayBatchSampler.from_scene(
+            scene, tp.n_rand, device=name,
+            pyramid=pyramid_of(scene, name) if pyramid_of else None)
         reset_launch_counts()
         m = ex._build_train_step(tp)(
             0, sampler, torch.Generator().manual_seed(SEED + 7))
@@ -1044,6 +1097,8 @@ def step_parity(label, p, tp, kernels):
             raise AssertionError(f"{label}: launches on the card {counts}, "
                                  f"expected {list(kernels) or 'none'}")
         run = {"loss": m["loss"].cpu().reshape(1)}
+        if "lang_loss" in m:
+            run["loss lang"] = m["lang_loss"].cpu().reshape(1)
         for k, v in ex.named_parameters().items():
             run[f"grad {k}"] = v.grad.cpu()
             run[f"mu {k}"] = ex.optimizer.mu[k].cpu()
@@ -1053,12 +1108,16 @@ def step_parity(label, p, tp, kernels):
     for key, a in runs["cuda"].items():
         kind = key.split(" ")[0]
         tol = {"loss": 1e-4, "grad": 1e-3, "mu": 1e-3, "nu": 2e-3}[kind]
-        worst[kind] = max(worst.get(kind, 0.0),
-                          compare(f"{label}: {key}", a, runs["cpu"][key],
-                                  tol))
+        if pyramid_of is not None and kind != "loss":
+            r = compare_bulk(f"{label}: {key}", a, runs["cpu"][key],
+                             10 * tol, tol)
+        else:
+            r = compare(f"{label}: {key}", a, runs["cpu"][key], tol)
+        worst[kind] = max(worst.get(kind, 0.0), r)
     log(label, f"train step loss gpu {float(runs['cuda']['loss']):.6f} cpu "
         f"{float(runs['cpu']['loss']):.6f}; worst |gpu - cpu| / max|cpu|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return exs
 
 
 def hier_parity():
@@ -1609,6 +1668,280 @@ def classic_phase(scene, dev):
         + " ".join(f"{v:.5f}" for v in loss))
 
 
+def le_encoder(dev):
+    """hashnerf_preset(use_lerf=True)'s language table: 14 levels x 2^16
+    f32 entries, base 16 -> finest 128, random primes from seed 1."""
+    from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
+    return HashGridEncoder(BBOX, 14, 2, 16, 16, 128, scheme="random",
+                           primes_seed=1, use_kernel=False, device=dev)
+
+
+def flat_patches(enc, colours, size):
+    """Stand-in embeddings of flat patches of the given colours, as
+    bench.py:475-498 makes its prompts."""
+    import numpy as np
+    return enc(np.stack([np.broadcast_to(np.asarray(c, np.float32),
+                                         (size, size, 3)) for c in colours]))
+
+
+def auc_iou(rel, mask):
+    """The relevancy map's localisation of the mask: the Mann-Whitney AUC
+    (midranks, so a constant map scores 0.5) and IoU at 0.5, as
+    bench.py:516-538 scores them."""
+    import numpy as np
+    from scipy.stats import rankdata
+    r, m = rel.ravel(), mask.ravel()
+    ranks = rankdata(r, method="average")
+    n_pos, n_neg = int(m.sum()), int((~m).sum())
+    auc = ((ranks[m].sum() - n_pos * (n_pos + 1) / 2.0)
+           / max(n_pos * n_neg, 1))
+    pred = rel > 0.5
+    iou = (float(np.logical_and(pred, mask).sum())
+           / max(float(np.logical_or(pred, mask).sum()), 1.0))
+    return float(auc), iou
+
+
+def fell(parts, what):
+    """Mean of the last 32 steps below the mean of the first 32, for the
+    image (column 0) and language (column 1) losses."""
+    import torch
+    x = torch.stack(parts).cpu()
+    out = []
+    for col, name in ((0, "image"), (1, "language")):
+        first, last = float(x[:32, col].mean()), float(x[-32:, col].mean())
+        if not (math.isfinite(last) and last < first):
+            raise AssertionError(f"{what}: the {name} loss did not fall "
+                                 f"({first} over the first 32 steps, {last} "
+                                 f"over the last 32)")
+        out.append((first, last))
+    return out
+
+
+def lerf_phase(scene, dev):
+    """Phase 16: LeRF, hashnerf_preset(use_lerf=True). (a) a tiny LeRF
+    train step GPU against CPU, then a 64x64 LeRF render of the stepped
+    state with phase 4's limits; (b) encode_large, grad_large and its bin
+    pass at the language table (14 x 2^16) on a step's fine pass (4,096
+    random pixels x 256 depths); (c) the stand-in pyramid of the bench
+    scene at E = 768 as the CLI builds it, and 512 full-width steps (steps
+    449-512 timed); (d) 1 + 2 800x800 frames with relevancy at
+    TrainParams(), and render_path's relevancy_0.png; (e) two 32-step
+    seed-0 runs bitwise equal; (f) bench.py's LeRF quality configuration
+    and its relevancy AUC and IoU. Returns the launch counts of (c) and
+    (d)."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import cli
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_preset
+    from nerfpp_tpu_torch.data.pyramid_clip import (
+        PyramidEmbedder, PyramidEmbedderProperties, PyramidEmbedding,
+        RandomProjectionPatchEncoder, make_device_pyramid)
+    from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils.png import read_png
+    t_phase = time.perf_counter()
+
+    # (a) a tiny step and a 64x64 render, GPU against CPU
+    tiny_enc = RandomProjectionPatchEncoder(embed_dim=32, input_size=8)
+    tiny_pyr = {}
+
+    def pyramid_of(sc, name):
+        if "emb" not in tiny_pyr:
+            tiny_pyr["emb"] = PyramidEmbedder(
+                tiny_enc, PyramidEmbedderProperties(img_size=8, overlap=0.5),
+                device="cpu")(sc.images[list(sc.split_indices("train"))])
+        return make_device_pyramid(tiny_pyr["emb"], 0.5, device=name)
+
+    p = hashnerf_preset(n_levels=4, log2_hashmap_size=12, n_importance=16,
+                        hier_sparse_importance=4, compute_dtype="float32",
+                        use_lerf=True, lang_embed_dim=32, n_levels_le=6,
+                        log2_hashmap_size_le=12, finest_resolution_le=64)
+    exs = step_parity("lerf-parity", p, TrainParams(
+        n_samples=8, n_rand=512, chunk=512, n_iters=100), LARGE_KERNELS,
+        pyramid_of)
+    p.thin_ray = True               # no cone scatter: no draws in the render
+    k64, pose = camera(64)
+    prompts = flat_patches(tiny_enc, (BLUE, RED, (0, 0, 0)), 8)
+    outs = {}
+    for name, ex in exs.items():
+        ex.set_lerf_prompts(prompts[:1], prompts[1:])
+        outs[name] = ex.render_view(pose, 64, 64, k64,
+                                    TrainParams(n_samples=16))["lerf"]
+    for f in ("rendered_lang_embedding", "acc", "depth", "relevancy"):
+        a, b = getattr(outs["cuda"], f).cpu(), getattr(outs["cpu"], f)
+        diff = (a - b).abs()
+        p99, mx = float(torch.quantile(diff.flatten(), 0.99)), float(diff.max())
+        log("lerf", f"64x64 {f}: max |gpu - cpu| {mx:.3g}, p99 {p99:.3g} "
+            f"(limits 2e-3, 1e-2)")
+        if not (bool(torch.isfinite(a).all()) and p99 <= 2e-3 and mx <= 1e-2):
+            raise AssertionError(f"LeRF 64x64 {f} GPU vs CPU out of tolerance")
+    del exs, outs
+
+    # (b) the large-table kernels at the language table
+    enc = le_encoder(dev)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    table = (torch.rand(enc.table_rows, 2, generator=gen) * 2 - 1).to(dev)
+    ro, rd = view_rays(4096, dev, seed=SEED + 2)
+    pts = depth_points(enc, ro, rd, 256)
+    le_stats = {"encode_large": large_kernel_phase(enc, table, pts,
+                                                   "LeRF fine pass")}
+    le_stats.update(large_grad_phase(enc, pts, "LeRF fine pass"))
+    for k, v in le_stats.items():
+        log("lerf", f"{k} at the language table (14 x 2^16, random, primes "
+            f"seed 1), 4,096 rays x 256: " + json.dumps(v))
+    del enc, table, pts, ro, rd
+    torch.cuda.empty_cache()
+
+    # (c) the pyramid at E = 768 as cli train builds it, 512 steps
+    p = hashnerf_preset(use_lerf=True)
+    tmp = tempfile.TemporaryDirectory()
+    ptp = TrainParams(base_dir=tmp.name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pyr, _ = cli._build_lerf_supervision(scene, p, ptp, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cached = PyramidEmbedding.load(Path(tmp.name) / "pyramid_embeddings.npz")
+    wins = {z: g.shape[0] * g.shape[1]
+            for (i, z), g in cached.grids.items() if i == 0}
+    log("lerf", f"stand-in pyramid, E = {p.lang_embed_dim}: "
+        f"{len(cached.image_sizes)} views x {sum(wins.values())} windows "
+        + ", ".join(f"{n} of {cached.props.img_size * 2.0 ** z:g} px"
+                    for z, n in sorted(wins.items()))
+        + f", built and cached in {build_s:.2f} s; device grids "
+        f"{[tuple(g.shape) for g in pyr.grids]}, blend t {pyr.t}")
+    f = Trainer(scene, dev, SEED, "lerf", pyr)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    f.run(448)                                # steps 0-447
+    c0 = launch_counts()
+    window_s = f.run(64)                      # steps 448-511 (449-512)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = window_s / 64 * 1e3
+    (i0, i1), (l0, l1) = fell(f.parts, "LeRF training")
+    log("lerf", f"512 steps of hashnerf_preset(use_lerf=True) (NRand 4,096, "
+        f"64 + 192 samples, TrainParams(n_iters=2000)); steps 449-512: "
+        f"{ms:.3f} ms/step, {4096 / (ms / 1e3):.1f} rays/s; launches per "
+        f"step " + ", ".join(f"{k} {(counts[k] - c0[k]) / 64:.3f}"
+                             for k in LARGE_KERNELS)
+        + f"; steps 1-512: " + ", ".join(f"{k} {counts[k]}"
+                                          for k in LARGE_KERNELS)
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("lerf", f"image loss {i0:.5f} -> {i1:.5f}, language loss {l0:.5f} "
+        f"-> {l1:.5f} (means of the first and last 32 steps)")
+    for name in LARGE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by LeRF training")
+    others = {k: v for k, v in counts.items() if k not in LARGE_KERNELS}
+    if any(others.values()):
+        raise AssertionError(f"LeRF training launched other kernels: {others}")
+
+    # (d) serving with relevancy
+    ex = f.ex
+    stub = RandomProjectionPatchEncoder(embed_dim=p.lang_embed_dim)
+    prompts = flat_patches(stub, (BLUE, RED, (0, 0, 0)), 336)
+    ex.set_lerf_prompts(prompts[:1], prompts[1:])
+    view = scene.views[list(scene.split_indices("test"))[0]]
+    serve_tp = TrainParams()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    frame_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ex.render_view(view.pose, view.h, view.w, view.k, serve_tp)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    serve = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = out["lerf"].relevancy
+    if (tuple(rel.shape) != (view.h, view.w, 1)
+            or not bool(torch.isfinite(rel).all())
+            or float(rel.min()) < 0 or float(rel.max()) > 1
+            or not float(rel.std()) > 0):
+        raise AssertionError(f"LeRF 800x800 relevancy: shape "
+                             f"{tuple(rel.shape)}, range [{float(rel.min())}, "
+                             f"{float(rel.max())}], std {float(rel.std())}")
+    if serve["encode_large"] == 0 or any(
+            v for k, v in serve.items() if k != "encode_large"):
+        raise AssertionError(f"LeRF frame launches {serve}")
+    mask = np.linalg.norm(np.asarray(scene.images[view.id])
+                          - np.asarray(BLUE, np.float32), axis=-1) < 0.25
+    auc, iou = auc_iou(rel[..., 0].cpu().numpy(), mask)
+    med = statistics.median(frame_ms[1:])
+    log("lerf", f"{view.h}x{view.w} frames (NeRF + LeRF with relevancy, "
+        f"TrainParams():"
+        f" 64 + 192, chunk 32,768, LeRF parts of "
+        f"{ex._lerf_max_rays(ex.make_render_config(serve_tp, False))} rays) "
+        f"ms {[round(t, 3) for t in frame_ms]}; median {med:.3f} ms/frame; "
+        f"launches per frame: encode_large {serve['encode_large'] / 3:.2f}; "
+        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); relevancy "
+        f"(blue prim against red and black) range [{float(rel.min()):.4f}, "
+        f"{float(rel.max()):.4f}], AUC {auc:.4f}, IoU@0.5 {iou:.4f} after "
+        f"512 steps (test view {view.id})")
+    ex.render_path([view.pose], view.h, view.w, view.k, serve_tp,
+                   Path(tmp.name) / "path")
+    png = read_png(Path(tmp.name) / "path" / "relevancy_0.png")
+    if png.shape != (view.h, view.w, 3) or not png.std() > 0:
+        raise AssertionError(f"relevancy_0.png: shape {png.shape}, "
+                             f"std {png.std()}")
+    log("lerf", f"render_path: relevancy_0.png decodes, {png.shape}, not "
+        "constant")
+    del f, ex, out, rel
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # (e) determinism
+    determinism_phase(scene, dev, "lerf", 32, pyr)
+    del pyr
+    torch.cuda.empty_cache()
+
+    # (f) bench.py's LeRF quality configuration
+    t0 = time.perf_counter()
+    sc = make_synthetic_scene(n_train=8, n_val=1, n_test=1, image_hw=128,
+                              white_bkgr=False, n_samples=64, device=dev)
+    enc24 = RandomProjectionPatchEncoder(embed_dim=24, input_size=8)
+    emb = PyramidEmbedder(enc24, PyramidEmbedderProperties(
+        img_size=16, overlap=0.5, max_zoom_out=1), device=dev)(
+        sc.images[list(sc.split_indices("train"))])
+    pl = hashnerf_preset(
+        n_importance=16, hier_ray_tile=0, hier_tile_budget_frac=0.0,
+        log2_hashmap_size=14, n_levels=8, finest_resolution=128,
+        use_lerf=True, lang_embed_dim=24, n_levels_le=4,
+        log2_hashmap_size_le=12, finest_resolution_le=64)
+    qtmp = tempfile.TemporaryDirectory()
+    tpl = TrainParams(n_samples=32, n_rand=2048, n_iters=1001, chunk=2048,
+                      i_print=0, i_weights=0, i_testset=0, i_img=0,
+                      base_dir=qtmp.name, steps_per_call=50)
+    q = Trainer(sc, dev, SEED, "lerf", make_device_pyramid(emb, 0.5, dev),
+                p=pl, tp=tpl)
+    prompts = flat_patches(enc24, (BLUE, RED, (0, 0, 0)), 16)
+    q.ex.set_lerf_prompts(prompts[:1], prompts[1:])
+    q.run(1000)
+    (i0, i1), (l0, l1) = fell(q.parts, "LeRF quality run")
+    vl = sc.views[list(sc.split_indices("test"))[0]]
+    rel = q.ex.render_view(vl.pose, vl.h, vl.w, vl.k,
+                           tpl)["lerf"].relevancy[..., 0].cpu().numpy()
+    if not rel.std() > 0:
+        raise AssertionError("LeRF quality run: constant relevancy map")
+    mask = np.linalg.norm(np.asarray(sc.images[vl.id])
+                          - np.asarray(BLUE, np.float32), axis=-1) < 0.25
+    auc, iou = auc_iou(rel, mask)
+    q.tmp.cleanup()
+    qtmp.cleanup()
+    log("lerf", f"bench.py's LeRF quality configuration (128 px, 8 views, "
+        f"24-d stand-in, 32 + 16 samples, {len(q.losses)} steps): held-out "
+        f"relevancy AUC {auc:.4f}, IoU@0.5 {iou:.4f} (mask {int(mask.sum())} "
+        f"px; relevancy range [{rel.min():.4f}, {rel.max():.4f}]); image loss"
+        f" {i0:.5f} -> {i1:.5f}, language loss {l0:.5f} -> {l1:.5f}; the JAX"
+        f" package: AUC 0.411 (BENCH_r04.json, TPU, before the integrator "
+        f"fix), 0.988 / IoU 0.855 claimed in VERDICT.md:72 with no record; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("lerf", f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] + serve[k] for k in LARGE_KERNELS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
@@ -1806,6 +2139,13 @@ def main(argv=None) -> int:
     # 15. classic NeRF ---------------------------------------------------------
     classic_phase(scene, dev)
     log("classic", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 16. LeRF -------------------------------------------------------------
+    # the large-table kernels' launches in the kernels line: phase 14's
+    # path and phase 16's training and serving together
+    for k, v in lerf_phase(scene, dev).items():
+        counts[k] += v
+    log("lerf", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

@@ -14,6 +14,13 @@ the base directory; ``render`` restores the latest checkpoint (ft_path, by
 default the base directory) and writes {i,disp_i,depth_i}.png to
 <base>/renders. COLMAP data, data parallelism (--n-devices other than 1)
 and the ``bench`` subcommand are not ported yet and raise.
+
+With ``--set use_lerf=true``, ``train`` builds the CLIP pyramid of the
+training views (a local CLIP checkpoint at ``path_to_clip``, else the
+deterministic stand-in encoder; cached as pyramid_embeddings.npz) and sets
+the prompts ``lerf_positives`` / ``lerf_negatives``, so its test-split
+renders write relevancy_{i}.png. ``render`` sets no prompts, as the JAX
+package's does: it writes no relevancy PNG.
 """
 from __future__ import annotations
 
@@ -92,6 +99,35 @@ def _build_params(args):
     return p, tp
 
 
+def _build_lerf_supervision(scene, p, tp, device="cuda"):
+    """The CLIP pyramid of the training views (cached or computed, on
+    ``device``) as a DevicePyramid of the training lookup scale 0.5, and
+    the text encoder of the prompts: a real CLIP checkpoint when
+    path_to_clip is set, else the random-projection stand-in."""
+    from nerfpp_tpu_torch.data.dataset import load_images
+    from nerfpp_tpu_torch.data.pyramid_clip import (
+        PyramidEmbedderProperties, RandomProjectionPatchEncoder,
+        compute_or_load_pyramid, load_clip_encoder, make_device_pyramid)
+    if p.path_to_clip:
+        encode_images, encode_text = load_clip_encoder(p.path_to_clip,
+                                                       device)
+    else:
+        stub = RandomProjectionPatchEncoder(embed_dim=p.lang_embed_dim)
+        encode_images, encode_text = stub, stub.encode_text
+    props = PyramidEmbedderProperties(
+        img_size=p.clip_input_img_size, overlap=p.pyr_embedder_overlap,
+        max_zoom_out=max(p.pyr_embed_min_zoom_out, 1))
+    images = load_images(scene, list(scene.split_indices("train")))
+    # a smaller window where the images are smaller than twice the input
+    if min(images.shape[1:3]) < props.img_size * 2:
+        props.img_size = max(8, min(images.shape[1:3]) // 4)
+    cache = (Path(tp.pyramid_clip_embedding_save_dir or tp.base_dir)
+             / "pyramid_embeddings.npz")
+    pyramid = compute_or_load_pyramid(images, encode_images, props, cache,
+                                      device)
+    return make_device_pyramid(pyramid, 0.5, device), encode_text
+
+
 def cmd_train(args) -> None:
     from nerfpp_tpu_torch.executor import NeRFExecutor
     _check_ported(args)
@@ -100,7 +136,14 @@ def cmd_train(args) -> None:
     ex = NeRFExecutor(p, device=args.device)
     base_dir = Path(tp.base_dir)
     base_dir.mkdir(parents=True, exist_ok=True)
-    ex.train(scene, tp)
+    lang_embeddings = None
+    if p.use_lerf:
+        lang_embeddings, encode_text = _build_lerf_supervision(
+            scene, p, tp, args.device)
+        ex.set_clip_encoder(encode_text)
+        if p.lerf_positives:
+            ex.set_lerf_prompts(p.lerf_positives, p.lerf_negatives)
+    ex.train(scene, tp, lang_embeddings=lang_embeddings)
     ex.save_checkpoint(base_dir)
     # the three configs, as the reference saves them
     p.save(base_dir / "executor_params.json")

@@ -14,6 +14,12 @@ and for the classic NeRFMLP (the frequency encoder has no parameters)
                "views_linears": [...], "feature_linear": {"w", "b"},
                "alpha_linear": ..., "rgb_linear": ...}}   (or "output_linear")
 
+with, for LeRF, the language table and field beside them
+
+    {"lang_embed": {"table": [L_le * 2^T_le, 2]},
+     "lang_model": {"sigma_le_net": [{"w": [in, out]}, ...],
+                    "le_net": [{"w": [in, out]}, ...]}}
+
 and optionally the occupancy grid's [G, G, G] density array, the optax Adam
 state (the ``opt_state`` of ``optax.adam``, as numpy: the element with
 ``mu``, ``nu`` and ``count``) and the step. JAX dense weights are
@@ -40,9 +46,17 @@ def _port_names(tree: dict, dev) -> Dict[str, torch.Tensor]:
         return torch.as_tensor(np.array(x, np.float32), device=dev)
 
     out = {}
-    if "table" in tree.get("embed", {}):
-        out["embed.table"] = t(tree["embed"]["table"])
-    model = tree["model"]
+    for head in ("embed", "lang_embed"):
+        if "table" in tree.get(head, {}):
+            out[f"{head}.table"] = t(tree[head]["table"])
+    for net, layers in tree.get("lang_model", {}).items():
+        for i, layer in enumerate(layers):
+            if "b" in layer:
+                raise ValueError(f"lang_model.{net}[{i}] has a bias; the "
+                                 "LeRF field is bias-free")
+            out[f"lang_model.{net}.layers.{i}.weight"] = t(
+                np.asarray(layer["w"]).T).contiguous()
+    model = tree.get("model", {})
     if "normals_net" in model:
         raise NotImplementedError("the normals head is not ported yet")
     for net, layers in model.items():
@@ -73,7 +87,9 @@ def state_from_jax(params: dict, occupancy: Optional[np.ndarray] = None,
                    device="cuda") -> Dict[str, torch.Tensor]:
     """-> a state for ``NeRFExecutor.load_state``: ``embed.table`` (hash
     encoders), ``model.<net>.layers.<i>.weight`` (NeRFSmall) or
-    ``model.<layer>[.<i>].{weight,bias}`` (NeRFMLP), and as given ``occupancy``,
+    ``model.<layer>[.<i>].{weight,bias}`` (NeRFMLP), for LeRF
+    ``lang_embed.table`` and ``lang_model.<net>.layers.<i>.weight``, and as
+    given ``occupancy``,
     ``adam.mu.<name>``, ``adam.nu.<name>``, ``adam.count`` and ``step``."""
     dev = resolve_device(device)
     state = _port_names(params, dev)

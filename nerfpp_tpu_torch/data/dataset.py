@@ -5,7 +5,9 @@ nerfpp_tpu/data/dataset.py).
 keys), so a scene saved by one package loads in the other. The sampler keeps
 the training images on the device and draws each step's rays there: step i
 trains on train view i % n_train, in random 8x16 pixel tiles (or single
-pixels), from the centre crop while step < precrop_iters.
+pixels), from the centre crop while step < precrop_iters. For LeRF it draws
+each ray's supervision embedding at the same pixel, from the CLIP pyramid's
+grids on the device (``DevicePyramid``) or from a dense stack.
 
 Images attached to the scene (``SceneData.images``, as the synthetic scene
 has them) are used as they are; image files (PNG) are decoded by
@@ -162,13 +164,53 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     return np.stack(out)
 
 
+@dataclasses.dataclass
+class DevicePyramid:
+    """The CLIP patch grids of the training views on the device, with the
+    trilinear pixel lookup of a fixed scale (data/pyramid_clip.py
+    ``make_device_pyramid``): one [n_imgs, nh_z, nw_z, E] grid for each of
+    the (at most two) zoom levels bracketing log2(scale), their windows and
+    strides in pixels, and the blend factor t toward the second."""
+    grids: tuple
+    wins: tuple
+    strides: tuple
+    t: float
+
+    def lookup(self, img_idx: int, xs: torch.Tensor, ys: torch.Tensor
+               ) -> torch.Tensor:
+        """Pixel coords [B] -> [B, E] normalised supervision embeddings."""
+        levels = []
+        for g, win, stride in zip(self.grids, self.wins, self.strides):
+            nh, nw = g.shape[1], g.shape[2]
+            fx = (xs.float() - win / 2.0) / stride
+            fy = (ys.float() - win / 2.0) / stride
+            x0 = torch.clamp(torch.floor(fx).long(), 0, nw - 1)
+            x1 = torch.clamp(x0 + 1, 0, nw - 1)
+            y0 = torch.clamp(torch.floor(fy).long(), 0, nh - 1)
+            y1 = torch.clamp(y0 + 1, 0, nh - 1)
+            tx = torch.clamp(fx - x0, 0.0, 1.0)[..., None]
+            ty = torch.clamp(fy - y0, 0.0, 1.0)[..., None]
+            gi = g[img_idx]
+            top = gi[y0, x0] * (1 - tx) + gi[y0, x1] * tx
+            bot = gi[y1, x0] * (1 - tx) + gi[y1, x1] * tx
+            levels.append(top * (1 - ty) + bot * ty)
+        out = levels[0] if len(levels) == 1 else (
+            levels[0] * (1.0 - self.t) + levels[1] * self.t)
+        norm = torch.linalg.norm(out, dim=-1, keepdim=True)
+        return out / torch.clamp(norm, min=1e-8)
+
+
 class RayBatchSampler:
-    """Device-resident random ray sampler for training."""
+    """Device-resident random ray sampler for training. For LeRF it also
+    draws each ray's supervision embedding (``target_lang``) at the same
+    pixel: from a DevicePyramid, or from a dense [n_train, H, W, E] stack."""
 
     def __init__(self, images: torch.Tensor, poses: torch.Tensor,
                  intrinsics: torch.Tensor, batch_size: int,
                  precrop_iters: int = 0, precrop_frac: float = 0.5,
-                 tile_h: int = 0, tile_w: int = 0):
+                 tile_h: int = 0, tile_w: int = 0,
+                 lang_embeddings: Optional[torch.Tensor] = None,
+                 pyramid: Optional[DevicePyramid] = None):
         self.images = images              # [n_train, H, W, 3]
         self.poses = poses                # [n_train, 4, 4]
         self.intrinsics = intrinsics      # [n_train, 3, 3]
@@ -177,12 +219,16 @@ class RayBatchSampler:
         self.precrop_iters = precrop_iters
         self.precrop_frac = precrop_frac
         self.tile_h, self.tile_w = tile_h, tile_w
+        self.lang_embeddings = lang_embeddings
+        self.pyramid = pyramid
 
     @classmethod
     def from_scene(cls, scene: SceneData, batch_size: int,
                    precrop_iters: int = 0, precrop_frac: float = 0.5,
                    tile_h: int = 0, tile_w: int = 0,
-                   device="cuda") -> "RayBatchSampler":
+                   device="cuda", lang_embeddings=None,
+                   pyramid: Optional[DevicePyramid] = None
+                   ) -> "RayBatchSampler":
         dev = resolve_device(device)
         idx = list(scene.split_indices("train"))
         v0 = scene.views[idx[0]]
@@ -199,10 +245,14 @@ class RayBatchSampler:
         ks = np.stack(ks)
 
         def t(x):
+            if torch.is_tensor(x):
+                return x.to(dev, torch.float32)
             return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
         return cls(t(images), t(poses), t(ks), batch_size, precrop_iters,
-                   precrop_frac, tile_h, tile_w)
+                   precrop_frac, tile_h, tile_w,
+                   t(lang_embeddings) if lang_embeddings is not None
+                   else None, pyramid)
 
     @property
     def device(self) -> torch.device:
@@ -228,8 +278,8 @@ class RayBatchSampler:
                u_h: Optional[torch.Tensor] = None,
                u_w: Optional[torch.Tensor] = None) -> dict:
         """The batch of step ``step``: rays_o, rays_d [B, 3], cone_angle,
-        target_rgb [B, 3]. ``u_h``/``u_w`` ([n_draws()] uniforms) place the
-        tiles (or pixels); otherwise they come from ``generator``."""
+        target_rgb [B, 3] (and target_lang [B, E] for LeRF). ``u_h``/``u_w``
+        ([n_draws()] uniforms) place the tiles (or pixels); otherwise they come from ``generator``."""
         dev = self.device
         nd = self.n_draws()
         if u_h is None or u_w is None:
@@ -265,5 +315,11 @@ class RayBatchSampler:
         target = self.images[img_idx][rh, rw]
         rays_o, rays_d, cone = ray_math.get_ray_batch(
             rand_w, rand_h, self.intrinsics[img_idx], self.poses[img_idx])
-        return {"rays_o": rays_o, "rays_d": rays_d, "cone_angle": cone,
-                "target_rgb": target}
+        batch = {"rays_o": rays_o, "rays_d": rays_d, "cone_angle": cone,
+                 "target_rgb": target}
+        if self.pyramid is not None:
+            batch["target_lang"] = self.pyramid.lookup(img_idx, rand_w,
+                                                       rand_h)
+        elif self.lang_embeddings is not None:
+            batch["target_lang"] = self.lang_embeddings[img_idx][rh, rw]
+        return batch

@@ -25,11 +25,21 @@ Rendering: ``render_view`` (with RenderFactor and the 8-bit image),
 ``render_test_split``, and the auto two-class render budget that picks each
 view's dense fraction from its occupancy tile masses.
 
-The bbox refit, LeRF, the normals head and device meshes belong to later
-slices of the port and raise NotImplementedError.
+LeRF (``use_lerf``): a second hash grid (random primes from seed 1) and the
+bias-free LeRF field beside the NeRF stack, in the same Adam. The train
+step renders the language branch of each chunk too (no view directions,
+the annealed noises, no occupancy grid) against the CLIP pyramid's
+per-pixel embeddings: the Huber (delta 1.25) summed over the embedding and
+averaged over the step's finite rays. Serving renders it in parts of at
+most LERF_CHUNK_BYTES of per-sample embeddings, with relevancy against the
+prompts (``set_lerf_prompts``) and ``relevancy_{i}.png`` in JET.
+
+The bbox refit, a LeRF-only stack, the normals head and device meshes
+belong to later slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from pathlib import Path
@@ -45,15 +55,18 @@ from nerfpp_tpu_torch.core.integrate import (apply_density_activation,
 from nerfpp_tpu_torch.core.occupancy import (OccupancyGrid,
                                              make_occupancy_grid, update_grid,
                                              update_grid_phased)
-from nerfpp_tpu_torch.data.dataset import RayBatchSampler, SceneData
+from nerfpp_tpu_torch.data.dataset import (DevicePyramid, RayBatchSampler,
+                                           SceneData)
 from nerfpp_tpu_torch.encoders.frequency import FrequencyEncoder
 from nerfpp_tpu_torch.encoders.hashgrid import (HashGridEncoder,
                                                total_variation_loss,
                                                tv_cube_size)
 from nerfpp_tpu_torch.encoders.sh import SHEncoder
+from nerfpp_tpu_torch.models.lerf_field import LeRFField
 from nerfpp_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.optim import Adam
+from nerfpp_tpu_torch.render import lerf as lerf_render
 from nerfpp_tpu_torch.render.renderer import (RenderConfig,
                                               make_nerf_integrate_fn,
                                               make_nerf_network_fn,
@@ -62,8 +75,16 @@ from nerfpp_tpu_torch.render.renderer import (RenderConfig,
                                               render_ray_batch_budgeted,
                                               render_ray_batch_hier_budgeted)
 from nerfpp_tpu_torch.utils import checkpoint as ckpt
+from nerfpp_tpu_torch.utils.colormap import apply_jet
 from nerfpp_tpu_torch.utils.metrics import MetricsWriter
 from nerfpp_tpu_torch.utils.png import write_png
+
+
+# a LeRF serving chunk renders in parts whose [rays, samples, E + 1] f32
+# field output stays under this (at 64 + 192 samples and E = 768: 5,454
+# rays, 5,376 in whole 128-ray tiles, 4.2 GB; the 32,768-ray chunk would
+# be 25.8 GB a tensor)
+LERF_CHUNK_BYTES = 1 << 32
 
 
 def _not_ported(what: str):
@@ -83,6 +104,11 @@ class NeRFExecutor:
         self.embedder = None
         self.embeddirs = None
         self.model = None
+        self.lang_embedder = None
+        self.lang_model = None
+        self.lerf_positives: Optional[torch.Tensor] = None
+        self.lerf_negatives: Optional[torch.Tensor] = None
+        self.clip_encoder = None          # text encoder of set_lerf_prompts
         self.occupancy: Optional[OccupancyGrid] = None
         self.optimizer: Optional[Adam] = None
         self.step = 0                    # steps taken (the JAX state's step)
@@ -127,17 +153,34 @@ class NeRFExecutor:
             compute_dtype=p.compute_dtype, init_gain=p.mlp_init_gain,
             device=self.device)
 
+    def _build_lerf(self, bounding_box: np.ndarray) -> None:
+        """The language hash grid (random primes from seed 1; the blocked
+        kernels only for the blocked scheme, the large-table kernels
+        otherwise, as the JAX package picks) and the LeRF field."""
+        p = self.params
+        self.lang_embedder = HashGridEncoder(
+            bounding_box, p.n_levels_le, p.n_features_per_level_le,
+            p.log2_hashmap_size_le, p.base_resolution_le,
+            p.finest_resolution_le, scheme=p.hash_scheme, primes_seed=1,
+            use_kernel=p.use_pallas_encoder and p.hash_scheme == "blocked",
+            device=self.device)
+        self.lang_model = LeRFField(
+            p.geo_feat_dim_le, p.num_layers_le, p.hidden_dim_le,
+            p.lang_embed_dim, self.lang_embedder.output_dims,
+            compute_dtype=p.compute_dtype, device=self.device)
+
     def initialize(self, bounding_box, lrate_decay: int = 250,
                    seed: int = 0) -> "NeRFExecutor":
         """Build the stack and draw its parameters from ``seed`` (on a CPU
-        generator, so every device gets the same weights); one Adam over
-        every parameter (lr decaying by 0.1 every lrate_decay * 1000
-        steps); the occupancy grid starts uniform. Restores the latest
-        checkpoint under ``ft_path`` when there is one."""
+        generator, so every device gets the same weights: the NeRF table and
+        field, then the language table and field); one Adam over every
+        parameter (lr decaying by 0.1 every lrate_decay * 1000 steps); the
+        occupancy grid starts uniform. Restores the latest checkpoint under
+        ``ft_path`` when there is one."""
         p = self.params
-        if p.use_lerf:
-            raise _not_ported("LeRF")
         if not p.use_nerf:
+            if p.use_lerf:
+                raise _not_ported("a LeRF-only stack (use_nerf=False)")
             raise ValueError("nothing to build: use_nerf is False")
         self.bounding_box = np.asarray(bounding_box, np.float32).reshape(6)
         gen = torch.Generator().manual_seed(seed)
@@ -150,6 +193,9 @@ class NeRFExecutor:
         self.model = self._build_model(self.embedder.output_dims,
                                        input_ch_views)
         self.model.reset_parameters(gen)
+        if p.use_lerf:
+            self._build_lerf(self.bounding_box)
+            self._reset_lerf(gen)
         if p.use_occupancy_grid:
             self.occupancy = make_occupancy_grid(p.occ_grid_resolution,
                                                  self.device)
@@ -174,6 +220,8 @@ class NeRFExecutor:
         gen = torch.Generator().manual_seed(seed)
         self._reset_embedder(gen)
         self.model.reset_parameters(gen)
+        if self.lang_model is not None:
+            self._reset_lerf(gen)
         opt = self.optimizer
         self.optimizer = Adam(self.named_parameters(), opt.lr,
                               opt.decay_steps)
@@ -188,15 +236,25 @@ class NeRFExecutor:
         if isinstance(self.embedder, torch.nn.Module):
             self.embedder.reset_parameters(gen)
 
+    def _reset_lerf(self, gen: torch.Generator) -> None:
+        self.lang_embedder.reset_parameters(gen)
+        self.lang_model.reset_parameters(gen)
+
     def named_parameters(self) -> Dict[str, torch.nn.Parameter]:
         """Every trained parameter under its state name (``embed.table``,
         ``model.<net>.layers.<i>.weight``, ``model.pts_linears.<i>.bias``,
-        ...)."""
+        ..., for LeRF ``lang_embed.table`` and
+        ``lang_model.<net>.layers.<i>.weight``)."""
         out = {}
         if isinstance(self.embedder, torch.nn.Module):
             out = {f"embed.{k}": v
                    for k, v in self.embedder.named_parameters()}
         out.update({f"model.{k}": v for k, v in self.model.named_parameters()})
+        for head, mod in (("lang_embed", self.lang_embedder),
+                          ("lang_model", self.lang_model)):
+            if mod is not None:
+                out.update({f"{head}.{k}": v
+                            for k, v in mod.named_parameters()})
         return out
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
@@ -215,9 +273,10 @@ class NeRFExecutor:
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Load a state from convert.state_from_jax or a checkpoint:
         ``embed.*`` into the encoder, ``model.*`` into the field,
-        ``adam.*`` into the optimizer, ``step``, and ``occupancy`` into the
-        grid. Parts absent from ``state`` are left as they are."""
-        sub = {"embed": {}, "model": {}}
+        ``lang_embed.*`` and ``lang_model.*`` into LeRF's, ``adam.*`` into
+        the optimizer, ``step``, and ``occupancy`` into the grid. Parts
+        absent from ``state`` are left as they are."""
+        sub = {"embed": {}, "model": {}, "lang_embed": {}, "lang_model": {}}
         for key, v in state.items():
             if key == "occupancy":
                 self.occupancy = OccupancyGrid(
@@ -236,6 +295,13 @@ class NeRFExecutor:
             self.embedder.load_state_dict(sub["embed"])
         if sub["model"]:
             self.model.load_state_dict(sub["model"])
+        for head, mod in (("lang_embed", self.lang_embedder),
+                          ("lang_model", self.lang_model)):
+            if sub[head]:
+                if mod is None:
+                    raise ValueError(f"state has {head}.* but use_lerf is "
+                                     "off")
+                mod.load_state_dict(sub[head])
         self._auto_frac_cache = {}
 
     def save_checkpoint(self, path) -> Path:
@@ -253,6 +319,30 @@ class NeRFExecutor:
     def _nerf_fns(self):
         return make_nerf_network_fn(self.embedder, self.embeddirs, self.model,
                                     sample_major=self._sample_major())
+
+    def _lerf_fns(self, with_relevancy: bool = False,
+                  use_raw_noise: bool = False):
+        """(network_fn, integrate_fn) of the language branch; relevancy
+        against the prompts when asked for and set."""
+        lang_embedder = self.lang_embedder
+        network_fn = lerf_render.make_lerf_network_fn(
+            lang_embedder, self.lang_model,
+            sample_major=(lang_embedder.scheme == "blocked"
+                          and lang_embedder.use_kernel))
+        integrate_fn = lerf_render.make_lerf_integrate_fn(
+            self.params.lang_embed_dim,
+            self.lerf_positives if with_relevancy else None,
+            self.lerf_negatives if with_relevancy else None,
+            use_raw_noise=use_raw_noise,
+            density_activation=self.params.density_activation)
+        return network_fn, integrate_fn
+
+    def _lerf_max_rays(self, cfg: RenderConfig) -> int:
+        """Rays of a LeRF serving part: LERF_CHUNK_BYTES of per-sample
+        [E + 1] f32 outputs."""
+        n = cfg.n_samples + max(cfg.n_importance, 0)
+        return max(LERF_CHUNK_BYTES // (n * (self.params.lang_embed_dim + 1)
+                                        * 4), 1)
 
     def _sigma_grid_fn(self):
         """Activated field density at points, for the occupancy refresh
@@ -293,17 +383,17 @@ class NeRFExecutor:
 
     def _build_train_step(self, tp: TrainParams):
         """-> train_step(step, data, generator=None, draws=None) -> metrics
-        (device scalars: mse, img_loss, pred_std, loss, psnr). ``data`` is a
-        RayBatchSampler (the batch is drawn from ``generator``) or a batch
-        dict (rays_o, rays_d, cone_angle, target_rgb). The generator also
-        draws the refresh jitter, the cone scatter, the noises and the TV
-        cube origins; ``draws`` may pass the TV origins instead (``tv``,
-        int [L, 3]). Gradients accumulate chunk by chunk (one chunk's
-        activations live at a time); one Adam update follows, skipped on
-        device when the loss is not finite."""
+        (device scalars: mse, img_loss, pred_std, loss, psnr, and lang_loss
+        for LeRF). ``data`` is a RayBatchSampler (the batch is drawn from
+        ``generator``) or a batch dict (rays_o, rays_d, cone_angle,
+        target_rgb, and target_lang for LeRF). The generator also draws the
+        refresh jitter, the cone scatter, the noises and the TV cube
+        origins; ``draws`` may pass the TV origins instead (``tv``, int [L,
+        3]). Gradients accumulate chunk by chunk (one chunk's activations
+        live at a time; the NeRF branch's and then the language branch's);
+        one Adam update follows, skipped on device when the loss is not
+        finite."""
         p = self.params
-        if p.use_lerf:
-            raise _not_ported("LeRF")
         cfg = self.make_render_config(tp, train=True, return_weights=True)
         chunk = min(tp.chunk, tp.n_rand)
         n_chunks = -(-tp.n_rand // chunk)
@@ -337,6 +427,13 @@ class NeRFExecutor:
         noise_steps = np.float32(tp.n_iters / 8.0)
         sp_steps = np.float32(tp.n_iters / 6.0)
         sp_alpha0 = np.float32(self.sp_alpha0)
+        use_lerf = p.use_lerf
+        if use_lerf:
+            # the annealed density noise applies to the language field too
+            lerf_net, lerf_int = self._lerf_fns(use_raw_noise=True)
+            lcfg = dataclasses.replace(cfg, use_viewdirs=False)
+            lang_params = [v for k, v in params.items()
+                           if k.startswith("lang_")]
 
         def chunk_sums(cb, step, raw_noise_std, sp_alpha, generator):
             """Render one chunk; -> [sq, huber, pred, pred^2] sums."""
@@ -371,6 +468,26 @@ class NeRFExecutor:
                     torch.sum((rgb - t) ** 2), torch.sum(huber_loss(rgb, t)),
                     torch.sum(rs), torch.sum(rs * rs)]))
             return sums[0] if len(sums) == 1 else sums[0] + sums[1]
+
+        def lang_sums(cb, raw_noise_std, sp_alpha, generator):
+            """Render one chunk's language branch; -> [sum of the finite
+            rays' Huber (delta 1.25, summed over the embedding), finite
+            rays]."""
+            if "target_lang" not in cb:
+                raise ValueError("LeRF training needs target_lang: pass "
+                                 "lang_embeddings to train")
+            res = render_ray_batch(
+                lerf_net, lerf_int, cb["rays_o"], cb["rays_d"],
+                cb["cone_angle"], lcfg, bbox, raw_noise_std, None, generator,
+                sp_alpha=sp_alpha)
+            per_ray = torch.sum(huber_loss(
+                res.outputs.rendered_lang_embedding, cb["target_lang"],
+                delta=1.25), dim=-1)
+            finite = torch.isfinite(per_ray)
+            return torch.stack([
+                torch.sum(torch.where(finite, per_ray,
+                                      torch.zeros_like(per_ray))),
+                torch.sum(finite).float()])
 
         def tv_term(generator, origins):
             """1e-6 x the TV loss summed over the levels (fixed scheme)."""
@@ -413,7 +530,7 @@ class NeRFExecutor:
                 np.float32(0.0), np.float32(1.0) - stepf / sp_steps))
             for prm in params.values():
                 prm.grad = None
-            total = None
+            total = lang = None
             for c in range(n_chunks):
                 cb = {k: (v[c * chunk:(c + 1) * chunk]
                           if v.ndim >= 1 and v.shape[0] == tp.n_rand else v)
@@ -422,20 +539,38 @@ class NeRFExecutor:
                                   generator)
                 (sums[1] / n_pix).backward()
                 total = sums.detach() if total is None else total + sums.detach()
+                if use_lerf:
+                    ls = lang_sums(cb, raw_noise_std, sp_alpha, generator)
+                    ls[0].backward()
+                    lang = ls.detach() if lang is None else lang + ls.detach()
             loss = total[1] / n_pix
             img_loss = loss
             if use_tv and step < tp.n_iters // 2:
                 tv = tv_term(generator, draws.get("tv"))
                 tv.backward()
                 loss = loss + tv.detach()
+            metrics = {}
+            if use_lerf:
+                # the language loss divides by the finite rays of all
+                # chunks, known only now; the language parameters get no
+                # gradient from the NeRF branch, so dividing their summed
+                # gradients here equals backpropagating the divided loss
+                n_finite = torch.clamp(lang[1], min=1.0)
+                for prm in lang_params:
+                    if prm.grad is not None:
+                        prm.grad.div_(n_finite)
+                metrics["lang_loss"] = lang[0] / n_finite
+                loss = loss + metrics["lang_loss"]
             self.optimizer.step(torch.isfinite(loss))
             self.step = step + 1
             mse = total[0] / n_pix
             mu = total[2] / n_pix
-            return {"mse": mse, "img_loss": img_loss,
-                    "pred_std": torch.sqrt(torch.clamp(
-                        total[3] / n_pix - mu * mu, min=0.0)),
-                    "loss": loss, "psnr": psnr_from_mse(mse)}
+            metrics.update({
+                "mse": mse, "img_loss": img_loss,
+                "pred_std": torch.sqrt(torch.clamp(
+                    total[3] / n_pix - mu * mu, min=0.0)),
+                "loss": loss, "psnr": psnr_from_mse(mse)})
+            return metrics
 
         return train_step
 
@@ -443,8 +578,8 @@ class NeRFExecutor:
 
     def train(self, scene: SceneData, tp: TrainParams, seed: int = 0,
               sampler: Optional[RayBatchSampler] = None,
-              progress_fn=None, steps: Optional[int] = None, mesh=None
-              ) -> Dict[str, float]:
+              progress_fn=None, steps: Optional[int] = None, mesh=None,
+              lang_embeddings=None) -> Dict[str, float]:
         """The training loop: steps self.step .. n_iters - 2, as the JAX
         package runs them, or only the next ``steps`` of them (a later call
         resumes; the schedules follow n_iters either way). Step i draws
@@ -457,13 +592,14 @@ class NeRFExecutor:
         validation view to base_dir/images; every i_testset steps the test
         split to base_dir (unless test_skip). With render_only the test
         split is rendered to base_dir/renderonly and nothing is trained.
-        Returns the last step's metrics."""
+        LeRF draws its supervision from ``lang_embeddings``: a
+        DevicePyramid (data/pyramid_clip.py ``make_device_pyramid``) or a
+        dense [n_train, H, W, E] stack. Returns the last step's metrics."""
         p = self.params
         for what, bad in (("a device mesh (data parallelism)",
                            mesh is not None),
                           ("bbox_refit_step (the bbox refit)",
-                           tp.bbox_refit_step > 0),
-                          ("LeRF", p.use_lerf)):
+                           tp.bbox_refit_step > 0)):
             if bad:
                 raise _not_ported(what)
         self.white_bkgr = scene.white_bkgr
@@ -480,9 +616,13 @@ class NeRFExecutor:
             if th == 0 and tw == 0 and self._sample_major() \
                     and tp.n_rand % 128 == 0:
                 th, tw = 8, 16
+            pyr = (lang_embeddings
+                   if isinstance(lang_embeddings, DevicePyramid) else None)
             sampler = RayBatchSampler.from_scene(
                 scene, tp.n_rand, tp.precorp_iters, tp.precorp_frac,
-                max(th, 0), max(tw, 0), device=self.device)
+                max(th, 0), max(tw, 0), device=self.device,
+                lang_embeddings=None if pyr is not None else lang_embeddings,
+                pyramid=pyr)
         train_step = self._build_train_step(tp)
         generator = torch.Generator(device=self.device)
         # steps between host looks: every active interval still lands
@@ -570,11 +710,13 @@ class NeRFExecutor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
     def render_view(self, pose, h: int, w: int, k, tp: TrainParams,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, Any]:
+                    generator: Optional[torch.Generator] = None,
+                    with_relevancy: bool = True) -> Dict[str, Any]:
         """Render one full view. RenderFactor > 0 downscales H, W and the
         intrinsics. Returns {"nerf": RenderOutputs of [h, w, ...] maps,
-        "near_far": (near_min, far_max), "rgb8": [h, w, 3] uint8}."""
+        "near_far": (near_min, far_max), "rgb8": [h, w, 3] uint8}, and for
+        LeRF "lerf": LeRFOutputs of [h, w, ...] maps (relevancy [h, w, P]
+        when prompts are set and ``with_relevancy``, else None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         if tp.render_factor > 0:
@@ -603,18 +745,31 @@ class NeRFExecutor:
                 self._tensor(self.bounding_box), generator, **kw)
             rgb8 = (torch.clamp(res.rgb, 0.0, 1.0) * 255.0 + 0.5).to(
                 torch.uint8)
-        return {"nerf": res, "near_far": near_far, "rgb8": rgb8}
+        out = {"nerf": res, "near_far": near_far, "rgb8": rgb8}
+        if self.params.use_lerf:
+            lcfg = dataclasses.replace(cfg, use_viewdirs=False)
+            with torch.no_grad():
+                out["lerf"], _ = render_image(
+                    *self._lerf_fns(with_relevancy=with_relevancy), h, w,
+                    self._tensor(k), self._tensor(pose), lcfg,
+                    self._tensor(self.bounding_box), generator,
+                    max_rays=self._lerf_max_rays(lcfg))
+        return out
 
     def render_views(self, poses, h: int, w: int, k, tp: TrainParams,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     with_relevancy: bool = True):
         """Render a list of views, one after another (no device mesh)."""
-        return [self.render_view(p, h, w, k, tp, generator) for p in poses]
+        return [self.render_view(p, h, w, k, tp, generator, with_relevancy)
+                for p in poses]
 
     def render_path(self, poses, h: int, w: int, k, tp: TrainParams,
                     save_dir) -> None:
         """Render a pose list and write {i}.png (the 8-bit image),
         disp_{i}.png (disparity over its maximum) and depth_{i}.png (depth
-        between the view's near and far), as the JAX package writes them."""
+        between the view's near and far), as the JAX package writes them;
+        with LeRF prompts, relevancy_{i}.png (the first prompt's relevancy
+        in JET)."""
         save_dir = Path(save_dir)
         save_dir.mkdir(parents=True, exist_ok=True)
         for i, pose in enumerate(poses):
@@ -630,6 +785,10 @@ class NeRFExecutor:
                      / max(far - near, 1e-10))
             write_png(save_dir / f"depth_{i}.png",
                       (np.clip(depth, 0, 1) * 255).astype(np.uint8))
+            if "lerf" in out and out["lerf"].relevancy is not None:
+                rel = out["lerf"].relevancy[..., 0].float().cpu().numpy()
+                write_png(save_dir / f"relevancy_{i}.png", apply_jet(
+                    (np.clip(rel, 0, 1) * 255).astype(np.uint8)))
 
     def render_test_split(self, scene: SceneData, tp: TrainParams,
                           save_dir) -> None:
@@ -643,6 +802,29 @@ class NeRFExecutor:
         poses = [scene.views[i].pose for i in test_idx]
         self.render_path(poses, v0.h, v0.w, v0.k, tp, save_dir)
         print("Saved test set")
+
+    # ------------------------------------------------------------- prompts
+
+    def set_clip_encoder(self, encoder) -> None:
+        """Attach a text encoder (list of prompts -> [n, E] embeddings)."""
+        self.clip_encoder = encoder
+
+    def set_lerf_prompts(self, positives, negatives) -> None:
+        """A positive prompt and negative prompts (text, embedded with the
+        attached encoder), or their embeddings ([P, E] and [N, E])."""
+        if isinstance(positives, str):
+            if self.clip_encoder is None:
+                raise RuntimeError("set_clip_encoder first to embed text "
+                                   "prompts")
+            positives = self.clip_encoder([positives])
+            negatives = self.clip_encoder(list(negatives))
+        self.lerf_positives, self.lerf_negatives = (
+            torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            if not torch.is_tensor(x) else x.to(self.device, torch.float32)
+            for x in (positives, negatives))
+
+    def get_lerf_prompts(self):
+        return self.lerf_positives, self.lerf_negatives
 
     def _auto_frac_eligible(self, cfg: RenderConfig) -> bool:
         """Auto (render_dense_frac < 0) resolves only where the budget path

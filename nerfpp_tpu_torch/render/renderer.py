@@ -10,6 +10,9 @@ serving (``render_image``) and for training (``render_ray_batch``,
 ``hier_ray_tile`` rays where the batch divides, merged with the coarse
 depths; stochastic-preconditioning noise; a second network call) with its
 coarse-ranked fine budget for training (``render_ray_batch_hier_budgeted``).
+The integrator's outputs may be any NamedTuple (RenderOutputs for NeRF,
+render/lerf.py's LeRFOutputs for the language field); full-image renders
+drop the per-sample fields (weights, per-sample embeddings) chunk by chunk.
 NDC rays belong to a later slice and raise.
 
 Randomness (the cone scatter, the training-time density noise, stochastic
@@ -31,7 +34,7 @@ import torch
 
 from nerfpp_tpu_torch.core import rays as ray_math
 from nerfpp_tpu_torch.core import sampling as S
-from nerfpp_tpu_torch.core.integrate import RenderOutputs, raw2outputs
+from nerfpp_tpu_torch.core.integrate import raw2outputs
 from nerfpp_tpu_torch.core.occupancy import (ray_bin_densities,
                                              ray_bin_weights, tiled_prior,
                                              tiled_ray_z)
@@ -63,9 +66,16 @@ class RenderConfig:
     hier_ray_tile: int = 0
 
 
+# per-sample output fields: dropped from full-image renders
+PER_SAMPLE = ("weights", "lang_embedding")
+
+
 class RenderResult(NamedTuple):
-    outputs: RenderOutputs           # the fine pass if there is one
-    coarse: RenderOutputs
+    """``outputs`` and ``coarse`` are the integrator's outputs: any
+    NamedTuple of tensors (or None), RenderOutputs for NeRF and LeRFOutputs
+    for the language field."""
+    outputs: NamedTuple              # the fine pass if there is one
+    coarse: NamedTuple
     raw: Optional[torch.Tensor]      # [n_rays, K, C] if return_raw
     z_vals: torch.Tensor             # [n_rays, K] final sample depths
 
@@ -411,7 +421,7 @@ def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
             viewdirs[ridx] if viewdirs is not None else None, cone_angle,
             z_t[tiles].repeat_interleave(tile, dim=0), z_samples, cfg,
             bounding_box, raw_noise_std, sp_alpha, generator, dr)
-        coarse_c = RenderOutputs(*(x[ridx] for x in coarse))
+        coarse_c = _map_fields(coarse, lambda f, x: x[ridx])
         return RenderResult(outputs=out, coarse=coarse_c,
                             raw=raw_f if cfg.return_raw else None,
                             z_vals=z_all), ridx
@@ -475,8 +485,15 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
                  bounding_box: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  occupancy=None, dense_frac: float = 0.0,
-                 sparse_samples: int = 8, prior_bins: int = 0):
+                 sparse_samples: int = 8, prior_bins: int = 0,
+                 max_rays: int = 0):
     """Full-image render in fixed-size ray chunks.
+
+    ``max_rays`` > 0 renders each chunk in parts of at most that many rays
+    (whole tiles where the chunk shares depths per tile), to bound the
+    memory of wide per-sample outputs (LeRF's [rays, samples, E]). Rays are
+    independent and tiles stay whole, so without random draws (thin rays,
+    no noise) the image is the same.
 
     With ``cfg.tile_order`` the image is padded to 8x16-tile multiples and
     enumerated tile by tile. ``dense_frac`` > 0 (with the occupancy grid and
@@ -484,7 +501,8 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
     128-ray tiles by probe mass render at cfg.n_samples over a depth range
     narrowed to where the probe saw mass, the rest at ``sparse_samples``.
 
-    Returns (RenderOutputs with [h, w, ...] maps, (near_min, far_max))."""
+    Returns (the integrator's outputs as [h, w, ...] maps, per-sample
+    fields dropped, (near_min, far_max))."""
     if cfg.ndc:
         raise NotImplementedError("NDC rays are not ported yet")
     hp = -(-h // TILE_H) * TILE_H if cfg.tile_order else h
@@ -521,6 +539,8 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
         if tile > 0 and ch % tile:
             ccfg = dataclasses.replace(ccfg, occ_ray_tile=0, hier_ray_tile=0)
             tile = 0
+        if 0 < max_rays < ch:
+            ch = max(max_rays // tile, 1) * tile if tile else max_rays
         outs = []
         for c0 in range(0, m, ch):
             sl = slice(c0, c0 + ch)
@@ -542,8 +562,15 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
             res = render_rays(network_fn, integrate_fn, ro_c, rd_c, nr_c,
                               fr_c, vd_c, None if ccfg.thin_ray else cone_angle,
                               ccfg, generator, bounding_box, occ_bins)
-            outs.append(RenderOutputs(*(x[:real] for x in res.outputs)))
-        return RenderOutputs(*(torch.cat(xs) for xs in zip(*outs)))
+            # per-sample fields go chunk by chunk, so at most one chunk's
+            # samples (LeRF: [ch, S, E]) live at a time
+            outs.append(_map_fields(
+                res.outputs, lambda f, x: None if f in PER_SAMPLE
+                else x[:real]))
+            del res
+        first = outs[0]
+        return type(first)(*(None if xs[0] is None else torch.cat(xs)
+                             for xs in zip(*outs)))
 
     use_budget = (dense_frac > 0.0 and use_occ and cfg.tile_order
                   and n % 128 == 0 and n // 128 >= 2)
@@ -605,7 +632,7 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
                                     w_s)
 
         def combine(f, a, b):
-            if f == "weights":        # per-sample, class-dependent S
+            if a is None:             # per-sample (dropped) or unset
                 return None
             buf = torch.zeros((n, *a.shape[1:]), dtype=a.dtype,
                               device=a.device)
@@ -613,9 +640,9 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
             buf[idx_s] = b
             return buf
 
-        outputs = RenderOutputs(**{
-            f: combine(f, getattr(out_d, f), getattr(out_s, f))
-            for f in RenderOutputs._fields})
+        outputs = type(out_d)(*(combine(f, getattr(out_d, f),
+                                        getattr(out_s, f))
+                                for f in out_d._fields))
     else:
         outputs = render_flat(rays_o, rays_d, near[:, None], far[:, None],
                               viewdirs, cfg)
@@ -629,12 +656,19 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
                .reshape(hp, wp, *rest))
         return img[:h, :w]
 
-    # per-sample weights would be huge image-wide: dropped, as in JAX
-    out = RenderOutputs(**{
-        f: (torch.zeros((0,), dtype=torch.float32, device=rays_o.device)
-            if f == "weights" else unshape(getattr(outputs, f)))
-        for f in RenderOutputs._fields})
+    # per-sample fields would be huge image-wide: dropped, as in JAX;
+    # unset fields (relevancy without prompts) stay None
+    out = type(outputs)(*(
+        torch.zeros((0,), dtype=torch.float32, device=rays_o.device)
+        if f in PER_SAMPLE else None if v is None else unshape(v)
+        for f, v in zip(outputs._fields, outputs)))
     return out, (near.min(), far.max())
+
+
+def _map_fields(outputs: NamedTuple, fn) -> NamedTuple:
+    """outputs with fn(field, value) applied to each field that is set."""
+    return type(outputs)(*(None if v is None else fn(f, v)
+                           for f, v in zip(outputs._fields, outputs)))
 
 
 def _pad0(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one full-width 800x800 frame goes, on one GPU.
 
-    python3 profile_serve.py [--preset blocked|tpu|hashnerf] [--frames 2]
+    python3 profile_serve.py [--preset blocked|tpu|hashnerf|lerf] [--frames 2]
                              [--trace serve_trace.json]
 
 Renders a serving cell of chip_smoke.py at 800x800 once to warm up, then
@@ -10,8 +10,11 @@ hashnerf_blocked_preset with n_importance=0 and the 128^3 occupancy grid, 64
 samples, auto two-class budget; ``tpu`` is hashnerf_tpu_preset (small-table
 random scheme, 64 coarse + 192 importance samples, chunk 32,768, no grid),
 ``hashnerf`` hashnerf_preset (the same with the 16 x 2^19 f32 table through
-the large-table kernels), both from seeded random weights. Spans around the hash encoder, the SH direction
-encoder and the NeRFSmall field split the device time by layer; the rest of
+the large-table kernels), both from seeded random weights; ``lerf``
+hashnerf_preset(use_lerf=True) (E = 768), whose frame adds the language
+branch with relevancy against three random prompts. Spans around the hash
+encoder, the SH direction encoder and the NeRFSmall field (and the language
+hash encoder and LeRF field) split the device time by layer; the rest of
 the frame (rays, occupancy prior or importance sampling and merge, cone
 scatter, compositing, scatter back to image order) is the remainder. Prints, per frame: the wall time, the
 device busy time (sum of kernel times), the idle share, the time in each
@@ -28,8 +31,8 @@ import chip_smoke as C
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf"),
-                    default="blocked")
+    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf",
+                                         "lerf"), default="blocked")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--trace", default="",
                     help="write a Chrome trace of the profiled frames here")
@@ -61,10 +64,22 @@ def main() -> int:
         tp = TrainParams(n_samples=64, chunk=65536)
     else:
         ex = NeRFExecutor(hashnerf_tpu_preset() if args.preset == "tpu"
-                          else hashnerf_preset(), device=dev)
+                          else hashnerf_preset(
+                              use_lerf=args.preset == "lerf"), device=dev)
         ex.initialize(C.BBOX, seed=C.SEED)
         tp = TrainParams()
     spans = {"hash_encode": ex.embedder, "field_mlp": ex.model}
+    if ex.lang_model is not None:
+        g = torch.Generator().manual_seed(C.SEED)
+        prompts = torch.randn(3, ex.params.lang_embed_dim, generator=g)
+        ex.set_lerf_prompts(prompts[:1], prompts[1:])
+        spans["le_encode"] = ex.lang_embedder
+        field = ex.lang_model.embed_and_density
+
+        def field_spanned(x):
+            with record_function("le_field"):
+                return field(x)
+        ex.lang_model.embed_and_density = field_spanned
     for name, mod in spans.items():
         def enter(_m, _a, name=name):
             _m._span = record_function(name)
@@ -98,7 +113,8 @@ def main() -> int:
     # the spans show up twice: as CPU ranges and as ranges on the card's
     # timeline. Busy time is the sum of the card's own events (kernels,
     # copies, memsets); each is attributed to the span range it starts in.
-    names = ("hash_encode", "sh_encode", "field_mlp")
+    names = ("hash_encode", "sh_encode", "field_mlp", "le_encode",
+             "le_field")
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ranges = sorted((e.time_range.start, e.time_range.end, e.name)
                     for e in dev_events if e.name in names)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one full-width train step goes, on one GPU.
 
-    python3 profile_train.py [--preset blocked|tpu|hashnerf] [--steps 8]
+    python3 profile_train.py [--preset blocked|tpu|hashnerf|lerf] [--steps 8]
                              [--trace train_trace.json]
 
 Builds a training configuration of chip_smoke.py on a 200x200 copy of the
@@ -18,7 +18,10 @@ NRand 4096 in 8x16 tiles, 64 samples), in two regimes:
 samples on every ray, the coarse-ranked fine budget 0.25 / 16 of 192
 importance samples, untiled NRand 4096), one regime, ``hier``;
 ``hashnerf`` the same run of hashnerf_preset() (phase 14: the 16 x 2^19 f32
-table through the large-table kernels), one regime, ``large``.
+table through the large-table kernels), one regime, ``large``; ``lerf``
+the same with the language field (hashnerf_preset(use_lerf=True), E = 768,
+against the stand-in CLIP pyramid of the scene as ``cli train`` builds it),
+one regime, ``lerf``.
 
 Each regime trains 40 steps (one refresh at step 32), then:
 
@@ -35,6 +38,7 @@ Needs a CUDA device.
 import argparse
 import subprocess
 import sys
+import tempfile
 import time
 
 import chip_smoke as C
@@ -82,8 +86,8 @@ def split_timer(ex, store):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf"),
-                    default="blocked")
+    ap.add_argument("--preset", choices=("blocked", "tpu", "hashnerf",
+                                         "lerf"), default="blocked")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default="",
                     help="write a Chrome trace of the budget regime here")
@@ -123,6 +127,14 @@ def main() -> int:
             **warm)) for r, warm in (
                 ("warmup", {}), ("budget", dict(occ_phased_warmup=0,
                                                 occ_tile_budget_warmup=0)))]
+    elif args.preset == "lerf":
+        from nerfpp_tpu_torch.cli import _build_lerf_supervision
+        params = hashnerf_preset(use_lerf=True)
+        pyr, _ = _build_lerf_supervision(
+            scene, params, TrainParams(base_dir=tempfile.mkdtemp()), dev)
+        sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev,
+                                             pyramid=pyr)
+        regimes = [("lerf", params)]
     else:
         sampler = RayBatchSampler.from_scene(scene, tp.n_rand, device=dev)
         regimes = [("hier", hashnerf_tpu_preset()) if args.preset == "tpu"

@@ -24,7 +24,9 @@ T = 2^10-2^19, a ragged last block of a level's cluster, and no points; K3
 (grad_blocked and its index) bitwise equal over two launches, its index
 exactly its plain version's, exact zeros in untouched windows, groups whose
 window codes alias, every group in one window (8,300 groups), 128 windows
-per group, no cotangent rows and a partial last group.
+per group, no cotangent rows and a partial last group; the large-table
+kernels at the LeRF language table (2^16 entries, 10-15 levels), and a LeRF
+render and train step on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -966,3 +968,123 @@ def test_grad_large_bins_rejects_what_it_does_not_take(cuda):
         KL.grad_large(torch.zeros(1, 8, device=cuda).expand(1 << 28, 8),
                       huge, enc)
     assert set(launch_counts().values()) == {0}
+
+
+def _le_encoder(dev, levels):
+    """The LeRF language table: 2^16 entries a level, base 16 -> finest
+    128, random primes from seed 1 (hashnerf_preset(use_lerf=True) has 14
+    levels)."""
+    return HashGridEncoder(BBOX, levels, 2, 16, 16, 128, scheme="random",
+                           primes_seed=1, use_kernel=False, device=dev)
+
+
+@pytest.mark.parametrize("levels", [14, 10, 11, 13, 15])
+def test_large_kernels_at_the_language_table(cuda, levels):
+    # level counts that are not a multiple of 4: a short last level group;
+    # encode within 1e-6, the gradient's entries within 1e-5 of sum |w * g|
+    # and zero where no term falls, two gradient launches bitwise equal, the
+    # bin pass exactly its plain version; 20,000 points in one cell too
+    enc = _le_encoder(cuda, levels)
+    g = torch.Generator().manual_seed(levels)
+    table = (torch.rand(enc.table_rows, 2, generator=g) * 2 - 1).to(cuda)
+    sets = _small_points(enc, cuda)
+    sets["one cell"] = _one_cell(enc, 20000, levels).to(cuda)
+    for name, pts in sets.items():
+        out = KL.encode_large(table, pts, enc)
+        torch.cuda.synchronize()
+        ref = KL.encode_large_plain(table, pts, enc)
+        assert float((out - ref).abs().max()) <= 1e-6, name
+        cot = torch.randn(pts.shape[0], 2 * levels, generator=g).to(cuda)
+        assert _repeat_checked(KL.grad_large, KL.grad_large_plain, cot, pts,
+                               enc), name
+        got = KL.grad_large_bins(pts, enc)
+        torch.cuda.synchronize()
+        assert _bins_equal(got, KL.grad_large_bins_plain(pts, enc),
+                           pts.shape[0], enc), name
+
+
+def _lerf_preset():
+    from nerfpp_tpu_torch.config import hashnerf_preset
+    return hashnerf_preset(n_levels=4, log2_hashmap_size=12,
+                           n_importance=16, hier_sparse_importance=4,
+                           compute_dtype="float32", use_lerf=True,
+                           lang_embed_dim=32, n_levels_le=6,
+                           log2_hashmap_size_le=12, finest_resolution_le=64)
+
+
+def test_lerf_render_gpu_against_cpu(cuda):
+    # a 32x32 LeRF render with relevancy from the same seeded state: the
+    # large-table kernels on the card, their plain versions on the CPU
+    from nerfpp_tpu_torch.config import TrainParams
+    from nerfpp_tpu_torch.core.rays import calibration_matrix, pose_spherical
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    p = _lerf_preset()
+    p.thin_ray = True
+    g = torch.Generator().manual_seed(0)
+    tables = [torch.rand(4 * 4096, 2, generator=g) - 0.5,
+              torch.rand(6 * 4096, 2, generator=g) - 0.5]
+    prompts = torch.randn(3, 32, generator=g)
+    pose = pose_spherical(30.0, -30.0, 3.0)
+    k = calibration_matrix(35.0, 32, 32)
+    outs = {}
+    for name in ("cuda", "cpu"):
+        ex = NeRFExecutor(p, device=name).initialize(BBOX, seed=0)
+        with torch.no_grad():
+            ex.embedder.table.copy_(tables[0])
+            ex.lang_embedder.table.copy_(tables[1])
+        ex.set_lerf_prompts(prompts[:1], prompts[1:])
+        reset_launch_counts()
+        outs[name] = ex.render_view(pose, 32, 32, k,
+                                    TrainParams(n_samples=16))["lerf"]
+        if name == "cuda":
+            assert launch_counts()["encode_large"] > 0
+    for f in ("rendered_lang_embedding", "acc", "depth", "relevancy"):
+        a, b = getattr(outs["cuda"], f).cpu(), getattr(outs["cpu"], f)
+        assert a.shape == b.shape, f
+        assert float((a - b).abs().max()) <= 2e-3 * max(
+            float(b.abs().max()), 1.0), f
+    assert float(outs["cpu"].acc.max()) > 0.05
+
+
+def test_lerf_train_step_gpu_against_cpu(cuda):
+    # one tiny dual-loss step from the same seeded state with the same
+    # draws: loss and lang_loss to 1e-4; 99 % of each gradient's entries
+    # within 1e-3 of its tensor's largest and every entry within 1e-2 (the
+    # importance passes move depths in near-empty bins with the rounding of
+    # the weights: 2 ulps of them move the table gradients by up to 4.7e-3
+    # of their largest on the CPU alone); both tables' kernels launch
+    from nerfpp_tpu_torch.config import TrainParams
+    from nerfpp_tpu_torch.data.dataset import RayBatchSampler
+    from nerfpp_tpu_torch.data.pyramid_clip import (
+        PyramidEmbedder, PyramidEmbedderProperties,
+        RandomProjectionPatchEncoder, make_device_pyramid)
+    from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    scene = make_synthetic_scene(n_train=2, n_val=1, n_test=1, image_hw=32,
+                                 n_samples=32, white_bkgr=False, device="cpu")
+    emb = PyramidEmbedder(RandomProjectionPatchEncoder(32, 8),
+                          PyramidEmbedderProperties(img_size=8, overlap=0.5),
+                          device="cpu")(scene.images[:2])
+    tp = TrainParams(n_samples=8, n_rand=512, chunk=256, n_iters=100)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        ex = NeRFExecutor(_lerf_preset(), device=name)
+        ex.initialize(scene.bounding_box, tp.lrate_decay, seed=0)
+        sampler = RayBatchSampler.from_scene(
+            scene, tp.n_rand, device=name,
+            pyramid=make_device_pyramid(emb, 0.5, device=name))
+        reset_launch_counts()
+        m = ex._build_train_step(tp)(0, sampler,
+                                     torch.Generator().manual_seed(7))
+        if name == "cuda":
+            c = launch_counts()
+            assert c["encode_large"] >= 4 and c["grad_large"] >= 4, c
+        runs[name] = (m, {k: v.grad.cpu()
+                          for k, v in ex.named_parameters().items()})
+    (mg, gg), (mc, gc) = runs["cuda"], runs["cpu"]
+    for k in ("loss", "lang_loss"):
+        assert float(mg[k]) == pytest.approx(float(mc[k]), rel=1e-4), k
+    for k, v in gc.items():
+        diff, top = (gg[k] - v).abs(), float(v.abs().max())
+        assert float(diff.max()) <= 1e-2 * top, k
+        assert float((diff <= 1e-3 * top).float().mean()) >= 0.99, k
