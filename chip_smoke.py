@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --repeat-train K [--preset P] [--seed S]
+    python3 chip_smoke.py --capture-only
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -112,9 +113,32 @@ Phases, each printing its own lines:
      quality configuration (128 px, 8 views, 24-d stand-in, 32 + 16
      samples, 1,000 steps): both losses must fall and the held-out map
      must not be constant; its relevancy AUC and IoU@0.5 are printed.
+ 17. real capture: (a) the bench scene written as a COLMAP workspace by
+     scripts/colmap_export.py (12 train views at 800x800 and 4 by a second
+     camera at 1000x1000 with the same field of view, both OPENCV cameras
+     with small non-zero k1, k2, p1, p2, every image distorted; about 50 k
+     surface points from the rendered depths, each observed in every train
+     view whose depth agrees; sparse/0 in .bin and .txt; the test view left
+     out); (b) the port's native parser built and reading it, equal to the
+     Python .bin and the .txt parsers, the poses back within 1e-5, the new
+     K, the undistortion and both resizes on the card equal to the CPU's,
+     load and undistortion seconds, the COLMAP box against the scene's;
+     (c) ``cli train --dataset-type colmap --preset hashnerf_blocked --set
+     use_occupancy_grid=true --set n_importance=0 --set occ_update_every=32
+     --set-train NIters=2100 --set-train NRand=4096 --set-train NSamples=64
+     --set-train Chunk=4096`` in-process (launch counts reset before step 0
+     and read after: K1, K2, K3 and its index, no other kernel; steps
+     1,056-1,087 timed; the loss must fall), the held-out PSNR of the test
+     view at its true pose and K beside phase 8's, then two 64-step seed-0
+     runs of the same command bitwise equal; (d) the same command on the
+     Blender export of the scene (the loader's loose corner-ray box),
+     without and with ``--set-train BboxRefitStep=1024``: the refit must
+     fire with a volume shrink of at least 1.5 and K1-K3 must launch after
+     it on the new box; both held-out PSNRs beside phase 8's.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
-phase 8's training for K3 and its index, phase 11's for encode_small and
+phase 8's and phase 17's COLMAP training for K1-K3 (phase 17 adds its
+own), phase 11's for encode_small and
 grad_small, phase 14's cli train and phase 16's LeRF training and frames
 for encode_large, grad_large and the bin pass grad_large_bins (which phase
 11's path launches too, once per grad_small: its count is printed there);
@@ -130,7 +154,8 @@ run (the README's TrainParams(n_iters=2000) on the bench scene, steps
 0-1,998), with the held-out PSNR of the test view at TrainParams() after
 it. Per run it prints the first step whose loss differs bitwise from run
 1's and the largest |table - run 1's table| after step 64; it ends with
-the same last line. Any failed check raises, and the script exits
+the same last line. ``--capture-only`` runs phases 1-2 and then phase 17
+alone (without phase 8's PSNR to print beside its own). Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
@@ -1499,42 +1524,21 @@ def cli_phase(scene, dev):
         f"800x800 PNGs) in {time.perf_counter() - t0:.2f} s")
     common = ["--dataset-type", "blender", "--data-dir", str(data),
               "--preset", "hashnerf", "--base-dir", str(out)]
-    # the train loop's step, wrapped to record every loss and to mark
-    # steps 1,024 and 1,056 (synchronised) with the time and the counts
-    losses, marks = [], {}
-    build = NeRFExecutor._build_train_step
-
-    def recording(self, tp):
-        step = build(self, tp)
-
-        def run_step(i, *args, **kwargs):
-            if i in (1024, 1056):
-                torch.cuda.synchronize()
-                marks[i] = (time.perf_counter(), launch_counts())
-            m = step(i, *args, **kwargs)
-            losses.append(m["loss"].detach().reshape(1))
-            return m
-        return run_step
-    NeRFExecutor._build_train_step = recording
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        cli.main(["train", *common, "--set-train", "NIters=2000"])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    finally:
-        NeRFExecutor._build_train_step = build
+    # every loss recorded, steps 1,024 and 1,056 marked (synchronised)
+    run = CliTrain(["train", *common, "--set-train", "NIters=2000"],
+                   window=(1024, 1056))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train_s = run.run()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    loss = torch.cat(losses).cpu().numpy()
-    (ta, ca), (tb, cb) = marks[1024], marks[1056]
-    ms = (tb - ta) / 32 * 1e3
+    loss = run.loss()
+    ms, per_step = run.window_ms(LARGE_KERNELS)
     log("cli", f"cli train: {loss.size} steps in {train_s:.1f} s (export "
         f"excluded; validation images at 500, 1000, 1500 included); steps "
         f"1024-1055: {ms:.3f} ms/step, {4096 / (ms / 1e3):.1f} rays/s; "
         f"launches per step "
-        + ", ".join(f"{k} {(cb[k] - ca[k]) / 32:.3f}" for k in LARGE_KERNELS))
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()))
     log("cli", f"steps 0-{loss.size - 1}: launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items())
         + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
@@ -1942,6 +1946,386 @@ def lerf_phase(scene, dev):
     return {k: counts[k] + serve[k] for k in LARGE_KERNELS}
 
 
+def flagship_argv(dataset_type, data_dir, out, dev, n_iters=2100, extra=()):
+    """``cli train`` of the flagship configuration (phase 17):
+    ``--preset hashnerf_blocked`` with the occupancy grid, no importance
+    pass, a refresh every 32 steps, NRand 4,096 (8x16 tiles), 64 samples,
+    chunk 4,096, NIters ``n_iters``."""
+    return ["train", "--device", dev.type, "--dataset-type", dataset_type,
+            "--data-dir", str(data_dir), "--preset", "hashnerf_blocked",
+            "--set", "use_occupancy_grid=true", "--set", "n_importance=0",
+            "--set", "occ_update_every=32", "--set-train", f"NIters={n_iters}",
+            "--set-train", "NRand=4096", "--set-train", "NSamples=64",
+            "--set-train", "Chunk=4096", "--base-dir", str(out), *extra]
+
+
+class CliTrain:
+    """``cli train`` in-process (phases 14 and 17). It records every step's
+    loss, the time and launch counts at the two ``window`` steps
+    (synchronised), the executor the CLI trains (for serving it
+    afterwards), and each bbox refit's old and new box; the launch counts
+    are reset after a refit that fires, so ``after_refit`` holds the
+    launches before it."""
+
+    def __init__(self, argv, window=(1056, 1088)):
+        self.argv, self.window = list(argv), window
+        self.losses, self.marks, self.refits = [], {}, []
+        self.ex = None
+        self.after_refit = None
+
+    def run(self):
+        """Train; returns the wall seconds."""
+        import torch
+        from nerfpp_tpu_torch import cli
+        from nerfpp_tpu_torch.executor import NeRFExecutor
+        from nerfpp_tpu_torch.kernels import (launch_counts,
+                                              reset_launch_counts)
+        build, train = NeRFExecutor._build_train_step, NeRFExecutor.train
+        refit = NeRFExecutor.refit_bbox_from_grid
+
+        def recording(ex, tp):
+            step = build(ex, tp)
+
+            def run_step(i, *args, **kwargs):
+                if i in self.window:
+                    torch.cuda.synchronize()
+                    self.marks[i] = (time.perf_counter(), launch_counts())
+                m = step(i, *args, **kwargs)
+                self.losses.append(m["loss"].detach().reshape(1))
+                return m
+            return run_step
+
+        def training(ex, *args, **kwargs):
+            self.ex = ex
+            return train(ex, *args, **kwargs)
+
+        def refitting(ex, *args, **kwargs):
+            old = ex.bounding_box.copy()
+            fired = refit(ex, *args, **kwargs)
+            self.refits.append((ex.step, fired, old, ex.bounding_box.copy()))
+            if fired:
+                self.after_refit = launch_counts()
+                reset_launch_counts()
+            return fired
+
+        NeRFExecutor._build_train_step = recording
+        NeRFExecutor.train = training
+        NeRFExecutor.refit_bbox_from_grid = refitting
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(self.argv)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            NeRFExecutor._build_train_step = build
+            NeRFExecutor.train = train
+            NeRFExecutor.refit_bbox_from_grid = refit
+
+    def loss(self):
+        import torch
+        return torch.cat(self.losses).cpu().numpy()
+
+    def window_ms(self, kernels=TRAIN_KERNELS):
+        """ms/step over the window and the launches per step (nan and none
+        where a collapse restart kept the state's step below its end)."""
+        if not set(self.window) <= set(self.marks):
+            return math.nan, {}
+        (ta, ca), (tb, cb) = (self.marks[i] for i in self.window)
+        n = self.window[1] - self.window[0]
+        return ((tb - ta) / n * 1e3,
+                {k: (cb[k] - ca[k]) / n for k in kernels})
+
+    def held_out_psnr(self, scene):
+        """PSNR of the bench scene's 800x800 test view rendered by the
+        trained executor at its true pose and K, unbudgeted at 64 samples
+        (phase 8's reading)."""
+        from nerfpp_tpu_torch.config import TrainParams
+        ex = self.ex
+        view = scene.views[list(scene.split_indices("test"))[0]]
+        budget = ex.params.render_dense_frac
+        ex.params.render_dense_frac = 0.0
+        out = ex.render_view(view.pose, view.h, view.w, view.k,
+                             TrainParams(n_samples=64, chunk=65536))
+        ex.params.render_dense_frac = budget
+        return psnr_of(out["nerf"].rgb.cpu().numpy(), scene.images[view.id])
+
+
+def same_reconstruction(a, b):
+    """The names of the fields in which two COLMAP reconstructions differ
+    (exact comparison), or an empty list."""
+    import numpy as np
+    bad = []
+    if sorted(a.cameras) != sorted(b.cameras) or sorted(a.images) != sorted(
+            b.images):
+        return ["ids"]
+    for cid in a.cameras:
+        x, y = a.cameras[cid], b.cameras[cid]
+        if (x.model, x.width, x.height) != (y.model, y.width, y.height) or (
+                not np.array_equal(x.params, y.params)):
+            bad.append(f"camera {cid}")
+    for iid in a.images:
+        x, y = a.images[iid], b.images[iid]
+        if (x.camera_id, x.name) != (y.camera_id, y.name) or not all(
+                np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("qvec", "tvec", "xys", "point3d_ids")):
+            bad.append(f"image {iid}")
+    if not (np.array_equal(a.points_xyz, b.points_xyz)
+            and np.array_equal(a.points_ids, b.points_ids)):
+        bad.append("points")
+    return bad
+
+
+def capture_phase(scene, dev, psnr_direct):
+    """Phase 17, real capture: (a) the bench scene exported as a COLMAP
+    workspace (scripts/colmap_export.py: 12 train views at 800x800 and 4
+    by a second camera at 1000x1000, two distorted OPENCV cameras, surface
+    points from the rendered depths; the test view left out); (b) the
+    native, Python .bin and .txt parsers equal, the poses back within 1e-5,
+    the undistortion and the resizes on the card equal to the CPU's, load
+    and undistortion seconds, the COLMAP box; (c) the flagship ``cli train
+    --dataset-type colmap`` to NIters 2,100 (launch counts reset before
+    step 0 and read after: K1, K2, K3 and its index, nothing else; steps
+    1,056-1,087 timed; the loss must fall; the held-out PSNR of the test
+    view beside phase 8's), then two 64-step seed-0 runs of it bitwise
+    equal; (d) the same command on phase 14's Blender export (its loose
+    corner-ray box) without and with ``BboxRefitStep=1024``: the refit
+    must fire with a shrink of at least 1.5 and K1-K3 launch after it;
+    both held-out PSNRs. Returns the launch counts of (c)'s 2,100-step
+    run."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import native
+    from nerfpp_tpu_torch.data import colmap as C
+    from nerfpp_tpu_torch.data.blender import export_blender_scene
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils.png import read_png
+    from scripts.colmap_export import export_colmap_scene
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    ws = root / "colmap"
+
+    # (a) export
+    t0 = time.perf_counter()
+    exp = export_colmap_scene(scene, ws, dev, n_samples=64, n_points=50_000,
+                              log=lambda m: log("capture", m))
+    log("capture", f"exported in {time.perf_counter() - t0:.2f} s; OPENCV "
+        f"cameras (fx, fy, cx, cy, k1, k2, p1, p2): "
+        + "; ".join(f"{c.width}x{c.height} {c.params.tolist()}"
+                    for c in exp.cameras))
+
+    # (b) load
+    sparse = ws / "sparse" / "0"
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError(f"the native parser did not build "
+                             f"({native.lib_path()})")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = C._read_model_native(sparse)
+    native_s = time.perf_counter() - t0
+    if rec is None:
+        raise AssertionError("the native parser did not read the workspace")
+    t0 = time.perf_counter()
+    py = C.ColmapReconstruction(C._read_cameras_bin(sparse / "cameras.bin"),
+                                C._read_images_bin(sparse / "images.bin"),
+                                *C._read_points3d_bin(sparse / "points3D.bin"))
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt = C.ColmapReconstruction(C._read_cameras_txt(sparse / "cameras.txt"),
+                                 C._read_images_txt(sparse / "images.txt"),
+                                 *C._read_points3d_txt(sparse / "points3D.txt"))
+    txt_s = time.perf_counter() - t0
+    for name, other in (("Python .bin", py), (".txt", txt)):
+        bad = same_reconstruction(rec, other)
+        if bad:
+            raise AssertionError(f"the native and the {name} parser differ "
+                                 f"in {bad[:5]}")
+    n_obs = sum(len(im.point3d_ids) for im in rec.images.values())
+    pose_err = max(float(np.abs(C.colmap_w2c_to_nerf_c2w(
+        rec.images[i + 1].qvec, rec.images[i + 1].tvec) - p).max())
+        for i, p in enumerate(exp.poses))
+    if not pose_err <= 1e-5:
+        raise AssertionError(f"recovered poses off by {pose_err}")
+    log("capture", f"parsers equal (native, Python .bin, .txt): "
+        f"{len(rec.images)} images, {len(rec.points_ids)} points, {n_obs} "
+        f"observations; native build {build_s:.2f} s, read native "
+        f"{native_s:.3f} s, Python .bin {py_s:.3f} s, .txt {txt_s:.3f} s; "
+        f"poses within {pose_err:.3g} of the exported (limit 1e-5)")
+    # the card against the CPU: new K, undistortion, both resizes
+    for i in (0, 3):
+        im = rec.images[i + 1]
+        cam = rec.cameras[im.camera_id]
+        k = cam.k_matrix().astype(np.float64)
+        d = cam.distortion().astype(np.float64)
+        img = torch.from_numpy(read_png(ws / "images" / im.name))
+        devs = {"card": dev, "cpu": torch.device("cpu")}
+        nk = {n: I.optimal_new_camera_matrix(k, d, (cam.width, cam.height),
+                                             0.0, v) for n, v in devs.items()}
+        if not np.array_equal(nk["card"], nk["cpu"]):
+            raise AssertionError(f"{im.name}: new K differs, card "
+                                 f"{nk['card']} CPU {nk['cpu']}")
+        und = {n: I.undistort(img.to(v), k, d, nk["cpu"]).cpu()
+               for n, v in devs.items()}
+        small = {n: I.resize_linear_u8(und["cpu"].to(v), (800, 800)).cpu()
+                 for n, v in devs.items()}
+        fl = {n: I.resize_linear(und["cpu"].to(v).float() / 255.0,
+                                 (800, 800)).cpu() for n, v in devs.items()}
+        fdiff = float((fl["card"] - fl["cpu"]).abs().max())
+        if not (torch.equal(und["card"], und["cpu"])
+                and torch.equal(small["card"], small["cpu"])
+                and fdiff <= 1e-6):
+            raise AssertionError(f"{im.name}: card against CPU: undistort "
+                                 f"{int((und['card'] != und['cpu']).sum())} "
+                                 f"pixels differ, 8-bit resize "
+                                 f"{int((small['card'] != small['cpu']).sum())}"
+                                 f", float resize {fdiff}")
+        log("capture", f"{im.name} ({cam.width}x{cam.height}): new K and "
+            f"undistortion on the card equal to the CPU's; 8-bit resize to "
+            f"800x800 equal, float resize within {fdiff:.3g} (limit 1e-6)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc = C.load_from_colmap_reconstruction(ws, undistort=False, device=dev)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    C.undistort_images(sc, ws / "undistorted", dev)
+    torch.cuda.synchronize()
+    und_s = time.perf_counter() - t0
+    box = sc.bounding_box
+    vol = float(np.prod(box[3:] - box[:3]))
+    log("capture", f"load_from_colmap_reconstruction: parse, near/far and box"
+        f" {parse_s:.3f} s, undistortion of {len(sc.views)} views on the "
+        f"card {und_s:.3f} s (PNG decode and encode included); COLMAP box "
+        f"{np.round(box, 4).tolist()}, volume {vol:.4f} against the scene's "
+        f"[-1.2, 1.2]^3 {2.4 ** 3:.4f} ({2.4 ** 3 / vol:.2f}x smaller); "
+        f"near/far of view 1 {sc.views[0].near:.4f} / {sc.views[0].far:.4f}")
+
+    # (c) cli train --dataset-type colmap, the flagship
+    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train_s = run.run()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = run.loss()
+    ms, per_step = run.window_ms()
+    psnr = run.held_out_psnr(scene)
+    first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+    if not (loss.size == 2099 and math.isfinite(last)
+            and last < 0.5 * first):
+        raise AssertionError(f"colmap train: {loss.size} steps, loss mean "
+                             f"{first} (steps 0-31) -> {last} (last 32)")
+    for name in TRAIN_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the COLMAP "
+                                 "training")
+    others = {k: v for k, v in counts.items() if k not in TRAIN_KERNELS}
+    if any(others.values()):
+        raise AssertionError(f"the COLMAP training launched other kernels: "
+                             f"{others}")
+    log("capture", f"cli train --dataset-type colmap (flagship): "
+        f"{loss.size} steps in {train_s:.1f} s (load, undistortion and "
+        f"validation images included); steps 1056-1087: {ms:.3f} ms/step, "
+        f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("capture", f"launches, steps 0-{loss.size - 1}: "
+        + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+        + "; no other kernel")
+    log("capture", "loss every 300 steps: " + " ".join(
+        f"({i}, {loss[i]:.5f})" for i in range(0, loss.size, 300))
+        + f"; mean {first:.5f} (steps 0-31) -> {last:.5f} (last 32)")
+    log("capture", f"held-out PSNR after {loss.size} steps through the COLMAP"
+        f" capture: {psnr:.2f} dB (test view at its true pose and K, "
+        f"800x800, unbudgeted); phase 8 on the scene itself: "
+        + (f"{psnr_direct:.2f} dB" if psnr_direct is not None
+           else "not run"))
+    del run
+    torch.cuda.empty_cache()
+    # two 64-step seed-0 runs of the same path
+    runs = []
+    for r in range(2):
+        f = CliTrain(flagship_argv("colmap", ws, root / f"det{r}", dev,
+                                   n_iters=65))
+        f.run()
+        runs.append((torch.cat(f.losses).view(torch.int32).cpu(),
+                     state_of(f.ex)))
+        del f
+    (la, sa), (lb, sb) = runs
+    step = first_difference(la, lb)
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if step is not None or bad:
+        raise AssertionError(f"determinism (colmap): the losses of two "
+                             f"seed-0 runs first differ at step {step}; "
+                             f"after 64 steps they differ in "
+                             f"{', '.join(bad) or 'no tensor'}")
+    log("determinism", f"colmap: two seed-0 runs of cli train (NIters 65, "
+        f"{la.numel()} steps): losses bitwise equal at every step, "
+        f"parameters, Adam state and occupancy grid bitwise equal "
+        f"({len(sa)} tensors)")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (d) the refit, on the Blender export's loose corner-ray box
+    data = root / "blender"
+    export_blender_scene(scene, data)
+    psnrs = {}
+    for label, extra in (("no refit", ()),
+                         ("BboxRefitStep=1024",
+                          ("--set-train", "BboxRefitStep=1024"))):
+        f = CliTrain(flagship_argv("blender", data,
+                                   root / label.replace("=", "_"), dev,
+                                   extra=extra))
+        reset_launch_counts()
+        secs = f.run()
+        after = launch_counts()
+        loss = f.loss()
+        first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+        if not (math.isfinite(last) and last < 0.5 * first):
+            raise AssertionError(f"blender train ({label}): loss mean "
+                                 f"{first} -> {last}")
+        psnrs[label] = f.held_out_psnr(scene)
+        ms, _ = f.window_ms()
+        log("capture", f"cli train --dataset-type blender ({label}): "
+            f"{loss.size} steps in {secs:.1f} s, steps 1056-1087 {ms:.3f} "
+            f"ms/step; loss {first:.5f} -> {last:.5f}; held-out PSNR "
+            f"{psnrs[label]:.2f} dB")
+        if extra:
+            fired = [r for r in f.refits if r[1]]
+            if len(f.refits) != 1 or not fired:
+                raise AssertionError(f"the refit did not fire: {f.refits}")
+            step, _, old, new = fired[0]
+            shrink = float(np.prod(old[3:] - old[:3])
+                           / np.prod(new[3:] - new[:3]))
+            log("capture", f"bbox refit at step {step}: "
+                f"{np.round(old, 4).tolist()} -> {np.round(new, 4).tolist()},"
+                f" {shrink:.2f}x volume shrink; launches after it: "
+                + ", ".join(f"{k} {after[k]}" for k in TRAIN_KERNELS)
+                + "; before it: "
+                + ", ".join(f"{k} {f.after_refit[k]}" for k in TRAIN_KERNELS))
+            if not shrink >= 1.5:
+                raise AssertionError(f"refit shrink {shrink} < 1.5")
+            if not np.array_equal(f.ex.embedder.bounding_box, new):
+                raise AssertionError("the encoder is not on the new box")
+            for name in TRAIN_KERNELS:
+                if after[name] == 0:
+                    raise AssertionError(f"{name} did not launch after the "
+                                         "refit")
+        del f
+        torch.cuda.empty_cache()
+    log("capture", "held-out PSNR at 2,100 steps (test view, 800x800, "
+        "unbudgeted): the scene itself (phase 8) "
+        + (f"{psnr_direct:.2f}" if psnr_direct is not None else "not run")
+        + f" dB; the COLMAP capture {psnr:.2f} dB; the Blender export "
+        f"{psnrs['no refit']:.2f} dB, with the refit at 1,024 "
+        f"{psnrs['BboxRefitStep=1024']:.2f} dB")
+    tmp.cleanup()
+    log("capture", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] for k in TRAIN_KERNELS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
@@ -1954,6 +2338,8 @@ def main(argv=None) -> int:
                     " or hashnerf_preset())")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="the seed of --repeat-train's runs (default 0)")
+    ap.add_argument("--capture-only", action="store_true",
+                    help="only phases 1-2, then phase 17 (real capture)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1999,6 +2385,12 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+
+    if args.capture_only:
+        capture_phase(bench_scene(dev), dev, None)
+        log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
+        print(last_line, flush=True)
+        return 0
 
     if args.repeat_train > 0:
         repeat_train(bench_scene(dev), dev, args.repeat_train, args.seed,
@@ -2108,7 +2500,7 @@ def main(argv=None) -> int:
 
     # 8. full-width training ----------------------------------------------
     scene = bench_scene(dev)
-    counts, _, failed = train_phase(scene, dev)
+    counts, (_, psnr_2100), failed = train_phase(scene, dev)
     if failed:
         raise AssertionError("; ".join(failed))
     determinism_phase(scene, dev, "flagship")
@@ -2146,6 +2538,16 @@ def main(argv=None) -> int:
     for k, v in lerf_phase(scene, dev).items():
         counts[k] += v
     log("lerf", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 17. real capture: the COLMAP path and the bbox refit -----------------
+    # K1-K3's launches in the kernels line: phase 8's and phase 17's
+    # COLMAP training together
+    capture = capture_phase(scene, dev, psnr_2100)
+    log("capture", "phase 17 launches (cli train --dataset-type colmap, "
+        "steps 0-2098): " + ", ".join(f"{k} {v}" for k, v in capture.items()))
+    for k, v in capture.items():
+        counts[k] += v
+    log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

@@ -12,8 +12,15 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 configs (executor_params.json, executor_train_params.json, data.json) to
 the base directory; ``render`` restores the latest checkpoint (ft_path, by
 default the base directory) and writes {i,disp_i,depth_i}.png to
-<base>/renders. COLMAP data, data parallelism (--n-devices other than 1)
-and the ``bench`` subcommand are not ported yet and raise.
+<base>/renders. Data parallelism (--n-devices other than 1) and the
+``bench`` subcommand are not ported yet and raise.
+
+``--dataset-type colmap --data-dir <workspace>`` reads a COLMAP workspace
+(sparse/0 in .bin or .txt, PNG images under images/): distorted views are
+undistorted on ``--device`` into <workspace>/undistorted, and views of
+other sizes than the first are resized to it when training. With
+``--set-train BboxRefitStep=N`` (and an occupancy grid) training shrinks
+the loader's box to the field's mass at step N.
 
 With ``--set use_lerf=true``, ``train`` builds the CLIP pyramid of the
 training views (a local CLIP checkpoint at ``path_to_clip``, else the
@@ -59,8 +66,6 @@ def _apply_overrides(obj, pairs, keymap_reverse=None):
 def _check_ported(args) -> None:
     if args.n_devices != 1:
         raise _not_ported(f"--n-devices {args.n_devices} (data parallelism)")
-    if args.dataset_type == "colmap":
-        raise _not_ported("--dataset-type colmap (the COLMAP loader)")
 
 
 def _load_scene(args):
@@ -70,6 +75,13 @@ def _load_scene(args):
         return load_blender_data(args.data_dir, half_res=args.half_res,
                                  testskip=args.test_skip,
                                  white_bkgr=args.white_bkgr)
+    if args.dataset_type == "colmap":
+        from nerfpp_tpu_torch.data.colmap import \
+            load_from_colmap_reconstruction
+        scene = load_from_colmap_reconstruction(args.data_dir,
+                                                device=args.device)
+        scene.white_bkgr = args.white_bkgr
+        return scene
     if args.dataset_type == "synthetic":
         return make_synthetic_scene(white_bkgr=args.white_bkgr,
                                     device=args.device)
@@ -117,7 +129,8 @@ def _build_lerf_supervision(scene, p, tp, device="cuda"):
     props = PyramidEmbedderProperties(
         img_size=p.clip_input_img_size, overlap=p.pyr_embedder_overlap,
         max_zoom_out=max(p.pyr_embed_min_zoom_out, 1))
-    images = load_images(scene, list(scene.split_indices("train")))
+    images = load_images(scene, list(scene.split_indices("train")),
+                         device=device)
     # a smaller window where the images are smaller than twice the input
     if min(images.shape[1:3]) < props.img_size * 2:
         props.img_size = max(8, min(images.shape[1:3]) // 4)

@@ -10,11 +10,11 @@ each ray's supervision embedding at the same pixel, from the CLIP pyramid's
 grids on the device (``DevicePyramid``) or from a dense stack.
 
 Images attached to the scene (``SceneData.images``, as the synthetic scene
-has them) are used as they are; image files (PNG) are decoded by
-utils/png.py. The only resize is the Blender loader's half_res, an exact
-halving: the mean of each 2x2 block of 8-bit pixels, rounded half up, as
-OpenCV's INTER_LINEAR computes it at a scale of exactly 1/2. Any other
-resize (COLMAP's multi-size captures) raises.
+has them) are float; image files (PNG) are decoded by utils/png.py. An image
+of another size than asked for (the Blender loader's half_res, COLMAP's
+captures with one size per camera) is resized as the JAX package resizes it
+with OpenCV's INTER_LINEAR: a file in 8-bit fixed point, an attached image
+in float (utils/image.py), on the device given.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core import rays as ray_math
 from nerfpp_tpu_torch.core.sampling import draw
+from nerfpp_tpu_torch.utils.image import resize_linear, resize_linear_u8
 from nerfpp_tpu_torch.utils.png import read_png
 
 
@@ -115,26 +116,16 @@ class SceneData:
         return cls.from_json(json.loads(Path(path).read_text()))
 
 
-def _halve(img: np.ndarray, want, path) -> np.ndarray:
-    """uint8 [H, W, C] -> [H / 2, W / 2, C], the mean of each 2x2 block
-    rounded half up; other sizes raise."""
-    h, w = want
-    if img.shape[:2] != (2 * h, 2 * w):
-        raise NotImplementedError(
-            f"{path}: resizing {img.shape[0]}x{img.shape[1]} to {h}x{w} is "
-            "not ported to nerfpp_tpu_torch yet (only the exact halving of "
-            "half_res; see ROADMAP.md)")
-    blocks = img.astype(np.uint16).reshape(h, 2, w, 2, -1)
-    return ((blocks.sum(axis=(1, 3)) + 2) >> 2).astype(np.uint8)
-
-
 def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
-                target_hw: Optional[tuple] = None) -> np.ndarray:
+                target_hw: Optional[tuple] = None,
+                device="cuda") -> np.ndarray:
     """Decode view images into one [n, H, W, 3] f32 stack in [0, 1]. RGBA
     images lose their alpha, or with ``white_bkgr`` (default: the scene's)
     are composited onto white; gray images are repeated to 3 channels. Each
-    image takes its view's (h, w), or ``target_hw``: a file of twice that
-    size is halved (half_res); any other size mismatch raises."""
+    image takes its view's (h, w), or ``target_hw``: an image of another
+    size is resized on ``device`` (8-bit files before the conversion, alpha
+    included, as OpenCV resizes them), and the caller scales the intrinsics
+    (RayBatchSampler.from_scene does)."""
     if white_bkgr is None:
         white_bkgr = scene.white_bkgr
     out = []
@@ -144,16 +135,16 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
         if scene.images is not None:
             img = np.asarray(scene.images[i], np.float32)
             if img.shape[:2] != want:
-                raise NotImplementedError(
-                    f"view {i}: resizing attached images is not ported to "
-                    "nerfpp_tpu_torch yet (see ROADMAP.md)")
+                img = resize_linear(torch.from_numpy(img).to(
+                    resolve_device(device)), want).cpu().numpy()
             out.append(img)
             continue
         img = read_png(v.image_path)
         if img.ndim == 2:
             img = img[..., None]
         if img.shape[:2] != want:
-            img = _halve(img, want, v.image_path)
+            img = resize_linear_u8(torch.from_numpy(img).to(
+                resolve_device(device)), want).cpu().numpy()
         img = img.astype(np.float32) / 255.0
         if img.shape[-1] == 1:
             img = np.repeat(img, 3, axis=-1)
@@ -233,7 +224,8 @@ class RayBatchSampler:
         idx = list(scene.split_indices("train"))
         v0 = scene.views[idx[0]]
         # every view at view 0's size, its intrinsics scaled to match
-        images = load_images(scene, idx, target_hw=(v0.h, v0.w))
+        images = load_images(scene, idx, target_hw=(v0.h, v0.w),
+                             device=dev)
         poses = np.stack([scene.views[i].pose for i in idx])
         ks = []
         for i in idx:

@@ -10,13 +10,10 @@ centres at the two zoom levels bracketing log2(scale), then linear across
 them. The .npz cache has the JAX package's keys and layout, so either
 package reads the other's file.
 
-The JAX package resizes with OpenCV (``cv2.resize``, INTER_LINEAR, float32).
-``resize_linear`` is that resize in PyTorch, on any device: half-pixel
-centres, no antialiasing, OpenCV's edge clamping (a tap left of the first
-pixel or right of the last takes that pixel alone), and OpenCV's switch to
-the 2x2 box mean when both axes shrink by exactly 2. Its values agree with
-OpenCV's to float rounding (tests/test_torch_lerf.py holds them within 1e-6
-on [0, 1] images). The embedder cuts, resizes and encodes all windows of one
+The JAX package resizes with OpenCV (``cv2.resize``, INTER_LINEAR, float32);
+the port with ``resize_linear`` of utils/image.py, that resize in PyTorch
+on any device (tests/test_torch_lerf.py holds it within 1e-6 of OpenCV's on
+[0, 1] images). The embedder cuts, resizes and encodes all windows of one
 shape at once, on the images' device.
 
 The image encoder is pluggable: a callable mapping a [N, S, S, 3] float
@@ -35,45 +32,7 @@ import numpy as np
 import torch
 
 from nerfpp_tpu_torch import resolve_device
-
-
-def _taps(n_src: int, n_dst: int):
-    """OpenCV INTER_LINEAR taps along one axis: (i0, i1, w0, w1), with
-    fx = f32((d + 0.5) * scale - 0.5) in double, clamped at both edges."""
-    scale = n_src / n_dst
-    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(np.float32)
-    edge = (s < 0) | (s >= n_src - 1)
-    f[edge] = 0.0
-    s = np.clip(s, 0, n_src - 1)
-    return (s, np.minimum(s + 1, n_src - 1),
-            (np.float32(1.0) - f).astype(np.float32), f)
-
-
-def resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """cv2.resize(img, (w, h)) with INTER_LINEAR for float images:
-    img [..., H, W, C] -> [..., h, w, C] (float32)."""
-    img = img.float()
-    h_src, w_src = img.shape[-3], img.shape[-2]
-    h, w = out_hw
-    if (h_src, w_src) == (h, w):
-        return img.clone()
-    if (h_src, w_src) == (2 * h, 2 * w):
-        # OpenCV computes an exact halving as INTER_AREA: the 2x2 mean
-        b = img.reshape(*img.shape[:-3], h, 2, w, 2, img.shape[-1])
-        return ((b[..., 0, :, 0, :] + b[..., 0, :, 1, :])
-                + (b[..., 1, :, 0, :] + b[..., 1, :, 1, :])) * 0.25
-    dev = img.device
-
-    def t(x):
-        return torch.as_tensor(x, device=dev)
-
-    x0, x1, a0, a1 = (t(v) for v in _taps(w_src, w))
-    y0, y1, b0, b1 = (t(v) for v in _taps(h_src, h))
-    rows = img[..., x0, :] * a0[:, None] + img[..., x1, :] * a1[:, None]
-    return (rows[..., y0, :, :] * b0[:, None, None]
-            + rows[..., y1, :, :] * b1[:, None, None])
+from nerfpp_tpu_torch.utils.image import resize_linear
 
 
 @dataclasses.dataclass

@@ -34,8 +34,14 @@ averaged over the step's finite rays. Serving renders it in parts of at
 most LERF_CHUNK_BYTES of per-sample embeddings, with relevancy against the
 prompts (``set_lerf_prompts``) and ``relevancy_{i}.png`` in JET.
 
-The bbox refit, a LeRF-only stack, the normals head and device meshes
-belong to later slices of the port and raise NotImplementedError.
+The bbox refit (``refit_bbox_from_grid``, ``bbox_refit_step``): at the
+first host look at or past that step, ``train`` shrinks the scene box to
+the occupancy grid's mass and redraws the position-keyed state on it
+(tables and their Adam moments, the grid), keeping the MLPs, their moments,
+the schedules and the step.
+
+A LeRF-only stack, the normals head and device meshes belong to later
+slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -113,6 +119,7 @@ class NeRFExecutor:
         self.optimizer: Optional[Adam] = None
         self.step = 0                    # steps taken (the JAX state's step)
         self._auto_frac_cache: Dict[Any, float] = {}
+        self._refit_tried = False        # train's bbox refit hook has run
 
     # ------------------------------------------------------------ builders
 
@@ -153,17 +160,22 @@ class NeRFExecutor:
             compute_dtype=p.compute_dtype, init_gain=p.mlp_init_gain,
             device=self.device)
 
-    def _build_lerf(self, bounding_box: np.ndarray) -> None:
+    def _build_lang_embedder(self, bounding_box: np.ndarray):
         """The language hash grid (random primes from seed 1; the blocked
         kernels only for the blocked scheme, the large-table kernels
-        otherwise, as the JAX package picks) and the LeRF field."""
+        otherwise, as the JAX package picks)."""
         p = self.params
-        self.lang_embedder = HashGridEncoder(
+        return HashGridEncoder(
             bounding_box, p.n_levels_le, p.n_features_per_level_le,
             p.log2_hashmap_size_le, p.base_resolution_le,
             p.finest_resolution_le, scheme=p.hash_scheme, primes_seed=1,
             use_kernel=p.use_pallas_encoder and p.hash_scheme == "blocked",
             device=self.device)
+
+    def _build_lerf(self, bounding_box: np.ndarray) -> None:
+        """The language hash grid and the LeRF field."""
+        p = self.params
+        self.lang_embedder = self._build_lang_embedder(bounding_box)
         self.lang_model = LeRFField(
             p.geo_feat_dim_le, p.num_layers_le, p.hidden_dim_le,
             p.lang_embed_dim, self.lang_embedder.output_dims,
@@ -205,6 +217,7 @@ class NeRFExecutor:
         diag = np.linalg.norm(self.bounding_box[3:] - self.bounding_box[:3])
         self.sp_alpha0 = float(0.02 * diag)
         self._auto_frac_cache = {}
+        self._refit_tried = False
         if p.ft_path:
             restored = ckpt.restore_latest(p.ft_path)
             if restored is not None:
@@ -229,6 +242,74 @@ class NeRFExecutor:
             self.occupancy = make_occupancy_grid(
                 self.params.occ_grid_resolution, self.device)
         self.step = 0
+        self._auto_frac_cache = {}
+
+    def refit_bbox_from_grid(self, pad: float = 0.15,
+                             thresh_frac: float = 0.02,
+                             min_shrink: float = 1.5,
+                             seed: int = 17) -> bool:
+        """Shrink the scene box to where the occupancy grid has mass, as the
+        JAX package does: the cells above ``thresh_frac`` of the grid's peak
+        (density[i, j, k] is the cell of world x, y, z), their box padded by
+        ``pad`` of its extent and kept inside the old box. Unless the volume
+        shrinks by at least ``min_shrink`` nothing changes and this returns
+        False. Otherwise the NeRF embedder (and with LeRF the language
+        embedder) is rebuilt on the new box, the position-keyed state is
+        drawn anew (``_reinit_position_state``), sp_alpha0 follows the new
+        diagonal, and it returns True."""
+        if self.occupancy is None or self.bounding_box is None:
+            return False
+        d = self.occupancy.density.detach().cpu().numpy()
+        g = d.shape[0]
+        peak = float(d.max())
+        if peak <= 0.0:
+            return False
+        idx = np.argwhere(d > thresh_frac * peak)
+        if idx.size == 0:
+            return False
+        old = self.bounding_box.reshape(2, 3)
+        cell = (old[1] - old[0]) / g
+        lo = old[0] + idx.min(0) * cell
+        hi = old[0] + (idx.max(0) + 1) * cell
+        span = hi - lo
+        lo = np.maximum(lo - pad * span, old[0])
+        hi = np.minimum(hi + pad * span, old[1])
+        old_vol = float(np.prod(old[1] - old[0]))
+        new_vol = float(np.prod(hi - lo))
+        if new_vol <= 0.0 or old_vol / new_vol < min_shrink:
+            return False
+        new_box = np.concatenate([lo, hi]).astype(np.float32)
+        self.bounding_box = new_box
+        self.embedder = self._build_embedder(new_box)
+        if self.lang_embedder is not None:
+            self.lang_embedder = self._build_lang_embedder(new_box)
+        self._reinit_position_state(seed)
+        diag = np.linalg.norm(new_box[3:] - new_box[:3])
+        self.sp_alpha0 = float(0.02 * diag)
+        print(f"bbox refit: {np.round(old.reshape(-1), 2).tolist()} -> "
+              f"{np.round(new_box, 2).tolist()} "
+              f"({old_vol / new_vol:.1f}x volume shrink)")
+        return True
+
+    def _reinit_position_state(self, seed: int = 17) -> None:
+        """Redraw the position-keyed state in place (the bbox refit's
+        second half): the tables from a CPU generator seeded with ``seed``
+        (NeRF, then language), their Adam moments zeroed, the occupancy
+        grid uniform, the render caches cleared. The MLPs, their moments,
+        Adam's count and the step are kept."""
+        gen = torch.Generator().manual_seed(seed)
+        self._reset_embedder(gen)
+        if self.lang_embedder is not None:
+            self.lang_embedder.reset_parameters(gen)
+        params = self.named_parameters()
+        self.optimizer.params = params
+        for k in params:
+            if k.startswith(("embed.", "lang_embed.")):
+                self.optimizer.mu[k].zero_()
+                self.optimizer.nu[k].zero_()
+        if self.occupancy is not None:
+            self.occupancy = make_occupancy_grid(
+                self.params.occ_grid_resolution, self.device)
         self._auto_frac_cache = {}
 
     def _reset_embedder(self, gen: torch.Generator) -> None:
@@ -594,14 +675,14 @@ class NeRFExecutor:
         split is rendered to base_dir/renderonly and nothing is trained.
         LeRF draws its supervision from ``lang_embeddings``: a
         DevicePyramid (data/pyramid_clip.py ``make_device_pyramid``) or a
-        dense [n_train, H, W, E] stack. Returns the last step's metrics."""
+        dense [n_train, H, W, E] stack. With bbox_refit_step > 0, at the
+        first host look whose loop count is at or past it (once per
+        executor; ``initialize`` re-arms it), the box is refit to the
+        occupancy grid (``refit_bbox_from_grid``) and the step rebuilt on
+        it. Returns the last step's metrics."""
         p = self.params
-        for what, bad in (("a device mesh (data parallelism)",
-                           mesh is not None),
-                          ("bbox_refit_step (the bbox refit)",
-                           tp.bbox_refit_step > 0)):
-            if bad:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise _not_ported("a device mesh (data parallelism)")
         self.white_bkgr = scene.white_bkgr
         if self.model is None:
             self.initialize(scene.bounding_box, tp.lrate_decay, seed)
@@ -637,10 +718,15 @@ class NeRFExecutor:
         auto_pending = (p.auto_fine_fallback and p.use_occupancy_grid
                         and p.n_importance == 0)
         if auto_pending:
-            imgs = np.asarray(scene.images)
-            if np.issubdtype(imgs.dtype, np.integer):
-                imgs = imgs.astype(np.float32) / 255.0
-            gt_std = float(np.std(imgs[..., :3].astype(np.float32)))
+            if scene.images is not None:
+                imgs = np.asarray(scene.images)
+                if np.issubdtype(imgs.dtype, np.integer):
+                    imgs = imgs.astype(np.float32) / 255.0
+                gt_std = float(np.std(imgs[..., :3].astype(np.float32)))
+            else:
+                # a loaded scene (Blender, COLMAP) has no attached images,
+                # where the JAX package raises: the training images' std
+                gt_std = float(torch.std(sampler.images, correction=0))
             next_check = max(int(p.auto_fine_check_from), 1)
         metrics: Dict[str, torch.Tensor] = {}
         t_start = time.perf_counter()
@@ -651,7 +737,16 @@ class NeRFExecutor:
         i = self.step
         end = tp.n_iters - 1 if steps is None else min(tp.n_iters - 1,
                                                        i + steps)
+        # the refit hook runs once, at the first host look with the loop
+        # count (not the state's step) at or past bbox_refit_step, as JAX
+        # places it at the first dispatch boundary past it
+        refit_pending = tp.bbox_refit_step > 0 and not self._refit_tried
         while i < end:
+            if refit_pending and i >= tp.bbox_refit_step:
+                refit_pending = False
+                self._refit_tried = True
+                if self.refit_bbox_from_grid():
+                    train_step = self._build_train_step(tp)
             k = min(spc - (i % spc), end - i)
             for _ in range(k):
                 generator.manual_seed((seed + 1) * 1_000_003 + self.step)

@@ -1,7 +1,9 @@
 """The port's command line on the CPU (``--device cpu``): train and render
-a tiny preset on the synthetic scene and on a tiny Blender export, the
-train loop's image hooks (IImg, ITestset, RenderOnly), the saved JSON
-configs against the JAX CLI's keys, and what is not ported yet raising.
+a tiny preset on the synthetic scene, on a tiny Blender export and on a
+tiny COLMAP capture (two distorted cameras, 16x16 and 20x20), the train
+loop's image hooks (IImg, ITestset, RenderOnly) and the bbox refit flag,
+the saved JSON configs against the JAX CLI's keys, and what is not ported
+yet raising.
 """
 import functools
 import json
@@ -20,6 +22,7 @@ from nerfpp_tpu_torch.data import synthetic
 from nerfpp_tpu_torch.data.blender import export_blender_scene
 from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfpp_tpu_torch.utils.png import read_png
+from scripts.colmap_export import export_colmap_scene, write_images_bin
 
 torch.set_num_threads(1)
 
@@ -39,6 +42,14 @@ def blender_dir(tmp_path_factory):
     sc = make_synthetic_scene(n_train=3, n_val=1, n_test=2, image_hw=24,
                               n_samples=16, white_bkgr=False, device="cpu")
     return export_blender_scene(sc, d)
+
+
+@pytest.fixture(scope="module")
+def colmap_dir(tmp_path_factory):
+    sc = make_synthetic_scene(n_train=4, n_val=1, n_test=1, image_hw=16,
+                              n_samples=16, white_bkgr=False, device="cpu")
+    return export_colmap_scene(sc, tmp_path_factory.mktemp("colmap"), "cpu",
+                               n_samples=16, n_points=600).workspace
 
 
 def _pngs(d):
@@ -121,11 +132,51 @@ def test_train_on_the_synthetic_scene(tmp_path, monkeypatch):
     assert "model.pts_linears.0.bias" in state and "embed.table" not in state
 
 
+def test_train_from_a_colmap_workspace(colmap_dir, tmp_path):
+    # hashnerf_preset() cut as above, with the occupancy grid and the bbox
+    # refit flag; the views are undistorted into the workspace and the
+    # 20x20 view resized to 16x16 for training
+    out = tmp_path / "out"
+    cli.main(["train", "--dataset-type", "colmap", "--data-dir",
+              str(colmap_dir), "--base-dir", str(out), *TINY,
+              "--set", "use_occupancy_grid=true", "--set", "n_importance=0",
+              "--set", "occ_grid_resolution=16", "--set-train", "NIters=4",
+              "--set-train", "IPrint=1", "--set-train", "IImg=0",
+              "--set-train", "BboxRefitStep=2"])
+    rows = (out / "metrics.csv").read_text().splitlines()
+    assert [r.split(",")[0] for r in rows[1:]] == ["1", "2", "3"]
+    scene = JaxSceneData.load(out / "data.json")
+    assert scene.splits_idx == [4, 0, 0]
+    assert {(v.h, v.w) for v in scene.views} == {(16, 16), (20, 20)}
+    assert all(v.d is None and "undistorted" in v.image_path
+               for v in scene.views)
+    assert sorted(p.name for p in (colmap_dir / "undistorted").iterdir()) == [
+        f"view_{j:03d}.png" for j in range(4)]
+    tp = json.loads((out / "executor_train_params.json").read_text())
+    assert tp["BboxRefitStep"] == 2
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["train", "--dataset-type", "colmap"], "colmap"),
+    (["train", "--dataset-type", "colmap", "--data-dir", "<jpeg capture>"],
+     "colmap"),
     (["render", "--n-devices", "2"], "n-devices 2"),
     (["bench"], "bench")])
-def test_what_is_not_ported_raises(argv, what, tmp_path):
+def test_what_is_not_ported_raises(argv, what, tmp_path, colmap_dir):
+    # COLMAP captures of JPEG images: the port decodes PNG only
+    if "<jpeg capture>" in argv:
+        from nerfpp_tpu_torch.data.colmap import read_model
+        jpeg = tmp_path / "jpeg"
+        (jpeg / "sparse" / "0").mkdir(parents=True)
+        rec = read_model(colmap_dir / "sparse" / "0")
+        for im in rec.images.values():
+            im.name = im.name.replace(".png", ".jpg")
+        for f in ("cameras.bin", "points3D.bin"):
+            (jpeg / "sparse" / "0" / f).write_bytes(
+                (colmap_dir / "sparse" / "0" / f).read_bytes())
+        write_images_bin(jpeg / "sparse" / "0" / "images.bin",
+                         [rec.images[i] for i in sorted(rec.images)])
+        argv = [str(jpeg) if a == "<jpeg capture>" else a for a in argv]
+        what = r"view_000\.jpg.*colmap"
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
         cli.main([*argv, "--base-dir", str(tmp_path)] if argv != ["bench"]
                  else argv)

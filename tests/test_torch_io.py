@@ -198,7 +198,7 @@ def test_load_images_match_jax(tmp_path, white_bkgr, half_res):
     js = JB.load_blender_data(tmp_path, half_res=half_res,
                               white_bkgr=white_bkgr)
     idx = list(range(len(ts.views)))
-    got = TD.load_images(ts, idx)
+    got = TD.load_images(ts, idx, device="cpu")
     want = JD.load_images(js, idx)
     assert got.shape == want.shape == (len(idx),) + ((12, 12, 3) if half_res
                                                       else (24, 24, 3))

@@ -25,8 +25,10 @@ T = 2^10-2^19, a ragged last block of a level's cluster, and no points; K3
 exactly its plain version's, exact zeros in untouched windows, groups whose
 window codes alias, every group in one window (8,300 groups), 128 windows
 per group, no cotangent rows and a partial last group; the large-table
-kernels at the LeRF language table (2^16 entries, 10-15 levels), and a LeRF
-render and train step on the card against the CPU.
+kernels at the LeRF language table (2^16 entries, 10-15 levels), a LeRF
+render and train step on the card against the CPU; utils/image.py's
+undistortion and resizes on the card against the CPU, and K1-K3 on the box
+of a bbox refit.
 """
 import numpy as np
 import pytest
@@ -1088,3 +1090,79 @@ def test_lerf_train_step_gpu_against_cpu(cuda):
         diff, top = (gg[k] - v).abs(), float(v.abs().max())
         assert float(diff.max()) <= 1e-2 * top, k
         assert float((diff <= 1e-3 * top).float().mean()) >= 0.99, k
+
+
+def test_image_ops_on_the_card_equal_the_cpu(cuda):
+    # utils/image.py on the card: the new camera matrix, the undistortion
+    # and the 8-bit resize equal the CPU's bit for bit (the CPU's equal
+    # OpenCV's, tests/test_torch_colmap.py); the float resize within 1e-6
+    from nerfpp_tpu_torch.utils import image as I
+    rng = np.random.RandomState(0)
+    for (w, h), c, d in (((64, 48), 3, (0.01, -0.002, 0.001, -0.001)),
+                         ((37, 29), 0, (-0.05, 0.02, 0.002, 0.001, 0.01)),
+                         ((50, 40), 4, (0.1, 0.05, 0.01, -0.02, 0.01, 0.02,
+                                        0.01, 0.003))):
+        k = np.array([[1.1 * w, 0, w / 2 + 0.3], [0, 1.11 * w, h / 2 - 0.7],
+                      [0, 0, 1]])
+        nk = I.optimal_new_camera_matrix(k, d, (w, h), 0.0, "cpu")
+        assert np.array_equal(
+            I.optimal_new_camera_matrix(k, d, (w, h), 0.0, cuda), nk)
+        img = torch.from_numpy(rng.randint(
+            0, 256, (h, w) if c == 0 else (h, w, c)).astype(np.uint8))
+        assert torch.equal(I.undistort(img.to(cuda), k, d, nk).cpu(),
+                           I.undistort(img, k, d, nk))
+        fimg = (img if c else img[..., None]).float() / 255.0
+        for oh, ow in ((h // 2, w // 2), (h + 7, w - 5), (2 * h + 1, 3 * w)):
+            assert torch.equal(
+                I.resize_linear_u8(img.to(cuda), (oh, ow)).cpu(),
+                I.resize_linear_u8(img, (oh, ow))), (oh, ow)
+            diff = (I.resize_linear(fimg.to(cuda), (oh, ow)).cpu()
+                    - I.resize_linear(fimg, (oh, ow))).abs().max()
+            assert float(diff) <= 1e-6, (oh, ow)
+
+
+def test_blocked_kernels_after_a_refit_use_the_new_box(cuda):
+    # the bbox refit rebuilds the encoder: K1, K2 and K3 launch once each
+    # on the new box and equal their plain versions on an encoder built on
+    # that box, which encodes other features than the old box would
+    from nerfpp_tpu_torch.config import hashnerf_blocked_preset
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    loose = [-4.8, -4.8, -4.8, 4.8, 4.8, 4.8]
+    p = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
+                                n_levels=4, log2_hashmap_size=12,
+                                finest_resolution=128, occ_grid_resolution=16)
+    ex = NeRFExecutor(p, device=cuda).initialize(loose, seed=0)
+    d = torch.zeros(16, 16, 16)
+    d[6:10, 6:10, 6:10] = 1000.0
+    ex.load_state({"occupancy": d})
+    assert ex.refit_bbox_from_grid()
+    enc, box = ex.embedder, ex.bounding_box
+    assert np.array_equal(enc.bounding_box, box)
+    g = torch.Generator().manual_seed(0)
+    lo, hi = torch.tensor(box[:3]), torch.tensor(box[3:])
+    pts = (torch.rand(4096, 3, generator=g) * (hi - lo) + lo).to(cuda)
+    with torch.no_grad():
+        enc.table.copy_(torch.rand(enc.table_rows, 2, generator=g) * 2 - 1)
+    reset_launch_counts()
+    feats, _ = enc(pts)
+    torch.sin(3.0 * feats).sum().backward()
+    c = launch_counts()
+    assert [c[k] for k in ("window_lists", "encode_blocked",
+                           "grad_blocked_index", "grad_blocked")] == [1] * 4
+    fresh = HashGridEncoder(box, 4, 2, 12, 16, 128, use_kernel=True,
+                            device=cuda)
+    padded = K.pad_points(pts, fresh)
+    wids, counts = K.window_lists_plain(padded, fresh)
+    packed = K.pack_table_bf16(enc.table.detach())
+    want = K.encode_blocked_plain(packed, padded, wids, counts, fresh)[:4096]
+    assert float((feats.detach() - want).abs().max()) <= 1e-6
+    cot = 3.0 * torch.cos(3.0 * feats.detach())
+    plain = K.grad_blocked_plain(cot, padded, fresh)
+    assert _grad_close(enc.table.grad, plain,
+                       K.grad_blocked_plain(cot.abs(), padded, fresh))
+    old = HashGridEncoder(loose, 4, 2, 12, 16, 128, use_kernel=True,
+                          device=cuda)
+    owids, ocounts = K.window_lists_plain(K.pad_points(pts, old), old)
+    other = K.encode_blocked_plain(packed, K.pad_points(pts, old), owids,
+                                   ocounts, old)[:4096]
+    assert float((other - want).abs().max()) > 1e-3

@@ -383,17 +383,21 @@ def test_ray_sampler_matches_jax(tiles, step):
 
 
 def test_sampler_refuses_what_needs_the_loaders(tmp_path):
-    # an image file that is not there, and a resize other than half_res's
-    # exact halving (COLMAP's multi-size views, not ported yet)
+    # an image file that is not there raises; a file of another size than
+    # its view (COLMAP's multi-size views) is resized as the JAX sampler
+    # resizes it with cv2 (tests/test_torch_colmap.py holds the resize)
     sc = TD.SceneData(views=[TD.View(0, 8, 8, 8.0, 1, 2, np.eye(3),
                                      np.eye(4),
                                      image_path=str(tmp_path / "a.png"))],
                       splits_idx=[1, 0, 0])
     with pytest.raises(FileNotFoundError):
         TD.RayBatchSampler.from_scene(sc, 128, device="cpu")
-    write_png(tmp_path / "a.png", np.zeros((12, 12, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="resizing"):
-        TD.RayBatchSampler.from_scene(sc, 128, device="cpu")
+    write_png(tmp_path / "a.png", np.random.RandomState(0).randint(
+        0, 256, (12, 12, 3)).astype(np.uint8))
+    got = TD.RayBatchSampler.from_scene(sc, 128, device="cpu").images
+    want = JD.RayBatchSampler.from_scene(
+        JD.SceneData.from_json(sc.to_json()), 128).images
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ----------------------------------------------------------- synthetic
@@ -637,10 +641,9 @@ def test_train_loop(tmp_path, capsys):
     # both refresh branches ran (full before step 4, phased after) and the
     # grid is no longer the uniform prior
     assert not torch.equal(ex.occupancy.density, torch.ones(16, 16, 16))
-    # the bbox refit is not ported (tests/test_torch_cli.py covers i_img
-    # and i_testset)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ex.train(sc, TrainParams(**{**tp.__dict__, "bbox_refit_step": 5}))
+    # the bbox refit is ported (tests/test_torch_refit.py), a device mesh
+    # is not (tests/test_torch_cli.py covers i_img and i_testset)
+    ex.train(sc, TrainParams(**{**tp.__dict__, "bbox_refit_step": 5}))
     with pytest.raises(NotImplementedError, match="mesh"):
         ex.train(sc, tp, mesh=object())
 
