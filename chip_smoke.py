@@ -135,6 +135,20 @@ Phases, each printing its own lines:
      without and with ``--set-train BboxRefitStep=1024``: the refit must
      fire with a volume shrink of at least 1.5 and K1-K3 must launch after
      it on the new box; both held-out PSNRs beside phase 8's.
+ 18. data parallelism (parallel/mesh.py): (a) the flagship under an NCCL
+     mesh of one rank for 64 steps from seed 0, bitwise phase 8's
+     determinism run, steps 32-63 timed beside phase 8's 33-64; (b) two
+     ranks on the one card through gloo from phase 8's state at step 992
+     for 64 steps across 1,024 (the implicit path: one chunk, 16 tiles a
+     rank, the budget ranked over all 32): with the MLP in f32 every step
+     against one device's step from the same state (rank 0 keeps a
+     lock-step copy; loss to 2e-4, summed gradients to 1e-3 of each
+     tensor's largest), then the flagship itself free-running: both
+     ranks' losses and states bitwise equal, K1-K3 launches a step a
+     rank, its losses beside phase 8's; the all-reduce alone
+     on the flagship's gradient buffer, f32 and bf16, at one rank (NCCL)
+     and two (gloo); (c) ``cli train --n-devices 1`` of hashnerf_preset()
+     for 8 steps, only the large pair launching.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
 phase 8's and phase 17's COLMAP training for K1-K3 (phase 17 adds its
@@ -180,6 +194,7 @@ TRAIN_KERNELS = ("window_lists", "encode_blocked", "grad_blocked_index",
 HIER_KERNELS = ("encode_small", "grad_large_bins", "grad_small")
 LARGE_KERNELS = ("encode_large", "grad_large_bins", "grad_large")
 TIME_BUDGET_S = 600            # phase 11 is cut to leave phases 12-15 room
+DP_FIRST, DP_STEPS = 992, 64   # phase 18's 2-rank window: across step 1,024
 
 
 def log(phase, msg):
@@ -569,10 +584,11 @@ class Trainer:
     TrainParams(n_iters=2000) (NRand 4,096 random pixels, 64 + 192
     samples); ``lerf``: hashnerf_preset(use_lerf=True) with the same
     TrainParams against ``pyramid`` (its image and language losses are
-    recorded too). ``p`` and ``tp`` replace the preset's parameters."""
+    recorded too). ``p`` and ``tp`` replace the preset's parameters;
+    ``mesh`` (parallel/mesh.py) trains data-parallel."""
 
     def __init__(self, scene, dev, seed, preset="flagship", pyramid=None,
-                 p=None, tp=None):
+                 p=None, tp=None, mesh=None):
         import torch
         from nerfpp_tpu_torch.config import (TrainParams,
                                              hashnerf_blocked_preset,
@@ -586,9 +602,9 @@ class Trainer:
                       base_dir=self.tmp.name)
         tiles = {}
         if preset == "flagship":
-            p = hashnerf_blocked_preset(n_importance=0,
-                                        use_occupancy_grid=True,
-                                        occ_update_every=32)
+            p = p or hashnerf_blocked_preset(n_importance=0,
+                                             use_occupancy_grid=True,
+                                             occ_update_every=32)
             self.tp = TrainParams(n_iters=8100, steps_per_call=25, **common)
             tiles = dict(tile_h=8, tile_w=16)
         elif preset == "lerf":
@@ -599,6 +615,7 @@ class Trainer:
                  else hashnerf_preset)()
             self.tp = TrainParams(n_iters=2000, **common)
         self.scene, self.seed, self.preset = scene, seed, preset
+        self.mesh = mesh
         ex = NeRFExecutor(p, device=dev)
         ex.white_bkgr = scene.white_bkgr
         ex.initialize(scene.bounding_box, self.tp.lrate_decay, seed=seed)
@@ -608,8 +625,8 @@ class Trainer:
         self.losses, self.curve, self.parts = [], [], []
         build = ex._build_train_step
 
-        def recording(tp):
-            step = build(tp)
+        def recording(tp, *mesh):
+            step = build(tp, *mesh)
 
             def run_step(*args, **kwargs):
                 m = step(*args, **kwargs)
@@ -629,7 +646,7 @@ class Trainer:
         self.sync()
         t = time.perf_counter()
         self.ex.train(self.scene, self.tp, seed=self.seed,
-                      sampler=self.sampler, steps=n,
+                      sampler=self.sampler, steps=n, mesh=self.mesh,
                       progress_fn=lambda i, m: self.curve.append(
                           (i, m["loss"], m["psnr"])))
         self.sync()
@@ -662,11 +679,15 @@ class Trainer:
                        scene.images[view.id]), view.id
 
 
-def train_phase(scene, dev, seed=SEED, observe=None):
+def train_phase(scene, dev, seed=SEED, observe=None, record=None):
     """The flagship train run, steps 0-2,099. Returns the launch counts,
     the held-out PSNRs after 1,088 and 2,100 steps and the list of failed
     checks (empty when it passed). ``observe(run)`` is called after step 64
-    (the table then is the 65-step state)."""
+    (the table then is the 65-step state). ``record`` (a dict): the run
+    saves its state at step DP_FIRST as a checkpoint under
+    record["state_dir"] and leaves the losses of steps DP_FIRST to
+    DP_FIRST + 63 under "losses" and the ms per step of steps 33-64 under
+    "early_ms" (phase 18 reads them)."""
     import torch
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
     f = Trainer(scene, dev, seed)
@@ -683,7 +704,15 @@ def train_phase(scene, dev, seed=SEED, observe=None):
     c1 = launch_counts()
     if observe is not None:
         observe(f)
-    run(1056 - 65)                            # steps 65-1055: warmups end
+    if record is None:
+        run(1056 - 65)                        # steps 65-1055: warmups end
+    else:
+        run(DP_FIRST - 65)
+        ex.save_checkpoint(record["state_dir"])
+        run(1056 - DP_FIRST)
+        record["losses"] = torch.cat(
+            f.losses[DP_FIRST:DP_FIRST + DP_STEPS]).cpu()
+        record["early_ms"] = early_s / 32 * 1e3
     c2 = launch_counts()
     late_s = run(32)                          # steps 1056-1087: one phased
     c3 = launch_counts()
@@ -755,7 +784,8 @@ def determinism_phase(scene, dev, preset="flagship", steps=64,
     each run with a fresh executor and sampler: the losses must be bitwise
     equal at every step, and the parameters, Adam state and occupancy grid
     bitwise equal after the last step. Names the first differing step and
-    the tensors that differ."""
+    the tensors that differ. Returns the first run's loss bits and state
+    (on the host)."""
     import torch
     runs = []
     for _ in range(2):
@@ -777,6 +807,7 @@ def determinism_phase(scene, dev, preset="flagship", steps=64,
         f"parameters, Adam state"
         + (" and occupancy grid" if "occupancy" in sa else "")
         + f" bitwise equal ({len(sa)} tensors)")
+    return la, {k: v.cpu() for k, v in sa.items()}
 
 
 def hier_run(scene, dev, seed, preset, observe):
@@ -2326,6 +2357,233 @@ def capture_phase(scene, dev, psnr_direct):
     return {k: counts[k] for k in TRAIN_KERNELS}
 
 
+def state_digests(ex):
+    """A sha256 of each state tensor's bytes (bitwise comparison across
+    processes)."""
+    import hashlib
+    import torch
+    return {k: hashlib.sha256(v.detach().reshape(-1).contiguous().view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for k, v in state_of(ex).items()}
+
+
+def all_reduce_ms(mesh, n, reps=10):
+    """Median ms of one SUM all-reduce of ``n`` f32 and of ``n`` bf16
+    elements over ``mesh`` (CUDA events; every rank calls it)."""
+    import torch
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        buf = torch.ones(n, dtype=dt, device=mesh.device)
+        for _ in range(2):
+            mesh.all_reduce(buf)
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            mesh.all_reduce(buf)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[str(dt).split(".")[1]] = statistics.median(ms)
+    return out
+
+
+def dp_rank(mesh, state_dir):
+    """Phase 18 (b), one rank of two on the card (gloo), from phase 8's
+    state at step DP_FIRST, DP_STEPS steps each through
+    NeRFExecutor.train on this rank's tiles: first the flagship with its
+    MLP in f32, rank 0 also taking each step on one device from a copy of
+    the same state with the same draws (a second executor) and comparing
+    the loss and every summed gradient (in f32 the two differ only by the
+    order of the sums, as in phase 7; the bf16 MLP rounds each rank's
+    partial weight gradient to bf16, another function); then the flagship
+    itself, free-running. Then the all-reduce alone on the flagship's
+    gradient buffer. -> the lock-step comparison, the free run's losses,
+    K1-K3 launches and state digests, seconds and all-reduce times."""
+    import torch
+    from nerfpp_tpu_torch.config import hashnerf_blocked_preset
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils import checkpoint as ckpt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    scene = bench_scene(dev)
+    state = ckpt.restore_latest(state_dir)
+    p32 = hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
+                                  occ_update_every=32,
+                                  compute_dtype="float32")
+    f = Trainer(scene, dev, SEED, p=p32, mesh=mesh)
+    ex = f.ex
+    ex.load_state(state)
+    ref = Trainer(scene, dev, SEED, p=p32).ex if mesh.rank == 0 else None
+    build = ex._build_train_step
+    lock = []
+
+    def lockstep(tp, *m):
+        step = build(tp, *m)
+        ref_step = ref._build_train_step(tp) if ref is not None else None
+
+        def run(i, sampler, generator):
+            if ref_step is not None:
+                # train seeds the generator just before each step
+                ref.load_state({k: v.clone()
+                                for k, v in ex.state_dict().items()})
+                g = torch.Generator(device=generator.device).manual_seed(
+                    generator.initial_seed())
+                mr = ref_step(i, sampler, g)
+            m = step(i, sampler, generator)
+            if ref_step is not None:
+                worst = max(float((p.grad - ref_p.grad).abs().max()
+                                  / ref_p.grad.abs().max().clamp(min=1e-30))
+                            for p, ref_p in zip(
+                                ex.named_parameters().values(),
+                                ref.named_parameters().values()))
+                lock.append((i, float(m["loss"]), float(mr["loss"]), worst))
+            return m
+        return run
+
+    ex._build_train_step = lockstep
+    f.run(DP_STEPS)
+    del f, ex, ref
+    f = Trainer(scene, dev, SEED, mesh=mesh)
+    f.ex.load_state(state)
+    reset_launch_counts()
+    secs = f.run(DP_STEPS)
+    launches = launch_counts()
+    n = sum(p.numel() for p in f.ex.named_parameters().values())
+    return {"first": int(state["step"]), "lock": lock,
+            "losses": torch.cat(f.losses).cpu(),
+            "launches": {k: launches[k] for k in TRAIN_KERNELS},
+            "secs": secs, "digests": state_digests(f.ex),
+            "all_reduce": all_reduce_ms(mesh, n), "n": n}
+
+
+def dp_phase(scene, dev, record):
+    """Phase 18, data parallelism (parallel/mesh.py). (a) The flagship
+    under an NCCL mesh of one rank for 64 steps from seed 0: losses and
+    state bitwise phase 8's determinism run (the JAX step takes its plain
+    path at one device), steps 32-63 timed beside phase 8's 33-64, the
+    all-reduce alone on the gradient buffer at one rank. (b) Two ranks on
+    the one card through gloo (NCCL refuses two ranks on one device), the
+    flagship from phase 8's state at step 992 for 64 steps (the two-class
+    budget and the phased refresh switch on at 1,024; one chunk of 32
+    tiles, so the implicit path: 16 tiles a rank, the budget ranked over
+    all 32): with the MLP in f32, every step's loss and summed gradients
+    against one device's step from the same state (rank 0's lock-step
+    copy; loss to 2e-4 of itself, gradients to 1e-3 of each tensor's
+    largest); then the flagship itself (bf16 MLP), free-running: the two
+    ranks' losses and states bitwise equal, K1-K3 launches a step a rank,
+    its losses beside phase 8's (trajectories part with the order of the
+    gradient sum); the all-reduce at two ranks. (c) ``cli
+    train --n-devices 1`` of hashnerf_preset() for 8 steps: only the
+    large pair launches. Two ranks sharing one card are no scaling
+    figure."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import cli
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.parallel import mesh as mesh_utils
+    t_phase = time.perf_counter()
+    bits, ref = record["run"]
+    with mesh_utils.one_rank("cuda") as mesh:
+        f = Trainer(scene, dev, SEED, mesh=mesh)
+        reset_launch_counts()
+        f.run(32)
+        c0 = launch_counts()
+        secs = f.run(32)
+        c1 = launch_counts()
+        st = state_of(f.ex)
+        step = first_difference(f.loss_bits(), bits)
+        bad = [k for k in ref if not torch.equal(st[k].cpu(), ref[k])]
+        if step is not None or bad:
+            raise AssertionError(f"dp (a): the NCCL mesh of one differs "
+                                 f"from phase 8's run: first loss at step "
+                                 f"{step}, tensors {bad}")
+        n = sum(p.numel() for p in f.ex.named_parameters().values())
+        one = all_reduce_ms(mesh, n)
+        del f, st
+    ms = secs / 32 * 1e3
+    log("dp", f"(a) NCCL mesh of 1 (torch.distributed, world 1): 64 "
+        f"flagship steps from seed {SEED} bitwise phase 8's determinism "
+        f"run (losses at every step, {len(ref)} state tensors); steps "
+        f"32-63 {ms:.3f} ms/step against phase 8's steps 33-64 "
+        f"{record['early_ms']:.3f} ms/step; launches a step "
+        + ", ".join(f"{k} {(c1[k] - c0[k]) / 32:.3f}"
+                    for k in TRAIN_KERNELS))
+    log("dp", f"(a) all-reduce alone, world 1 (NCCL), the flagship's "
+        f"gradient buffer of {n} elements ({4 * n} B f32, {2 * n} B bf16): "
+        f"f32 {one['float32']:.4f} ms, bf16 {one['bfloat16']:.4f} ms")
+    t0 = time.perf_counter()
+    ranks = mesh_utils.launch(dp_rank, 2, "cuda:0", record["state_dir"],
+                              backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    if r0["first"] != DP_FIRST:
+        raise AssertionError(f"dp (b): phase 8's state is at step "
+                             f"{r0['first']}, not {DP_FIRST}")
+    if not (np.array_equal(r0["losses"], r1["losses"])
+            and r0["digests"] == r1["digests"]):
+        raise AssertionError("dp (b): the two ranks' losses or states "
+                             "differ")
+    worst_loss = max(abs(a - b) / abs(b) for _, a, b, _ in r0["lock"])
+    worst_grad = max(g for *_, g in r0["lock"])
+    if len(r0["lock"]) != DP_STEPS or worst_loss > 2e-4 or worst_grad > 1e-3:
+        raise AssertionError(f"dp (b): a 2-rank step against one device's "
+                             f"from the same state: loss {worst_loss:.3g} "
+                             f"(limit 2e-4), gradients {worst_grad:.3g} "
+                             f"(limit 1e-3), {len(r0['lock'])} steps")
+    free = np.abs(r0["losses"] - record["losses"].numpy()) / np.abs(
+        record["losses"].numpy())
+    for name, r in (("rank 0", r0), ("rank 1", r1)):
+        if 0 in [r["launches"][k] for k in TRAIN_KERNELS]:
+            raise AssertionError(f"dp (b): {name} launched "
+                                 f"{r['launches']}")
+    log("dp", f"(b) 2 ranks on one card (gloo, cuda:0; two ranks sharing "
+        f"one card, not a scaling figure), steps {DP_FIRST}-"
+        f"{DP_FIRST + DP_STEPS - 1} from phase 8's state, the MLP in f32: "
+        f"every step against one device's from the same state: loss within "
+        f"{worst_loss:.3g} of itself, summed gradients within "
+        f"{worst_grad:.3g} of each tensor's largest. The flagship (bf16 "
+        f"MLP), free-running: the ranks' losses and "
+        f"{len(r0['digests'])} state tensors bitwise equal; "
+        f"{r0['secs'] / DP_STEPS * 1e3:.3f} ms/step; launch {wall:.1f} s")
+    log("dp", "(b) K1-K3 launches a step a rank: " + "; ".join(
+        f"{name} " + ", ".join(f"{k} {r['launches'][k] / DP_STEPS:.3f}"
+                               for k in TRAIN_KERNELS)
+        for name, r in (("rank 0", r0), ("rank 1", r1))))
+    log("dp", f"(b) free-running losses against phase 8's steps "
+        f"{DP_FIRST}-{DP_FIRST + DP_STEPS - 1}: first step "
+        f"{free[0]:.3g}, largest {free.max():.3g}, median "
+        f"{float(np.median(free)):.3g} of phase 8's (the trajectories part "
+        f"with the order of the gradient sum)")
+    two = r0["all_reduce"]
+    log("dp", f"(b) all-reduce alone, world 2 (gloo on CUDA tensors, two "
+        f"ranks on one card): f32 {two['float32']:.4f} ms, bf16 "
+        f"{two['bfloat16']:.4f} ms ({r0['n']} elements)")
+    # (c) the command line at one device
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["train", "--dataset-type", "synthetic", "--preset",
+                  "hashnerf", "--n-devices", "1", "--base-dir", tmp,
+                  "--set-train", "NIters=9", "--set-train", "IPrint=4",
+                  "--set-train", "ITestset=0", "--set-train", "IImg=0",
+                  "--set-train", "IWeights=0"])
+        torch.cuda.synchronize()
+        c = launch_counts()
+        secs = time.perf_counter() - t0
+        rows = (Path(tmp) / "metrics.csv").read_text().splitlines()
+    ran = {k: v for k, v in c.items() if v}
+    if (set(ran) != set(LARGE_KERNELS) or len(rows) != 3):
+        raise AssertionError(f"dp (c): cli train --n-devices 1 launched "
+                             f"{ran}, metrics rows {rows}")
+    log("dp", f"(c) cli train --n-devices 1 --preset hashnerf, 8 steps in "
+        f"{secs:.1f} s (synthetic scene, build and load included): "
+        + ", ".join(f"{k} {v}" for k, v in ran.items()))
+    log("dp", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
@@ -2500,10 +2758,12 @@ def main(argv=None) -> int:
 
     # 8. full-width training ----------------------------------------------
     scene = bench_scene(dev)
-    counts, (_, psnr_2100), failed = train_phase(scene, dev)
+    dp_dir = tempfile.TemporaryDirectory()
+    record = {"state_dir": dp_dir.name}
+    counts, (_, psnr_2100), failed = train_phase(scene, dev, record=record)
     if failed:
         raise AssertionError("; ".join(failed))
-    determinism_phase(scene, dev, "flagship")
+    record["run"] = determinism_phase(scene, dev, "flagship")
     log("train", f"total run {time.perf_counter() - t_start:.1f} s")
 
     # 9. small-table kernels against their plain versions ------------------
@@ -2548,6 +2808,11 @@ def main(argv=None) -> int:
     for k, v in capture.items():
         counts[k] += v
     log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 18. data parallelism -------------------------------------------------
+    dp_phase(scene, dev, record)
+    dp_dir.cleanup()
+    log("dp", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

@@ -12,8 +12,15 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 configs (executor_params.json, executor_train_params.json, data.json) to
 the base directory; ``render`` restores the latest checkpoint (ft_path, by
 default the base directory) and writes {i,disp_i,depth_i}.png to
-<base>/renders. Data parallelism (--n-devices other than 1) and the
-``bench`` subcommand are not ported yet and raise.
+<base>/renders. The ``bench`` subcommand is not ported yet and raises.
+
+``--n-devices N`` other than 1 runs data-parallel (parallel/mesh.py): N
+processes, one a device (NCCL on cuda:0 .. N-1, or gloo with ``--device
+cpu``), each loading the scene and building its executor; ``train``
+shards every step's rays over them and sums the gradients
+(``dp_grad_reduce``), ``render`` renders the views view-parallel; rank 0
+alone writes. N = 0 means every visible card (with ``--device cpu`` give
+the count). NRand must divide by N.
 
 ``--dataset-type colmap --data-dir <workspace>`` reads a COLMAP workspace
 (sparse/0 in .bin or .txt, PNG images under images/): distorted views are
@@ -63,12 +70,57 @@ def _apply_overrides(obj, pairs, keymap_reverse=None):
     return obj
 
 
-def _check_ported(args) -> None:
-    if args.n_devices != 1:
-        raise _not_ported(f"--n-devices {args.n_devices} (data parallelism)")
+def _n_devices(args) -> int:
+    """The ranks --n-devices asks for: 0 means every visible card; more
+    than there are raises (never fewer)."""
+    n = args.n_devices
+    if n == 1:
+        return 1
+    if n < 0:
+        raise SystemExit(f"--n-devices {n}: give a count, or 0 for every "
+                         "visible card")
+    if args.device == "cpu":
+        if n == 0:
+            raise SystemExit("--n-devices 0 means every visible card; with "
+                             "--device cpu give the number of processes")
+        return n
+    import torch
+    avail = torch.cuda.device_count()
+    n = n or avail
+    if n > avail or n == 0:
+        raise SystemExit(f"--n-devices {args.n_devices}: {avail} CUDA "
+                         "device(s) visible")
+    return n
 
 
-def _load_scene(args):
+def _run(fn, args) -> None:
+    """``fn(None, args)`` in this process at one device, else
+    ``fn(mesh, args)`` on --n-devices ranks (parallel/mesh.py
+    ``launch``)."""
+    n = _n_devices(args)
+    if n == 1:
+        fn(None, args)
+        return
+    from nerfpp_tpu_torch.parallel import mesh as mesh_utils
+    print(f"data-parallel over {n} ranks ({args.device})")
+    mesh_utils.launch(fn, n, args.device, args, timeout=None)
+
+
+def _in_turn(mesh, fn):
+    """``fn()`` on each rank, one rank after another (what it writes, the
+    next rank reads: the COLMAP loader's undistorted views, the CLIP
+    pyramid's cache)."""
+    if mesh is None:
+        return fn()
+    out = None
+    for r in range(mesh.world):
+        if r == mesh.rank:
+            out = fn()
+        mesh.barrier()
+    return out
+
+
+def _load_scene(args, device):
     from nerfpp_tpu_torch.data.blender import load_blender_data
     from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
     if args.dataset_type == "blender":
@@ -79,12 +131,12 @@ def _load_scene(args):
         from nerfpp_tpu_torch.data.colmap import \
             load_from_colmap_reconstruction
         scene = load_from_colmap_reconstruction(args.data_dir,
-                                                device=args.device)
+                                                device=device)
         scene.white_bkgr = args.white_bkgr
         return scene
     if args.dataset_type == "synthetic":
         return make_synthetic_scene(white_bkgr=args.white_bkgr,
-                                    device=args.device)
+                                    device=device)
     raise SystemExit(f"unknown dataset type {args.dataset_type}")
 
 
@@ -142,21 +194,34 @@ def _build_lerf_supervision(scene, p, tp, device="cuda"):
 
 
 def cmd_train(args) -> None:
+    n = _n_devices(args)
+    _, tp = _build_params(args)
+    if tp.n_rand % n:
+        raise SystemExit(f"NRand ({tp.n_rand}) must divide by the device "
+                         f"count ({n}) for data parallelism")
+    _run(_train, args)
+
+
+def _train(mesh, args) -> None:
     from nerfpp_tpu_torch.executor import NeRFExecutor
-    _check_ported(args)
-    scene = _load_scene(args)
+    device = args.device if mesh is None else mesh.device
+    root = mesh is None or mesh.rank == 0
+    scene = _in_turn(mesh, lambda: _load_scene(args, device))
     p, tp = _build_params(args)
-    ex = NeRFExecutor(p, device=args.device)
+    ex = NeRFExecutor(p, device=device)
     base_dir = Path(tp.base_dir)
-    base_dir.mkdir(parents=True, exist_ok=True)
+    if root:
+        base_dir.mkdir(parents=True, exist_ok=True)
     lang_embeddings = None
     if p.use_lerf:
-        lang_embeddings, encode_text = _build_lerf_supervision(
-            scene, p, tp, args.device)
+        lang_embeddings, encode_text = _in_turn(
+            mesh, lambda: _build_lerf_supervision(scene, p, tp, device))
         ex.set_clip_encoder(encode_text)
         if p.lerf_positives:
             ex.set_lerf_prompts(p.lerf_positives, p.lerf_negatives)
-    ex.train(scene, tp, lang_embeddings=lang_embeddings)
+    ex.train(scene, tp, lang_embeddings=lang_embeddings, mesh=mesh)
+    if not root:
+        return
     ex.save_checkpoint(base_dir)
     # the three configs, as the reference saves them
     p.save(base_dir / "executor_params.json")
@@ -166,14 +231,18 @@ def cmd_train(args) -> None:
 
 
 def cmd_render(args) -> None:
+    _run(_render, args)
+
+
+def _render(mesh, args) -> None:
     from nerfpp_tpu_torch.core.rays import pose_spherical
     from nerfpp_tpu_torch.executor import NeRFExecutor
-    _check_ported(args)
-    scene = _load_scene(args)
+    device = args.device if mesh is None else mesh.device
+    scene = _in_turn(mesh, lambda: _load_scene(args, device))
     p, tp = _build_params(args)
     if not p.ft_path:
         p.ft_path = tp.base_dir
-    ex = NeRFExecutor(p, device=args.device)
+    ex = NeRFExecutor(p, device=device)
     ex.white_bkgr = scene.white_bkgr
     ex.initialize(scene.bounding_box, tp.lrate_decay)
     v0 = scene.views[0]
@@ -185,8 +254,9 @@ def cmd_render(args) -> None:
         poses = ([scene.views[i].pose for i in scene.split_indices("test")]
                  or [v.pose for v in scene.views[:args.n_poses]])
     out_dir = Path(tp.base_dir) / "renders"
-    ex.render_path(poses, v0.h, v0.w, v0.k, tp, out_dir)
-    print(f"wrote {len(poses)} renders to {out_dir}")
+    ex.render_path(poses, v0.h, v0.w, v0.k, tp, out_dir, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(f"wrote {len(poses)} renders to {out_dir}")
 
 
 def cmd_bench(args) -> None:
@@ -212,7 +282,8 @@ def build_parser() -> argparse.ArgumentParser:
         s.add_argument("--executor-params", default="")
         s.add_argument("--train-params", default="")
         s.add_argument("--n-devices", type=int, default=1, metavar="N",
-                       help="data-parallel device count (only 1 is ported)")
+                       help="data-parallel ranks, one a device (0: every "
+                       "visible card)")
         s.add_argument("--base-dir", default="output")
         s.add_argument("--set", action="append", metavar="FIELD=VALUE",
                        help="override an ExecutorParams field")

@@ -2,7 +2,9 @@
 
 Randomness is passed in: stochastic paths take uniform draws as tensors (or a
 ``torch.Generator`` to draw them), so tests can feed the JAX package and the
-port the same numbers.
+port the same numbers. ``fork`` derives a generator from a seed and a path
+(as JAX's fold_in derives a key); ``RowDraws`` gives a subset of rows the
+draws made for all of them.
 """
 from __future__ import annotations
 
@@ -13,13 +15,60 @@ import numpy as np
 import torch
 
 
-def draw(fn, shape, generator: Optional[torch.Generator],
-         device) -> torch.Tensor:
+class RowDraws:
+    """Rows ``rows`` (a slice or an index tensor) of draws made at ``n``
+    rows from ``generator``: every draw is made whole and then sliced, so a
+    rank that renders some of a batch's rays gets the numbers one device
+    draws for them. Pass it where a generator goes."""
+
+    def __init__(self, generator: torch.Generator, n: int, rows):
+        self.generator, self.n, self.rows = generator, n, rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def row_draws(generator: Optional[torch.Generator], n: int, rows):
+    """RowDraws of ``generator``, or None without one."""
+    return None if generator is None else RowDraws(generator, n, rows)
+
+
+def fork(generator: Optional[torch.Generator], *path: int):
+    """A new generator on ``generator``'s device seeded from its seed
+    (``initial_seed()``, not its state) and the integers ``path``, as JAX
+    derives a key with fold_in: what it draws depends on the seed and the
+    path only. None without a generator. Host arithmetic (splitmix64), no
+    device sync."""
+    if generator is None:
+        return None
+    mask = (1 << 64) - 1
+    s = generator.initial_seed() & mask
+    for i in path:
+        s = (s ^ (int(i) * 0xBF58476D1CE4E5B9 + 0x9E3779B97F4A7C15)) & mask
+        s = ((s ^ (s >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        s = ((s ^ (s >> 27)) * 0x94D049BB133111EB) & mask
+        s ^= s >> 31
+    return torch.Generator(device=generator.device).manual_seed(
+        s & ((1 << 63) - 1))
+
+
+def draw(fn, shape, generator, device) -> torch.Tensor:
     """``fn`` (torch.rand / torch.randn) on the generator's device, moved to
-    ``device``: one CPU generator gives the same draws to every device."""
+    ``device``: one CPU generator gives the same draws to every device. A
+    RowDraws draws ``(n, *shape[1:])`` and keeps its rows."""
     if generator is None:
         raise ValueError("a random draw needs a generator or a passed-in "
                          "tensor")
+    if isinstance(generator, RowDraws):
+        full = fn((generator.n, *shape[1:]), generator=generator.generator,
+                  device=generator.device)
+        rows = generator.rows
+        out = full[rows if isinstance(rows, slice) else rows.to(full.device)]
+        if out.shape[0] != shape[0]:
+            raise ValueError(f"a row draw of {out.shape[0]} rows for a "
+                             f"shape of {shape[0]}")
+        return out.to(device)
     return fn(shape, generator=generator, device=generator.device).to(device)
 
 

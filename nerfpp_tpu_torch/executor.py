@@ -21,9 +21,10 @@ host looks, the [TRAIN] line and metrics.csv, checkpoints, validation images
 with its auto-recovery.
 
 Rendering: ``render_view`` (with RenderFactor and the 8-bit image),
-``render_views`` (a loop over poses), ``render_path`` (PNG files),
-``render_test_split``, and the auto two-class render budget that picks each
-view's dense fraction from its occupancy tile masses.
+``render_views`` (a loop over poses, or view-parallel over a mesh),
+``render_path`` (PNG files), ``render_test_split``, and the auto two-class
+render budget that picks each view's dense fraction from its occupancy
+tile masses.
 
 LeRF (``use_lerf``): a second hash grid (random primes from seed 1) and the
 bias-free LeRF field beside the NeRF stack, in the same Adam. The train
@@ -40,8 +41,14 @@ the occupancy grid's mass and redraws the position-keyed state on it
 (tables and their Adam moments, the grid), keeping the MLPs, their moments,
 the schedules and the step.
 
-A LeRF-only stack, the normals head and device meshes belong to later
-slices of the port and raise NotImplementedError.
+Data parallelism (``mesh``, parallel/mesh.py: one process a device in a
+``torch.distributed`` group): the train step's explicit and implicit
+gradient all-reduce (``dp_grad_reduce``), ``train`` with rank 0 alone
+writing, and view-parallel ``render_views`` / ``render_path`` /
+``render_test_split``.
+
+A LeRF-only stack and the normals head belong to later slices of the port
+and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.config import ExecutorParams, TrainParams
 from nerfpp_tpu_torch.core.integrate import (apply_density_activation,
                                              huber_loss, psnr_from_mse)
+from nerfpp_tpu_torch.core.sampling import fork, row_draws
 from nerfpp_tpu_torch.core.occupancy import (OccupancyGrid,
                                              make_occupancy_grid, update_grid,
                                              update_grid_phased)
@@ -72,8 +80,9 @@ from nerfpp_tpu_torch.models.lerf_field import LeRFField
 from nerfpp_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.optim import Adam
+from nerfpp_tpu_torch.parallel import mesh as mesh_utils
 from nerfpp_tpu_torch.render import lerf as lerf_render
-from nerfpp_tpu_torch.render.renderer import (RenderConfig,
+from nerfpp_tpu_torch.render.renderer import (RenderConfig, TileShard,
                                               make_nerf_integrate_fn,
                                               make_nerf_network_fn,
                                               probe_tile_mass, render_image,
@@ -351,6 +360,11 @@ class NeRFExecutor:
             st["occupancy"] = self.occupancy.density
         return st
 
+    def _replicated(self) -> list:
+        """The state every rank of a mesh holds alike: parameters, Adam's
+        moments and count, and the occupancy grid."""
+        return [v for k, v in self.state_dict().items() if k != "step"]
+
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
         """Load a state from convert.state_from_jax or a checkpoint:
         ``embed.*`` into the encoder, ``model.*`` into the field,
@@ -462,18 +476,38 @@ class NeRFExecutor:
 
     # ---------------------------------------------------------- train step
 
-    def _build_train_step(self, tp: TrainParams):
+    def _build_train_step(self, tp: TrainParams, mesh=None):
         """-> train_step(step, data, generator=None, draws=None) -> metrics
         (device scalars: mse, img_loss, pred_std, loss, psnr, and lang_loss
         for LeRF). ``data`` is a RayBatchSampler (the batch is drawn from
         ``generator``) or a batch dict (rays_o, rays_d, cone_angle,
         target_rgb, and target_lang for LeRF). The generator also draws the
-        refresh jitter, the cone scatter, the noises and the TV cube
-        origins; ``draws`` may pass the TV origins instead (``tv``, int [L,
-        3]). Gradients accumulate chunk by chunk (one chunk's activations
-        live at a time; the NeRF branch's and then the language branch's);
-        one Adam update follows, skipped on device when the loss is not
-        finite."""
+        refresh jitter and the TV cube origins; ``draws`` may pass the TV
+        origins instead (``tv``, int [L, 3]). Chunk c's NeRF render draws
+        from ``fork(generator, step, c, 0)`` and its language render from
+        ``fork(generator, step, c, 1)``: a chunk's draws depend on (seed,
+        step, chunk) only, as the JAX step splits its render key per chunk.
+        Gradients accumulate chunk by chunk (one chunk's activations live
+        at a time; the NeRF branch's and then the language branch's); one
+        Adam update follows, skipped on device when the loss is not finite.
+
+        With a ``mesh`` of more than one rank (parallel/mesh.py) the step
+        takes one of the JAX package's two data-parallel paths, chosen as
+        it chooses them. Explicit, for dp_grad_reduce "bf16" or "f32" when
+        the chunks divide by the world size: rank r takes the r-th
+        contiguous block of whole chunks, and the gradients are summed in
+        ONE all-reduce of that dtype. Implicit otherwise (dp_grad_reduce
+        "implicit", or one chunk as in the flagship): each chunk's tiles
+        are dealt out to the ranks as contiguous runs of whole tiles, the
+        two-class budgets are ranked over the whole chunk (every rank
+        scores every tile from the replicated grid; the hierarchical
+        ranking all-gathers the coarse tile masses), each rank renders its
+        tiles with the draws one device makes for them, and the gradients
+        are summed in f32. Either way the TV term is divided by the world
+        size on every rank, LeRF's finite-ray count is summed before the
+        language gradients are divided by it, the loss sums and metrics
+        are summed in f32, and every rank applies the same summed gradient
+        (so the replicas stay equal). At one rank the plain step runs."""
         p = self.params
         cfg = self.make_render_config(tp, train=True, return_weights=True)
         chunk = min(tp.chunk, tp.n_rand)
@@ -481,6 +515,20 @@ class NeRFExecutor:
         if n_chunks * chunk != tp.n_rand:
             raise ValueError(f"NRand ({tp.n_rand}) must be divisible by "
                              f"Chunk ({chunk}) for fixed-shape chunking")
+        if p.dp_grad_reduce not in ("bf16", "f32", "implicit"):
+            raise ValueError(f"unknown dp_grad_reduce {p.dp_grad_reduce!r}")
+        # tiles share depths only where the chunk divides into them: say so
+        # in the config, so that a rank's share of a chunk never does where
+        # the chunk does not
+        if cfg.occ_ray_tile > 0 and chunk % cfg.occ_ray_tile:
+            cfg = dataclasses.replace(cfg, occ_ray_tile=0)
+        if cfg.hier_ray_tile > 0 and chunk % cfg.hier_ray_tile:
+            cfg = dataclasses.replace(cfg, hier_ray_tile=0)
+        world = 1 if mesh is None else mesh.world
+        if world == 1:
+            mesh = None
+        expl = mesh is not None and p.dp_grad_reduce != "implicit" \
+            and n_chunks % world == 0
         use_occ = p.use_occupancy_grid
         occ_every = p.occ_update_every
         use_budget = (use_occ and p.occ_tile_budget_frac > 0.0
@@ -498,6 +546,7 @@ class NeRFExecutor:
         warm = (p.occ_tile_budget_warmup if use_budget
                 else p.hier_budget_warmup if use_hier_budget else 0)
         use_tv = p.embedder_type == "hash" and p.hash_scheme == "fixed"
+        use_lerf = p.use_lerf
         network_fn = self._nerf_fns()
         integrate_fn = make_nerf_integrate_fn(cfg)
         sigma_fn = self._sigma_grid_fn()
@@ -508,55 +557,98 @@ class NeRFExecutor:
         noise_steps = np.float32(tp.n_iters / 8.0)
         sp_steps = np.float32(tp.n_iters / 6.0)
         sp_alpha0 = np.float32(self.sp_alpha0)
-        use_lerf = p.use_lerf
         if use_lerf:
             # the annealed density noise applies to the language field too
             lerf_net, lerf_int = self._lerf_fns(use_raw_noise=True)
             lcfg = dataclasses.replace(cfg, use_viewdirs=False)
             lang_params = [v for k, v in params.items()
                            if k.startswith("lang_")]
+        shards = None
+        if mesh is not None and not expl:
+            # the implicit path: every tile size a render of the chunk
+            # shares depths over, and the 8x16 pixel tiles where they fit
+            unit = 1
+            nerf_occ = cfg.n_occ_bins > 0
+            for t in (cfg.occ_ray_tile if nerf_occ else 0,
+                      cfg.hier_ray_tile if not nerf_occ or use_lerf else 0,
+                      128):
+                if t > 0 and chunk % math.lcm(unit, t) == 0:
+                    unit = math.lcm(unit, t)
+                elif t > 0 and t != 128:
+                    raise ValueError(f"a chunk of {chunk} rays does not "
+                                     f"divide into whole tiles of {t} and "
+                                     f"{unit} rays for data parallelism")
+            btile = (cfg.occ_ray_tile if use_budget else cfg.hier_ray_tile
+                     if use_hier_budget else unit)
+            spans = [mesh_utils.rank_rows(chunk, world, r, unit)
+                     for r in range(world)]
+            lo, hi = spans[mesh.rank]
+            shards = (lo, hi, TileShard(
+                lo // btile, hi // btile,
+                tuple((b - a) // btile for a, b in spans),
+                mesh.all_gather_rows))
 
         def chunk_sums(cb, step, raw_noise_std, sp_alpha, generator):
-            """Render one chunk; -> [sq, huber, pred, pred^2] sums."""
+            """Render one chunk (this rank's tiles of it on the implicit
+            path); -> [sq, huber, pred, pred^2] sums, or None where nothing
+            rendered here."""
             occ = self.occupancy if use_occ else None
             target = cb["target_rgb"]
+            shard = shards[2] if shards is not None else None
             if use_budget and step >= warm:
                 res_d, res_s, idx_d, idx_s = render_ray_batch_budgeted(
                     network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
                     cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
                     p.occ_tile_budget_frac, p.occ_sparse_samples, generator,
-                    sp_alpha=sp_alpha)
-                parts = ((res_d.outputs.rgb, target[idx_d]),
-                         (res_s.outputs.rgb, target[idx_s]))
+                    sp_alpha=sp_alpha, shard=shard)
+                parts = ((res_d, idx_d), (res_s, idx_s))
             elif use_hier_budget and step >= warm:
                 res_d, res_s, idx_d, idx_s = render_ray_batch_hier_budgeted(
                     network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
                     cb["cone_angle"], cfg, bbox, raw_noise_std, sp_alpha,
                     p.hier_tile_budget_frac, p.hier_sparse_importance,
-                    generator)
-                parts = ((res_d.outputs.rgb, target[idx_d]),
-                         (res_s.outputs.rgb, target[idx_s]))
+                    generator, shard=shard)
+                parts = ((res_d, idx_d), (res_s, idx_s))
             else:
+                if shards is not None:
+                    lo, hi = shards[0], shards[1]
+                    cb = {k: v[lo:hi] if v.ndim >= 1 else v
+                          for k, v in cb.items()}
+                    generator = row_draws(generator, chunk, slice(lo, hi))
+                    if hi == lo:
+                        return None
                 res = render_ray_batch(
                     network_fn, integrate_fn, cb["rays_o"], cb["rays_d"],
                     cb["cone_angle"], cfg, bbox, raw_noise_std, occ,
                     generator, sp_alpha=sp_alpha)
-                parts = ((res.outputs.rgb, target),)
-            sums = []
-            for rgb, t in parts:
+                parts = ((res, slice(None)),)
+                target = cb["target_rgb"]
+            sums = None
+            for res, idx in parts:
+                if res is None:
+                    continue
+                rgb, t = res.outputs.rgb, target[idx]
                 rs = rgb.detach()
-                sums.append(torch.stack([
+                s = torch.stack([
                     torch.sum((rgb - t) ** 2), torch.sum(huber_loss(rgb, t)),
-                    torch.sum(rs), torch.sum(rs * rs)]))
-            return sums[0] if len(sums) == 1 else sums[0] + sums[1]
+                    torch.sum(rs), torch.sum(rs * rs)])
+                sums = s if sums is None else sums + s
+            return sums
 
         def lang_sums(cb, raw_noise_std, sp_alpha, generator):
-            """Render one chunk's language branch; -> [sum of the finite
-            rays' Huber (delta 1.25, summed over the embedding), finite
-            rays]."""
+            """Render one chunk's language branch (this rank's rows of it on
+            the implicit path); -> [sum of the finite rays' Huber (delta
+            1.25, summed over the embedding), finite rays], or None."""
             if "target_lang" not in cb:
                 raise ValueError("LeRF training needs target_lang: pass "
                                  "lang_embeddings to train")
+            if shards is not None:
+                lo, hi = shards[0], shards[1]
+                cb = {k: v[lo:hi] if v.ndim >= 1 else v
+                      for k, v in cb.items()}
+                generator = row_draws(generator, chunk, slice(lo, hi))
+                if hi == lo:
+                    return None
             res = render_ray_batch(
                 lerf_net, lerf_int, cb["rays_o"], cb["rays_d"],
                 cb["cone_angle"], lcfg, bbox, raw_noise_std, None, generator,
@@ -611,37 +703,57 @@ class NeRFExecutor:
                 np.float32(0.0), np.float32(1.0) - stepf / sp_steps))
             for prm in params.values():
                 prm.grad = None
-            total = lang = None
-            for c in range(n_chunks):
+            chunks = range(n_chunks)
+            if expl:
+                # the rank's block of whole chunks (and the row check)
+                mesh_utils.shard_rays(batch, mesh, chunk)
+                per = n_chunks // world
+                chunks = range(mesh.rank * per, (mesh.rank + 1) * per)
+            total = torch.zeros(4, device=self.device)
+            lang = torch.zeros(2, device=self.device)
+            for c in chunks:
                 cb = {k: (v[c * chunk:(c + 1) * chunk]
                           if v.ndim >= 1 and v.shape[0] == tp.n_rand else v)
                       for k, v in batch.items()}
+                if shards is not None:
+                    mesh_utils.shard_rays(cb, mesh)         # the row check
                 sums = chunk_sums(cb, step, raw_noise_std, sp_alpha,
-                                  generator)
-                (sums[1] / n_pix).backward()
-                total = sums.detach() if total is None else total + sums.detach()
+                                  fork(generator, step, c, 0))
+                if sums is not None:
+                    (sums[1] / n_pix).backward()
+                    total = total + sums.detach()
                 if use_lerf:
-                    ls = lang_sums(cb, raw_noise_std, sp_alpha, generator)
-                    ls[0].backward()
-                    lang = ls.detach() if lang is None else lang + ls.detach()
+                    ls = lang_sums(cb, raw_noise_std, sp_alpha,
+                                   fork(generator, step, c, 1))
+                    if ls is not None:
+                        ls[0].backward()
+                        lang = lang + ls.detach()
+            if mesh is not None:
+                # the step's sums over every rank, in f32
+                stats = mesh.all_reduce(torch.cat([total, lang]))
+                total, lang = stats[:4], stats[4:]
             loss = total[1] / n_pix
             img_loss = loss
             if use_tv and step < tp.n_iters // 2:
                 tv = tv_term(generator, draws.get("tv"))
-                tv.backward()
+                # every rank adds its share: the sum restores the term
+                (tv / world if world > 1 else tv).backward()
                 loss = loss + tv.detach()
             metrics = {}
             if use_lerf:
                 # the language loss divides by the finite rays of all
-                # chunks, known only now; the language parameters get no
-                # gradient from the NeRF branch, so dividing their summed
-                # gradients here equals backpropagating the divided loss
+                # chunks (and ranks), known only now; the language
+                # parameters get no gradient from the NeRF branch, so
+                # dividing their summed gradients here equals
+                # backpropagating the divided loss
                 n_finite = torch.clamp(lang[1], min=1.0)
                 for prm in lang_params:
                     if prm.grad is not None:
                         prm.grad.div_(n_finite)
                 metrics["lang_loss"] = lang[0] / n_finite
                 loss = loss + metrics["lang_loss"]
+            mesh_utils.all_reduce_grads(
+                params, p.dp_grad_reduce if expl else "f32", mesh)
             self.optimizer.step(torch.isfinite(loss))
             self.step = step + 1
             mse = total[0] / n_pix
@@ -679,17 +791,32 @@ class NeRFExecutor:
         first host look whose loop count is at or past it (once per
         executor; ``initialize`` re-arms it), the box is refit to the
         occupancy grid (``refit_bbox_from_grid``) and the step rebuilt on
-        it. Returns the last step's metrics."""
+        it. Returns the last step's metrics.
+
+        With a ``mesh`` (parallel/mesh.py; every rank calls ``train`` with
+        the same arguments) the step is data-parallel
+        (``_build_train_step``), the state is broadcast from rank 0 first,
+        and rank 0 alone writes: metrics.csv, the [TRAIN] lines, images/,
+        checkpoints and the test-split renders (which every rank renders,
+        view-parallel). The collapse check reads the ranks' summed metrics
+        and the refit a grid broadcast from rank 0, so every rank restarts
+        or refits at the same step. NRand must divide by the world size."""
         p = self.params
-        if mesh is not None:
-            raise _not_ported("a device mesh (data parallelism)")
+        world = 1 if mesh is None else mesh.world
+        if tp.n_rand % world:
+            raise ValueError(f"NRand ({tp.n_rand}) must divide by the device "
+                             f"count ({world}) for data parallelism")
+        root = mesh is None or mesh.rank == 0
         self.white_bkgr = scene.white_bkgr
         if self.model is None:
             self.initialize(scene.bounding_box, tp.lrate_decay, seed)
+        mesh_utils.replicate(self._replicated(), mesh)
         base_dir = Path(tp.base_dir)
-        base_dir.mkdir(parents=True, exist_ok=True)
+        if root:
+            base_dir.mkdir(parents=True, exist_ok=True)
         if tp.render_only:
-            self.render_test_split(scene, tp, base_dir / "renderonly")
+            self.render_test_split(scene, tp, base_dir / "renderonly",
+                                   mesh=mesh)
             return {}
         if sampler is None:
             # tiles: 0 = auto (8x16 where the blocked kernels run), -1 = off
@@ -704,14 +831,19 @@ class NeRFExecutor:
                 max(th, 0), max(tw, 0), device=self.device,
                 lang_embeddings=None if pyr is not None else lang_embeddings,
                 pyramid=pyr)
-        train_step = self._build_train_step(tp)
+
+        def build_step():
+            return (self._build_train_step(tp) if mesh is None
+                    else self._build_train_step(tp, mesh))
+
+        train_step = build_step()
         generator = torch.Generator(device=self.device)
         # steps between host looks: every active interval still lands
         spc = max(1, tp.steps_per_call)
         for iv in (tp.i_print, tp.i_img, tp.i_weights, tp.i_testset):
             if iv > 0:
                 spc = math.gcd(spc, iv)
-        writer = MetricsWriter(base_dir)
+        writer = MetricsWriter(base_dir) if root else None
         val_idx = (list(scene.split_indices("val"))
                    or list(scene.split_indices("train")))
         # collapse watch: a near-constant batch render past the check step
@@ -729,6 +861,7 @@ class NeRFExecutor:
                 gt_std = float(torch.std(sampler.images, correction=0))
             next_check = max(int(p.auto_fine_check_from), 1)
         metrics: Dict[str, torch.Tensor] = {}
+        say = print if root else (lambda *a, **k: None)
         t_start = time.perf_counter()
         rays_done = 0
         # i counts the loop's steps; the state's step (self.step, which
@@ -745,8 +878,10 @@ class NeRFExecutor:
             if refit_pending and i >= tp.bbox_refit_step:
                 refit_pending = False
                 self._refit_tried = True
+                if self.occupancy is not None:
+                    mesh_utils.replicate([self.occupancy.density], mesh)
                 if self.refit_bbox_from_grid():
-                    train_step = self._build_train_step(tp)
+                    train_step = build_step()
             k = min(spc - (i % spc), end - i)
             for _ in range(k):
                 generator.manual_seed((seed + 1) * 1_000_003 + self.step)
@@ -756,7 +891,7 @@ class NeRFExecutor:
             if auto_pending and i >= next_check:
                 ps = float(metrics["pred_std"])
                 if ps < p.auto_fine_rel_std * gt_std:
-                    print(f"[TRAIN] collapse detected at step {i} "
+                    say(f"[TRAIN] collapse detected at step {i} "
                           f"(batch render std {ps:.4f} vs GT {gt_std:.4f}): "
                           f"restarting field with importance fine pass "
                           f"(n_importance={p.auto_fine_samples}, "
@@ -769,33 +904,35 @@ class NeRFExecutor:
                     p.n_importance = p.auto_fine_samples
                     p.occ_tile_budget_frac = 0.0
                     self._restart_state()
-                    train_step = self._build_train_step(tp)
+                    train_step = build_step()
                     auto_pending = False
                 else:
                     next_check = i + max(int(p.auto_fine_check_from), 1)
                     if next_check > tp.n_iters // 2:
                         auto_pending = False
-            if tp.i_weights > 0 and i % tp.i_weights == 0:
+            if tp.i_weights > 0 and i % tp.i_weights == 0 and root:
                 self.save_checkpoint(base_dir)
                 print(f"Saved checkpoints at {base_dir}")
             if (tp.i_testset > 0 and i % tp.i_testset == 0 and i > 0
                     and not tp.test_skip):
-                self.render_test_split(scene, tp, base_dir)
-            if tp.i_img > 0 and i % tp.i_img == 0 and i > 0:
+                self.render_test_split(scene, tp, base_dir, mesh=mesh)
+            if tp.i_img > 0 and i % tp.i_img == 0 and i > 0 and root:
                 v = scene.views[val_idx[0]]
                 out = self.render_view(v.pose, v.h, v.w, v.k, tp)
                 writer.write_image(i, "val_rgb", out["nerf"].rgb)
             if tp.i_print > 0 and i % tp.i_print == 0:
                 m = {key: float(v) for key, v in metrics.items()}
-                writer.write_scalars(i, m)
                 rps = rays_done / max(time.perf_counter() - t_start, 1e-9)
-                print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
-                      f"Loss: {m.get('loss', 0):.5f} "
-                      f"PSNR: {m.get('psnr', 0):.2f} "
-                      f"rays/s: {rps:,.0f}")
+                if root:
+                    writer.write_scalars(i, m)
+                    print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
+                          f"Loss: {m.get('loss', 0):.5f} "
+                          f"PSNR: {m.get('psnr', 0):.2f} "
+                          f"rays/s: {rps:,.0f}")
                 if progress_fn is not None:
                     progress_fn(i, m)
-        if tp.i_weights > 0 and i % tp.i_weights != 0 and i == tp.n_iters - 1:
+        if (tp.i_weights > 0 and i % tp.i_weights != 0 and i == tp.n_iters - 1
+                and root):
             self.save_checkpoint(base_dir)
         return {key: float(v) for key, v in metrics.items()}
 
@@ -806,27 +943,25 @@ class NeRFExecutor:
 
     def render_view(self, pose, h: int, w: int, k, tp: TrainParams,
                     generator: Optional[torch.Generator] = None,
-                    with_relevancy: bool = True) -> Dict[str, Any]:
+                    with_relevancy: bool = True,
+                    dense_frac: Optional[float] = None) -> Dict[str, Any]:
         """Render one full view. RenderFactor > 0 downscales H, W and the
-        intrinsics. Returns {"nerf": RenderOutputs of [h, w, ...] maps,
-        "near_far": (near_min, far_max), "rgb8": [h, w, 3] uint8}, and for
-        LeRF "lerf": LeRFOutputs of [h, w, ...] maps (relevancy [h, w, P]
-        when prompts are set and ``with_relevancy``, else None)."""
+        intrinsics. ``dense_frac`` overrides the two-class budget's dense
+        fraction (by default the view's auto fraction, or
+        render_dense_frac). Returns {"nerf": RenderOutputs of [h, w, ...]
+        maps, "near_far": (near_min, far_max), "rgb8": [h, w, 3] uint8},
+        and for LeRF "lerf": LeRFOutputs of [h, w, ...] maps (relevancy
+        [h, w, P] when prompts are set and ``with_relevancy``, else
+        None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        if tp.render_factor > 0:
-            f = int(tp.render_factor)
-            h, w = h // f, w // f
-            k = np.asarray(k, np.float32).copy()
-            k[0, 0] /= f
-            k[1, 1] /= f
-            k[0, 2] /= f
-            k[1, 2] /= f
+        h, w, k = _render_size(h, w, k, tp)
         cfg = self.make_render_config(tp, train=False)
-        dense_frac = 0.0
         kw = {}
         if self.params.use_occupancy_grid:
-            if self._auto_frac_eligible(cfg):
+            if dense_frac is not None:
+                dense_frac = max(dense_frac, 0.0)
+            elif self._auto_frac_eligible(cfg):
                 dense_frac = self._auto_dense_frac(h, w, k, pose)
             else:
                 dense_frac = max(self.params.render_dense_frac, 0.0)
@@ -853,22 +988,63 @@ class NeRFExecutor:
 
     def render_views(self, poses, h: int, w: int, k, tp: TrainParams,
                      generator: Optional[torch.Generator] = None,
-                     with_relevancy: bool = True):
-        """Render a list of views, one after another (no device mesh)."""
-        return [self.render_view(p, h, w, k, tp, generator, with_relevancy)
-                for p in poses]
+                     with_relevancy: bool = True, mesh=None):
+        """Render a list of views; -> a list of render_view's outputs. With
+        a ``mesh`` of more than one rank (every rank calls this with the
+        same arguments) the views render view-parallel and every rank gets
+        every frame (``_iter_views``)."""
+        return list(self._iter_views(poses, h, w, k, tp, generator,
+                                     with_relevancy, mesh))
+
+    def _iter_views(self, poses, h, w, k, tp, generator=None,
+                    with_relevancy=True, mesh=None):
+        """render_views one view at a time. With a mesh of W > 1 ranks,
+        rank r renders view g + r of each group of W views (the last group
+        padded by repeating the last pose), every view from the state of
+        ``generator`` at the call (a fresh seed-0 generator without one),
+        and the group's frames are all-gathered. As in the JAX package the
+        auto budget's dense fraction is then the largest of the list's
+        views' (a view may differ from its sequential render there)."""
+        if mesh is None or mesh.world == 1 or len(poses) <= 1:
+            for pose in poses:
+                yield self.render_view(pose, h, w, k, tp, generator,
+                                       with_relevancy)
+            return
+        world = mesh.world
+        dense_frac = None
+        cfg = self.make_render_config(tp, train=False)
+        if self._auto_frac_eligible(cfg):
+            dense_frac = self._auto_dense_frac(*_render_size(h, w, k, tp),
+                                               poses)
+        state = None if generator is None else generator.get_state()
+        n = len(poses)
+        padded = list(poses) + [poses[-1]] * (-n % world)
+        for g in range(0, len(padded), world):
+            gen = None
+            if state is not None:
+                gen = torch.Generator(device=generator.device)
+                gen.set_state(state)
+            out = self.render_view(padded[g + mesh.rank], h, w, k, tp, gen,
+                                   with_relevancy, dense_frac=dense_frac)
+            frames = _all_gather_view(out, mesh)
+            yield from frames[:min(world, n - g)]
 
     def render_path(self, poses, h: int, w: int, k, tp: TrainParams,
-                    save_dir) -> None:
+                    save_dir, mesh=None) -> None:
         """Render a pose list and write {i}.png (the 8-bit image),
         disp_{i}.png (disparity over its maximum) and depth_{i}.png (depth
         between the view's near and far), as the JAX package writes them;
         with LeRF prompts, relevancy_{i}.png (the first prompt's relevancy
-        in JET)."""
+        in JET). With a ``mesh`` the views render view-parallel and rank 0
+        alone writes."""
+        root = mesh is None or mesh.rank == 0
         save_dir = Path(save_dir)
-        save_dir.mkdir(parents=True, exist_ok=True)
-        for i, pose in enumerate(poses):
-            out = self.render_view(pose, h, w, k, tp)
+        if root:
+            save_dir.mkdir(parents=True, exist_ok=True)
+        for i, out in enumerate(self._iter_views(poses, h, w, k, tp,
+                                                 mesh=mesh)):
+            if not root:
+                continue
             res = out["nerf"]
             near, far = (float(out["near_far"][0]), float(out["near_far"][1]))
             write_png(save_dir / f"{i}.png", out["rgb8"].cpu().numpy())
@@ -886,17 +1062,18 @@ class NeRFExecutor:
                     (np.clip(rel, 0, 1) * 255).astype(np.uint8)))
 
     def render_test_split(self, scene: SceneData, tp: TrainParams,
-                          save_dir) -> None:
+                          save_dir, mesh=None) -> None:
         """Render the test split (the train split when the test split is
         empty or as large as the validation split, as in the JAX package)
-        with render_path."""
+        with render_path (view-parallel with a ``mesh``)."""
         test_idx = list(scene.split_indices("test"))
         if not test_idx or scene.splits_idx[2] == scene.splits_idx[1]:
             test_idx = list(scene.split_indices("train"))
         v0 = scene.views[test_idx[0]]
         poses = [scene.views[i].pose for i in test_idx]
-        self.render_path(poses, v0.h, v0.w, v0.k, tp, save_dir)
-        print("Saved test set")
+        self.render_path(poses, v0.h, v0.w, v0.k, tp, save_dir, mesh=mesh)
+        if mesh is None or mesh.rank == 0:
+            print("Saved test set")
 
     # ------------------------------------------------------------- prompts
 
@@ -964,3 +1141,42 @@ class NeRFExecutor:
             self._auto_frac_cache.clear()
         self._auto_frac_cache[ck] = frac
         return frac
+
+
+def _render_size(h: int, w: int, k, tp: TrainParams):
+    """(h, w, K) of a render: RenderFactor > 0 divides all three."""
+    if tp.render_factor > 0:
+        f = int(tp.render_factor)
+        h, w = h // f, w // f
+        k = np.asarray(k, np.float32).copy()
+        k[0, 0] /= f
+        k[1, 1] /= f
+        k[0, 2] /= f
+        k[1, 2] /= f
+    return h, w, k
+
+
+def _all_gather_view(out: Dict[str, Any], mesh) -> list:
+    """Every rank's render_view output (views of one size), in rank
+    order: each tensor all-gathered; unset and dropped per-sample fields
+    are kept as they are."""
+    def gather(x):
+        if x is None or not torch.is_tensor(x) or x.numel() == 0:
+            return [x] * mesh.world
+        return [y.reshape(x.shape) for y in mesh.all_gather(x.reshape(-1))]
+
+    def gather_fields(nt):
+        cols = [gather(v) for v in nt]
+        return [type(nt)(*(c[r] for c in cols)) for r in range(mesh.world)]
+
+    parts = {}
+    for key, v in out.items():
+        if key == "near_far":
+            near, far = gather(v[0]), gather(v[1])
+            parts[key] = list(zip(near, far))
+        elif torch.is_tensor(v):
+            parts[key] = gather(v)
+        else:
+            parts[key] = gather_fields(v)
+    return [{key: vals[r] for key, vals in parts.items()}
+            for r in range(mesh.world)]

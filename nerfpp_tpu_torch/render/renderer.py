@@ -21,8 +21,11 @@ depths, the preconditioning noise) comes from an explicit
 device, or is passed in as tensors (``draws``: ``scatter_u``, ``noise``,
 ``pdf_draws`` for the coarse pass; ``pdf_draws_fine``, ``sp_noise``,
 ``scatter_u_fine``, ``noise_fine`` for the importance pass) so tests can feed
-the JAX package and the port the same numbers. With ``thin_ray=True``,
-``perturb=0`` and no noise a render is deterministic. Nothing here runs
+the JAX package and the port the same numbers. The two budget classes draw
+from forks of the generator (``core/sampling.py`` ``fork``). Under data
+parallelism a ``TileShard`` renders a rank's tiles of a training batch
+with the draws one device makes for them (``RowDraws``). With
+``thin_ray=True``, ``perturb=0`` and no noise a render is deterministic. Nothing here runs
 under ``no_grad``: the training path differentiates through it.
 """
 from __future__ import annotations
@@ -64,6 +67,38 @@ class RenderConfig:
     occ_uniform_frac: float = 0.1
     occ_ray_tile: int = 0
     hier_ray_tile: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TileShard:
+    """A rank's share of a training batch under data parallelism: it
+    renders the batch's tiles [lo, hi) (a contiguous run; the batch's rays
+    are passed whole). ``gather(x, counts)`` concatenates every rank's
+    per-tile ``x`` (``counts[r]`` rows on rank r) in rank order, which is
+    tile order (an all-gather; parallel/mesh.py ``Mesh.all_gather_rows``).
+    ``counts``: every rank's tile count."""
+    lo: int
+    hi: int
+    counts: tuple
+    gather: Callable
+
+
+def _class_rows(tiles, tile: int, shard: Optional[TileShard], generator,
+                lanes):
+    """A budget class's tiles that render here (all without a shard, else
+    those in [shard.lo, shard.hi), in the class's order), their flat ray
+    indices, and the class's draws: ``generator`` itself without a shard,
+    else the rows of those tiles in draws made for the whole class.
+    -> (tiles, ridx, generator), tiles None when none render here."""
+    if shard is not None:
+        n = tiles.shape[0] * tile
+        pos = torch.nonzero((tiles >= shard.lo) & (tiles < shard.hi))[:, 0]
+        if pos.numel() == 0:
+            return None, None, None
+        tiles = tiles[pos]
+        generator = S.row_draws(generator, n,
+                                (pos[:, None] * tile + lanes).reshape(-1))
+    return tiles, (tiles[:, None] * tile + lanes).reshape(-1), generator
 
 
 # per-sample output fields: dropped from full-image renders
@@ -302,14 +337,21 @@ def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
                               sparse_samples: int = 16,
                               generator: Optional[torch.Generator] = None,
                               draws: Optional[dict] = None,
-                              sp_alpha: float = 0.0):
+                              sp_alpha: float = 0.0,
+                              shard: Optional[TileShard] = None):
     """Two-class per-tile sample budget for training: rank the batch's
     128-ray tiles by occupancy mass (``tiled_prior``; stable, so empty tiles
     keep their order), render the top ``dense_frac`` at cfg.n_samples and
     the rest at ``sparse_samples``, each ray once. ``draws``: optional
     {"dense": {...}, "sparse": {...}}, per class as render_rays takes them
-    (``pdf_draws`` place the class's tile-shared depths). Returns (res_dense, res_sparse, idx_dense,
-    idx_sparse), idx_* the flat ray indices of each class."""
+    (``pdf_draws`` place the class's tile-shared depths); otherwise the
+    dense class draws from ``fork(generator, 1)`` and the sparse one from
+    ``fork(generator, 2)``. With a ``shard`` every tile is still scored and
+    ranked (the grid is replicated), and only the shard's tiles render,
+    each in the class the whole batch's ranking gives it, with the draws a
+    single device makes for it. Returns (res_dense, res_sparse, idx_dense,
+    idx_sparse), idx_* the flat ray indices of each class (a class with no
+    tile here: None, None)."""
     if occupancy is None or cfg.n_occ_bins <= 0 or cfg.occ_ray_tile <= 0:
         raise ValueError("budgeted rendering needs the tile-shared "
                          "occupancy sampling path")
@@ -330,25 +372,27 @@ def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
     order = torch.argsort(-mass, stable=True)           # dense tiles first
     lanes = torch.arange(tile, device=rays_o.device)
 
-    def class_render(tiles, n_samples, dr):
-        ridx = (tiles[:, None] * tile + lanes).reshape(-1)
+    def class_render(tiles, n_samples, dr, gen):
+        tiles, ridx, gen = _class_rows(tiles, tile, shard, gen, lanes)
+        if tiles is None:
+            return None, None
         z_t = S.sample_pdf(edges_t[tiles], w_t[tiles], n_samples,
-                           det=(cfg.perturb == 0.0), generator=generator,
+                           det=(cfg.perturb == 0.0), generator=gen,
                            draws=dr.get("pdf_draws"))
         ccfg = dataclasses.replace(cfg, n_samples=n_samples)
         res = render_rays(
             network_fn, integrate_fn, rays_o[ridx], rays_d[ridx],
             near[ridx][:, None], far[ridx][:, None],
             viewdirs[ridx] if viewdirs is not None else None,
-            None if cfg.thin_ray else cone_angle, ccfg, generator,
+            None if cfg.thin_ray else cone_angle, ccfg, gen,
             bounding_box, z_t.repeat_interleave(tile, dim=0), raw_noise_std,
             sp_alpha, dr)
         return res, ridx
 
     res_d, idx_d = class_render(order[:k_dense], cfg.n_samples,
-                                draws.get("dense", {}))
+                                draws.get("dense", {}), S.fork(generator, 1))
     res_s, idx_s = class_render(order[k_dense:], sparse_samples,
-                                draws.get("sparse", {}))
+                                draws.get("sparse", {}), S.fork(generator, 2))
     return res_d, res_s, idx_d, idx_s
 
 
@@ -362,7 +406,8 @@ def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
                                    dense_frac: float = 0.5,
                                    sparse_importance: int = 32,
                                    generator: Optional[torch.Generator] = None,
-                                   draws: Optional[dict] = None):
+                                   draws: Optional[dict] = None,
+                                   shard: Optional[TileShard] = None):
     """Two-class tile budget for the hierarchical fine pass: the coarse pass
     runs on every ray at cfg.n_samples with depths shared per
     cfg.hier_ray_tile rays; tiles are ranked by the tile-mean coarse weight
@@ -370,8 +415,15 @@ def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
     the top ``dense_frac`` at cfg.n_importance, the rest at
     ``sparse_importance``. ``draws``: optional ``scatter_u``, ``noise`` (the
     coarse pass) and {"dense": {...}, "sparse": {...}} with
-    ``pdf_draws_fine``, ``sp_noise``, ``scatter_u_fine``, ``noise_fine``.
-    Returns (res_dense, res_sparse, idx_dense, idx_sparse)."""
+    ``pdf_draws_fine``, ``sp_noise``, ``scatter_u_fine``, ``noise_fine``;
+    otherwise the coarse pass draws from ``generator``, the dense class from
+    ``fork(generator, 1)`` and the sparse one from ``fork(generator, 2)``.
+    With a ``shard`` the coarse pass runs on the shard's tiles only, their
+    weight masses are gathered (``shard.gather``) and ranked with every
+    other rank's, and the shard's tiles render their fine pass in the class
+    that ranking gives them, each with the draws a single device makes for
+    it. Returns (res_dense, res_sparse, idx_dense, idx_sparse) (a class
+    with no tile here: None, None)."""
     tile = cfg.hier_ray_tile
     if tile <= 0:
         raise ValueError("hier budget needs cfg.hier_ray_tile > 0")
@@ -390,46 +442,64 @@ def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
     near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
     if cone_angle is None or cfg.thin_ray:
         cone_angle = None
-    # coarse pass on every ray, tile-shared depths
-    near_t = near.reshape(nt, tile).amin(dim=1, keepdim=True)
-    far_t = far.reshape(nt, tile).amax(dim=1, keepdim=True)
+    # coarse pass on every ray here, tile-shared depths
+    lo, hi = (0, nt) if shard is None else (shard.lo, shard.hi)
+    if hi == lo:
+        # more ranks than tiles: nothing renders here, but every rank takes
+        # part in the ranking's all-gather
+        shard.gather(rays_o.new_zeros((0,)), shard.counts)
+        return None, None, None, None
+    mine = slice(lo * tile, hi * tile)
+    ntl = hi - lo
+    gen_c = generator if shard is None else S.row_draws(generator, r, mine)
+    ro, rd = rays_o[mine], rays_d[mine]
+    vd = viewdirs[mine] if viewdirs is not None else None
+    near_t = near[mine].reshape(ntl, tile).amin(dim=1, keepdim=True)
+    far_t = far[mine].reshape(ntl, tile).amax(dim=1, keepdim=True)
     z_t = S.sample_z_vals(near_t, far_t, cfg.n_samples, cfg.lin_disp,
                           cfg.perturb,
-                          _uniform((nt, cfg.n_samples), generator,
-                                   rays_o.device, det))          # [nt, S]
+                          _uniform((ntl, cfg.n_samples), gen_c,
+                                   rays_o.device, det))          # [ntl, S]
     z_vals = z_t.repeat_interleave(tile, dim=0)
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    pts = _scatter(pts, z_vals, cone_angle, rays_d, cfg, bounding_box,
-                   generator, draws.get("scatter_u"))
-    raw_c = network_fn(pts, viewdirs)
-    coarse = integrate_fn(raw_c, z_vals, rays_d, raw_noise_std,
-                          _noise(raw_c, cfg, raw_noise_std, generator,
+    pts = ro[:, None, :] + rd[:, None, :] * z_vals[..., None]
+    pts = _scatter(pts, z_vals, cone_angle, rd, cfg, bounding_box,
+                   gen_c, draws.get("scatter_u"))
+    raw_c = network_fn(pts, vd)
+    coarse = integrate_fn(raw_c, z_vals, rd, raw_noise_std,
+                          _noise(raw_c, cfg, raw_noise_std, gen_c,
                                  draws.get("noise")))
     z_mids_t = 0.5 * (z_t[:, 1:] + z_t[:, :-1])
-    w_t = coarse.weights[..., 1:-1].detach().reshape(nt, tile, -1).mean(
-        dim=1)                                                   # [nt, S-2]
-    order = torch.argsort(-w_t.sum(dim=-1), stable=True)
+    w_t = coarse.weights[..., 1:-1].detach().reshape(ntl, tile, -1).mean(
+        dim=1)                                                  # [ntl, S-2]
+    mass = w_t.sum(dim=-1)
+    if shard is not None:
+        mass = shard.gather(mass, shard.counts)                  # [nt]
+    order = torch.argsort(-mass, stable=True)
     lanes = torch.arange(tile, device=rays_o.device)
 
-    def fine_class(tiles, n_imp, dr):
-        ridx = (tiles[:, None] * tile + lanes).reshape(-1)
+    def fine_class(tiles, n_imp, dr, gen):
+        tiles, ridx, gen = _class_rows(tiles, tile, shard, gen, lanes)
+        if tiles is None:
+            return None, None
+        own = tiles - lo                                  # rows of z_t, w_t
+        lrow = (own[:, None] * tile + lanes).reshape(-1)
         z_samples = S.sample_pdf(
-            z_mids_t[tiles], w_t[tiles], n_imp, det=det, generator=generator,
+            z_mids_t[own], w_t[own], n_imp, det=det, generator=gen,
             draws=dr.get("pdf_draws_fine")).repeat_interleave(tile, dim=0)
         z_all, raw_f, out = _fine_pass(
             network_fn, integrate_fn, rays_o[ridx], rays_d[ridx],
             viewdirs[ridx] if viewdirs is not None else None, cone_angle,
-            z_t[tiles].repeat_interleave(tile, dim=0), z_samples, cfg,
-            bounding_box, raw_noise_std, sp_alpha, generator, dr)
-        coarse_c = _map_fields(coarse, lambda f, x: x[ridx])
+            z_t[own].repeat_interleave(tile, dim=0), z_samples, cfg,
+            bounding_box, raw_noise_std, sp_alpha, gen, dr)
+        coarse_c = _map_fields(coarse, lambda f, x: x[lrow])
         return RenderResult(outputs=out, coarse=coarse_c,
                             raw=raw_f if cfg.return_raw else None,
                             z_vals=z_all), ridx
 
     res_d, idx_d = fine_class(order[:k_dense], cfg.n_importance,
-                              draws.get("dense", {}))
+                              draws.get("dense", {}), S.fork(generator, 1))
     res_s, idx_s = fine_class(order[k_dense:], sparse_importance,
-                              draws.get("sparse", {}))
+                              draws.get("sparse", {}), S.fork(generator, 2))
     return res_d, res_s, idx_d, idx_s
 
 

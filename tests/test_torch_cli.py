@@ -159,7 +159,6 @@ def test_train_from_a_colmap_workspace(colmap_dir, tmp_path):
 @pytest.mark.parametrize("argv,what", [
     (["train", "--dataset-type", "colmap", "--data-dir", "<jpeg capture>"],
      "colmap"),
-    (["render", "--n-devices", "2"], "n-devices 2"),
     (["bench"], "bench")])
 def test_what_is_not_ported_raises(argv, what, tmp_path, colmap_dir):
     # COLMAP captures of JPEG images: the port decodes PNG only

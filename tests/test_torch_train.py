@@ -43,6 +43,7 @@ from nerfpp_tpu_torch.encoders.sh import SHEncoder
 from nerfpp_tpu_torch.executor import NeRFExecutor
 from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
+from nerfpp_tpu_torch.parallel import mesh as mesh_utils
 from nerfpp_tpu_torch.render import renderer as TR
 from nerfpp_tpu_torch.utils import checkpoint as ckpt
 from nerfpp_tpu_torch.utils.png import write_png
@@ -641,11 +642,20 @@ def test_train_loop(tmp_path, capsys):
     # both refresh branches ran (full before step 4, phased after) and the
     # grid is no longer the uniform prior
     assert not torch.equal(ex.occupancy.density, torch.ones(16, 16, 16))
-    # the bbox refit is ported (tests/test_torch_refit.py), a device mesh
-    # is not (tests/test_torch_cli.py covers i_img and i_testset)
+    # the bbox refit is ported (tests/test_torch_refit.py;
+    # tests/test_torch_cli.py covers i_img and i_testset)
     ex.train(sc, TrainParams(**{**tp.__dict__, "bbox_refit_step": 5}))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ex.train(sc, tp, mesh=object())
+    # a device mesh of one rank (gloo) trains bitwise as no mesh, as the
+    # JAX step takes its plain path at one device (more ranks:
+    # tests/test_torch_parallel.py)
+    once = TrainParams(**{**tp.__dict__, "i_weights": 0})
+    plain, meshed = _tiny_port(), _tiny_port()
+    plain.train(sc, once)
+    with mesh_utils.one_rank("cpu") as mesh:
+        meshed.train(sc, once, mesh=mesh)
+    assert meshed.step == plain.step == 11
+    for k, v in plain.state_dict().items():
+        assert torch.equal(meshed.state_dict()[k], v), k
 
 
 def test_non_finite_loss_skips_the_update():
