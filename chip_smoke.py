@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --repeat-train K [--preset P] [--seed S]
     python3 chip_smoke.py --capture-only
+    python3 chip_smoke.py --options-only
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -149,6 +150,26 @@ Phases, each printing its own lines:
      on the flagship's gradient buffer, f32 and bf16, at one rank (NCCL)
      and two (gloo); (c) ``cli train --n-devices 1`` of hashnerf_preset()
      for 8 steps, only the large pair launching.
+ 19. the stack's remaining options: (a) a LeRF-only stack,
+     hashnerf_preset(use_nerf=False, use_lerf=True) at full width: a tiny
+     step GPU against CPU, ``cli train --set use_nerf=false --set
+     use_lerf=true`` on the bench scene's Blender export for 257 steps
+     (steps 128-255 timed, launch counts reset before and read after: only
+     the large pair; the language loss must fall; non-finite losses and
+     state tensors counted), 2 800x800 frames with relevancy (AUC, IoU@0.5
+     as phase 16), a 64x64 crop GPU against CPU, ``cli render`` of the
+     checkpoint; (b) the normals head on the flagship
+     (hashnerf_blocked_preset(..., use_pred_normal=True)), 64 steps from
+     seed 0 through NeRFExecutor.train with profile_dir: its losses and
+     shared state against phase 8's determinism run (bitwise predicted;
+     a miss is reported, not raised), the trace must name K1's, K2's and
+     K3's kernels, and its 800x800 frame must be bitwise the headless
+     state's; (c) NDC: render_ray_batch(focal=, hw=) forward and backward
+     on 4,096 forward-facing rays x (64 + 192) of hashnerf_preset(
+     hier_ray_tile=0, hier_tile_budget_frac=0.0) (only the large pair),
+     encode_large and the hashed gradient against their plain versions on
+     its fine pass's NDC points, 800x800 frames under TrainParams(ndc=True)
+     with and without c2w_staticcam, and 64x64 windows GPU against CPU.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
 phase 8's and phase 17's COLMAP training for K1-K3 (phase 17 adds its
@@ -169,7 +190,9 @@ run (the README's TrainParams(n_iters=2000) on the bench scene, steps
 it. Per run it prints the first step whose loss differs bitwise from run
 1's and the largest |table - run 1's table| after step 64; it ends with
 the same last line. ``--capture-only`` runs phases 1-2 and then phase 17
-alone (without phase 8's PSNR to print beside its own). Any failed check raises, and the script exits
+alone (without phase 8's PSNR to print beside its own); ``--options-only``
+phases 1-2 and phase 19, against a 64-step seed-0 flagship run of its own
+in place of phase 8's. Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
@@ -641,14 +664,16 @@ class Trainer:
         self.ex = ex
         self.sync = torch.cuda.synchronize
 
-    def run(self, n):
-        """Train the next n steps; returns their wall time (s)."""
+    def run(self, n, profile_dir=None):
+        """Train the next n steps (``profile_dir``: train's trace of steps
+        start + 9 to start + 20); returns their wall time (s)."""
         self.sync()
         t = time.perf_counter()
         self.ex.train(self.scene, self.tp, seed=self.seed,
                       sampler=self.sampler, steps=n, mesh=self.mesh,
                       progress_fn=lambda i, m: self.curve.append(
-                          (i, m["loss"], m["psnr"])))
+                          (i, m["loss"], m["psnr"])),
+                      profile_dir=profile_dir)
         self.sync()
         return time.perf_counter() - t
 
@@ -2584,6 +2609,454 @@ def dp_phase(scene, dev, record):
     log("dp", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def crop_k(k, x0, y0):
+    """Intrinsics of the window of a view whose top-left pixel is (x0, y0)."""
+    import numpy as np
+    kc = np.asarray(k, np.float32).copy()
+    kc[0, 2] -= x0
+    kc[1, 2] -= y0
+    return kc
+
+
+def crop_parity(label, fields, outs, tol=2e-3):
+    """Card against CPU on a 64x64 render: every field finite, its 99th
+    percentile of |gpu - cpu| within ``tol`` and its largest within 25 x
+    ``tol`` (phase 12's limits for a render of a stepped state: the
+    importance depths of near-empty bins move with the rounding)."""
+    import torch
+    for f in fields:
+        a = getattr(outs["cuda"], f).float().cpu()
+        b = getattr(outs["cpu"], f).float()
+        diff = (a - b).abs()
+        p99, mx = float(torch.quantile(diff.flatten(), 0.99)), float(
+            diff.max())
+        log("options", f"{label} 64x64 {f}: max |gpu - cpu| {mx:.3g}, p99 "
+            f"{p99:.3g} (limits {tol}, {25 * tol})")
+        if not (bool(torch.isfinite(a).all()) and p99 <= tol
+                and mx <= 25 * tol):
+            raise AssertionError(f"{label} 64x64 {f}: GPU vs CPU out of "
+                                 "tolerance")
+
+
+def cpu_copy(ex, prompts=None):
+    """An executor on the CPU holding ``ex``'s state (and prompts)."""
+    import dataclasses
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    cpu = NeRFExecutor(dataclasses.replace(ex.params, ft_path=""),
+                       device="cpu")
+    cpu.white_bkgr = ex.white_bkgr
+    cpu.initialize(ex.bounding_box, seed=SEED)
+    cpu.load_state({k: v.cpu() for k, v in ex.state_dict().items()})
+    if prompts is not None:
+        cpu.set_lerf_prompts(prompts[:1], prompts[1:])
+    return cpu
+
+
+def timed_frames(ex, view_args, tp, n, **kw):
+    """n frames of render_view, synchronised: (ms of each, last output,
+    launches, peak memory)."""
+    import torch
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ex.render_view(*view_args, tp, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out, launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def lerf_only_part(scene, dev):
+    """Phase 19 (a): a LeRF-only stack, hashnerf_preset(use_nerf=False,
+    use_lerf=True), at full width. A tiny step GPU against CPU, then ``cli
+    train`` on the bench scene's Blender export (NIters 258: steps 0-256,
+    128-255 timed), 2 800x800 frames with relevancy, a 64x64 crop GPU
+    against CPU, and ``cli render`` of the checkpoint. Returns the launch
+    counts of the training and the frames."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import cli
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_preset
+    from nerfpp_tpu_torch.data.blender import export_blender_scene
+    from nerfpp_tpu_torch.data.pyramid_clip import (
+        PyramidEmbedder, PyramidEmbedderProperties,
+        RandomProjectionPatchEncoder, make_device_pyramid)
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tiny_enc = RandomProjectionPatchEncoder(embed_dim=32, input_size=8)
+
+    def pyramid_of(sc, name):
+        emb = PyramidEmbedder(tiny_enc, PyramidEmbedderProperties(
+            img_size=8, overlap=0.5), device="cpu")(
+            sc.images[list(sc.split_indices("train"))])
+        return make_device_pyramid(emb, 0.5, device=name)
+
+    step_parity("lerf-only-parity", hashnerf_preset(
+        use_nerf=False, use_lerf=True, n_importance=16,
+        compute_dtype="float32", lang_embed_dim=32, n_levels_le=6,
+        log2_hashmap_size_le=12, finest_resolution_le=64), TrainParams(
+        n_samples=8, n_rand=512, chunk=512, n_iters=100), LARGE_KERNELS,
+        pyramid_of)
+    tmp = tempfile.TemporaryDirectory()
+    data, out = Path(tmp.name) / "blender", Path(tmp.name) / "out"
+    export_blender_scene(scene, data)
+    common = ["--dataset-type", "blender", "--data-dir", str(data),
+              "--preset", "hashnerf", "--base-dir", str(out),
+              "--set", "use_nerf=false", "--set", "use_lerf=true"]
+    run = CliTrain(["train", *common, "--set-train", "NIters=258",
+                    "--set-train", "IImg=0", "--set-train", "ITestset=0"],
+                   window=(128, 256))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train_s = run.run()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = run.loss()
+    ms, per_step = run.window_ms(LARGE_KERNELS)
+    ex = run.ex
+    bad = [k for k, v in ex.state_dict().items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    finite = np.isfinite(loss)
+    pe = ex.params
+    log("options", f"(a) LeRF-only cli train (hashnerf_preset(use_nerf="
+        f"False, use_lerf=True): {pe.n_levels_le} x "
+        f"2^{pe.log2_hashmap_size_le} language table, E = "
+        f"{pe.lang_embed_dim}, TrainParams(): NRand 4,096, 64 + 192 "
+        f"samples): {loss.size} steps in {train_s:.1f} s "
+        f"(pyramid built and cached in it); steps 128-255: {ms:.3f} ms/step, "
+        f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+        + f"; steps 0-{loss.size - 1}: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("options", f"(a) non-finite: {int((~finite).sum())} of {loss.size} "
+        f"step losses, {len(bad)} state tensors ({bad[:4]}); language loss "
+        "every 32 steps: " + " ".join(f"({i}, {loss[i]:.5f})"
+                                      for i in range(0, loss.size, 32)))
+    first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+    log("options", f"(a) language loss {first:.5f} (steps 0-31) -> "
+        f"{last:.5f} (last 32)")
+    if not (loss.size == 257 and math.isfinite(last) and last < first):
+        raise AssertionError(f"LeRF-only cli train: {loss.size} steps, "
+                             f"language loss {first} -> {last}")
+    for name in LARGE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by LeRF-only "
+                                 "training")
+    if any(v for k, v in counts.items() if k not in LARGE_KERNELS):
+        raise AssertionError(f"LeRF-only training launched {counts}")
+
+    # two 800x800 frames with relevancy, a 64x64 crop GPU against CPU
+    stub = RandomProjectionPatchEncoder(embed_dim=ex.params.lang_embed_dim)
+    prompts = flat_patches(stub, (BLUE, RED, (0, 0, 0)), 336)
+    ex.set_lerf_prompts(prompts[:1], prompts[1:])
+    view = scene.views[list(scene.split_indices("test"))[0]]
+    serve_tp = TrainParams()
+    frame_ms, res, serve, fpeak = timed_frames(
+        ex, (view.pose, view.h, view.w, view.k), serve_tp, 2)
+    if set(res) != {"lerf"}:
+        raise AssertionError(f"LeRF-only render_view returned {set(res)}")
+    rel = res["lerf"].relevancy
+    if (tuple(rel.shape) != (view.h, view.w, 1)
+            or not bool(torch.isfinite(rel).all())
+            or not float(rel.std()) > 0):
+        raise AssertionError(f"LeRF-only relevancy: shape "
+                             f"{tuple(rel.shape)}, std {float(rel.std())}")
+    if serve["encode_large"] == 0 or any(
+            v for k, v in serve.items() if k != "encode_large"):
+        raise AssertionError(f"LeRF-only frame launches {serve}")
+    mask = np.linalg.norm(np.asarray(scene.images[view.id])
+                          - np.asarray(BLUE, np.float32), axis=-1) < 0.25
+    auc, iou = auc_iou(rel[..., 0].cpu().numpy(), mask)
+    log("options", f"(a) {view.h}x{view.w} frames with relevancy "
+        f"(TrainParams(): 64 + 192, LeRF parts of "
+        f"{ex._lerf_max_rays(ex.make_render_config(serve_tp, False))} rays)"
+        f" ms {[round(t, 3) for t in frame_ms]}; launches per frame: "
+        f"encode_large {serve['encode_large'] / 2:.2f}; peak memory {fpeak} "
+        f"bytes ({fpeak / 2**30:.2f} GiB); relevancy range "
+        f"[{float(rel.min()):.4f}, {float(rel.max()):.4f}], AUC {auc:.4f}, "
+        f"IoU@0.5 {iou:.4f} (test view {view.id}, blue prim against red "
+        "and black)")
+    kc = crop_k(view.k, 368, 368)
+    outs = {"cuda": ex.render_view(view.pose, 64, 64, kc, serve_tp,
+                                   torch.Generator().manual_seed(SEED))}
+    outs["cpu"] = cpu_copy(ex, prompts).render_view(
+        view.pose, 64, 64, kc, serve_tp,
+        torch.Generator().manual_seed(SEED))
+    outs = {k: v["lerf"] for k, v in outs.items()}
+    crop_parity("(a) LeRF-only crop (368, 368)",
+                ("rendered_lang_embedding", "acc", "depth", "relevancy"),
+                outs)
+    del res, rel, outs
+
+    # cli render of the checkpoint (no prompts, as the JAX CLI: no PNG)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["render", *common])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rc = launch_counts()
+    written = sorted(q.name for q in (out / "renders").iterdir())
+    if written or rc["encode_large"] == 0 or any(
+            v for k, v in rc.items() if k != "encode_large"):
+        raise AssertionError(f"LeRF-only cli render: wrote {written}, "
+                             f"launches {rc}")
+    log("options", f"(a) cli render of step_{ex.step}: the test "
+        f"split in {render_s:.1f} s, no PNG written (no prompts); "
+        f"launches encode_large {rc['encode_large']}")
+    del run, ex
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {k: counts[k] + serve[k] for k in LARGE_KERNELS}
+
+
+def trace_kernels(path):
+    """The kernel events of a torch.profiler Chrome trace: (names, count,
+    summed duration ms, span ms of the kernels)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    ks = [e for e in events if e.get("cat") == "kernel"]
+    if not ks:
+        return set(), 0, 0.0, 0.0
+    busy = sum(float(e.get("dur", 0.0)) for e in ks) / 1e3
+    span = (max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in ks)
+            - min(float(e["ts"]) for e in ks)) / 1e3
+    return {e["name"] for e in ks}, len(ks), busy, span
+
+
+def normals_part(scene, dev, reference):
+    """Phase 19 (b): the flagship with the normals head,
+    hashnerf_blocked_preset(n_importance=0, use_occupancy_grid=True,
+    use_pred_normal=True), 64 steps from seed 0 through
+    NeRFExecutor.train with profile_dir: its losses and shared state
+    against ``reference`` (phase 8's determinism run: loss bits, host
+    state), the trace's kernels; one 800x800 frame against the headless
+    state's, bitwise. Returns the launch counts of the 64 steps."""
+    import torch
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_blocked_preset
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tmp = tempfile.TemporaryDirectory()
+    prof = Path(tmp.name) / "trace"
+    kw = dict(n_importance=0, use_occupancy_grid=True, occ_update_every=32)
+    f = Trainer(scene, dev, SEED, "flagship",
+                p=hashnerf_blocked_preset(use_pred_normal=True, **kw))
+    reset_launch_counts()
+    secs = f.run(64, profile_dir=str(prof))
+    counts = launch_counts()
+    bits, st = f.loss_bits(), state_of(f.ex)
+    ref_bits, ref_state = reference
+    step = first_difference(bits, ref_bits)
+    differ = [k for k in ref_state if not torch.equal(st[k].cpu(),
+                                                      ref_state[k])]
+    head = sorted(k for k in st if "normals_net" in k)
+    log("options", f"(b) normals head, 64 steps from seed {SEED} with "
+        f"profile_dir in {secs:.2f} s: launches "
+        + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+        + f"; against phase 8's headless determinism run: first differing "
+        f"loss step {step}; of {len(ref_state)} shared state tensors "
+        f"{len(differ)} differ {differ[:6]}; {len(head)} head tensors "
+        f"(params and moments) beside them")
+    if step is not None and step < min(bits.numel(), ref_bits.numel()):
+        a, b = (x[step:step + 1].view(torch.float32) for x in (bits,
+                                                               ref_bits))
+        log("options", f"(b) the bitwise prediction missed: first loss "
+            f"difference at step {step}: {float(a)} against {float(b)}")
+    for name in TRAIN_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched with the normals "
+                                 "head")
+    trace = prof / "trace.json"
+    names, n_k, busy, span = trace_kernels(trace)
+    want = ("window_lists_kernel", "encode_blocked_kernel",
+            "grad_index_kernel", "grad_owner_kernel")
+    seen = {w: sum(w in n for n in names) for w in want}
+    log("options", f"(b) trace {trace.name}: {trace.stat().st_size} bytes, "
+        f"{n_k} kernel events of {len(names)} names over {span:.3f} ms "
+        f"(kernels busy {busy:.3f} ms, steps 9-19 and the synchronise); "
+        f"names holding " + ", ".join(f"{k} {v}" for k, v in seen.items()))
+    if not all(seen.values()):
+        raise AssertionError(f"the trace names none of "
+                             f"{[k for k, v in seen.items() if not v]}")
+
+    # one 800x800 frame with the head and one of the headless state
+    ex = f.ex
+    bare = NeRFExecutor(hashnerf_blocked_preset(**kw), device=dev)
+    bare.white_bkgr = ex.white_bkgr
+    bare.initialize(ex.bounding_box, seed=SEED)
+    bare.load_state({k: v for k, v in ex.state_dict().items()
+                     if "normals_net" not in k})
+    view = scene.views[list(scene.split_indices("test"))[0]]
+    tp = TrainParams(n_samples=64, chunk=65536)
+    args = (view.pose, view.h, view.w, view.k)
+    ms_h, out_h, c_h, _ = timed_frames(ex, args, tp, 2)
+    ms_b, out_b, _, _ = timed_frames(bare, args, tp, 2)
+    same = all(torch.equal(getattr(out_h["nerf"], x),
+                           getattr(out_b["nerf"], x))
+               for x in ("rgb", "depth", "acc"))
+    log("options", f"(b) 800x800 frames (phase 5's TrainParams(n_samples="
+        f"64, chunk=65536), auto budget, test view {view.id}): with the "
+        f"head ms {[round(t, 3) for t in ms_h]}, headless "
+        f"{[round(t, 3) for t in ms_b]}; launches per frame "
+        + ", ".join(f"{k} {c_h[k] / 2:.2f}" for k in SERVE_KERNELS)
+        + f"; rgb, depth and acc bitwise the headless frame's: {same}")
+    if not same:
+        raise AssertionError("the normals head changed the rendered frame")
+    f.tmp.cleanup()
+    tmp.cleanup()
+    del f, ex, bare, out_h, out_b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ndc_part(dev):
+    """Phase 19 (c): NDC rays, hashnerf_preset(hier_ray_tile=0,
+    hier_tile_budget_frac=0.0) at full width (16 x 2^19 f32) with a seeded
+    table of |values| <= 0.25: one render_ray_batch(focal=, hw=) forward and
+    backward on 4,096 forward-facing rays x (64 + 192); encode_large and
+    the hashed gradient against their plain versions on its fine pass's
+    NDC points; render_view at 800x800 under TrainParams(ndc=True) with
+    and without c2w_staticcam; a 64x64 window GPU against CPU. Returns the
+    launch counts of the batch and the frames."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.config import TrainParams, hashnerf_preset
+    from nerfpp_tpu_torch.core import rays as R
+    from nerfpp_tpu_torch.executor import NeRFExecutor
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.render import renderer as TR
+    p = hashnerf_preset(hier_ray_tile=0, hier_tile_budget_frac=0.0)
+    ex = NeRFExecutor(p, device=dev).initialize(BBOX, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 19)
+    with torch.no_grad():
+        ex.embedder.table.copy_(
+            ((torch.rand(ex.embedder.table.shape, generator=gen) * 2 - 1)
+             * 0.25).to(dev))
+    k, _ = camera(800)
+    pose = np.eye(4, dtype=np.float32)            # forward-facing, down -z
+    pose[2, 3] = 0.5
+    static = pose.copy()
+    c, s = math.cos(math.radians(10.0)), math.sin(math.radians(10.0))
+    static[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    static[0, 3] = 0.1
+    tp = TrainParams(ndc=True)
+    cfg = ex.make_render_config(tp, train=False, return_weights=True)
+    sel = torch.randperm(800 * 800, generator=gen)[:4096]
+    kt, pt = torch.tensor(k, device=dev), torch.tensor(pose, device=dev)
+    ro, rd, cone = R.get_ray_batch((sel % 800).to(dev), (sel // 800).to(dev),
+                                   kt, pt)
+    seen = []
+
+    def embed(x):
+        seen.append(x.detach())
+        return ex.embedder(x)
+
+    net = TR.make_nerf_network_fn(embed, ex.embeddirs, ex.model)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = TR.render_ray_batch(
+        net, TR.make_nerf_integrate_fn(cfg), ro, rd, cone, cfg,
+        ex._tensor(BBOX), generator=torch.Generator(device=dev).manual_seed(
+            SEED), focal=float(k[0, 0]), hw=(800, 800))
+    res.outputs.rgb.sum().backward()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    fine = seen[-1]
+    lo, hi = fine.amin(0).tolist(), fine.amax(0).tolist()
+    log("options", f"(c) NDC render_ray_batch forward and backward, 4,096 "
+        f"forward-facing rays x ({cfg.n_samples} + {cfg.n_importance}) in "
+        f"{batch_ms:.3f} ms (first call); launches "
+        + ", ".join(f"{k_} {counts[k_]}" for k_ in LARGE_KERNELS)
+        + f"; acc mean {float(res.outputs.acc.detach().mean()):.4f}; "
+        f"fine-pass NDC "
+        f"points {tuple(fine.shape)} in [{', '.join(f'{v:.3f}' for v in lo)}]"
+        f" .. [{', '.join(f'{v:.3f}' for v in hi)}]")
+    if not bool(torch.isfinite(res.outputs.rgb).all()) or 0 in [
+            counts[k_] for k_ in LARGE_KERNELS] or any(
+            v for k_, v in counts.items() if k_ not in LARGE_KERNELS):
+        raise AssertionError(f"NDC batch: launches {counts} or non-finite "
+                             "rgb")
+    del res, seen
+    ex.embedder.table.grad = None
+    table = ex.embedder.table.detach()
+    stats = {"encode_large": large_kernel_phase(ex.embedder, table, fine,
+                                                "NDC fine pass")}
+    stats.update(large_grad_phase(ex.embedder, fine, "NDC fine pass"))
+    for name, v in stats.items():
+        log("options", f"(c) {name} on the NDC fine pass "
+            f"({ex.embedder.n_levels} x 2^{p.log2_hashmap_size}, "
+            f"{ex.embedder.scheme} scheme), 4,096 rays x 256: "
+            + json.dumps(v))
+    del fine
+    torch.cuda.empty_cache()
+
+    # 800x800 frames under NDC, with and without c2w_staticcam
+    frames = {}
+    serve = {k_: 0 for k_ in LARGE_KERNELS}
+    for name, kw, n in (("plain", {}, 2),
+                        ("staticcam", {"c2w_staticcam": static}, 1)):
+        ms, out, c_, peak = timed_frames(ex, (pose, 800, 800, k), tp, n,
+                                         **kw)
+        res = out["nerf"]
+        if tuple(res.rgb.shape) != (800, 800, 3) or not bool(
+                torch.isfinite(res.rgb).all()):
+            raise AssertionError(f"NDC frame ({name}): shape or values")
+        if c_["encode_large"] == 0 or any(
+                v for k_, v in c_.items() if k_ != "encode_large"):
+            raise AssertionError(f"NDC frame launches {c_}")
+        serve["encode_large"] += c_["encode_large"]
+        frames[name] = res.rgb
+        log("options", f"(c) NDC 800x800 frame ({name}; TrainParams(ndc="
+            f"True): 64 + 192, chunk 32,768) ms {[round(t, 3) for t in ms]}"
+            f"; launches per frame encode_large {c_['encode_large'] / n:.2f};"
+            f" peak memory {peak} bytes ({peak / 2**30:.2f} GiB); rgb mean "
+            f"{float(res.rgb.mean()):.4f}, acc mean "
+            f"{float(res.acc.mean()):.4f}")
+    if torch.equal(frames["plain"], frames["staticcam"]):
+        raise AssertionError("c2w_staticcam did not change the NDC frame")
+    kc = crop_k(k, 368, 368)
+    cpu = cpu_copy(ex)
+    for name, kw in (("plain", {}), ("staticcam", {"c2w_staticcam": static})):
+        outs = {"cuda": ex.render_view(pose, 64, 64, kc, tp,
+                                       torch.Generator().manual_seed(SEED),
+                                       **kw)["nerf"],
+                "cpu": cpu.render_view(pose, 64, 64, kc, tp,
+                                       torch.Generator().manual_seed(SEED),
+                                       **kw)["nerf"]}
+        crop_parity(f"(c) NDC window (368, 368) {name}",
+                    ("rgb", "acc", "depth"), outs)
+    del ex, cpu, frames
+    torch.cuda.empty_cache()
+    return {k_: counts[k_] + serve[k_] for k_ in LARGE_KERNELS}
+
+
+def options_phase(scene, dev, reference):
+    """Phase 19: the JAX stack's remaining options. (a) a LeRF-only stack
+    at full width, (b) the normals head with train(profile_dir=), (c) NDC
+    rays and c2w_staticcam. ``reference``: phase 8's determinism run (loss
+    bits, host state) for (b)'s bitwise check."""
+    t0 = time.perf_counter()
+    a = lerf_only_part(scene, dev)
+    log("options", f"(a) took {time.perf_counter() - t0:.1f} s; launches "
+        "(training and frames) " + ", ".join(f"{k} {v}" for k, v in a.items()))
+    t1 = time.perf_counter()
+    b = normals_part(scene, dev, reference)
+    log("options", f"(b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    c = ndc_part(dev)
+    log("options", f"(c) took {time.perf_counter() - t1:.1f} s; launches "
+        "(batch and frames) " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    log("options", f"phase 19 took {time.perf_counter() - t0:.1f} s; "
+        f"launches on its paths: LeRF-only "
+        + ", ".join(f"{k} {v}" for k, v in a.items()) + "; normals head "
+        + ", ".join(f"{k} {b[k]}" for k in TRAIN_KERNELS) + "; NDC "
+        + ", ".join(f"{k} {v}" for k, v in c.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
@@ -2598,6 +3071,9 @@ def main(argv=None) -> int:
                     help="the seed of --repeat-train's runs (default 0)")
     ap.add_argument("--capture-only", action="store_true",
                     help="only phases 1-2, then phase 17 (real capture)")
+    ap.add_argument("--options-only", action="store_true",
+                    help="only phases 1-2, then phase 19 (stack options) "
+                    "against a 64-step flagship run of its own")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2647,6 +3123,17 @@ def main(argv=None) -> int:
     if args.capture_only:
         capture_phase(bench_scene(dev), dev, None)
         log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
+        print(last_line, flush=True)
+        return 0
+
+    if args.options_only:
+        scene = bench_scene(dev)
+        ref = Trainer(scene, dev, SEED)
+        ref.run(64)
+        options_phase(scene, dev, (ref.loss_bits(), {
+            k: v.cpu() for k, v in state_of(ref.ex).items()}))
+        ref.tmp.cleanup()
+        log("options", f"total run {time.perf_counter() - t_start:.1f} s")
         print(last_line, flush=True)
         return 0
 
@@ -2813,6 +3300,11 @@ def main(argv=None) -> int:
     dp_phase(scene, dev, record)
     dp_dir.cleanup()
     log("dp", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 19. the stack's remaining options: LeRF-only, the normals head with
+    # the train loop's trace, NDC rays (their launches are printed there)
+    options_phase(scene, dev, record["run"])
+    log("options", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

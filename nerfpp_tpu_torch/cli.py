@@ -34,7 +34,9 @@ training views (a local CLIP checkpoint at ``path_to_clip``, else the
 deterministic stand-in encoder; cached as pyramid_embeddings.npz) and sets
 the prompts ``lerf_positives`` / ``lerf_negatives``, so its test-split
 renders write relevancy_{i}.png. ``render`` sets no prompts, as the JAX
-package's does: it writes no relevancy PNG.
+package's does: it writes no relevancy PNG. ``--set use_nerf=false --set
+use_lerf=true`` trains and renders the language field alone (a LeRF-only
+stack: no rgb, disparity or depth PNGs).
 """
 from __future__ import annotations
 

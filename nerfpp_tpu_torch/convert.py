@@ -5,7 +5,8 @@ state's ``params`` pytree as numpy, for NeRFSmall
 
     {"embed": {"table": [L * 2^T, 2]},
      "model": {"sigma_net": [{"w": [in, out]}, ...],
-               "color_net": [{"w": [in, out]}, ...]}}
+               "color_net": [{"w": [in, out]}, ...],
+               "normals_net": [{"w": [in, out]}, ...]}}   (the normals head)
 
 and for the classic NeRFMLP (the frequency encoder has no parameters)
 
@@ -14,7 +15,8 @@ and for the classic NeRFMLP (the frequency encoder has no parameters)
                "views_linears": [...], "feature_linear": {"w", "b"},
                "alpha_linear": ..., "rgb_linear": ...}}   (or "output_linear")
 
-with, for LeRF, the language table and field beside them
+with, for LeRF, the language table and field beside them (or alone, for a
+LeRF-only stack)
 
     {"lang_embed": {"table": [L_le * 2^T_le, 2]},
      "lang_model": {"sigma_le_net": [{"w": [in, out]}, ...],
@@ -56,11 +58,8 @@ def _port_names(tree: dict, dev) -> Dict[str, torch.Tensor]:
                                  "LeRF field is bias-free")
             out[f"lang_model.{net}.layers.{i}.weight"] = t(
                 np.asarray(layer["w"]).T).contiguous()
-    model = tree.get("model", {})
-    if "normals_net" in model:
-        raise NotImplementedError("the normals head is not ported yet")
-    for net, layers in model.items():
-        small = net in ("sigma_net", "color_net")       # NeRFSmall
+    for net, layers in tree.get("model", {}).items():
+        small = net in ("sigma_net", "color_net", "normals_net")  # NeRFSmall
         listed = isinstance(layers, (list, tuple))
         for i, layer in enumerate(layers if listed else [layers]):
             if small and "b" in layer:

@@ -51,6 +51,35 @@ def get_rays(h: int, w: int, k: torch.Tensor, c2w: torch.Tensor):
     return rays_o, rays_d, cone_angle_of(k)
 
 
+def ndc_rays(h: int, w: int, focal: float, near: float,
+             rays_o: torch.Tensor, rays_d: torch.Tensor, cone_angle=None):
+    """Project rays into normalized device coordinates (forward-facing
+    scenes): the origins moved to the plane z = -near, then both mapped into
+    NDC for an h x w image of the given focal. A cone angle (None in thin-ray
+    mode) is rescaled per ray by the ratio of the NDC direction's norm to
+    the original's: -> [..., 1]. Returns (origins, directions, cone angle)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (w / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (h / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (w / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2]
+                                       - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (h / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2]
+                                       - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    new_o = torch.stack([o0, o1, o2], dim=-1)
+    new_d = torch.stack([d0, d1, d2], dim=-1)
+    if cone_angle is not None:
+        scale = (torch.sqrt(d0 ** 2 + d1 ** 2 + d2 ** 2)
+                 / torch.linalg.norm(rays_d, dim=-1))
+        cone_angle = cone_angle * scale[..., None]
+    return new_o, new_d, cone_angle
+
+
 def intersect_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
                    bounding_box: torch.Tensor, near_plane: float = 0.0):
     """Per-ray (near, far) from slab intersection with the box [6]; the

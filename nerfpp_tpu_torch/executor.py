@@ -47,8 +47,15 @@ gradient all-reduce (``dp_grad_reduce``), ``train`` with rank 0 alone
 writing, and view-parallel ``render_views`` / ``render_path`` /
 ``render_test_split``.
 
-A LeRF-only stack and the normals head belong to later slices of the port
-and raise NotImplementedError.
+A LeRF-only stack (``use_nerf=False, use_lerf=True``): the language table
+and field alone, one Adam over them and no occupancy grid; the step's loss
+is the language term alone, serving returns ``"lerf"`` alone. The normals
+head (``use_pred_normal``, coarse-only nets) is built and trained like the
+JAX package's: no loss reads it, and it draws its weights after every
+other parameter. NDC rays (``TrainParams.ndc``) serve through
+``render_view[s]`` / ``render_path``; the train step refuses them (the
+JAX step passes no focal). ``train(profile_dir=)`` traces steps
+start + 9 to start + 20 with utils/profiling.py.
 """
 from __future__ import annotations
 
@@ -93,6 +100,7 @@ from nerfpp_tpu_torch.utils import checkpoint as ckpt
 from nerfpp_tpu_torch.utils.colormap import apply_jet
 from nerfpp_tpu_torch.utils.metrics import MetricsWriter
 from nerfpp_tpu_torch.utils.png import write_png
+from nerfpp_tpu_torch.utils.profiling import trace
 
 
 # a LeRF serving chunk renders in parts whose [rays, samples, E + 1] f32
@@ -162,12 +170,14 @@ class NeRFExecutor:
                            compute_dtype=p.compute_dtype, device=self.device)
         if p.model_type != "nerf_small":
             raise ValueError(f"unknown model_type {p.model_type!r}")
+        # the normals head only in a coarse-only net, as in the JAX package
         return NeRFSmall(
             p.net_depth, p.net_width, p.geo_feat_dim, p.num_layers_color,
             p.hidden_dim_color, (p.n_importance == 0) and p.use_pred_normal,
             input_ch=input_ch, input_ch_views=input_ch_views,
             compute_dtype=p.compute_dtype, init_gain=p.mlp_init_gain,
-            device=self.device)
+            device=self.device, num_layers_normals=p.num_layers_normals,
+            hidden_dim_normals=p.hidden_dim_normals)
 
     def _build_lang_embedder(self, bounding_box: np.ndarray):
         """The language hash grid (random primes from seed 1; the blocked
@@ -193,31 +203,28 @@ class NeRFExecutor:
     def initialize(self, bounding_box, lrate_decay: int = 250,
                    seed: int = 0) -> "NeRFExecutor":
         """Build the stack and draw its parameters from ``seed`` (on a CPU
-        generator, so every device gets the same weights: the NeRF table and
-        field, then the language table and field); one Adam over every
-        parameter (lr decaying by 0.1 every lrate_decay * 1000 steps); the
-        occupancy grid starts uniform. Restores the latest checkpoint under
-        ``ft_path`` when there is one."""
+        generator, so every device gets the same weights; ``_reset_params``
+        gives the order); one Adam over every parameter (lr decaying by 0.1
+        every lrate_decay * 1000 steps); the occupancy grid (NeRF stacks)
+        starts uniform. Restores the latest checkpoint under ``ft_path``
+        when there is one."""
         p = self.params
-        if not p.use_nerf:
-            if p.use_lerf:
-                raise _not_ported("a LeRF-only stack (use_nerf=False)")
-            raise ValueError("nothing to build: use_nerf is False")
+        if not (p.use_nerf or p.use_lerf):
+            raise ValueError("nothing to build: use_nerf and use_lerf are "
+                             "both False")
         self.bounding_box = np.asarray(bounding_box, np.float32).reshape(6)
-        gen = torch.Generator().manual_seed(seed)
-        self.embedder = self._build_embedder(self.bounding_box)
-        self._reset_embedder(gen)
-        input_ch_views = 0
-        if p.use_viewdirs:
-            self.embeddirs = self._build_embeddirs()
-            input_ch_views = self.embeddirs.output_dims
-        self.model = self._build_model(self.embedder.output_dims,
-                                       input_ch_views)
-        self.model.reset_parameters(gen)
+        if p.use_nerf:
+            self.embedder = self._build_embedder(self.bounding_box)
+            input_ch_views = 0
+            if p.use_viewdirs:
+                self.embeddirs = self._build_embeddirs()
+                input_ch_views = self.embeddirs.output_dims
+            self.model = self._build_model(self.embedder.output_dims,
+                                           input_ch_views)
         if p.use_lerf:
             self._build_lerf(self.bounding_box)
-            self._reset_lerf(gen)
-        if p.use_occupancy_grid:
+        self._reset_params(torch.Generator().manual_seed(seed))
+        if p.use_nerf and p.use_occupancy_grid:
             self.occupancy = make_occupancy_grid(p.occ_grid_resolution,
                                                  self.device)
         self.optimizer = Adam(self.named_parameters(), p.learning_rate,
@@ -239,15 +246,11 @@ class NeRFExecutor:
         fresh tables and MLPs drawn as ``initialize`` draws them from
         ``seed``, a fresh Adam, a uniform occupancy grid, step 0; the same
         encoders and bbox."""
-        gen = torch.Generator().manual_seed(seed)
-        self._reset_embedder(gen)
-        self.model.reset_parameters(gen)
-        if self.lang_model is not None:
-            self._reset_lerf(gen)
+        self._reset_params(torch.Generator().manual_seed(seed))
         opt = self.optimizer
         self.optimizer = Adam(self.named_parameters(), opt.lr,
                               opt.decay_steps)
-        if self.params.use_occupancy_grid:
+        if self.occupancy is not None:
             self.occupancy = make_occupancy_grid(
                 self.params.occ_grid_resolution, self.device)
         self.step = 0
@@ -289,7 +292,8 @@ class NeRFExecutor:
             return False
         new_box = np.concatenate([lo, hi]).astype(np.float32)
         self.bounding_box = new_box
-        self.embedder = self._build_embedder(new_box)
+        if self.params.use_nerf:
+            self.embedder = self._build_embedder(new_box)
         if self.lang_embedder is not None:
             self.lang_embedder = self._build_lang_embedder(new_box)
         self._reinit_position_state(seed)
@@ -321,6 +325,18 @@ class NeRFExecutor:
                 self.params.occ_grid_resolution, self.device)
         self._auto_frac_cache = {}
 
+    def _reset_params(self, gen: torch.Generator) -> None:
+        """Draw every parameter from ``gen``: the NeRF table and field, the
+        language table and field, and last the normals head, so that a seed
+        gives every other parameter the same weights with and without it."""
+        if self.model is not None:
+            self._reset_embedder(gen)
+            self.model.reset_parameters(gen)
+        if self.lang_model is not None:
+            self._reset_lerf(gen)
+        if isinstance(self.model, NeRFSmall):
+            self.model.reset_normals(gen)
+
     def _reset_embedder(self, gen: torch.Generator) -> None:
         # the frequency encoder has no parameters
         if isinstance(self.embedder, torch.nn.Module):
@@ -336,11 +352,10 @@ class NeRFExecutor:
         ..., for LeRF ``lang_embed.table`` and
         ``lang_model.<net>.layers.<i>.weight``)."""
         out = {}
-        if isinstance(self.embedder, torch.nn.Module):
-            out = {f"embed.{k}": v
-                   for k, v in self.embedder.named_parameters()}
-        out.update({f"model.{k}": v for k, v in self.model.named_parameters()})
-        for head, mod in (("lang_embed", self.lang_embedder),
+        embedder = (self.embedder
+                    if isinstance(self.embedder, torch.nn.Module) else None)
+        for head, mod in (("embed", embedder), ("model", self.model),
+                          ("lang_embed", self.lang_embedder),
                           ("lang_model", self.lang_model)):
             if mod is not None:
                 out.update({f"{head}.{k}": v
@@ -386,16 +401,14 @@ class NeRFExecutor:
             else:
                 head, rest = key.split(".", 1)
                 sub[head][rest] = v
-        if sub["embed"]:
-            self.embedder.load_state_dict(sub["embed"])
-        if sub["model"]:
-            self.model.load_state_dict(sub["model"])
-        for head, mod in (("lang_embed", self.lang_embedder),
-                          ("lang_model", self.lang_model)):
+        for head, mod, flag in (("embed", self.embedder, "use_nerf"),
+                                ("model", self.model, "use_nerf"),
+                                ("lang_embed", self.lang_embedder,
+                                 "use_lerf"),
+                                ("lang_model", self.lang_model, "use_lerf")):
             if sub[head]:
                 if mod is None:
-                    raise ValueError(f"state has {head}.* but use_lerf is "
-                                     "off")
+                    raise ValueError(f"state has {head}.* but {flag} is off")
                 mod.load_state_dict(sub[head])
         self._auto_frac_cache = {}
 
@@ -507,8 +520,19 @@ class NeRFExecutor:
         size on every rank, LeRF's finite-ray count is summed before the
         language gradients are divided by it, the loss sums and metrics
         are summed in f32, and every rank applies the same summed gradient
-        (so the replicas stay equal). At one rank the plain step runs."""
+        (so the replicas stay equal). At one rank the plain step runs.
+
+        A LeRF-only stack renders the language branch alone: its loss is
+        the language term, and its metrics are ``loss`` and ``lang_loss``.
+        NDC rays (``tp.ndc``) raise ValueError, where the JAX step fails
+        for want of a focal."""
         p = self.params
+        if tp.ndc:
+            raise ValueError(
+                "NDC training is not supported: the reference's train step "
+                "passes no focal or image size to render_ray_batch, so NDC "
+                "rays train only through render_ray_batch(focal=, hw=) "
+                "called directly")
         cfg = self.make_render_config(tp, train=True, return_weights=True)
         chunk = min(tp.chunk, tp.n_rand)
         n_chunks = -(-tp.n_rand // chunk)
@@ -529,7 +553,8 @@ class NeRFExecutor:
             mesh = None
         expl = mesh is not None and p.dp_grad_reduce != "implicit" \
             and n_chunks % world == 0
-        use_occ = p.use_occupancy_grid
+        use_nerf = p.use_nerf
+        use_occ = use_nerf and p.use_occupancy_grid
         occ_every = p.occ_update_every
         use_budget = (use_occ and p.occ_tile_budget_frac > 0.0
                       and cfg.occ_ray_tile > 0
@@ -537,7 +562,7 @@ class NeRFExecutor:
                       and chunk // cfg.occ_ray_tile >= 2)
         # the hierarchical analog: the fine pass's budget ranked by the
         # coarse pass's own tile-mean weight mass (no occupancy grid)
-        use_hier_budget = (not use_occ and not use_budget
+        use_hier_budget = (use_nerf and not use_occ and not use_budget
                            and p.hier_tile_budget_frac > 0.0
                            and cfg.hier_ray_tile > 0
                            and cfg.n_importance > 0
@@ -545,11 +570,14 @@ class NeRFExecutor:
                            and chunk // cfg.hier_ray_tile >= 2)
         warm = (p.occ_tile_budget_warmup if use_budget
                 else p.hier_budget_warmup if use_hier_budget else 0)
-        use_tv = p.embedder_type == "hash" and p.hash_scheme == "fixed"
+        use_tv = (use_nerf and p.embedder_type == "hash"
+                  and p.hash_scheme == "fixed")
         use_lerf = p.use_lerf
-        network_fn = self._nerf_fns()
-        integrate_fn = make_nerf_integrate_fn(cfg)
-        sigma_fn = self._sigma_grid_fn()
+        if use_nerf:
+            network_fn = self._nerf_fns()
+            integrate_fn = make_nerf_integrate_fn(cfg)
+        if use_occ:
+            sigma_fn = self._sigma_grid_fn()
         bbox = self._tensor(self.bounding_box)
         params = self.named_parameters()
         embedder = self.embedder
@@ -568,7 +596,7 @@ class NeRFExecutor:
             # the implicit path: every tile size a render of the chunk
             # shares depths over, and the 8x16 pixel tiles where they fit
             unit = 1
-            nerf_occ = cfg.n_occ_bins > 0
+            nerf_occ = use_occ and cfg.n_occ_bins > 0
             for t in (cfg.occ_ray_tile if nerf_occ else 0,
                       cfg.hier_ray_tile if not nerf_occ or use_lerf else 0,
                       128):
@@ -717,8 +745,10 @@ class NeRFExecutor:
                       for k, v in batch.items()}
                 if shards is not None:
                     mesh_utils.shard_rays(cb, mesh)         # the row check
-                sums = chunk_sums(cb, step, raw_noise_std, sp_alpha,
-                                  fork(generator, step, c, 0))
+                sums = None
+                if use_nerf:
+                    sums = chunk_sums(cb, step, raw_noise_std, sp_alpha,
+                                      fork(generator, step, c, 0))
                 if sums is not None:
                     (sums[1] / n_pix).backward()
                     total = total + sums.detach()
@@ -732,6 +762,7 @@ class NeRFExecutor:
                 # the step's sums over every rank, in f32
                 stats = mesh.all_reduce(torch.cat([total, lang]))
                 total, lang = stats[:4], stats[4:]
+            # (0 without the NeRF branch, as the JAX step starts its sum)
             loss = total[1] / n_pix
             img_loss = loss
             if use_tv and step < tp.n_iters // 2:
@@ -756,6 +787,9 @@ class NeRFExecutor:
                 params, p.dp_grad_reduce if expl else "f32", mesh)
             self.optimizer.step(torch.isfinite(loss))
             self.step = step + 1
+            if not use_nerf:
+                metrics["loss"] = loss
+                return metrics
             mse = total[0] / n_pix
             mu = total[2] / n_pix
             metrics.update({
@@ -772,7 +806,8 @@ class NeRFExecutor:
     def train(self, scene: SceneData, tp: TrainParams, seed: int = 0,
               sampler: Optional[RayBatchSampler] = None,
               progress_fn=None, steps: Optional[int] = None, mesh=None,
-              lang_embeddings=None) -> Dict[str, float]:
+              lang_embeddings=None,
+              profile_dir: Optional[str] = None) -> Dict[str, float]:
         """The training loop: steps self.step .. n_iters - 2, as the JAX
         package runs them, or only the next ``steps`` of them (a later call
         resumes; the schedules follow n_iters either way). Step i draws
@@ -791,7 +826,11 @@ class NeRFExecutor:
         first host look whose loop count is at or past it (once per
         executor; ``initialize`` re-arms it), the box is refit to the
         occupancy grid (``refit_bbox_from_grid``) and the step rebuilt on
-        it. Returns the last step's metrics.
+        it. With ``profile_dir`` the steps from start + 9 to start + 20
+        (start: the step ``train`` begins at; whole host-look blocks) are
+        traced into profile_dir/trace.json (utils/profiling.py ``trace``;
+        synchronised on a card before the trace closes), once a call.
+        Returns the last step's metrics.
 
         With a ``mesh`` (parallel/mesh.py; every rank calls ``train`` with
         the same arguments) the step is data-parallel
@@ -808,7 +847,7 @@ class NeRFExecutor:
                              f"count ({world}) for data parallelism")
         root = mesh is None or mesh.rank == 0
         self.white_bkgr = scene.white_bkgr
-        if self.model is None:
+        if self.optimizer is None:
             self.initialize(scene.bounding_box, tp.lrate_decay, seed)
         mesh_utils.replicate(self._replicated(), mesh)
         base_dir = Path(tp.base_dir)
@@ -847,8 +886,8 @@ class NeRFExecutor:
         val_idx = (list(scene.split_indices("val"))
                    or list(scene.split_indices("train")))
         # collapse watch: a near-constant batch render past the check step
-        auto_pending = (p.auto_fine_fallback and p.use_occupancy_grid
-                        and p.n_importance == 0)
+        auto_pending = (p.auto_fine_fallback and p.use_nerf
+                        and p.use_occupancy_grid and p.n_importance == 0)
         if auto_pending:
             if scene.images is not None:
                 imgs = np.asarray(scene.images)
@@ -874,63 +913,81 @@ class NeRFExecutor:
         # count (not the state's step) at or past bbox_refit_step, as JAX
         # places it at the first dispatch boundary past it
         refit_pending = tp.bbox_refit_step > 0 and not self._refit_tried
-        while i < end:
-            if refit_pending and i >= tp.bbox_refit_step:
-                refit_pending = False
-                self._refit_tried = True
-                if self.occupancy is not None:
-                    mesh_utils.replicate([self.occupancy.density], mesh)
-                if self.refit_bbox_from_grid():
-                    train_step = build_step()
-            k = min(spc - (i % spc), end - i)
-            for _ in range(k):
-                generator.manual_seed((seed + 1) * 1_000_003 + self.step)
-                metrics = train_step(self.step, sampler, generator)
-                i += 1
-            rays_done += tp.n_rand * k
-            if auto_pending and i >= next_check:
-                ps = float(metrics["pred_std"])
-                if ps < p.auto_fine_rel_std * gt_std:
-                    say(f"[TRAIN] collapse detected at step {i} "
-                          f"(batch render std {ps:.4f} vs GT {gt_std:.4f}): "
-                          f"restarting field with importance fine pass "
-                          f"(n_importance={p.auto_fine_samples}, "
-                          f"tile budget off)")
-                    # the JAX package's recovery, quirks included: it sets
-                    # the caller's params in place, restarts from the
-                    # constant seed 23, and (its render config reads the
-                    # executor's n_importance, fixed at construction) the
-                    # rebuilt step still renders without the fine pass
-                    p.n_importance = p.auto_fine_samples
-                    p.occ_tile_budget_frac = 0.0
-                    self._restart_state()
-                    train_step = build_step()
-                    auto_pending = False
-                else:
-                    next_check = i + max(int(p.auto_fine_check_from), 1)
-                    if next_check > tp.n_iters // 2:
+        start = i
+        profiling = None                 # the open trace's context manager
+        profile_pending = profile_dir is not None
+        try:
+            while i < end:
+                if refit_pending and i >= tp.bbox_refit_step:
+                    refit_pending = False
+                    self._refit_tried = True
+                    if self.occupancy is not None:
+                        mesh_utils.replicate([self.occupancy.density], mesh)
+                    if self.refit_bbox_from_grid():
+                        train_step = build_step()
+                if profile_pending and i >= start + 9:
+                    profile_pending = False
+                    profiling = trace(profile_dir, device=self.device)
+                    profiling.__enter__()
+                k = min(spc - (i % spc), end - i)
+                for _ in range(k):
+                    generator.manual_seed((seed + 1) * 1_000_003 + self.step)
+                    metrics = train_step(self.step, sampler, generator)
+                    i += 1
+                if profiling is not None and (i >= start + 20 or i >= end):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    profiling.__exit__(None, None, None)
+                    profiling = None
+                rays_done += tp.n_rand * k
+                if auto_pending and i >= next_check:
+                    ps = float(metrics["pred_std"])
+                    if ps < p.auto_fine_rel_std * gt_std:
+                        say(f"[TRAIN] collapse detected at step {i} "
+                            f"(batch render std {ps:.4f} vs GT "
+                            f"{gt_std:.4f}): restarting field with "
+                            f"importance fine pass "
+                            f"(n_importance={p.auto_fine_samples}, "
+                            f"tile budget off)")
+                        # the JAX package's recovery, quirks included: it sets
+                        # the caller's params in place, restarts from the
+                        # constant seed 23, and (its render config reads the
+                        # executor's n_importance, fixed at construction) the
+                        # rebuilt step still renders without the fine pass
+                        p.n_importance = p.auto_fine_samples
+                        p.occ_tile_budget_frac = 0.0
+                        self._restart_state()
+                        train_step = build_step()
                         auto_pending = False
-            if tp.i_weights > 0 and i % tp.i_weights == 0 and root:
-                self.save_checkpoint(base_dir)
-                print(f"Saved checkpoints at {base_dir}")
-            if (tp.i_testset > 0 and i % tp.i_testset == 0 and i > 0
-                    and not tp.test_skip):
-                self.render_test_split(scene, tp, base_dir, mesh=mesh)
-            if tp.i_img > 0 and i % tp.i_img == 0 and i > 0 and root:
-                v = scene.views[val_idx[0]]
-                out = self.render_view(v.pose, v.h, v.w, v.k, tp)
-                writer.write_image(i, "val_rgb", out["nerf"].rgb)
-            if tp.i_print > 0 and i % tp.i_print == 0:
-                m = {key: float(v) for key, v in metrics.items()}
-                rps = rays_done / max(time.perf_counter() - t_start, 1e-9)
-                if root:
-                    writer.write_scalars(i, m)
-                    print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
-                          f"Loss: {m.get('loss', 0):.5f} "
-                          f"PSNR: {m.get('psnr', 0):.2f} "
-                          f"rays/s: {rps:,.0f}")
-                if progress_fn is not None:
-                    progress_fn(i, m)
+                    else:
+                        next_check = i + max(int(p.auto_fine_check_from), 1)
+                        if next_check > tp.n_iters // 2:
+                            auto_pending = False
+                if tp.i_weights > 0 and i % tp.i_weights == 0 and root:
+                    self.save_checkpoint(base_dir)
+                    print(f"Saved checkpoints at {base_dir}")
+                if (tp.i_testset > 0 and i % tp.i_testset == 0 and i > 0
+                        and not tp.test_skip):
+                    self.render_test_split(scene, tp, base_dir, mesh=mesh)
+                if tp.i_img > 0 and i % tp.i_img == 0 and i > 0 and root:
+                    v = scene.views[val_idx[0]]
+                    out = self.render_view(v.pose, v.h, v.w, v.k, tp)
+                    if "nerf" in out:
+                        writer.write_image(i, "val_rgb", out["nerf"].rgb)
+                if tp.i_print > 0 and i % tp.i_print == 0:
+                    m = {key: float(v) for key, v in metrics.items()}
+                    rps = rays_done / max(time.perf_counter() - t_start, 1e-9)
+                    if root:
+                        writer.write_scalars(i, m)
+                        print(f"[TRAIN] Iter: {i} of {tp.n_iters} "
+                              f"Loss: {m.get('loss', 0):.5f} "
+                              f"PSNR: {m.get('psnr', 0):.2f} "
+                              f"rays/s: {rps:,.0f}")
+                    if progress_fn is not None:
+                        progress_fn(i, m)
+        finally:
+            if profiling is not None:      # a step raised inside the window
+                profiling.__exit__(None, None, None)
         if (tp.i_weights > 0 and i % tp.i_weights != 0 and i == tp.n_iters - 1
                 and root):
             self.save_checkpoint(base_dir)
@@ -944,38 +1001,44 @@ class NeRFExecutor:
     def render_view(self, pose, h: int, w: int, k, tp: TrainParams,
                     generator: Optional[torch.Generator] = None,
                     with_relevancy: bool = True,
-                    dense_frac: Optional[float] = None) -> Dict[str, Any]:
+                    dense_frac: Optional[float] = None,
+                    c2w_staticcam=None) -> Dict[str, Any]:
         """Render one full view. RenderFactor > 0 downscales H, W and the
         intrinsics. ``dense_frac`` overrides the two-class budget's dense
         fraction (by default the view's auto fraction, or
-        render_dense_frac). Returns {"nerf": RenderOutputs of [h, w, ...]
-        maps, "near_far": (near_min, far_max), "rgb8": [h, w, 3] uint8},
-        and for LeRF "lerf": LeRFOutputs of [h, w, ...] maps (relevancy
-        [h, w, P] when prompts are set and ``with_relevancy``, else
-        None)."""
+        render_dense_frac). ``c2w_staticcam``: the NeRF branch's rays from
+        this pose, its view directions from ``pose`` (render_image).
+        Returns {"nerf": RenderOutputs of [h, w, ...] maps, "near_far":
+        (near_min, far_max), "rgb8": [h, w, 3] uint8} for a NeRF stack, and
+        for LeRF "lerf": LeRFOutputs of [h, w, ...] maps (relevancy [h, w,
+        P] when prompts are set and ``with_relevancy``, else None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         h, w, k = _render_size(h, w, k, tp)
         cfg = self.make_render_config(tp, train=False)
-        kw = {}
-        if self.params.use_occupancy_grid:
-            if dense_frac is not None:
-                dense_frac = max(dense_frac, 0.0)
-            elif self._auto_frac_eligible(cfg):
-                dense_frac = self._auto_dense_frac(h, w, k, pose)
-            else:
-                dense_frac = max(self.params.render_dense_frac, 0.0)
-            kw = dict(occupancy=self.occupancy, dense_frac=dense_frac,
-                      sparse_samples=self.params.render_sparse_samples,
-                      prior_bins=self.params.render_prior_bins)
-        with torch.no_grad():
-            res, near_far = render_image(
-                self._nerf_fns(), make_nerf_integrate_fn(cfg), h, w,
-                self._tensor(k), self._tensor(pose), cfg,
-                self._tensor(self.bounding_box), generator, **kw)
-            rgb8 = (torch.clamp(res.rgb, 0.0, 1.0) * 255.0 + 0.5).to(
-                torch.uint8)
-        out = {"nerf": res, "near_far": near_far, "rgb8": rgb8}
+        out = {}
+        if self.params.use_nerf:
+            kw = {}
+            if self.params.use_occupancy_grid:
+                if dense_frac is not None:
+                    dense_frac = max(dense_frac, 0.0)
+                elif self._auto_frac_eligible(cfg):
+                    dense_frac = self._auto_dense_frac(h, w, k, pose)
+                else:
+                    dense_frac = max(self.params.render_dense_frac, 0.0)
+                kw = dict(occupancy=self.occupancy, dense_frac=dense_frac,
+                          sparse_samples=self.params.render_sparse_samples,
+                          prior_bins=self.params.render_prior_bins)
+            if c2w_staticcam is not None:
+                kw["c2w_staticcam"] = self._tensor(c2w_staticcam)
+            with torch.no_grad():
+                res, near_far = render_image(
+                    self._nerf_fns(), make_nerf_integrate_fn(cfg), h, w,
+                    self._tensor(k), self._tensor(pose), cfg,
+                    self._tensor(self.bounding_box), generator, **kw)
+                rgb8 = (torch.clamp(res.rgb, 0.0, 1.0) * 255.0 + 0.5).to(
+                    torch.uint8)
+            out = {"nerf": res, "near_far": near_far, "rgb8": rgb8}
         if self.params.use_lerf:
             lcfg = dataclasses.replace(cfg, use_viewdirs=False)
             with torch.no_grad():
@@ -1031,9 +1094,10 @@ class NeRFExecutor:
 
     def render_path(self, poses, h: int, w: int, k, tp: TrainParams,
                     save_dir, mesh=None) -> None:
-        """Render a pose list and write {i}.png (the 8-bit image),
-        disp_{i}.png (disparity over its maximum) and depth_{i}.png (depth
-        between the view's near and far), as the JAX package writes them;
+        """Render a pose list and write, for a NeRF stack, {i}.png (the
+        8-bit image), disp_{i}.png (disparity over its maximum) and
+        depth_{i}.png (depth between the view's near and far), as the JAX
+        package writes them;
         with LeRF prompts, relevancy_{i}.png (the first prompt's relevancy
         in JET). With a ``mesh`` the views render view-parallel and rank 0
         alone writes."""
@@ -1045,17 +1109,19 @@ class NeRFExecutor:
                                                  mesh=mesh)):
             if not root:
                 continue
-            res = out["nerf"]
-            near, far = (float(out["near_far"][0]), float(out["near_far"][1]))
-            write_png(save_dir / f"{i}.png", out["rgb8"].cpu().numpy())
-            disp = res.disp.float().cpu().numpy()
-            disp = disp / max(float(disp.max()), 1e-10)
-            write_png(save_dir / f"disp_{i}.png",
-                      (np.clip(disp, 0, 1) * 255).astype(np.uint8))
-            depth = ((res.depth.float().cpu().numpy() - near)
-                     / max(far - near, 1e-10))
-            write_png(save_dir / f"depth_{i}.png",
-                      (np.clip(depth, 0, 1) * 255).astype(np.uint8))
+            if "nerf" in out:
+                res = out["nerf"]
+                near, far = (float(out["near_far"][0]),
+                             float(out["near_far"][1]))
+                write_png(save_dir / f"{i}.png", out["rgb8"].cpu().numpy())
+                disp = res.disp.float().cpu().numpy()
+                disp = disp / max(float(disp.max()), 1e-10)
+                write_png(save_dir / f"disp_{i}.png",
+                          (np.clip(disp, 0, 1) * 255).astype(np.uint8))
+                depth = ((res.depth.float().cpu().numpy() - near)
+                         / max(far - near, 1e-10))
+                write_png(save_dir / f"depth_{i}.png",
+                          (np.clip(depth, 0, 1) * 255).astype(np.uint8))
             if "lerf" in out and out["lerf"].relevancy is not None:
                 rel = out["lerf"].relevancy[..., 0].float().cpu().numpy()
                 write_png(save_dir / f"relevancy_{i}.png", apply_jet(
@@ -1101,7 +1167,7 @@ class NeRFExecutor:
     def _auto_frac_eligible(self, cfg: RenderConfig) -> bool:
         """Auto (render_dense_frac < 0) resolves only where the budget path
         exists: occupancy grid in world space and tile-ordered pixels."""
-        return (self.params.use_occupancy_grid
+        return (self.params.use_nerf and self.params.use_occupancy_grid
                 and self.params.render_dense_frac < 0
                 and self.params.occ_n_bins > 0 and not cfg.ndc
                 and cfg.tile_order)

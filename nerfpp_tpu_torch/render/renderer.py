@@ -13,7 +13,13 @@ coarse-ranked fine budget for training (``render_ray_batch_hier_budgeted``).
 The integrator's outputs may be any NamedTuple (RenderOutputs for NeRF,
 render/lerf.py's LeRFOutputs for the language field); full-image renders
 drop the per-sample fields (weights, per-sample embeddings) chunk by chunk.
-NDC rays belong to a later slice and raise.
+NDC rays (``cfg.ndc``, forward-facing scenes): ``render_ray_batch`` projects
+a batch given the focal and the image size, ``render_image`` a view with
+its true size and ``k[0, 0]``, the view directions taken before the
+projection; the occupancy grid and both budgets live in world space and
+refuse NDC rays with the JAX package's errors. ``render_image`` also takes
+``c2w_staticcam``: the rays from that pose, the view directions from
+``c2w``.
 
 Randomness (the cone scatter, the training-time density noise, stochastic
 depths, the preconditioning noise) comes from an explicit
@@ -43,6 +49,8 @@ from nerfpp_tpu_torch.core.occupancy import (ray_bin_densities,
                                              tiled_ray_z)
 
 TILE_H, TILE_W = 8, 16
+NDC_OCCUPANCY = ("occupancy-guided sampling is incompatible with NDC rays "
+                 "(the grid lives in world space)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,17 +318,28 @@ def render_ray_batch(network_fn, integrate_fn, rays_o: torch.Tensor,
                      occupancy=None,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[dict] = None,
-                     sp_alpha: float = 0.0) -> RenderResult:
-    """Training-path entry: viewdirs, per-ray (near, far) from the AABB,
-    the occupancy prior (tile-shared where the batch divides into tiles),
-    then render_rays. ``draws``: optional, as render_rays takes them."""
-    if cfg.ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+                     sp_alpha: float = 0.0, focal: Optional[float] = None,
+                     hw: Optional[tuple] = None) -> RenderResult:
+    """Training-path entry: viewdirs (from the directions as given), under
+    ``cfg.ndc`` the projection into NDC of an ``hw`` = (h, w) image of
+    ``focal`` (near plane 1), per-ray (near, far) from the AABB, the
+    occupancy prior (tile-shared where the batch divides into tiles), then
+    render_rays. ``draws``: optional, as render_rays takes them."""
     draws = draws or {}
     viewdirs = _viewdirs(rays_d, cfg)
+    if cfg.ndc:
+        if focal is None or hw is None:
+            raise ValueError("NDC rays need the focal and the image size "
+                             "(focal=, hw=)")
+        h, w = hw
+        rays_o, rays_d, cone_angle = ray_math.ndc_rays(
+            h, w, focal, 1.0, rays_o, rays_d,
+            None if cfg.thin_ray else cone_angle)
     near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
     occ_bins = None
     if occupancy is not None and cfg.n_occ_bins > 0:
+        if cfg.ndc:
+            raise ValueError(NDC_OCCUPANCY)
         occ_bins = _occ_bins_or_z(occupancy, rays_o, rays_d, near[:, None],
                                   far[:, None], bounding_box, cfg, generator)
     return render_rays(network_fn, integrate_fn, rays_o, rays_d,
@@ -356,7 +375,7 @@ def render_ray_batch_budgeted(network_fn, integrate_fn, rays_o: torch.Tensor,
         raise ValueError("budgeted rendering needs the tile-shared "
                          "occupancy sampling path")
     if cfg.ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+        raise ValueError(NDC_OCCUPANCY)
     tile = cfg.occ_ray_tile
     r = rays_o.shape[0]
     if r % tile:
@@ -430,7 +449,8 @@ def render_ray_batch_hier_budgeted(network_fn, integrate_fn,
     if cfg.n_importance <= 0:
         raise ValueError("hier budget needs n_importance > 0")
     if cfg.ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+        raise ValueError("hier budget does not support NDC rays (tile "
+                         "near/far sharing happens in world space)")
     r = rays_o.shape[0]
     if r % tile:
         raise ValueError(f"batch of {r} rays must divide by tile {tile}")
@@ -554,6 +574,7 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
                  c2w: torch.Tensor, cfg: RenderConfig,
                  bounding_box: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
+                 c2w_staticcam: Optional[torch.Tensor] = None,
                  occupancy=None, dense_frac: float = 0.0,
                  sparse_samples: int = 8, prior_bins: int = 0,
                  max_rays: int = 0):
@@ -571,10 +592,14 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
     128-ray tiles by probe mass render at cfg.n_samples over a depth range
     narrowed to where the probe saw mass, the rest at ``sparse_samples``.
 
+    With ``c2w_staticcam`` (and view directions) the rays start from that
+    pose while the view directions come from ``c2w``. Under ``cfg.ndc`` the
+    rays are projected with the true h, w and k[0, 0] (tile padding only
+    appends pixels), and the per-ray cone angle the projection gives is
+    flattened beside the rays, so each chunk takes its own angles.
+
     Returns (the integrator's outputs as [h, w, ...] maps, per-sample
     fields dropped, (near_min, far_max))."""
-    if cfg.ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
     hp = -(-h // TILE_H) * TILE_H if cfg.tile_order else h
     wp = -(-w // TILE_W) * TILE_W if cfg.tile_order else w
 
@@ -584,18 +609,32 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
         return _tile_flatten(x, hp, wp)
 
     rays_o, rays_d, cone_angle = ray_math.get_rays(hp, wp, k, c2w)
-    viewdirs = _viewdirs(rays_d, cfg)
-    if viewdirs is not None:
-        viewdirs = flatten_pixels(viewdirs)
+    viewdirs = None
+    if cfg.use_viewdirs:
+        vd_src = rays_d
+        if c2w_staticcam is not None:
+            rays_o, rays_d, cone_angle = ray_math.get_rays(hp, wp, k,
+                                                           c2w_staticcam)
+        viewdirs = flatten_pixels(_viewdirs(vd_src, cfg))
+    if cfg.ndc:
+        if occupancy is not None and cfg.n_occ_bins > 0:
+            raise ValueError(NDC_OCCUPANCY)
+        rays_o, rays_d, cone_angle = ray_math.ndc_rays(
+            h, w, float(k[0, 0]), 1.0, rays_o, rays_d,
+            None if cfg.thin_ray else cone_angle)
     rays_o = flatten_pixels(rays_o)
     rays_d = flatten_pixels(rays_d)
+    # NDC gives a cone angle per ray ([hp, wp, 1]): flattened like the rays
+    ray_cone = (flatten_pixels(cone_angle) if cfg.ndc and not cfg.thin_ray
+                else None)
     near, far = ray_math.intersect_aabb(rays_o, rays_d, bounding_box)
     n = hp * wp
     use_occ = occupancy is not None and cfg.n_occ_bins > 0
 
-    def render_flat(ro, rd, nr, fr, vd, ccfg, z_all=None):
+    def render_flat(ro, rd, nr, fr, vd, ccfg, z_all=None, ca=None):
         """The chunk loop over a flat ray set; z_all [m, S] are precomputed
-        depths (budget path) or None (occupancy prior per chunk)."""
+        depths (budget path) or None (occupancy prior per chunk); ca [m, 1]
+        are per-ray cone angles (NDC) or None (the view's one angle)."""
         m = ro.shape[0]
         ch = min(ccfg.chunk, m)
         # The JAX package pads every chunk to ch rays, and render_rays shares
@@ -616,12 +655,14 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
             sl = slice(c0, c0 + ch)
             ro_c, rd_c, nr_c, fr_c = ro[sl], rd[sl], nr[sl], fr[sl]
             vd_c = vd[sl] if vd is not None else None
+            ca_c = ca[sl] if ca is not None else cone_angle
             real = ro_c.shape[0]
             pad = -real % tile if tile else 0
             if pad:
                 ro_c, rd_c, nr_c, fr_c = (_pad0(x, pad) for x in
                                           (ro_c, rd_c, nr_c, fr_c))
                 vd_c = _pad0(vd_c, pad) if vd_c is not None else None
+                ca_c = _pad0(ca_c, pad) if ca is not None else ca_c
             if z_all is not None:
                 occ_bins = z_all[sl]
             elif use_occ:
@@ -630,7 +671,7 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
             else:
                 occ_bins = None
             res = render_rays(network_fn, integrate_fn, ro_c, rd_c, nr_c,
-                              fr_c, vd_c, None if ccfg.thin_ray else cone_angle,
+                              fr_c, vd_c, None if ccfg.thin_ray else ca_c,
                               ccfg, generator, bounding_box, occ_bins)
             # per-sample fields go chunk by chunk, so at most one chunk's
             # samples (LeRF: [ch, S, E]) live at a time
@@ -715,7 +756,7 @@ def render_image(network_fn, integrate_fn, h: int, w: int, k: torch.Tensor,
                                 for f in out_d._fields))
     else:
         outputs = render_flat(rays_o, rays_d, near[:, None], far[:, None],
-                              viewdirs, cfg)
+                              viewdirs, cfg, ca=ray_cone)
 
     def unshape(flat):
         rest = flat.shape[1:]

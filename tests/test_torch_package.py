@@ -55,7 +55,8 @@ def test_import_loads_neither_jax_nor_nerfpp_tpu():
     assert out.returncode == 0, out.stderr
     loaded = ast.literal_eval(out.stdout.strip().splitlines()[-1])
     assert "nerfpp_tpu_torch.executor" in loaded
-    assert "nerfpp_tpu_torch.parallel.mesh" in loaded
+    for mod in ("parallel.mesh", "core.losses", "utils.profiling"):
+        assert f"nerfpp_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
 
@@ -63,7 +64,9 @@ def test_sources_import_no_jax():
     # every import statement of the port, of chip_smoke.py and of the
     # COLMAP writer both it and the tests use, read as code
     files = sorted(PORT.rglob("*.py"))
-    assert PORT / "parallel" / "mesh.py" in files
+    for mod in (("parallel", "mesh.py"), ("core", "losses.py"),
+                ("utils", "profiling.py")):
+        assert PORT.joinpath(*mod) in files
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "colmap_export.py",
               ROOT / "tests" / "torch_parallel_workers.py"]
     for path in files:
