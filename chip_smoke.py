@@ -5,6 +5,7 @@
     python3 chip_smoke.py --repeat-train K [--preset P] [--seed S]
     python3 chip_smoke.py --capture-only
     python3 chip_smoke.py --options-only
+    python3 chip_smoke.py --jpeg-only
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -170,10 +171,24 @@ Phases, each printing its own lines:
      encode_large and the hashed gradient against their plain versions on
      its fine pass's NDC points, 800x800 frames under TrainParams(ndc=True)
      with and without c2w_staticcam, and 64x64 windows GPU against CPU.
+ 20. JPEG capture (utils/jpeg.py, csrc/jpeg_entropy.cpp): (a) phase 17's
+     COLMAP export with JPEG views, encoded on the card; (b) the
+     undistortion on the card (decode, undistort, re-encode at quality
+     95), views 1 and 4 also through the CPU (the files byte-equal), every
+     exported and undistorted file decoded on the card and the CPU
+     (bitwise equal) and re-encoded on both (byte-equal), the committed
+     cv2 fixtures (tests/data/jpeg) decoded and encoded on the card to
+     cv2's pixels and bytes, decode and encode seconds, MB/s and Mpix/s
+     (host entropy pass and device stages apart) for the 16 views and a
+     4,000x3,000 upscale, load_images of the undistorted views; (c) phase
+     17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
+     workspace to NIters 2,100 (launch counts reset before step 0 and read
+     after: K1, K2, K3 and its index, no other kernel; steps 1,056-1,087
+     timed; the loss must fall), its held-out PSNR beside phase 17's.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
-phase 8's and phase 17's COLMAP training for K1-K3 (phase 17 adds its
-own), phase 11's for encode_small and
+phase 8's, phase 17's and phase 20's COLMAP training for K1-K3 (phases 17
+and 20 add their own), phase 11's for encode_small and
 grad_small, phase 14's cli train and phase 16's LeRF training and frames
 for encode_large, grad_large and the bin pass grad_large_bins (which phase
 11's path launches too, once per grad_small: its count is printed there);
@@ -192,7 +207,8 @@ it. Per run it prints the first step whose loss differs bitwise from run
 the same last line. ``--capture-only`` runs phases 1-2 and then phase 17
 alone (without phase 8's PSNR to print beside its own); ``--options-only``
 phases 1-2 and phase 19, against a 64-step seed-0 flagship run of its own
-in place of phase 8's. Any failed check raises, and the script exits
+in place of phase 8's; ``--jpeg-only`` phases 1-2 and phase 20 (without
+phase 17's PSNR). Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
@@ -2148,7 +2164,7 @@ def capture_phase(scene, dev, psnr_direct):
     corner-ray box) without and with ``BboxRefitStep=1024``: the refit
     must fire with a shrink of at least 1.5 and K1-K3 launch after it;
     both held-out PSNRs. Returns the launch counts of (c)'s 2,100-step
-    run."""
+    run and its held-out PSNR."""
     import numpy as np
     import torch
     from nerfpp_tpu_torch import native
@@ -2379,7 +2395,7 @@ def capture_phase(scene, dev, psnr_direct):
         f"{psnrs['BboxRefitStep=1024']:.2f} dB")
     tmp.cleanup()
     log("capture", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: counts[k] for k in TRAIN_KERNELS}
+    return {k: counts[k] for k in TRAIN_KERNELS}, psnr
 
 
 def state_digests(ex):
@@ -3057,6 +3073,240 @@ def options_phase(scene, dev, reference):
         + ", ".join(f"{k} {v}" for k, v in c.items()))
 
 
+def codec_times(files, dev):
+    """Decode every JPEG file on ``dev`` and encode the decoded image
+    again, each split into its host part (markers and the C++ entropy
+    pass; for encoding also the block copy to the host) and its device
+    part (synchronised): {"decode": (host s, device s), "encode": (...),
+    "bytes", "pixels"}, and the decoded images."""
+    import torch
+    from nerfpp_tpu_torch.utils import jpeg as J
+    t = {"decode": [0.0, 0.0], "encode": [0.0, 0.0], "bytes": 0,
+         "pixels": 0}
+    images = []
+    for path in files:
+        data = Path(path).read_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = J.decode_coefficients(data, path)
+        t1 = time.perf_counter()
+        img = J.frame_pixels(frame, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enc = J.jpeg_blocks(img, 95, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        J.encode_file(enc)
+        t4 = time.perf_counter()
+        t["decode"][0] += t1 - t0
+        t["decode"][1] += t2 - t1
+        t["encode"][1] += t3 - t2
+        t["encode"][0] += t4 - t3
+        t["bytes"] += len(data)
+        t["pixels"] += frame.height * frame.width
+        images.append(img)
+    return t, images
+
+
+def codec_line(label, t):
+    """One log line of codec_times' figures."""
+    parts = []
+    for what in ("decode", "encode"):
+        host, device = t[what]
+        total = host + device
+        parts.append(f"{what} {total:.4f} s (host entropy {host:.4f} s, "
+                     f"device stages {device:.4f} s): "
+                     f"{t['bytes'] / total / 1e6:.1f} MB/s, "
+                     f"{t['pixels'] / total / 1e6:.1f} Mpix/s")
+    return (f"{label} ({t['bytes']} bytes of JPEG, {t['pixels'] / 1e6:.2f} "
+            f"Mpix): " + "; ".join(parts))
+
+
+def jpeg_phase(scene, dev, psnr_png):
+    """Phase 20, JPEG capture: (a) the bench scene exported as phase 17(a)
+    exports it with JPEG views (utils/jpeg.py, encoded on the card); (b) the
+    undistortion on the card (each distorted view decoded, undistorted and
+    re-encoded as JPEG at quality 95), views 1 and 4 also through the CPU
+    (the undistorted file byte for byte the card's), every exported and
+    undistorted file decoded on the card and the CPU (bitwise equal) and
+    its image encoded on both (byte-equal), the committed cv2 fixtures
+    (tests/data/jpeg) decoded and encoded on the card to cv2's pixels and
+    bytes, decode and encode seconds for the 16 views and for a 4,000 x
+    3,000 upscale of view 1 (host entropy and device stages apart, MB/s,
+    Mpix/s), and load_images of the 16 undistorted views; (c) phase
+    17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
+    workspace to NIters 2,100 (launch counts reset before step 0 and read
+    after: K1, K2, K3 and its index, nothing else; steps 1,056-1,087 timed;
+    the loss must fall; the held-out PSNR beside phase 17's on the PNG
+    export, ``psnr_png``). Returns (c)'s launch counts."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch import native
+    from nerfpp_tpu_torch.data import colmap as C
+    from nerfpp_tpu_torch.data.dataset import load_images
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import jpeg as J
+    from scripts.colmap_export import export_colmap_scene
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    ws = root / "colmap_jpeg"
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    lib = J.entropy_library()
+    t1 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError(f"the native parser did not build "
+                             f"({native.lib_path()})")
+    log("jpeg", f"entropy coder built and loaded in {t1 - t0:.2f} s "
+        f"({lib._name}); the native parser in "
+        f"{time.perf_counter() - t1:.2f} s (0 where phase 17 built it)")
+
+    # (a) export with JPEG views
+    t0 = time.perf_counter()
+    export_colmap_scene(scene, ws, dev, n_samples=64, n_points=50_000,
+                        image_format="jpg", log=lambda m: log("jpeg", m))
+    sources = sorted((ws / "images").glob("*.jpg"))
+    log("jpeg", f"(a) exported in {time.perf_counter() - t0:.2f} s: "
+        f"{len(sources)} JPEG views, "
+        f"{sum(f.stat().st_size for f in sources)} bytes")
+
+    # (b) undistortion on the card, then the codec card against CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc = C.load_from_colmap_reconstruction(ws, device=dev)
+    torch.cuda.synchronize()
+    und_s = time.perf_counter() - t0
+    undistorted = [Path(v.image_path) for v in sc.views]
+    if sorted(f.name for f in undistorted) != [f.name for f in sources] or \
+            any(f.parent.name != "undistorted" for f in undistorted):
+        raise AssertionError(f"undistorted files {undistorted[:3]}...")
+    raw = C.read_model(ws / "sparse" / "0")
+    for i in (0, 3):
+        cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
+        k = cam.k_matrix().astype(np.float64)
+        d = cam.distortion().astype(np.float64)
+        new_k = I.optimal_new_camera_matrix(k, d, (cam.width, cam.height),
+                                            0.0, cpu)
+        und = I.undistort(I.read_image(sources[i], cpu), k, d, new_k)
+        if J.encode_jpeg(und, device=cpu) != undistorted[i].read_bytes():
+            raise AssertionError(f"{undistorted[i].name}: the card's "
+                                 "undistorted JPEG differs from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.load_from_colmap_reconstruction(ws, device=dev)
+    torch.cuda.synchronize()
+    und_warm = time.perf_counter() - t0
+    log("jpeg", f"(b) load_from_colmap_reconstruction with undistortion on "
+        f"the card (parse, near/far, box; JPEG decode, undistort, JPEG "
+        f"encode of {len(sc.views)} views): {und_s:.3f} s the first time, "
+        f"{und_warm:.3f} s again; views 1 and 4 through the CPU: the "
+        f"undistorted files byte for byte the card's")
+    for f in sources + undistorted:
+        data = f.read_bytes()
+        frame = J.decode_coefficients(data, f)
+        card, host = J.frame_pixels(frame, dev).cpu(), J.frame_pixels(frame,
+                                                                       cpu)
+        if not torch.equal(card, host):
+            raise AssertionError(f"{f}: decode card against CPU: "
+                                 f"{int((card != host).sum())} values differ")
+        if J.encode_jpeg(card.to(dev), device=dev) != J.encode_jpeg(
+                host, device=cpu):
+            raise AssertionError(f"{f}: encode card against CPU differs")
+    log("jpeg", f"(b) {len(sources)} exported and {len(undistorted)} "
+        f"undistorted files: decoded on the card bitwise the CPU's, their "
+        f"images encoded on the card byte for byte the CPU's")
+    fixtures = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+    names = sorted(f.stem for f in fixtures.glob("*.jpg")
+                   if f.stem != "source")
+    for name in names:
+        want = np.load(fixtures / f"{name}.npy")
+        got = J.read_jpeg(fixtures / f"{name}.jpg", dev).cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"fixture {name}: the card's decode is not "
+                                 "cv2's")
+    src = np.load(fixtures / "source.npy")
+    if J.encode_jpeg(torch.from_numpy(src).to(dev), device=dev) != (
+            fixtures / "source.jpg").read_bytes():
+        raise AssertionError("fixture source: the card's encoding is not "
+                             "cv2's")
+    log("jpeg", f"(b) cv2 fixtures (libjpeg-turbo 3.1.2): {', '.join(names)}"
+        f" decoded on the card to cv2.imread's pixels; source encoded on "
+        f"the card to cv2.imencode's bytes")
+    codec_times(sources[:1], dev)                    # warm the card's path
+    t, images = codec_times(sources, dev)
+    log("jpeg", codec_line(f"(b) the {len(sources)} exported views", t))
+    big = I.resize_linear_u8(images[0], (3000, 4000))
+    big_path = root / "big.jpg"
+    J.write_jpeg(big_path, big, device=dev)
+    t, (back,) = codec_times([big_path], dev)
+    frame = J.decode_coefficients(big_path.read_bytes(), big_path)
+    if not torch.equal(back.cpu(), J.frame_pixels(frame, cpu)):
+        raise AssertionError("4000x3000: decode card against CPU differs")
+    log("jpeg", codec_line("(b) view 1 upscaled to 4000x3000 (decoded "
+                           "bitwise the CPU's)", t))
+    del big, back, images
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = load_images(sc, list(range(len(sc.views))),
+                        target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
+    load_s = time.perf_counter() - t0
+    log("jpeg", f"(b) load_images of the {len(sc.views)} undistorted views "
+        f"(decode on the card, 1000x1000 views resized to 800x800): "
+        f"{load_s:.3f} s, stack {stack.shape}")
+    del stack
+    torch.cuda.empty_cache()
+
+    # (c) cli train --dataset-type colmap on the JPEG workspace
+    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train_s = run.run()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = run.loss()
+    ms, per_step = run.window_ms()
+    psnr = run.held_out_psnr(scene)
+    first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+    if not (loss.size == 2099 and math.isfinite(last)
+            and last < 0.5 * first):
+        raise AssertionError(f"JPEG colmap train: {loss.size} steps, loss "
+                             f"mean {first} (steps 0-31) -> {last}")
+    for name in TRAIN_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the JPEG "
+                                 "capture's training")
+    others = {k: v for k, v in counts.items() if k not in TRAIN_KERNELS}
+    if any(others.values()):
+        raise AssertionError(f"the JPEG capture's training launched other "
+                             f"kernels: {others}")
+    log("jpeg", f"(c) cli train --dataset-type colmap on the JPEG capture "
+        f"(flagship): {loss.size} steps in {train_s:.1f} s (the load, "
+        f"JPEG decode, undistortion and re-encoding included: about "
+        f"{und_warm + load_s:.2f} s of it, "
+        f"{100 * (und_warm + load_s) / train_s:.1f} %, (b)'s second load "
+        f"and load_images); steps 1056-1087: {ms:.3f} ms/step, "
+        f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("jpeg", f"(c) launches, steps 0-{loss.size - 1}: "
+        + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+        + "; no other kernel")
+    log("jpeg", "(c) loss every 300 steps: " + " ".join(
+        f"({i}, {loss[i]:.5f})" for i in range(0, loss.size, 300))
+        + f"; mean {first:.5f} (steps 0-31) -> {last:.5f} (last 32)")
+    log("jpeg", f"(c) held-out PSNR after {loss.size} steps (test view at its"
+        f" true pose and K, 800x800, unbudgeted): the JPEG capture "
+        f"{psnr:.2f} dB; phase 17's PNG capture "
+        + (f"{psnr_png:.2f} dB" if psnr_png is not None else "not run"))
+    del run
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    log("jpeg", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] for k in TRAIN_KERNELS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="GPU smoke run of "
                                  "nerfpp_tpu_torch (one H100)")
@@ -3074,6 +3324,8 @@ def main(argv=None) -> int:
     ap.add_argument("--options-only", action="store_true",
                     help="only phases 1-2, then phase 19 (stack options) "
                     "against a 64-step flagship run of its own")
+    ap.add_argument("--jpeg-only", action="store_true",
+                    help="only phases 1-2, then phase 20 (JPEG capture)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3123,6 +3375,12 @@ def main(argv=None) -> int:
     if args.capture_only:
         capture_phase(bench_scene(dev), dev, None)
         log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
+        print(last_line, flush=True)
+        return 0
+
+    if args.jpeg_only:
+        jpeg_phase(bench_scene(dev), dev, None)
+        log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
         print(last_line, flush=True)
         return 0
 
@@ -3289,7 +3547,7 @@ def main(argv=None) -> int:
     # 17. real capture: the COLMAP path and the bbox refit -----------------
     # K1-K3's launches in the kernels line: phase 8's and phase 17's
     # COLMAP training together
-    capture = capture_phase(scene, dev, psnr_2100)
+    capture, psnr_capture = capture_phase(scene, dev, psnr_2100)
     log("capture", "phase 17 launches (cli train --dataset-type colmap, "
         "steps 0-2098): " + ", ".join(f"{k} {v}" for k, v in capture.items()))
     for k, v in capture.items():
@@ -3305,6 +3563,16 @@ def main(argv=None) -> int:
     # the train loop's trace, NDC rays (their launches are printed there)
     options_phase(scene, dev, record["run"])
     log("options", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 20. JPEG capture: the codec, and the flagship on a JPEG workspace
+    # (its K1-K3 launches join the kernels line's)
+    jpeg = jpeg_phase(scene, dev, psnr_capture)
+    log("jpeg", "phase 20 launches (cli train --dataset-type colmap on "
+        "JPEG, steps 0-2098): " + ", ".join(f"{k} {v}"
+                                             for k, v in jpeg.items()))
+    for k, v in jpeg.items():
+        counts[k] += v
+    log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

@@ -23,8 +23,10 @@ alone writes. N = 0 means every visible card (with ``--device cpu`` give
 the count). NRand must divide by N.
 
 ``--dataset-type colmap --data-dir <workspace>`` reads a COLMAP workspace
-(sparse/0 in .bin or .txt, PNG images under images/): distorted views are
-undistorted on ``--device`` into <workspace>/undistorted, and views of
+(sparse/0 in .bin or .txt, PNG or baseline JPEG images under images/):
+distorted views are undistorted on ``--device`` into
+<workspace>/undistorted (a JPEG re-encoded at quality 95, as the JAX
+package's cv2.imwrite does), and views of
 other sizes than the first are resized to it when training. With
 ``--set-train BboxRefitStep=N`` (and an occupancy grid) training shrinks
 the loader's box to the field's mass at step N.
@@ -273,7 +275,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(s):
         s.add_argument("--dataset-type", default="synthetic",
-                       choices=["blender", "colmap", "synthetic"])
+                       choices=["blender", "colmap", "synthetic"],
+                       help="blender: a Blender export; colmap: a COLMAP "
+                       "workspace (sparse/0, PNG or baseline JPEG images); "
+                       "synthetic: the generated scene")
         s.add_argument("--data-dir", default="")
         s.add_argument("--half-res", action="store_true")
         s.add_argument("--test-skip", action="store_true")

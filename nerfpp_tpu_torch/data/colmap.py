@@ -16,12 +16,15 @@ undistortion, and the optional SfM shell-out.
 - ``undistort_images``: OPENCV-model undistortion of every distorted view
   into ``workspace/undistorted/`` with utils/image.py (OpenCV's
   getOptimalNewCameraMatrix at alpha 0 and undistort, in PyTorch on the
-  given device), written as PNG by utils/png.py.
+  given device), written under the source's own name and format as
+  cv2.imwrite writes it: a .png as PNG, a .jpg re-encoded as JPEG at
+  quality 95, 4:2:0 (utils/jpeg.py, byte for byte OpenCV's).
 - ``run_colmap_reconstruction``: a ``colmap automatic_reconstructor`` run,
   when the binary is installed.
 
-Images are PNG only: the port has no JPEG decoder, and a view whose image
-is not a PNG raises NotImplementedError naming the file.
+Images are PNG or baseline JPEG (utils/image.py ``read_image``); a view in
+another format (progressive or arithmetic JPEG, TIFF, ...) raises
+NotImplementedError naming the file when it is read.
 """
 from __future__ import annotations
 
@@ -33,12 +36,11 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from nerfpp_tpu_torch import native, resolve_device
 from nerfpp_tpu_torch.data.dataset import SceneData, View
-from nerfpp_tpu_torch.utils.image import optimal_new_camera_matrix, undistort
-from nerfpp_tpu_torch.utils.png import read_png, write_png
+from nerfpp_tpu_torch.utils.image import (optimal_new_camera_matrix,
+                                          read_image, undistort, write_image)
 
 # model_id -> (name, num_params); params ordered as COLMAP documents them
 CAMERA_MODELS = {
@@ -345,33 +347,23 @@ def compute_bounding_box(rec: ColmapReconstruction,
     return np.concatenate([mn - 0.01 * d, mx + 0.01 * d]).astype(np.float32)
 
 
-def _require_png(path) -> None:
-    if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: not a PNG image; --dataset-type colmap reads PNG only "
-            "(a JPEG decoder is not ported to nerfpp_tpu_torch yet, see "
-            "ROADMAP.md)")
-
-
 def undistort_images(scene: SceneData, out_dir, device="cuda") -> SceneData:
     """Undistort every view with non-zero distortion into out_dir on
     ``device`` (new K by getOptimalNewCameraMatrix at alpha 0, then
-    undistort), pointing the views at the new files with their new K and
-    no distortion."""
+    undistort), written under the source's name in its format, pointing
+    the views at the new files with their new K and no distortion."""
     dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for v in scene.views:
         if v.d is None or not np.any(v.d):
             continue
-        _require_png(v.image_path)
         k = v.k.astype(np.float64)
         d = v.d.astype(np.float64)
         new_k = optimal_new_camera_matrix(k, d, (v.w, v.h), 0.0, dev)
-        img = torch.from_numpy(read_png(v.image_path)).to(dev)
-        und = undistort(img, k, d, new_k)
+        und = undistort(read_image(v.image_path, dev), k, d, new_k)
         out_path = out_dir / Path(v.image_path).name
-        write_png(out_path, und.cpu().numpy())
+        write_image(out_path, und, dev)
         v.image_path = str(out_path)
         v.k = new_k.astype(np.float32)
         v.d = None
@@ -407,7 +399,6 @@ def load_from_colmap_reconstruction(workspace, image_path: Optional[str] = None,
     id_to_row = {pid: i for i, pid in enumerate(rec.points_ids)}
     for iid in sorted(rec.images.keys()):
         im = rec.images[iid]
-        _require_png(image_path / im.name)
         cam = rec.cameras[im.camera_id]
         near, far = compute_near_far_for_image(im, rec, id_to_row=id_to_row)
         dist = cam.distortion()

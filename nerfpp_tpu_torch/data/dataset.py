@@ -29,8 +29,8 @@ import torch
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core import rays as ray_math
 from nerfpp_tpu_torch.core.sampling import draw
-from nerfpp_tpu_torch.utils.image import resize_linear, resize_linear_u8
-from nerfpp_tpu_torch.utils.png import read_png
+from nerfpp_tpu_torch.utils.image import (read_image, resize_linear,
+                                          resize_linear_u8)
 
 
 @dataclasses.dataclass
@@ -119,13 +119,15 @@ class SceneData:
 def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
                 target_hw: Optional[tuple] = None,
                 device="cuda") -> np.ndarray:
-    """Decode view images into one [n, H, W, 3] f32 stack in [0, 1]. RGBA
-    images lose their alpha, or with ``white_bkgr`` (default: the scene's)
-    are composited onto white; gray images are repeated to 3 channels. Each
-    image takes its view's (h, w), or ``target_hw``: an image of another
-    size is resized on ``device`` (8-bit files before the conversion, alpha
-    included, as OpenCV resizes them), and the caller scales the intrinsics
-    (RayBatchSampler.from_scene does)."""
+    """Decode view images into one [n, H, W, 3] f32 stack in [0, 1]. The
+    files are PNG or baseline JPEG (read on ``device``, utils/image.py
+    ``read_image``). RGBA images lose their alpha, or with ``white_bkgr``
+    (default: the scene's) are composited onto white; gray images are
+    repeated to 3 channels. Each image takes its view's (h, w), or
+    ``target_hw``: an image of another size is resized on ``device`` (8-bit
+    files before the conversion, alpha included, as OpenCV resizes them),
+    and the caller scales the intrinsics (RayBatchSampler.from_scene
+    does)."""
     if white_bkgr is None:
         white_bkgr = scene.white_bkgr
     out = []
@@ -139,13 +141,12 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
                     resolve_device(device)), want).cpu().numpy()
             out.append(img)
             continue
-        img = read_png(v.image_path)
+        img = read_image(v.image_path, device)
         if img.ndim == 2:
             img = img[..., None]
         if img.shape[:2] != want:
-            img = resize_linear_u8(torch.from_numpy(img).to(
-                resolve_device(device)), want).cpu().numpy()
-        img = img.astype(np.float32) / 255.0
+            img = resize_linear_u8(img, want)
+        img = img.cpu().numpy().astype(np.float32) / 255.0
         if img.shape[-1] == 1:
             img = np.repeat(img, 3, axis=-1)
         if img.shape[-1] == 4:

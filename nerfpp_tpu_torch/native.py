@@ -10,7 +10,9 @@ file renamed into place: processes building it at once, and the JAX
 package's own build of the same source into ``native/``, never share a
 file. When no compiler is at hand ``load`` returns None and every function
 here returns None: the library is an optional host parser, and callers
-keep their Python paths, as in the JAX package.
+keep their Python paths, as in the JAX package. ``build_library`` is that
+build for any source: utils/jpeg.py builds its entropy coder with it and
+raises where the build fails.
 
 It covers host-side work the reference does in C++: COLMAP sparse-model
 binary parsing, per-image near/far percentiles and the pyramid-embedding
@@ -22,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import platform
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -48,26 +51,45 @@ def _cpu() -> bytes:
     return "\n".join(keep[:2]).encode()
 
 
+def library_path(source: Path, flags, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of ``source``, ``flags`` and this CPU is built:
+    ``build_dir/lib<stem>_<hash>.so``."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    h.update(" ".join(flags).encode())
+    h.update(_cpu())
+    return build_dir / f"lib{Path(source).stem}_{h.hexdigest()[:12]}.so"
+
+
 def lib_path() -> Path:
     """Where the library of this source, these flags and this CPU is
     built."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    h.update(_cpu())
-    return BUILD_DIR / f"libnerfpp_native_{h.hexdigest()[:12]}.so"
+    return library_path(SOURCE, CXX_FLAGS)
 
 
-def _build(out: Path) -> bool:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_library(source: Path, flags, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``source`` with g++ into ``library_path`` unless it is
+    there, through a temporary file renamed into place. Raises RuntimeError
+    naming g++ when it is missing or fails."""
+    out = library_path(source, flags, build_dir)
+    if out.exists():
+        return out
+    if shutil.which("g++") is None:
+        raise RuntimeError(f"g++ not found: {source} is compiled with g++ at "
+                           "first use")
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-    except (subprocess.SubprocessError, OSError):
+        subprocess.run(["g++", *flags, str(source), "-o", str(tmp)],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
+    except subprocess.CalledProcessError as e:
         tmp.unlink(missing_ok=True)
-        return False
+        raise RuntimeError(f"g++ failed on {source}:\n{e.stderr}") from e
+    except (subprocess.SubprocessError, OSError) as e:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {source}: {e}") from e
     os.replace(tmp, out)
-    return True
+    return out
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -78,8 +100,9 @@ def load() -> Optional[ctypes.CDLL]:
     _tried = True
     if not SOURCE.exists():
         return None
-    out = lib_path()
-    if not out.exists() and not _build(out):
+    try:
+        out = build_library(SOURCE, CXX_FLAGS)
+    except RuntimeError:
         return None
     try:
         lib = ctypes.CDLL(str(out))

@@ -37,15 +37,25 @@ can show it (tests/test_torch_colmap.py):
 
 Distortion coefficients follow OpenCV's order: k1, k2, p1, p2 [, k3 [, k4,
 k5, k6]].
+
+``read_image`` and ``write_image`` are ``cv2.imread(path,
+IMREAD_UNCHANGED)`` and ``cv2.imwrite`` for the formats the port reads and
+writes: PNG (utils/png.py) and baseline JPEG (utils/jpeg.py). Reading goes
+by the file's leading bytes, as OpenCV's does, writing by the extension;
+any other format raises, naming the file.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from nerfpp_tpu_torch import resolve_device
+from nerfpp_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
+from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
+from nerfpp_tpu_torch.utils.png import read_png, write_png
 
 RESIZE_COEF_BITS = 11            # INTER_RESIZE_COEF_BITS
 REMAP_BITS = 5                   # INTER_BITS: the map in 1/32 pixel
@@ -259,3 +269,54 @@ def undistort(img_u8: torch.Tensor, k, d, new_k) -> torch.Tensor:
     h, w = img_u8.shape[0], img_u8.shape[1]
     mu, mv = undistort_map(k, d, new_k, (w, h), img_u8.device)
     return remap_linear_u8(img_u8, mu, mv)
+
+
+# ---------------------------------------------------------------- files
+
+# leading bytes of formats cv2.imread reads and the port does not
+OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
+                 (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+                 (b"\xff\x4f\xff\x51", "JPEG 2000"))
+JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
+
+
+def image_format(path) -> str:
+    """"png" or "jpeg" from the file's leading bytes; anything else raises
+    NotImplementedError naming the file and, where known, its format."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head.startswith(PNG_SIGNATURE):
+        return "png"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        kind = "WebP"
+    raise NotImplementedError(
+        f"{path}: {'a ' + kind + ' image' if kind else 'an unknown format'} "
+        f"(leading bytes {head[:8].hex()}); the port reads PNG and baseline "
+        "JPEG")
+
+
+def read_image(path, device="cuda") -> torch.Tensor:
+    """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: uint8 [H, W] or
+    [H, W, C] on ``device``, PNG or baseline JPEG by the leading bytes."""
+    dev = resolve_device(device)
+    if image_format(path) == "png":
+        return torch.from_numpy(read_png(path)).to(dev)
+    return read_jpeg(path, dev)
+
+
+def write_image(path, img, device="cuda") -> None:
+    """cv2.imwrite(path, img) of a uint8 [H, W] or [H, W, C] image in RGB(A)
+    order: PNG for .png, JPEG at quality 95 (encoded on ``device``) for
+    .jpg, .jpeg and .jpe; any other extension raises."""
+    ext = Path(path).suffix.lower()
+    if ext == ".png":
+        write_png(path, img.cpu().numpy() if torch.is_tensor(img) else img)
+    elif ext in JPEG_EXTENSIONS:
+        write_jpeg(path, img, device=device)
+    else:
+        raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
+                                  'without extension'}; the port writes PNG "
+                                  "and JPEG")

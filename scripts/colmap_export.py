@@ -1,5 +1,6 @@
 """Write a synthetic scene as a COLMAP workspace: a capture with two
-distorted cameras, its sparse model (.bin and a .txt copy) and PNG images.
+distorted cameras, its sparse model (.bin and a .txt copy) and PNG or JPEG
+images.
 
 The writer is support for the tests and for ``chip_smoke.py`` (which trains
 the port on the workspace it writes); neither package has a COLMAP writer.
@@ -10,7 +11,9 @@ It imports torch, numpy and the port, never OpenCV or the JAX package.
 takes a SceneData with poses on a sphere (data/synthetic.py's
 ``make_synthetic_scene``; attached images are not used) and writes:
 
-- ``images/view_NNN.png``: every train view rendered from the scene's
+- ``images/view_NNN.png`` (or ``.jpg`` with ``image_format="jpg"``, as
+  cv2.imwrite writes it at quality 95, encoded on the device): every train
+  view rendered from the scene's
   analytic field, distorted: each pixel's ray goes through the undistorted
   point of that pixel (OpenCV's model inverted to convergence), so the
   image is the pinhole render resampled through the distortion model.
@@ -42,7 +45,7 @@ from nerfpp_tpu_torch.core.integrate import weights_from_alpha
 from nerfpp_tpu_torch.data.colmap import (MODEL_NAME_TO_ID, ColmapCamera,
                                           ColmapImage, qvec_to_rotmat)
 from nerfpp_tpu_torch.data.synthetic import scene_field
-from nerfpp_tpu_torch.utils.png import write_png
+from nerfpp_tpu_torch.utils.image import write_image
 
 # small, non-zero OPENCV coefficients (k1, k2, p1, p2) of the two cameras
 DISTORTION = ((-0.03, 0.01, 0.001, -0.0008), (0.02, -0.006, -0.0006, 0.0009))
@@ -238,10 +241,14 @@ def view_rays(cam: ColmapCamera, pose: np.ndarray, dev):
 # ------------------------------------------------------------------- export
 
 def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
-                        n_points: int = 50_000, log=None) -> Export:
+                        n_points: int = 50_000, log=None,
+                        image_format: str = "png") -> Export:
     """Write the scene's train views as a COLMAP workspace (see the module
     docstring), rendered at ``n_samples`` a ray, with about ``n_points``
-    points drawn from numpy seed 0; ``log`` takes a summary line."""
+    points drawn from numpy seed 0, the images as ``image_format`` ("png"
+    or "jpg"); ``log`` takes a summary line."""
+    if image_format not in ("png", "jpg"):
+        raise ValueError(f"image_format {image_format!r} is not png or jpg")
     dev = resolve_device(device)
     workspace = Path(workspace)
     (workspace / "images").mkdir(parents=True, exist_ok=True)
@@ -270,9 +277,9 @@ def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
             rgb, t, acc = (torch.cat(x) for x in zip(*parts))
             dist = t * torch.linalg.norm(rd, dim=-1)
             rgb8 = (torch.clamp(rgb, 0.0, 1.0) * 255.0).round().to(torch.uint8)
-            name = f"view_{j:03d}.png"
-            write_png(workspace / "images" / name,
-                      rgb8.reshape(cam.height, cam.width, 3).cpu().numpy())
+            name = f"view_{j:03d}.{image_format}"
+            write_image(workspace / "images" / name,
+                        rgb8.reshape(cam.height, cam.width, 3), dev)
             maps.append((cam, rd.cpu().numpy(), dist.cpu().numpy(),
                          acc.cpu().numpy(), rgb8.cpu().numpy()))
             qvec, tvec = c2w_to_colmap(pose)

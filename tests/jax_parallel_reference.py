@@ -18,7 +18,7 @@ from nerfpp_tpu.executor import NeRFExecutor
 from nerfpp_tpu.parallel import mesh as jax_mesh
 
 BBOX = np.array([-1.5, -1.0, -1.2, 1.5, 1.0, 1.3], np.float32)
-# tests/test_torch_train.py's TINY: blocked scheme, plain encoder, the
+# tests/torch_train_common.py's TINY: blocked scheme, plain encoder, the
 # occupancy grid with its two-class budget after step 1, thin rays
 TINY = dict(n_importance=0, log2_hashmap_size=10, finest_resolution=64,
             n_levels=4, density_activation="trunc_exp",
@@ -44,7 +44,7 @@ _SETUPS = {}
 
 def setup(mode):
     """The JAX executor at TINY (f32 MLP, ``dp_grad_reduce=mode``) with
-    the planted grid, and the tile sampler of tests/test_torch_train.py
+    the planted grid, and the tile sampler of tests/test_torch_train_step.py
     (made once a process and mode)."""
     if mode not in _SETUPS:
         _SETUPS[mode] = _setup(mode)

@@ -2,8 +2,8 @@
 a tiny preset on the synthetic scene, on a tiny Blender export and on a
 tiny COLMAP capture (two distorted cameras, 16x16 and 20x20), the train
 loop's image hooks (IImg, ITestset, RenderOnly) and the bbox refit flag,
-the saved JSON configs against the JAX CLI's keys, and what is not ported
-yet raising.
+the saved JSON configs against the JAX CLI's keys, a COLMAP capture of
+JPEG images training, and what is not ported yet raising.
 """
 import functools
 import json
@@ -21,6 +21,7 @@ from nerfpp_tpu_torch import cli
 from nerfpp_tpu_torch.data import synthetic
 from nerfpp_tpu_torch.data.blender import export_blender_scene
 from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
+from nerfpp_tpu_torch.utils.jpeg import write_jpeg
 from nerfpp_tpu_torch.utils.png import read_png
 from scripts.colmap_export import export_colmap_scene, write_images_bin
 
@@ -161,24 +162,35 @@ def test_train_from_a_colmap_workspace(colmap_dir, tmp_path):
      "colmap"),
     (["bench"], "bench")])
 def test_what_is_not_ported_raises(argv, what, tmp_path, colmap_dir):
-    # COLMAP captures of JPEG images: the port decodes PNG only
-    if "<jpeg capture>" in argv:
-        from nerfpp_tpu_torch.data.colmap import read_model
-        jpeg = tmp_path / "jpeg"
-        (jpeg / "sparse" / "0").mkdir(parents=True)
-        rec = read_model(colmap_dir / "sparse" / "0")
-        for im in rec.images.values():
-            im.name = im.name.replace(".png", ".jpg")
-        for f in ("cameras.bin", "points3D.bin"):
-            (jpeg / "sparse" / "0" / f).write_bytes(
-                (colmap_dir / "sparse" / "0" / f).read_bytes())
-        write_images_bin(jpeg / "sparse" / "0" / "images.bin",
-                         [rec.images[i] for i in sorted(rec.images)])
-        argv = [str(jpeg) if a == "<jpeg capture>" else a for a in argv]
-        what = r"view_000\.jpg.*colmap"
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        cli.main([*argv, "--base-dir", str(tmp_path)] if argv != ["bench"]
-                 else argv)
+    # bench is not ported and raises; a COLMAP capture of JPEG images (the
+    # PNG capture's views re-encoded) now trains, its distorted views
+    # undistorted into JPEG files
+    if "<jpeg capture>" not in argv:
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
+            cli.main(argv)
+        return
+    from nerfpp_tpu_torch.data.colmap import read_model
+    jpeg = tmp_path / "jpeg"
+    (jpeg / "sparse" / "0").mkdir(parents=True)
+    (jpeg / "images").mkdir()
+    rec = read_model(colmap_dir / "sparse" / "0")
+    for im in rec.images.values():
+        img = read_png(colmap_dir / "images" / im.name)
+        im.name = im.name.replace(".png", ".jpg")
+        write_jpeg(jpeg / "images" / im.name, img, device="cpu")
+    for f in ("cameras.bin", "points3D.bin"):
+        (jpeg / "sparse" / "0" / f).write_bytes(
+            (colmap_dir / "sparse" / "0" / f).read_bytes())
+    write_images_bin(jpeg / "sparse" / "0" / "images.bin",
+                     [rec.images[i] for i in sorted(rec.images)])
+    out = tmp_path / "out"
+    cli.main([*[str(jpeg) if a == "<jpeg capture>" else a for a in argv],
+              "--base-dir", str(out), *TINY, "--set-train", "NIters=3",
+              "--set-train", "IPrint=1", "--set-train", "IImg=0"])
+    rows = (out / "metrics.csv").read_text().splitlines()
+    assert [r.split(",")[0] for r in rows[1:]] == ["1", "2"]
+    assert sorted(p.name for p in (jpeg / "undistorted").iterdir()) == [
+        f"view_{j:03d}.jpg" for j in range(4)]
 
 
 def test_runs_as_a_module():

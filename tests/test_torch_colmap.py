@@ -220,18 +220,33 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    ws = tmp_path / "ws"
-    (ws / "sparse" / "0").mkdir(parents=True)
-    for f in synthetic_model.iterdir():
-        shutil.copy(f, ws / "sparse" / "0")
-    rec = JC.read_model(ws / "sparse" / "0")
+    # PNG and baseline JPEG views are read; a TIFF view raises when the
+    # undistortion reads it, a progressive JPEG when load_images does, each
+    # naming the file and its kind
     from scripts.colmap_export import write_images_bin
-    for im in rec.images.values():
-        im.name = im.name.replace(".png", ".jpg")
-    write_images_bin(ws / "sparse" / "0" / "images.bin",
-                     [rec.images[i] for i in sorted(rec.images)])
-    with pytest.raises(NotImplementedError, match=r"img_1\.jpg.*PNG"):
-        PC.load_from_colmap_reconstruction(ws, undistort=False)
+    img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
+    for ext, params, kind in ((".tif", [], "TIFF"),
+                              (".jpg", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
+                               "progressive")):
+        ws = tmp_path / ext[1:]
+        (ws / "sparse" / "0").mkdir(parents=True)
+        for f in synthetic_model.iterdir():
+            shutil.copy(f, ws / "sparse" / "0")
+        rec = JC.read_model(ws / "sparse" / "0")
+        for im in rec.images.values():
+            im.name = im.name.replace(".png", ext)
+            assert cv2.imwrite(str(ws / im.name), img, params)
+        write_images_bin(ws / "sparse" / "0" / "images.bin",
+                         [rec.images[i] for i in sorted(rec.images)])
+        match = rf"img_1\{ext}.*{kind}"
+        if kind == "TIFF":
+            with pytest.raises(NotImplementedError, match=match):
+                PC.load_from_colmap_reconstruction(ws, device="cpu")
+        else:
+            sc = PC.load_from_colmap_reconstruction(ws, undistort=False,
+                                                    device="cpu")
+            with pytest.raises(NotImplementedError, match=match):
+                load_images(sc, [0], device="cpu")
 
 
 def test_without_a_colmap_binary_sfm_raises(tmp_path):

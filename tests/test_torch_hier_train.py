@@ -4,7 +4,7 @@ the collapse auto-recovery of the train loop.
 One step of hashnerf_tpu_preset at tiny shapes (the coarse-ranked fine
 budget, the importance pass, the fixed scheme's TV loss) against the JAX
 step: loss, gradients and Adam moments, with the tolerances of
-tests/test_torch_train.py. Then the train loop's collapse recovery, forced
+tests/test_torch_train_step.py. Then the train loop's collapse recovery, forced
 by a large auto_fine_rel_std, with the JAX package's quirks mirrored on
 purpose.
 """
@@ -102,7 +102,7 @@ def test_hier_train_step_matches_jax(jax_step):
     tm = tx._build_train_step(TrainParams(**TINY_TP))(STEP, batch,
                                                       draws=draws)
     assert tx.step == STEP + 1
-    # tolerances of tests/test_torch_train.py: f32 to 1e-5; in bf16 a few
+    # tolerances of tests/test_torch_train_step.py: f32 to 1e-5; in bf16 a few
     # MLP operands round to the neighbouring bf16 value
     rtol = 1e-5 if dtype == "float32" else 2e-3
     for k in ("loss", "mse", "img_loss", "psnr"):

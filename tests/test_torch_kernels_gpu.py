@@ -27,8 +27,9 @@ window codes alias, every group in one window (8,300 groups), 128 windows
 per group, no cotangent rows and a partial last group; the large-table
 kernels at the LeRF language table (2^16 entries, 10-15 levels), a LeRF
 render and train step on the card against the CPU; utils/image.py's
-undistortion and resizes on the card against the CPU, and K1-K3 on the box
-of a bbox refit.
+undistortion and resizes on the card against the CPU, K1-K3 on the box
+of a bbox refit, and the JPEG codec's device stages (utils/jpeg.py) on the
+card against the CPU and the committed cv2 fixtures (tests/data/jpeg).
 """
 import numpy as np
 import pytest
@@ -1166,3 +1167,28 @@ def test_blocked_kernels_after_a_refit_use_the_new_box(cuda):
     other = K.encode_blocked_plain(packed, K.pad_points(pts, old), owids,
                                    ocounts, old)[:4096]
     assert float((other - want).abs().max()) > 1e-3
+
+
+def test_jpeg_codec_on_the_card_is_the_cpus_and_opencvs(cuda):
+    # integer stages: the card's pixels and bytes are the CPU's, and the
+    # fixtures' (written by OpenCV 5.0.0's libjpeg-turbo 3.1.2) exactly
+    from pathlib import Path
+
+    from nerfpp_tpu_torch.utils import jpeg as J
+    fixtures = Path(__file__).resolve().parent / "data" / "jpeg"
+    for f in sorted(fixtures.glob("*.jpg")):
+        if f.stem != "source":
+            np.testing.assert_array_equal(J.read_jpeg(f, cuda).cpu().numpy(),
+                                          np.load(f.with_suffix(".npy")))
+    src = np.load(fixtures / "source.npy")
+    assert J.encode_jpeg(src, device=cuda) == (fixtures / "source.jpg"
+                                               ).read_bytes()
+    rng = np.random.RandomState(0)
+    for h, w in [(1, 1), (17, 33), (64, 48), (129, 255)]:
+        for c in (3, 1):
+            img = rng.randint(0, 256, (h, w, c), np.uint8)
+            data = J.encode_jpeg(img, 90, device="cpu")
+            assert J.encode_jpeg(img, 90, device=cuda) == data, (h, w, c)
+            frame = J.decode_coefficients(data)
+            assert torch.equal(J.frame_pixels(frame, cuda).cpu(),
+                               J.frame_pixels(frame, "cpu")), (h, w, c)

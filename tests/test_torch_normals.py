@@ -4,7 +4,7 @@ loop's trace (train(profile_dir=), utils/profiling.py).
 NeRFSmall with the head against the JAX NeRFSmall on converted parameters
 in f32 and bf16; convert.py's normals_net; the head built only in a
 coarse-only net (both packages); one coarse-only train step of the
-flagship stack with the head against the JAX step (test_torch_train.py's
+flagship stack with the head against the JAX step (test_torch_train_step.py's
 tiny configuration without the tile budget and the phased refresh, whose
 JAX compile alone takes 14 s more; its state, batch and tolerances); the
 head changes nothing
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import test_torch_train as TT
+import torch_train_common as TT
 from nerfpp_tpu.config import TrainParams as JaxTrainParams
 from nerfpp_tpu.config import hashnerf_preset as jax_hashnerf_preset
 from nerfpp_tpu.core import occupancy as JO
@@ -128,7 +128,7 @@ def _jax_state_and_sampler():
 
 
 def test_train_step_with_normals_matches_jax(monkeypatch):
-    # test_torch_train.py's step (blocked scheme, f32 table gather, the
+    # test_torch_train_step.py's step (blocked scheme, f32 table gather, the
     # tile-shared occupancy render, Huber loss, Adam)
     # with the head: no loss reads it, so its gradient is zero on both
     # sides and it does not move
@@ -137,7 +137,7 @@ def test_train_step_with_normals_matches_jax(monkeypatch):
     key = jax.random.PRNGKey(1)
     jstate = {**jx.state, "step": jnp.int32(TT.STEP)}
     new, jm = step_fn(jstate, sampler, key)
-    # the step's own batch (test_torch_train.py's _batch), sampled in one
+    # the step's own batch (test_torch_train_step.py's _batch), sampled in one
     # jitted call: the same values, a quarter of the eager call's time
     kb = jax.random.split(jax.random.fold_in(key, TT.STEP), 5)[0]
     batch = {k: TT.t(v) for k, v in jax.jit(
@@ -164,7 +164,7 @@ def test_train_step_with_normals_matches_jax(monkeypatch):
             np.testing.assert_array_equal(params[name], old[name])
             np.testing.assert_array_equal(prm.detach().numpy(), old[name])
             continue
-        # test_torch_train.py's f32 bounds: 95% within 1e-4 of the largest
+        # test_torch_train_step.py's f32 bounds: 95% within 1e-4 of the largest
         # entry, every entry within 5e-3
         scale = float(np.abs(gj).max())
         diff = np.abs(gt_ - gj)

@@ -3,7 +3,7 @@
 tests/torch_parallel_workers.py, which imports no JAX).
 
 (a) the explicit f32 and bf16 steps on 2 ranks against the JAX package's
-step on ``make_mesh(2)`` in the same mode (tests/test_torch_train.py's TINY
+step on ``make_mesh(2)`` in the same mode (tests/torch_train_common.py's TINY
 shapes, 8 chunks of 256 rays, step 13 from the JAX state carried across,
 the JAX step's own batch, _compare_step's tolerances); (b) the port's mesh
 against its single device: explicit f32 and bf16, and the implicit path on
