@@ -6,6 +6,7 @@
     python3 chip_smoke.py --capture-only
     python3 chip_smoke.py --options-only
     python3 chip_smoke.py --jpeg-only
+    python3 chip_smoke.py --formats-only
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -182,13 +183,35 @@ Phases, each printing its own lines:
      (host entropy pass and device stages apart) for the 16 views and a
      4,000x3,000 upscale, load_images of the undistorted views; (c) phase
      17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
-     workspace to NIters 2,100 (launch counts reset before step 0 and read
-     after: K1, K2, K3 and its index, no other kernel; steps 1,056-1,087
-     timed; the loss must fall), its held-out PSNR beside phase 17's.
+     workspace to NIters 2,100, cut to 1,088 (and the cut printed) if the
+     script, with it and phase 21 at its shortest, would pass 1,080 s
+     (launch counts reset before step 0 and read after: K1, K2, K3 and its
+     index, no other kernel; steps 1,056-1,087 timed, 1,024-1,055 after a
+     cut; the loss must fall), its held-out PSNR beside phase 17's.
+ 21. image files (utils/png.py, utils/jpeg.py progressive, utils/tiff.py,
+     csrc/tiff_codec.cpp): (a) phase 17's COLMAP export with the 800x800
+     camera's 12 views as progressive JPEG and the 1000x1000 camera's 4 as
+     LZW TIFF, written on the card; (b) the undistortion on the card
+     (progressive views written back as baseline JPEG at quality 95, TIFF
+     as TIFF), views 1 and 4 also through the CPU, every exported and
+     undistorted file decoded on the card and the CPU (bitwise equal), the
+     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
+     cut, PNG kinds, TIFF variants) decoded on the card to cv2's pixels and
+     prog_source encoded progressive on the card to cv2's bytes, a 16-bit
+     PNG copy of views 1 and 4 through undistort_images and load_images on
+     the card against the CPU, the decode seconds of the 12 progressive
+     views and of a 4,000x3,000 progressive upscale (host entropy pass and
+     device stages apart), of the 4 TIFF views, the undistortion and
+     load_images; (c) phase 17(c)'s flagship ``cli train --dataset-type
+     colmap`` on the mixed workspace to NIters 2,100 (cut to 1,088, and
+     the cut printed, if the script would pass 1,080 s; launch counts reset
+     before step 0 and read after: K1, K2, K3 and its index, no other
+     kernel; steps 1,056-1,087 timed; the loss must fall), its held-out
+     PSNR beside phases 17 and 20.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
-phase 8's, phase 17's and phase 20's COLMAP training for K1-K3 (phases 17
-and 20 add their own), phase 11's for encode_small and
+phase 8's, phase 17's, phase 20's and phase 21's COLMAP training for K1-K3
+(phases 17, 20 and 21 add their own), phase 11's for encode_small and
 grad_small, phase 14's cli train and phase 16's LeRF training and frames
 for encode_large, grad_large and the bin pass grad_large_bins (which phase
 11's path launches too, once per grad_small: its count is printed there);
@@ -208,7 +231,8 @@ the same last line. ``--capture-only`` runs phases 1-2 and then phase 17
 alone (without phase 8's PSNR to print beside its own); ``--options-only``
 phases 1-2 and phase 19, against a 64-step seed-0 flagship run of its own
 in place of phase 8's; ``--jpeg-only`` phases 1-2 and phase 20 (without
-phase 17's PSNR). Any failed check raises, and the script exits
+phase 17's PSNR); ``--formats-only`` phases 1-2 and phase 21 (without
+phases 17's and 20's PSNRs). Any failed check raises, and the script exits
 non-zero; without CUDA, or without the nerfpp_tpu_torch package beside it, it
 fails before printing a result.
 """
@@ -234,6 +258,10 @@ HIER_KERNELS = ("encode_small", "grad_large_bins", "grad_small")
 LARGE_KERNELS = ("encode_large", "grad_large_bins", "grad_large")
 TIME_BUDGET_S = 600            # phase 11 is cut to leave phases 12-15 room
 DP_FIRST, DP_STEPS = 992, 64   # phase 18's 2-rank window: across step 1,024
+COLMAP_TRAIN_S = 100           # a 2,100-step flagship cli train and its
+                               # render in phases 20-21: 66-87 s on an H100
+FORMATS_MIN_S = 70             # phase 21 with its cut: 62 s on an H100
+SOFT_LIMIT_S = 1080            # phases 20-21 cut their training to end by it
 
 
 def log(phase, msg):
@@ -3073,12 +3101,13 @@ def options_phase(scene, dev, reference):
         + ", ".join(f"{k} {v}" for k, v in c.items()))
 
 
-def codec_times(files, dev):
+def codec_times(files, dev, progressive=False):
     """Decode every JPEG file on ``dev`` and encode the decoded image
-    again, each split into its host part (markers and the C++ entropy
-    pass; for encoding also the block copy to the host) and its device
-    part (synchronised): {"decode": (host s, device s), "encode": (...),
-    "bytes", "pixels"}, and the decoded images."""
+    again (progressive with ``progressive``), each split into its host part
+    (markers and the C++ entropy pass; for encoding also the block copy to
+    the host) and its device part (synchronised): {"decode": (host s,
+    device s), "encode": (...), "bytes", "pixels"}, and the decoded
+    images."""
     import torch
     from nerfpp_tpu_torch.utils import jpeg as J
     t = {"decode": [0.0, 0.0], "encode": [0.0, 0.0], "bytes": 0,
@@ -3096,7 +3125,7 @@ def codec_times(files, dev):
         enc = J.jpeg_blocks(img, 95, dev)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        J.encode_file(enc)
+        J.encode_file(enc, progressive)
         t4 = time.perf_counter()
         t["decode"][0] += t1 - t0
         t["decode"][1] += t2 - t1
@@ -3122,7 +3151,22 @@ def codec_line(label, t):
             f"Mpix): " + "; ".join(parts))
 
 
-def jpeg_phase(scene, dev, psnr_png):
+def colmap_depth(label, t_start, after_s=0.0):
+    """(NIters, timed window) of phase 20's or 21's flagship ``cli train``:
+    2,100 steps (window 1,056-1,088), or 1,088 (phase 8's first PSNR point;
+    window 1,024-1,056) when the script, with the full run and the
+    ``after_s`` seconds still to come after it, would pass SOFT_LIMIT_S. The
+    cut is printed."""
+    elapsed = time.perf_counter() - t_start
+    if elapsed + COLMAP_TRAIN_S + after_s <= SOFT_LIMIT_S:
+        return 2100, (1056, 1088)
+    log(label, f"(c) cut to NIters 1088: the script is at {elapsed:.1f} s, "
+        f"and the full run (about {COLMAP_TRAIN_S} s) with {after_s:.0f} s "
+        f"still to come would take it past {SOFT_LIMIT_S} s")
+    return 1088, (1024, 1056)
+
+
+def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     """Phase 20, JPEG capture: (a) the bench scene exported as phase 17(a)
     exports it with JPEG views (utils/jpeg.py, encoded on the card); (b) the
     undistortion on the card (each distorted view decoded, undistorted and
@@ -3135,10 +3179,11 @@ def jpeg_phase(scene, dev, psnr_png):
     3,000 upscale of view 1 (host entropy and device stages apart, MB/s,
     Mpix/s), and load_images of the 16 undistorted views; (c) phase
     17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
-    workspace to NIters 2,100 (launch counts reset before step 0 and read
-    after: K1, K2, K3 and its index, nothing else; steps 1,056-1,087 timed;
-    the loss must fall; the held-out PSNR beside phase 17's on the PNG
-    export, ``psnr_png``). Returns (c)'s launch counts."""
+    workspace to the NIters of ``colmap_depth`` (with ``after_s`` seconds
+    still to come after it; launch counts reset before step 0 and read
+    after: K1, K2, K3 and its index, nothing else; its window timed; the
+    loss must fall; the held-out PSNR beside phase 17's on the PNG export,
+    ``psnr_png``). Returns (c)'s launch counts and PSNR."""
     import numpy as np
     import torch
     from nerfpp_tpu_torch import native
@@ -3259,7 +3304,9 @@ def jpeg_phase(scene, dev, psnr_png):
     torch.cuda.empty_cache()
 
     # (c) cli train --dataset-type colmap on the JPEG workspace
-    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev))
+    n_iters, window = colmap_depth("jpeg", t_start, after_s)
+    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev, n_iters),
+                   window)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     train_s = run.run()
@@ -3269,7 +3316,7 @@ def jpeg_phase(scene, dev, psnr_png):
     ms, per_step = run.window_ms()
     psnr = run.held_out_psnr(scene)
     first, last = float(loss[:32].mean()), float(loss[-32:].mean())
-    if not (loss.size == 2099 and math.isfinite(last)
+    if not (loss.size == n_iters - 1 and math.isfinite(last)
             and last < 0.5 * first):
         raise AssertionError(f"JPEG colmap train: {loss.size} steps, loss "
                              f"mean {first} (steps 0-31) -> {last}")
@@ -3286,7 +3333,8 @@ def jpeg_phase(scene, dev, psnr_png):
         f"JPEG decode, undistortion and re-encoding included: about "
         f"{und_warm + load_s:.2f} s of it, "
         f"{100 * (und_warm + load_s) / train_s:.1f} %, (b)'s second load "
-        f"and load_images); steps 1056-1087: {ms:.3f} ms/step, "
+        f"and load_images); steps {window[0]}-{window[1] - 1}: "
+        f"{ms:.3f} ms/step, "
         f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
         + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
@@ -3304,6 +3352,291 @@ def jpeg_phase(scene, dev, psnr_png):
     torch.cuda.empty_cache()
     tmp.cleanup()
     log("jpeg", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] for k in TRAIN_KERNELS}, psnr
+
+
+def tiff_times(files, dev):
+    """Read every TIFF file (host: the IFD, the C++ LZW pass, the numpy
+    predictor and layout) and move it to ``dev`` (synchronised): (host s,
+    device s, bytes, pixels), and the images on ``dev``."""
+    import torch
+    from nerfpp_tpu_torch.utils.tiff import read_tiff
+    host = device = 0.0
+    size = pixels = 0
+    images = []
+    for path in files:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = read_tiff(path)
+        t1 = time.perf_counter()
+        images.append(torch.from_numpy(img).to(dev))
+        torch.cuda.synchronize()
+        host += t1 - t0
+        device += time.perf_counter() - t1
+        size += Path(path).stat().st_size
+        pixels += img.shape[0] * img.shape[1]
+    return (host, device, size, pixels), images
+
+
+def formats_phase(scene, dev, psnrs, t_start):
+    """Phase 21, the image files cv2.imread reads (utils/png.py,
+    utils/jpeg.py progressive, utils/tiff.py, csrc/tiff_codec.cpp): (a)
+    phase 17's COLMAP export with the 800x800 camera's 12 views as
+    progressive JPEG and the 1000x1000 camera's 4 as 8-bit LZW TIFF, written
+    on the card; (b) the undistortion on the card (progressive decode,
+    undistort, baseline JPEG at quality 95; TIFF read, undistort, TIFF
+    write), views 1 and 4 also through the CPU (the JPEG byte for byte, the
+    TIFF pixel for pixel), every exported and undistorted file decoded on
+    the card and the CPU (bitwise equal), the committed cv2 fixtures
+    (tests/data/image: progressive JPEG whole and cut, PNG kinds, TIFF
+    variants) decoded on the card to cv2's pixels and prog_source encoded
+    progressive on the card to cv2's bytes, a 16-bit PNG copy of views 1
+    and 4 through undistort_images and load_images on the card and the CPU
+    (bitwise equal; values up to 257, the JAX package's division of every
+    depth by 255), decode seconds of the 12 progressive views and of a
+    4,000 x 3,000 progressive upscale (host entropy pass and device stages
+    apart, with the progressive encode's), of the 4 TIFF views (host read
+    and the copy to the card), the undistortion and load_images; (c) phase
+    17(c)'s flagship ``cli train --dataset-type colmap`` on the mixed
+    workspace to NIters 2,100, or 1,088 if the whole script would pass
+    1,080 s (the cut is printed; steps 1,024-1,055 then timed in place of
+    1,056-1,087), launch counts reset before step 0 and read after (K1, K2,
+    K3 and its index, no other kernel), the loss must fall, the held-out
+    PSNR beside ``psnrs`` (phases 17 and 20). Returns (c)'s launch
+    counts."""
+    import copy
+
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.data import colmap as C
+    from nerfpp_tpu_torch.data.dataset import SceneData, View, load_images
+    from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import jpeg as J
+    from nerfpp_tpu_torch.utils import tiff as T
+    from nerfpp_tpu_torch.utils.png import write_png
+    from scripts.colmap_export import export_colmap_scene
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    ws = root / "colmap_formats"
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    lib = T.codec_library()
+    log("formats", f"TIFF codec built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s ({lib._name})")
+
+    # (a) export: progressive JPEG and TIFF
+    t0 = time.perf_counter()
+    export_colmap_scene(scene, ws, dev, n_samples=64, n_points=50_000,
+                        image_format=("pjpg", "tif"),
+                        log=lambda m: log("formats", m))
+    sources = sorted((ws / "images").iterdir())
+    jpgs = [f for f in sources if f.suffix == ".jpg"]
+    tifs = [f for f in sources if f.suffix == ".tif"]
+    if len(jpgs) != 12 or len(tifs) != 4 or not all(
+            J.decode_coefficients(f.read_bytes()).progressive for f in jpgs):
+        raise AssertionError(f"export: {len(jpgs)} progressive JPEG and "
+                             f"{len(tifs)} TIFF views")
+    log("formats", f"(a) exported in {time.perf_counter() - t0:.2f} s: "
+        f"{len(jpgs)} progressive JPEG views "
+        f"({sum(f.stat().st_size for f in jpgs)} bytes), {len(tifs)} TIFF "
+        f"views ({sum(f.stat().st_size for f in tifs)} bytes)")
+
+    # (b) undistortion on the card, then the codecs card against CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc = C.load_from_colmap_reconstruction(ws, device=dev)
+    torch.cuda.synchronize()
+    und_s = time.perf_counter() - t0
+    undistorted = [Path(v.image_path) for v in sc.views]
+    if sorted(f.name for f in undistorted) != [f.name for f in sources] or \
+            any(f.parent.name != "undistorted" for f in undistorted):
+        raise AssertionError(f"undistorted files {undistorted[:3]}...")
+    raw = C.read_model(ws / "sparse" / "0")
+    for i in (0, 3):
+        cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
+        k = cam.k_matrix().astype(np.float64)
+        d = cam.distortion().astype(np.float64)
+        new_k = I.optimal_new_camera_matrix(k, d, (cam.width, cam.height),
+                                            0.0, cpu)
+        und = I.undistort(I.read_image(sources[i], cpu), k, d, new_k)
+        if undistorted[i].suffix == ".jpg":
+            same = J.encode_jpeg(und, device=cpu) == undistorted[
+                i].read_bytes()
+        else:
+            same = np.array_equal(T.read_tiff(undistorted[i]), und.numpy())
+        if not same:
+            raise AssertionError(f"{undistorted[i].name}: the card's "
+                                 "undistorted file differs from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.load_from_colmap_reconstruction(ws, device=dev)
+    torch.cuda.synchronize()
+    und_warm = time.perf_counter() - t0
+    log("formats", f"(b) load_from_colmap_reconstruction with undistortion "
+        f"on the card (parse, near/far, box; progressive decode, undistort, "
+        f"baseline encode of 12 views; TIFF read, undistort, TIFF write of "
+        f"4): {und_s:.3f} s the first time, {und_warm:.3f} s again; views 1 "
+        f"(JPEG) and 4 (TIFF) through the CPU: the same files")
+    for f in sources + undistorted:
+        card = I.read_image(f, dev).cpu()
+        host = I.read_image(f, cpu)
+        if card.dtype != host.dtype or not torch.equal(
+                card.to(torch.int32), host.to(torch.int32)):
+            raise AssertionError(f"{f}: decode card against CPU differs")
+    log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
+        "undistorted files (progressive and baseline JPEG, TIFF) decoded on "
+        "the card bitwise the CPU's")
+    fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
+    names = []
+    for f in sorted(fixtures.iterdir()):
+        if f.suffix == ".npy" or f.stem == "prog_source":
+            continue
+        want = np.load(f.with_suffix(".npy"))
+        got = I.read_image(f, dev).cpu().numpy()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"fixture {f.name}: the card's decode is "
+                                 "not cv2's")
+        names.append(f.name)
+    if J.encode_jpeg(torch.from_numpy(np.load(fixtures / "prog_source.npy"))
+                     .to(dev), device=dev, progressive=True) != (
+                         fixtures / "prog_source.jpg").read_bytes():
+        raise AssertionError("fixture prog_source: the card's progressive "
+                             "encoding is not cv2's")
+    log("formats", f"(b) {len(names)} cv2 fixtures ({', '.join(names)}) "
+        "decoded on the card to cv2.imread's pixels; prog_source encoded "
+        "progressive on the card to cv2.imencode's bytes")
+
+    # a 16-bit PNG copy of views 1 and 4 (x 257 plus seeded noise below
+    # 257) through the undistortion and load_images, card against CPU
+    rng = np.random.RandomState(SEED)
+    deep_views = []
+    for i in (0, 3):
+        cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
+        img8 = I.read_image(sources[i], cpu).numpy().astype(np.uint32)
+        img16 = (img8 * 257 + rng.randint(0, 257, img8.shape)).clip(
+            0, 65535).astype(np.uint16)
+        path = root / "deep" / f"view_{i:03d}.png"
+        path.parent.mkdir(exist_ok=True)
+        write_png(path, img16)
+        deep_views.append(View(
+            id=len(deep_views), h=cam.height, w=cam.width,
+            focal=float(cam.params[0]), near=sc.views[i].near,
+            far=sc.views[i].far, k=cam.k_matrix().astype(np.float32),
+            pose=sc.views[i].pose, d=cam.distortion().astype(np.float32),
+            image_path=str(path)))
+    stacks, files = {}, {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        deep = SceneData(views=copy.deepcopy(deep_views),
+                         splits_idx=[2, 0, 0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.undistort_images(deep, root / f"deep_{name}", device)
+        stacks[name] = load_images(deep, [0, 1], target_hw=(800, 800),
+                                   device=device)
+        torch.cuda.synchronize()
+        files[name] = [I.read_image(v.image_path, cpu) for v in deep.views]
+        if name == "card":
+            deep_s = time.perf_counter() - t0
+    for a, b in zip(files["card"], files["cpu"]):
+        if a.dtype != torch.uint16 or not torch.equal(a.to(torch.int32),
+                                                      b.to(torch.int32)):
+            raise AssertionError("16-bit undistortion card against CPU "
+                                 "differs")
+    if not np.array_equal(stacks["card"], stacks["cpu"]):
+        raise AssertionError("16-bit load_images card against CPU differs")
+    top = float(stacks["card"].max())
+    if not 1.0 < top <= 65535 / 255:
+        raise AssertionError(f"16-bit load_images: max {top}")
+    log("formats", f"(b) 16-bit PNG views 1 and 4 ("
+        + " and ".join(f"{v.w}x{v.h}" for v in deep_views)
+        + f"): undistorted and loaded (resized to 800x800 in 16 bits, then "
+        f"/ 255) on the card in {deep_s:.3f} s, bitwise the CPU's; values up "
+        f"to {top:.4f} (the JAX package's / 255 of every depth, mirrored)")
+
+    codec_times(jpgs[:1], dev, progressive=True)      # warm the card's path
+    t, images = codec_times(jpgs, dev, progressive=True)
+    log("formats", codec_line(f"(b) the {len(jpgs)} progressive views "
+                              "(progressive re-encode)", t))
+    big = I.resize_linear_u8(images[0], (3000, 4000))
+    big_path = root / "big.jpg"
+    J.write_jpeg(big_path, big, device=dev, progressive=True)
+    t, (back,) = codec_times([big_path], dev, progressive=True)
+    frame = J.decode_coefficients(big_path.read_bytes(), big_path)
+    if not torch.equal(back.cpu(), J.frame_pixels(frame, cpu)):
+        raise AssertionError("4000x3000 progressive: decode card against "
+                             "CPU differs")
+    log("formats", codec_line("(b) view 1 upscaled to 4000x3000, "
+                              "progressive (decoded bitwise the CPU's)", t))
+    del big, back, images
+    tiff_times(tifs[:1], dev)
+    (host, device, size, pixels), _ = tiff_times(tifs, dev)
+    log("formats", f"(b) the {len(tifs)} TIFF views ({size} bytes of LZW, "
+        f"{pixels / 1e6:.2f} Mpix): read {host + device:.4f} s (host IFD, "
+        f"LZW and predictor {host:.4f} s, copy to the card {device:.4f} s): "
+        f"{size / (host + device) / 1e6:.1f} MB/s, "
+        f"{pixels / (host + device) / 1e6:.1f} Mpix/s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = load_images(sc, list(range(len(sc.views))),
+                        target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
+    load_s = time.perf_counter() - t0
+    log("formats", f"(b) load_images of the {len(sc.views)} undistorted "
+        f"views (baseline JPEG and TIFF decoded on the card, 1000x1000 "
+        f"resized to 800x800): {load_s:.3f} s, stack {stack.shape}")
+    del stack
+    torch.cuda.empty_cache()
+
+    # (c) cli train --dataset-type colmap on the mixed workspace
+    n_iters, window = colmap_depth("formats", t_start)
+    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev, n_iters),
+                   window)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train_s = run.run()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = run.loss()
+    ms, per_step = run.window_ms()
+    psnr = run.held_out_psnr(scene)
+    first, last = float(loss[:32].mean()), float(loss[-32:].mean())
+    if not (loss.size == n_iters - 1 and math.isfinite(last)
+            and last < 0.5 * first):
+        raise AssertionError(f"mixed colmap train: {loss.size} steps, loss "
+                             f"mean {first} (steps 0-31) -> {last}")
+    for name in TRAIN_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched by the mixed "
+                                 "capture's training")
+    others = {k: v for k, v in counts.items() if k not in TRAIN_KERNELS}
+    if any(others.values()):
+        raise AssertionError(f"the mixed capture's training launched other "
+                             f"kernels: {others}")
+    log("formats", f"(c) cli train --dataset-type colmap on the progressive "
+        f"JPEG + TIFF capture (flagship): {loss.size} steps in "
+        f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
+        f"included: about {und_warm + load_s:.2f} s of it, "
+        f"{100 * (und_warm + load_s) / train_s:.1f} %); steps "
+        f"{window[0]}-{window[1] - 1}: {ms:.3f} ms/step, "
+        f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+        + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log("formats", f"(c) launches, steps 0-{loss.size - 1}: "
+        + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS)
+        + "; no other kernel")
+    log("formats", "(c) loss every 300 steps: " + " ".join(
+        f"({i}, {loss[i]:.5f})" for i in range(0, loss.size, 300))
+        + f"; mean {first:.5f} (steps 0-31) -> {last:.5f} (last 32)")
+    log("formats", f"(c) held-out PSNR after {loss.size} steps (test view at "
+        f"its true pose and K, 800x800, unbudgeted): the progressive JPEG + "
+        f"TIFF capture {psnr:.2f} dB; "
+        + "; ".join(f"{k} {v:.2f} dB" if v is not None else f"{k} not run"
+                    for k, v in psnrs.items()))
+    del run
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    log("formats", f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
     return {k: counts[k] for k in TRAIN_KERNELS}
 
 
@@ -3326,6 +3659,9 @@ def main(argv=None) -> int:
                     "against a 64-step flagship run of its own")
     ap.add_argument("--jpeg-only", action="store_true",
                     help="only phases 1-2, then phase 20 (JPEG capture)")
+    ap.add_argument("--formats-only", action="store_true",
+                    help="only phases 1-2, then phase 21 (progressive JPEG, "
+                    "PNG kinds and TIFF)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3379,8 +3715,16 @@ def main(argv=None) -> int:
         return 0
 
     if args.jpeg_only:
-        jpeg_phase(bench_scene(dev), dev, None)
+        jpeg_phase(bench_scene(dev), dev, None, t_start)
         log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
+        print(last_line, flush=True)
+        return 0
+
+    if args.formats_only:
+        formats_phase(bench_scene(dev), dev, {"phase 17's PNG capture": None,
+                                              "phase 20's JPEG capture": None},
+                      t_start)
+        log("formats", f"total run {time.perf_counter() - t_start:.1f} s")
         print(last_line, flush=True)
         return 0
 
@@ -3566,13 +3910,26 @@ def main(argv=None) -> int:
 
     # 20. JPEG capture: the codec, and the flagship on a JPEG workspace
     # (its K1-K3 launches join the kernels line's)
-    jpeg = jpeg_phase(scene, dev, psnr_capture)
+    jpeg, psnr_jpeg = jpeg_phase(scene, dev, psnr_capture, t_start,
+                                 FORMATS_MIN_S)
     log("jpeg", "phase 20 launches (cli train --dataset-type colmap on "
-        "JPEG, steps 0-2098): " + ", ".join(f"{k} {v}"
-                                             for k, v in jpeg.items()))
+        "JPEG): " + ", ".join(f"{k} {v}" for k, v in jpeg.items()))
     for k, v in jpeg.items():
         counts[k] += v
     log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
+
+    # 21. progressive JPEG, PNG kinds and TIFF: the codecs, and the flagship
+    # on a progressive JPEG + TIFF workspace (its K1-K3 launches join the
+    # kernels line's)
+    formats = formats_phase(scene, dev, {
+        "phase 17's PNG capture": psnr_capture,
+        "phase 20's JPEG capture": psnr_jpeg}, t_start)
+    log("formats", "phase 21 launches (cli train --dataset-type colmap on "
+        "progressive JPEG + TIFF): " + ", ".join(
+            f"{k} {v}" for k, v in formats.items()))
+    for k, v in formats.items():
+        counts[k] += v
+    log("formats", f"total run {time.perf_counter() - t_start:.1f} s")
 
     sources = {"window_lists": ("nerfpp_tpu_torch/csrc/window_lists.cu",
                                 "nerfpp_tpu/pallas/hash_encode_blocked.py:140"),

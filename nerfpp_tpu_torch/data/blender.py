@@ -4,8 +4,9 @@ c2w pose per frame and the focal from camera_angle_x; half_res halves H, W
 and the focal; testskip drops the test split; near/far from the spread of
 the train cameras (0.15 d, 0.6 d) and the scene box from the 4 corner rays
 of every train view at near and far. Images are referenced by path and
-decoded when the sampler loads them (data/dataset.py load_images); their
-size is read from the first PNG header of each split.
+decoded when the sampler loads them (data/dataset.py load_images: any
+PNG, 8- or 16-bit, as the JAX package's cv2.imread reads it); their size
+is read from the first PNG header of each split.
 """
 from __future__ import annotations
 

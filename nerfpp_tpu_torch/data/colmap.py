@@ -17,14 +17,19 @@ undistortion, and the optional SfM shell-out.
   into ``workspace/undistorted/`` with utils/image.py (OpenCV's
   getOptimalNewCameraMatrix at alpha 0 and undistort, in PyTorch on the
   given device), written under the source's own name and format as
-  cv2.imwrite writes it: a .png as PNG, a .jpg re-encoded as JPEG at
-  quality 95, 4:2:0 (utils/jpeg.py, byte for byte OpenCV's).
+  cv2.imwrite writes it: a .png as PNG and a .tif / .tiff as LZW TIFF, both
+  in the source's depth (8 or 16 bits), a .jpg (baseline or progressive)
+  re-encoded as baseline JPEG at quality 95, 4:2:0 (utils/jpeg.py, byte for
+  byte OpenCV's).
 - ``run_colmap_reconstruction``: a ``colmap automatic_reconstructor`` run,
   when the binary is installed.
 
-Images are PNG or baseline JPEG (utils/image.py ``read_image``); a view in
-another format (progressive or arithmetic JPEG, TIFF, ...) raises
-NotImplementedError naming the file when it is read.
+Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
+them: PNG of every colour type and depth, baseline and progressive JPEG,
+and TIFF (8 or 16 bits, LZW, Deflate, PackBits or none). A view in another
+format (BMP, WebP, JPEG 2000, AVIF, arithmetic-coded, 12-bit or CMYK JPEG,
+float or JPEG-compressed TIFF, ...) raises NotImplementedError naming the
+file and the kind when it is read.
 """
 from __future__ import annotations
 

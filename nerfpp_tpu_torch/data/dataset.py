@@ -10,10 +10,11 @@ each ray's supervision embedding at the same pixel, from the CLIP pyramid's
 grids on the device (``DevicePyramid``) or from a dense stack.
 
 Images attached to the scene (``SceneData.images``, as the synthetic scene
-has them) are float; image files (PNG) are decoded by utils/png.py. An image
-of another size than asked for (the Blender loader's half_res, COLMAP's
-captures with one size per camera) is resized as the JAX package resizes it
-with OpenCV's INTER_LINEAR: a file in 8-bit fixed point, an attached image
+has them) are float; image files (PNG, JPEG, TIFF) are decoded by
+utils/image.py ``read_image``. An image of another size than asked for (the
+Blender loader's half_res, COLMAP's captures with one size per camera) is
+resized as the JAX package resizes it with OpenCV's INTER_LINEAR: a file in
+its stored depth (8-bit fixed point, or the 16-bit path), an attached image
 in float (utils/image.py), on the device given.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core import rays as ray_math
 from nerfpp_tpu_torch.core.sampling import draw
 from nerfpp_tpu_torch.utils.image import (read_image, resize_linear,
-                                          resize_linear_u8)
+                                          resize_stored)
 
 
 @dataclasses.dataclass
@@ -119,15 +120,21 @@ class SceneData:
 def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
                 target_hw: Optional[tuple] = None,
                 device="cuda") -> np.ndarray:
-    """Decode view images into one [n, H, W, 3] f32 stack in [0, 1]. The
-    files are PNG or baseline JPEG (read on ``device``, utils/image.py
-    ``read_image``). RGBA images lose their alpha, or with ``white_bkgr``
-    (default: the scene's) are composited onto white; gray images are
-    repeated to 3 channels. Each image takes its view's (h, w), or
-    ``target_hw``: an image of another size is resized on ``device`` (8-bit
-    files before the conversion, alpha included, as OpenCV resizes them),
-    and the caller scales the intrinsics (RayBatchSampler.from_scene
-    does)."""
+    """Decode view images into one [n, H, W, 3] f32 stack, as
+    nerfpp_tpu/data/dataset.py ``load_images`` does. The files are what
+    utils/image.py ``read_image`` reads on ``device``: PNG of any colour
+    type and depth, baseline or progressive JPEG, TIFF; other formats (BMP,
+    WebP, JPEG 2000, arithmetic-coded, 12-bit or CMYK JPEG, float TIFF,
+    ...) raise NotImplementedError naming the file. Each image is resized
+    in its stored depth, then divided by 255, whatever that depth: a 16-bit
+    file's values reach 65535 / 255 = 257, as the JAX package's do (the
+    reference's behaviour, mirrored; ROADMAP.md). RGBA images lose their
+    alpha, or with ``white_bkgr`` (default: the scene's) are composited
+    onto white, on those values; gray images are repeated to 3 channels.
+    Each image takes its view's (h, w), or ``target_hw``: an image of
+    another size is resized on ``device`` (alpha included, as OpenCV
+    resizes it), and the caller scales the intrinsics
+    (RayBatchSampler.from_scene does)."""
     if white_bkgr is None:
         white_bkgr = scene.white_bkgr
     out = []
@@ -145,7 +152,7 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
         if img.ndim == 2:
             img = img[..., None]
         if img.shape[:2] != want:
-            img = resize_linear_u8(img, want)
+            img = resize_stored(img, want)
         img = img.cpu().numpy().astype(np.float32) / 255.0
         if img.shape[-1] == 1:
             img = np.repeat(img, 3, axis=-1)

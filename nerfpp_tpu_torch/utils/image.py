@@ -13,6 +13,13 @@ can show it (tests/test_torch_colmap.py):
   fraction in double, the horizontal taps clamped at the edges, the 2x2 box
   mean at an exact halving. Values agree with OpenCV's to float rounding
   (measured within 1.2e-7 on [0, 1] images), not bit for bit.
+- ``resize_linear_u16``: the same on 16-bit images, which OpenCV hands to
+  its IPP HAL: a lerp along x, then along y, each a fused multiply-add in
+  f32 (S0 + (S1 - S0) * f with one rounding), the fraction of the
+  double-precision source coordinate rounded to f32, the sum rounded half
+  to even; an exact halving is no special case. (Measured equal to cv2
+  5.0.0 on every shape tried except sources one pixel wide or high, where
+  OpenCV leaves the HAL and a few values differ by one.)
 - ``resize_linear_u8``: the same on 8-bit images, in OpenCV's fixed point:
   11-bit tap weights (the float weight times 2,048, rounded), the horizontal
   pass in int32, then the vertical pass as OpenCV's vector code computes it
@@ -33,16 +40,25 @@ can show it (tests/test_torch_colmap.py):
   pixel (round half to even), then ``remap`` with INTER_LINEAR and a zero
   border in OpenCV's fixed point: integer weights (32 - fx)(32 - fy) x 32
   and so on, summing to 2^15, the sum rounded off 15 bits; a tap outside the
-  image reads 0.
+  image reads 0. On 16-bit images ``remap`` interpolates in f32 instead:
+  each tap times its weight from OpenCV's table ((1 - fy)(1 - fx) and so
+  on, with f = k / 32), the four products summed left to right, rounded
+  half to even.
 
 Distortion coefficients follow OpenCV's order: k1, k2, p1, p2 [, k3 [, k4,
 k5, k6]].
 
 ``read_image`` and ``write_image`` are ``cv2.imread(path,
 IMREAD_UNCHANGED)`` and ``cv2.imwrite`` for the formats the port reads and
-writes: PNG (utils/png.py) and baseline JPEG (utils/jpeg.py). Reading goes
-by the file's leading bytes, as OpenCV's does, writing by the extension;
-any other format raises, naming the file.
+writes: PNG of every colour type and depth (utils/png.py), baseline,
+extended sequential and progressive Huffman JPEG (utils/jpeg.py) and TIFF
+(utils/tiff.py); 16-bit PNG and TIFF come back as uint16, as OpenCV returns
+them. Reading goes by the file's leading bytes, as OpenCV's does, writing
+by the extension (PNG and TIFF keep 16 bits; JPEG is written baseline at
+quality 95, as cv2.imwrite writes it at its defaults). BMP, WebP, JPEG
+2000, AVIF and the formats' unread kinds (arithmetic-coded, 12-bit and CMYK
+JPEG, float or JPEG-compressed TIFF, ...) raise NotImplementedError naming
+the file and the kind.
 """
 from __future__ import annotations
 
@@ -56,6 +72,8 @@ from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
 from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 from nerfpp_tpu_torch.utils.png import read_png, write_png
+from nerfpp_tpu_torch.utils.tiff import SIGNATURES as TIFF_SIGNATURES
+from nerfpp_tpu_torch.utils.tiff import read_tiff, write_tiff
 
 RESIZE_COEF_BITS = 11            # INTER_RESIZE_COEF_BITS
 REMAP_BITS = 5                   # INTER_BITS: the map in 1/32 pixel
@@ -142,6 +160,37 @@ def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
     s1 = (rows[t(y1)] >> 4) * t(_fixed(b1))[row]
     out = ((s0 >> 16) + (s1 >> 16) + 2) >> 2
     return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
+def resize_linear_u16(img: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """cv2.resize(img, (w, h)) with INTER_LINEAR for 16-bit images (through
+    OpenCV's IPP HAL): uint16 [H, W] or [H, W, C] -> the same layout at (h,
+    w), on img's device. A fused multiply-add is emulated in f64, where the
+    product of two f32 values and the sum are exact, then rounded once to
+    f32."""
+    if img.dtype != torch.uint16:
+        raise TypeError(f"resize_linear_u16 takes uint16, got {img.dtype}")
+    h_src, w_src = img.shape[0], img.shape[1]
+    h, w = out_hw
+    if (h_src, w_src) == (h, w):
+        return img.clone()
+    dev = img.device
+    x = img.to(torch.int32).to(torch.float32)
+    x0, x1, _, a1 = _taps(w_src, w)
+    y0, y1, _, b1 = _taps(h_src, h, clamp_weights=False)
+
+    def t(v):
+        return torch.as_tensor(v, device=dev)
+
+    def lerp(s0, s1, f):
+        return ((s1 - s0).double() * f.double() + s0.double()).float()
+
+    col = (slice(None),) + (None,) * (img.dim() - 2)
+    rows = lerp(x[:, t(x0)], x[:, t(x1)], t(a1)[col])          # [H, w, ...]
+    row = (slice(None), None) + (None,) * (img.dim() - 2)
+    out = lerp(rows[t(y0)], rows[t(y1)], t(b1)[row])
+    return torch.round(out).clamp(0, 65535).to(torch.int32).to(torch.uint16)
 
 
 # ------------------------------------------------------------ undistortion
@@ -261,62 +310,118 @@ def remap_linear_u8(img: torch.Tensor, map_u: torch.Tensor,
         *map_u.shape, *img.shape[2:])
 
 
-def undistort(img_u8: torch.Tensor, k, d, new_k) -> torch.Tensor:
-    """cv2.undistort(img, k, d, None, new_k) for uint8 [H, W] or [H, W, C]
-    on img's device: the same layout and size."""
-    if img_u8.dtype != torch.uint8:
-        raise TypeError(f"undistort takes uint8, got {img_u8.dtype}")
-    h, w = img_u8.shape[0], img_u8.shape[1]
-    mu, mv = undistort_map(k, d, new_k, (w, h), img_u8.device)
-    return remap_linear_u8(img_u8, mu, mv)
+def remap_linear_u16(img: torch.Tensor, map_u: torch.Tensor,
+                     map_v: torch.Tensor) -> torch.Tensor:
+    """cv2.remap(img, map1, map2, INTER_LINEAR, BORDER_CONSTANT) on uint16
+    [H, W] or [H, W, C] with 1/32-pixel int maps [h, w]: OpenCV's float
+    path (the weights of its interpolation table, products and sums in
+    f32)."""
+    hs, ws = img.shape[0], img.shape[1]
+    src = img.reshape(hs * ws, -1).to(torch.int32).to(torch.float32)
+    sx, sy = map_u >> REMAP_BITS, map_v >> REMAP_BITS
+    one = 1 << REMAP_BITS
+    fx = (map_u & (one - 1)).to(torch.float32) / one
+    fy = (map_v & (one - 1)).to(torch.float32) / one
+    acc = None
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            xx, yy = sx + dx, sy + dy
+            inside = (xx >= 0) & (xx < ws) & (yy >= 0) & (yy < hs)
+            at = (torch.clamp(yy, 0, hs - 1) * ws
+                  + torch.clamp(xx, 0, ws - 1)).reshape(-1)
+            tap = src[at] * inside.reshape(-1, 1)
+            tap = tap * (wy * wx).reshape(-1, 1)
+            acc = tap if acc is None else acc + tap
+    out = torch.round(acc).clamp(0, 65535).to(torch.int32).to(torch.uint16)
+    return out.reshape(*map_u.shape, *img.shape[2:])
+
+
+def undistort(img: torch.Tensor, k, d, new_k) -> torch.Tensor:
+    """cv2.undistort(img, k, d, None, new_k) for uint8 or uint16 [H, W] or
+    [H, W, C] on img's device: the same layout, size and dtype."""
+    if img.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"undistort takes uint8 or uint16, got {img.dtype}")
+    h, w = img.shape[0], img.shape[1]
+    mu, mv = undistort_map(k, d, new_k, (w, h), img.device)
+    if img.dtype == torch.uint16:
+        return remap_linear_u16(img, mu, mv)
+    return remap_linear_u8(img, mu, mv)
+
+
+def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(img, (w, h)) with INTER_LINEAR in the image's stored
+    depth (uint8 or uint16), as the JAX package resizes a view before it
+    divides by 255."""
+    if img.dtype == torch.uint16:
+        return resize_linear_u16(img, out_hw)
+    return resize_linear_u8(img, out_hw)
 
 
 # ---------------------------------------------------------------- files
 
 # leading bytes of formats cv2.imread reads and the port does not
-OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
+OTHER_FORMATS = ((b"BM", "BMP"),
                  (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                 (b"\xff\x4f\xff\x51", "JPEG 2000"))
+                 (b"\xff\x4f\xff\x51", "JPEG 2000"),
+                 (b"P1", "PBM"), (b"P2", "PGM"), (b"P3", "PPM"),
+                 (b"P4", "PBM"), (b"P5", "PGM"), (b"P6", "PPM"),
+                 (b"Pf", "PFM"), (b"PF", "PFM"), (b"#?RADIANCE", "HDR"),
+                 (b"#?RGBE", "HDR"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
+TIFF_EXTENSIONS = (".tif", ".tiff")
+READ = ("PNG (every colour type and depth), baseline and progressive JPEG "
+        "and TIFF")
 
 
 def image_format(path) -> str:
-    """"png" or "jpeg" from the file's leading bytes; anything else raises
-    NotImplementedError naming the file and, where known, its format."""
+    """"png", "jpeg" or "tiff" from the file's leading bytes; anything else
+    raises NotImplementedError naming the file and, where known, its
+    format."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
         return "png"
     if head.startswith(b"\xff\xd8\xff"):
         return "jpeg"
+    if head[:4] in TIFF_SIGNATURES:
+        return "tiff"
     kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         kind = "WebP"
+    if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
+        kind = "AVIF"
     raise NotImplementedError(
         f"{path}: {'a ' + kind + ' image' if kind else 'an unknown format'} "
-        f"(leading bytes {head[:8].hex()}); the port reads PNG and baseline "
-        "JPEG")
+        f"(leading bytes {head[:8].hex()}); the port reads {READ}")
 
 
 def read_image(path, device="cuda") -> torch.Tensor:
-    """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: uint8 [H, W] or
-    [H, W, C] on ``device``, PNG or baseline JPEG by the leading bytes."""
+    """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: uint8 or (16-bit
+    PNG and TIFF) uint16 [H, W] or [H, W, C] on ``device``, by the leading
+    bytes."""
     dev = resolve_device(device)
-    if image_format(path) == "png":
-        return torch.from_numpy(read_png(path)).to(dev)
-    return read_jpeg(path, dev)
+    kind = image_format(path)
+    if kind == "jpeg":
+        return read_jpeg(path, dev)
+    return torch.from_numpy(read_png(path) if kind == "png" else
+                            read_tiff(path)).to(dev)
 
 
 def write_image(path, img, device="cuda") -> None:
-    """cv2.imwrite(path, img) of a uint8 [H, W] or [H, W, C] image in RGB(A)
-    order: PNG for .png, JPEG at quality 95 (encoded on ``device``) for
+    """cv2.imwrite(path, img) of a uint8 or uint16 [H, W] or [H, W, C]
+    image in RGB(A) order: PNG for .png and TIFF for .tif and .tiff (both
+    keep 16 bits), baseline JPEG at quality 95 (encoded on ``device``) for
     .jpg, .jpeg and .jpe; any other extension raises."""
     ext = Path(path).suffix.lower()
-    if ext == ".png":
-        write_png(path, img.cpu().numpy() if torch.is_tensor(img) else img)
-    elif ext in JPEG_EXTENSIONS:
+    if ext in JPEG_EXTENSIONS:
         write_jpeg(path, img, device=device)
+        return
+    arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+    if ext == ".png":
+        write_png(path, arr)
+    elif ext in TIFF_EXTENSIONS:
+        write_tiff(path, arr)
     else:
         raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
-                                  'without extension'}; the port writes PNG "
-                                  "and JPEG")
+                                  'without extension'}; the port writes PNG, "
+                                  "JPEG and TIFF")

@@ -1,12 +1,12 @@
-"""Baseline JPEG reading and writing, exact to libjpeg-turbo (no image
-library).
+"""JPEG reading and writing, exact to libjpeg-turbo (no image library).
 
 The JAX package reads and writes views through OpenCV, whose JPEG codec is
 libjpeg-turbo; the machine with the card has neither OpenCV nor Pillow, so
 the port carries this codec. It follows libjpeg-turbo step by step, so that
 ``read_jpeg`` returns ``cv2.imread(path, IMREAD_UNCHANGED)``'s pixels (in RGB
-order) and ``write_jpeg`` writes ``cv2.imwrite``'s bytes at OpenCV's
-defaults (tests/test_torch_jpeg.py holds both to cv2 bit for bit).
+order) and ``write_jpeg`` writes ``cv2.imwrite``'s bytes
+(tests/test_torch_jpeg.py and tests/test_torch_jpeg_progressive.py hold
+both to cv2 bit for bit).
 
 Entropy coding is sequential and runs on the host, in C++
 (``csrc/jpeg_entropy.cpp``, built with g++ at first use by
@@ -14,20 +14,29 @@ Entropy coding is sequential and runs on the host, in C++
 integer arithmetic in PyTorch on the given device, vectorised over all
 blocks, so the card's results are the CPU's bit for bit:
 
-- reading: the markers (SOI, SOF0 and SOF1 at 8 bits, DHT, DQT with 8- and
-  16-bit entries, DRI, SOS; APPn and COM skipped, so EXIF orientation is
-  ignored as IMREAD_UNCHANGED ignores it), each scan's blocks decoded on the
-  host, then dequantisation, the ISLOW inverse DCT of jidctint.c (13-bit
-  constants, 2 pass bits, DESCALE rounding, in int64, the result
-  range-limited through its ``& RANGE_MASK`` table, so out-of-range sums
-  wrap as libjpeg's do), fancy upsampling of jdsample.c (h2v1, h1v2 and
-  h2v2 with their 1/2 and 8/7 biases, the last real sample row and column
-  repeated at the edges; any other integral ratio, and h2v1 or h2v2 of a
-  component at most 2 samples wide, by replication), and the integer
-  YCbCr -> RGB tables of jdcolor.c (16 scale bits). The colour space is
-  libjpeg's choice: a JFIF marker means YCbCr, an Adobe marker's transform
-  0 RGB and 1 YCbCr, otherwise the component ids (1, 2, 3: YCbCr; 'R', 'G',
-  'B': RGB). One component stays gray.
+- reading: the markers (SOI; SOF0, SOF1 and SOF2 (progressive) at 8 bits;
+  DHT and DQT, also between scans; DQT with 8- and 16-bit entries; DRI,
+  SOS; APPn and COM skipped, so EXIF orientation is ignored as
+  IMREAD_UNCHANGED ignores it), each scan's blocks decoded on the host (a
+  progressive file's scans, jdphuff.c's DC first and refinement, AC first
+  with EOB runs and AC refinement with its correction bits, restarts in
+  any scan, into one coefficient buffer a component), then for a
+  progressive file libjpeg's block smoothing where it runs
+  (``smooth_blocks``: jdcoefct.c's decompress_smooth_data in its
+  libjpeg-turbo 2.1 form, when some of the first nine AC coefficients
+  are still short of bits: a file cut after some of its scans, never a
+  whole file of jpeg_simple_progression), dequantisation, the ISLOW
+  inverse DCT of jidctint.c (13-bit constants, 2 pass bits, DESCALE
+  rounding, in int64, the result range-limited through its ``&
+  RANGE_MASK`` table, so out-of-range sums wrap as libjpeg's do), fancy
+  upsampling of jdsample.c (h2v1, h1v2 and h2v2 with their 1/2 and 8/7
+  biases, the last real sample row and column repeated at the edges; any
+  other integral ratio, and h2v1 or h2v2 of a component at most 2 samples
+  wide, by replication), and the integer YCbCr -> RGB tables of jdcolor.c
+  (16 scale bits). The colour space is libjpeg's choice: a JFIF marker
+  means YCbCr, an Adobe marker's transform 0 RGB and 1 YCbCr, otherwise
+  the component ids (1, 2, 3: YCbCr; 'R', 'G', 'B': RGB). One component
+  stays gray.
 - writing: ``cv2.imwrite(".jpg")`` at its defaults: quality 95, 4:2:0
   YCbCr for colour and one component for gray, baseline, the standard
   Huffman tables, no optimisation, no restarts. jccolor.c's RGB -> YCbCr,
@@ -37,10 +46,16 @@ blocks, so the card's results are the CPU's bit for bit:
   jpeg_set_quality (clamped to 1-255), the dummy blocks of jccoefct.c at
   the right and bottom edges of an MCU, and the markers as libjpeg writes
   them: JFIF 1.01 APP0, one DQT per table, SOF0, one DHT per table, SOS.
+  With ``progressive``, ``cv2.imwrite(path, img,
+  [IMWRITE_JPEG_PROGRESSIVE, 1])``: SOF2 and jpeg_simple_progression's
+  scans (10 for colour, 6 for gray), each coded by jcphuff.c with its own
+  optimal tables (jchuff.c's jpeg_gen_optimal_table over a gathering
+  pass), a DHT segment before each scan that codes with one. Only
+  scripts/colmap_export.py and chip_smoke.py write progressive files.
 
-Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files and
-4-component (CMYK, YCCK) files raise NotImplementedError naming the file
-and the kind; malformed data raises ValueError naming the file.
+Arithmetic-coded, lossless, hierarchical and 12-bit files and 4-component
+(CMYK, YCCK) files raise NotImplementedError naming the file and the kind;
+malformed data raises ValueError naming the file.
 """
 from __future__ import annotations
 
@@ -94,7 +109,7 @@ STD_HUFFMAN = {k: bytes.fromhex(v) for k, v in {
             "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"}.items()}
 
 # start-of-frame markers that are not read, by kind
-SOF_KINDS = {0xC2: "progressive", 0xC3: "lossless",
+SOF_KINDS = {0xC3: "lossless",
              0xC5: "hierarchical (differential sequential)",
              0xC6: "hierarchical (differential progressive)",
              0xC7: "hierarchical (differential lossless)",
@@ -104,6 +119,10 @@ SOF_KINDS = {0xC2: "progressive", 0xC3: "lossless",
              0xCD: "arithmetic-coded hierarchical (differential sequential)",
              0xCE: "arithmetic-coded hierarchical (differential progressive)",
              0xCF: "arithmetic-coded hierarchical (differential lossless)"}
+# block smoothing (jdcoefct.c): coef_bits kept for the DC and the first 9 AC
+# coefficients in zigzag order, at these natural positions
+SAVED_COEFS = 10
+SMOOTH_POS = ZIGZAG[:SAVED_COEFS]
 ENTROPY_ERRORS = {-1: "an invalid Huffman table", -2: "a bad Huffman code",
                   -3: "a missing restart marker", -4: "a bad scan header",
                   -5: "no room for the scan", -6: "a coefficient out of range"}
@@ -128,6 +147,16 @@ def entropy_library() -> ctypes.CDLL:
         lib.jpeg_encode_scan.argtypes = [
             ctypes.POINTER(ctypes.c_int16), ctypes.c_int64, i32p,
             ctypes.c_int32, i32p, u8p, u8p, u8p, ctypes.c_int64]
+        i32 = ctypes.c_int32
+        lib.jpeg_decode_progressive_scan.restype = ctypes.c_int64
+        lib.jpeg_decode_progressive_scan.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, i32, i32p, i32p, i32p, u8p,
+            u8p, i32, i32, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.jpeg_encode_progressive_scan.restype = ctypes.c_int64
+        lib.jpeg_encode_progressive_scan.argtypes = [
+            i32, i32p, i32p, i32p, i32, i32, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_void_p), u8p, u8p, u8p, ctypes.c_int64]
         _lib = lib
     return _lib
 
@@ -167,13 +196,18 @@ class Component:
 @dataclass
 class Frame:
     """A decoded file before its pixel stages: the size, the components
-    with their quantised blocks, and the colour space ("gray", "ycc",
-    "rgb")."""
+    with their quantised blocks, the colour space ("gray", "ycc", "rgb"),
+    and for a progressive file each component's coef_bits (libjpeg's: the
+    point transform Al of the last scan of each of the first 10 zigzag
+    coefficients, -1 before any scan) and whether block smoothing runs."""
     height: int
     width: int
     components: List[Component]
     colour: str = "ycc"
     scans: int = 0
+    progressive: bool = False
+    coef_bits: Optional[np.ndarray] = None    # int [n_comp, SAVED_COEFS]
+    smooth: bool = False
 
 
 def _frame_header(name, marker: int, seg: bytes) -> Frame:
@@ -206,7 +240,10 @@ def _frame_header(name, marker: int, seg: bytes) -> Frame:
         raise NotImplementedError(
             f"{name}: fractional sampling ratios "
             f"{[(c.h, c.v) for c in comps]} are not read")
-    return Frame(height, width, comps)
+    progressive = marker == 0xC2
+    bits = np.full((n, SAVED_COEFS), -1, np.int64) if progressive else None
+    return Frame(height, width, comps, progressive=progressive,
+                 coef_bits=bits)
 
 
 def _huffman_segment(name, seg: bytes, tables: dict) -> None:
@@ -245,10 +282,18 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
     if not 1 <= n <= 4 or len(seg) < 4 + 2 * n:
         raise ValueError(f"{name}: bad SOS segment")
     ss, se, a = seg[1 + 2 * n:4 + 2 * n]
-    if (ss, se, a) != (0, 63, 0):
-        raise NotImplementedError(
-            f"{name}: a scan of spectral selection {ss}-{se}, approximation "
-            f"{a >> 4}/{a & 15} (progressive data) is not read")
+    ah, al = a >> 4, a & 15
+    # a sequential scan's Ss, Se, Ah and Al are not read: libjpeg only warns
+    # when they are not 0, 63, 0, 0 (some baseline files hold zeros there)
+    if frame.progressive and (
+            (se != 0 if ss == 0 else (ss > se or se > 63 or n != 1))
+            or (ah and al != ah - 1) or al > 13):
+        raise ValueError(f"{name}: bad progression: a scan of {n} "
+                         f"component(s), band {ss}-{se}, approximation "
+                         f"{ah}/{al}")
+    # the tables a scan reads: both (sequential), DC (DC first), AC (AC)
+    needs = ((0, 1) if not frame.progressive else
+             () if ss == 0 and ah else (0,) if ss == 0 else (1,))
     by_id = {c.id: c for c in frame.components}
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
@@ -260,7 +305,7 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
         if cid not in by_id:
             raise ValueError(f"{name}: scan of unknown component {cid}")
         c = by_id[cid]
-        for key in ((0, t >> 4), (1, t & 15)):
+        for key in [((0, t >> 4), (1, t & 15))[k] for k in needs]:
             if key not in huffman:
                 raise ValueError(f"{name}: scan uses undefined Huffman "
                                  f"table {key}")
@@ -284,11 +329,20 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
     grid = np.asarray([c.coefs.shape[:2] for c in comps], np.int32)
     tab = np.asarray(tables, np.int32)
     ptrs = (ctypes.c_void_p * n)(*[c.coefs.ctypes.data for c in comps])
-    end = entropy_library().jpeg_decode_scan(
-        _ptr(data, ctypes.c_uint8), data.size, pos, n,
-        _ptr(hv, ctypes.c_int32), _ptr(grid, ctypes.c_int32),
-        _ptr(tab, ctypes.c_int32), _ptr(counts, ctypes.c_uint8),
-        _ptr(symbols, ctypes.c_uint8), mcus[1], mcus[0], restart, ptrs)
+    args = (_ptr(data, ctypes.c_uint8), data.size, pos, n,
+            _ptr(hv, ctypes.c_int32), _ptr(grid, ctypes.c_int32),
+            _ptr(tab, ctypes.c_int32), _ptr(counts, ctypes.c_uint8),
+            _ptr(symbols, ctypes.c_uint8), mcus[1], mcus[0], restart)
+    lib = entropy_library()
+    if frame.progressive:
+        end = lib.jpeg_decode_progressive_scan(*args, ss, se, ah, al, ptrs)
+        for c in comps:                # jdphuff.c's start_pass bookkeeping
+            i = frame.components.index(c)
+            hi = min(se, SAVED_COEFS - 1)
+            if ss <= hi:
+                frame.coef_bits[i, ss:hi + 1] = al
+    else:
+        end = lib.jpeg_decode_scan(*args, ptrs)
     if end < 0:
         raise ValueError(f"{name}: scan {frame.scans + 1} has "
                          f"{ENTROPY_ERRORS.get(end, f'error {end}')}")
@@ -326,15 +380,15 @@ def decode_coefficients(data: bytes, name="<bytes>") -> Frame:
         if length < 2 or len(seg) != length - 2:
             raise ValueError(f"{name}: truncated marker 0x{marker:02X}")
         pos += length
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise ValueError(f"{name}: a second SOF marker")
             frame = _frame_header(name, marker, seg)
         elif marker in SOF_KINDS:
             raise NotImplementedError(
                 f"{name}: a {SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is "
-                "not read; baseline and extended sequential Huffman JPEG "
-                "(SOF0, SOF1) are")
+                "not read; baseline, extended sequential and progressive "
+                "Huffman JPEG (SOF0, SOF1, SOF2) are")
         elif marker == 0xCC:
             raise NotImplementedError(f"{name}: an arithmetic-coded JPEG "
                                       "(DAC marker) is not read")
@@ -371,7 +425,19 @@ def decode_coefficients(data: bytes, name="<bytes>") -> Frame:
     else:
         ids = tuple(c.id for c in frame.components)
         frame.colour = "rgb" if ids == (82, 71, 66) else "ycc"
+    frame.smooth = frame.progressive and _smoothing_ok(frame)
     return frame
+
+
+def _smoothing_ok(frame: Frame) -> bool:
+    """jdcoefct.c's smoothing_ok once every scan is read: each
+    component's DC and first nine AC quantisers non-zero, its DC at least
+    partly known, and some of the first nine AC coefficients of some
+    component still short of bits."""
+    for c, bits in zip(frame.components, frame.coef_bits):
+        if not np.all(c.quant[SMOOTH_POS]) or bits[0] < 0:
+            return False
+    return bool(np.any(frame.coef_bits[:, 1:] != 0))
 
 
 def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -475,6 +541,96 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
     return torch.stack([r, g, b], -1).clamp(0, 255)
 
 
+def _estimate(num: torch.Tensor, q: int, al: int) -> torch.Tensor:
+    """A coefficient estimate from ``num``: |num| / (q * 256) rounded, at
+    most (1 << al) - 1 when al > 0, with num's sign."""
+    mag = ((q << 7) + num.abs()) // (q << 8)
+    if al > 0:
+        mag = mag.clamp(max=(1 << al) - 1)
+    return torch.where(num >= 0, mag, -mag)
+
+
+def smooth_blocks(coefs: torch.Tensor, quant: np.ndarray, bits, hib: int,
+                  wib: int, v: int, imcu_rows: int) -> torch.Tensor:
+    """jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later)
+    on one component's quantised blocks, its whole block grid of int64
+    [R, C, 64] in natural order: the [hib, wib, 64] real blocks that the IDCT
+    sees. Each block looks at the DC values of a 5x5 window of blocks
+    (columns clamped at the edges; rows as libjpeg finds them, from the
+    position of the block row in its iMCU row of ``v`` block rows, which in
+    the last iMCU row counts only the real rows). Of the first nine AC
+    coefficients, each one whose ``bits`` (coef_bits) is not 0 and whose
+    value is 0 takes an estimate from the window; when no AC coefficient
+    has been sent at all (bits[1:10] all -1), the DC is interpolated too and
+    the estimates follow a Gaussian-like kernel."""
+    dev = coefs.device
+    r = np.arange(hib)
+    m, br = r // v, r % v
+    b = np.where(m < imcu_rows - 1, v, (hib % v) or v)
+    ibr, ibrs = m * b + br, b * imcu_rows
+    prev = np.where(ibr > 0, r - 1, r)
+    nxt = np.where(ibr < ibrs - 1, r + 1, r)
+    rows = np.stack([np.where(ibr > 1, r - 2, prev), prev, r, nxt,
+                     np.where(ibr < ibrs - 2, r + 2, nxt)])  # [5, hib]
+    cols = np.clip(np.arange(wib)[None] + np.arange(-2, 3)[:, None], 0,
+                   wib - 1)                                  # [5, wib]
+    dc = coefs[..., 0]
+    win = dc[torch.as_tensor(rows, device=dev)][
+        :, :, torch.as_tensor(cols, device=dev)]            # [5, hib, 5, wib]
+
+    def d(k):                                   # libjpeg's DC01 ... DC25
+        return win[(k - 1) // 5, :, (k - 1) % 5]
+
+    q = [int(quant[i]) for i in SMOOTH_POS]
+    out = coefs[:hib, :wib].clone()
+    change_dc = bool(np.all(np.asarray(bits[1:SAVED_COEFS]) == -1))
+    if change_dc:
+        nums = [
+            -d(1) - d(2) + d(4) + d(5) - 3 * d(6) + 13 * d(7) - 13 * d(9)
+            + 3 * d(10) - 3 * d(11) + 38 * d(12) - 38 * d(14) + 3 * d(15)
+            - 3 * d(16) + 13 * d(17) - 13 * d(19) + 3 * d(20) - d(21)
+            - d(22) + d(24) + d(25),
+            -d(1) - 3 * d(2) - 3 * d(3) - 3 * d(4) - d(5) - d(6) + 13 * d(7)
+            + 38 * d(8) + 13 * d(9) - d(10) + d(16) - 13 * d(17) - 38 * d(18)
+            - 13 * d(19) + d(20) + d(21) + 3 * d(22) + 3 * d(23) + 3 * d(24)
+            + d(25),
+            d(3) + 2 * d(7) + 7 * d(8) + 2 * d(9) - 5 * d(12) - 14 * d(13)
+            - 5 * d(14) + 2 * d(17) + 7 * d(18) + 2 * d(19) + d(23),
+            -d(1) + d(5) + 9 * d(7) - 9 * d(9) - 9 * d(17) + 9 * d(19)
+            + d(21) - d(25),
+            2 * d(7) - 5 * d(8) + 2 * d(9) + d(11) + 7 * d(12) - 14 * d(13)
+            + 7 * d(14) + d(15) + 2 * d(17) - 5 * d(18) + 2 * d(19),
+            d(7) - d(9) + 2 * d(12) - 2 * d(14) + d(17) - d(19),
+            d(7) - 3 * d(8) + d(9) - d(17) + 3 * d(18) - d(19),
+            d(7) - d(9) - 3 * d(12) + 3 * d(14) + d(17) - d(19),
+            d(7) + 2 * d(8) + d(9) - d(17) - 2 * d(18) - d(19)]
+    else:
+        nums = [
+            -7 * d(11) + 50 * d(12) - 50 * d(14) + 7 * d(15),
+            -7 * d(3) + 50 * d(8) - 50 * d(18) + 7 * d(23),
+            -d(3) + 13 * d(8) - 24 * d(13) + 13 * d(18) - d(23),
+            d(10) + d(16) - 10 * d(17) + 10 * d(19) - d(2) - d(20) + d(22)
+            - d(24) + d(4) - d(6) + 10 * d(7) - 10 * d(9),
+            -d(11) + 13 * d(12) - 24 * d(13) + 13 * d(14) - d(15)]
+    for i, num in enumerate(nums, 1):
+        al = int(bits[i])
+        if al == 0:
+            continue
+        pos = int(SMOOTH_POS[i])
+        cur = out[..., pos]
+        out[..., pos] = torch.where(cur == 0, _estimate(q[0] * num, q[i], al),
+                                    cur)
+    if change_dc:
+        num = q[0] * (
+            -2 * d(1) - 6 * d(2) - 8 * d(3) - 6 * d(4) - 2 * d(5) - 6 * d(6)
+            + 6 * d(7) + 42 * d(8) + 6 * d(9) - 6 * d(10) - 8 * d(11)
+            + 42 * d(12) + 152 * d(13) + 42 * d(14) - 8 * d(15) - 6 * d(16)
+            + 6 * d(17) + 42 * d(18) + 6 * d(19) - 6 * d(20) - 2 * d(21)
+            - 6 * d(22) - 8 * d(23) - 6 * d(24) - 2 * d(25))
+        out[..., 0] = _estimate(num, q[0], 0)
+    return out
+
+
 def frame_pixels(frame: Frame, device) -> torch.Tensor:
     """The device part of decoding: uint8 [H, W] (gray) or [H, W, 3] (RGB)
     on ``device``."""
@@ -482,9 +638,16 @@ def frame_pixels(frame: Frame, device) -> torch.Tensor:
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
     planes = []
-    for c in frame.components:
-        rows, cols = c.coefs.shape[:2]
+    imcu_rows = _ceil_div(frame.height, 8 * vmax)
+    for i, c in enumerate(frame.components):
         coefs = torch.from_numpy(c.coefs).to(dev).to(torch.int64)
+        if frame.smooth:
+            coefs = smooth_blocks(
+                coefs, c.quant, frame.coef_bits[i],
+                _ceil_div(_ceil_div(frame.height * c.v, vmax), 8),
+                _ceil_div(_ceil_div(frame.width * c.h, hmax), 8), c.v,
+                imcu_rows)
+        rows, cols = coefs.shape[:2]
         quant = torch.from_numpy(c.quant).to(dev)
         samples = idct_islow((coefs * quant).view(rows, cols, 8, 8))
         plane = samples.permute(0, 2, 1, 3).reshape(rows * 8, cols * 8)
@@ -646,13 +809,17 @@ def _with_dummies(b: torch.Tensor, rows: int, cols: int, h: int
 @dataclass
 class Encoded:
     """What the device stages hand to the entropy coder: the blocks in scan
-    order, each block's component, and the header's contents."""
+    order, each block's component, each component's block grid (dummy
+    blocks included) with its count of real blocks down and across, and
+    the header's contents."""
     height: int
     width: int
     blocks: torch.Tensor          # int16 [n, 64], natural order
     block_comp: torch.Tensor      # int32 [n]
     sampling: List[Tuple[int, int]]
     tables: List[np.ndarray]      # quantisation tables, natural order
+    grids: List[torch.Tensor]     # int16 [R, C, 64] per component
+    real: List[Tuple[int, int]]
 
 
 def jpeg_blocks(img, quality: int = 95, device="cuda") -> Encoded:
@@ -676,36 +843,115 @@ def jpeg_blocks(img, quality: int = 95, device="cuda") -> Encoded:
     if x.ndim == 2:
         plane = _pad_edges(x, 8 * _ceil_div(height, 8),
                            8 * _ceil_div(width, 8))
-        blocks = _blocks(plane, luma).reshape(-1, 64)
+        grid = _blocks(plane, luma)
+        blocks = grid.reshape(-1, 64)
         comp = torch.zeros(blocks.shape[0], dtype=torch.int32)
-        return Encoded(height, width, blocks, comp, [(1, 1)], [luma])
+        return Encoded(height, width, blocks, comp, [(1, 1)], [luma], [grid],
+                       [tuple(grid.shape[:2])])
     chroma = quality_table(CHROMA_QUANT, quality)
     ycc = rgb_to_ycc(x)
     my, mx = _ceil_div(height, 16), _ceil_div(width, 16)
     y = _blocks(_pad_edges(ycc[..., 0], 8 * _ceil_div(height, 8),
                            8 * _ceil_div(width, 8)), luma)
+    real = [tuple(y.shape[:2])]
     y = _with_dummies(y, 2 * my, 2 * mx, 2)
+    grids = [y]
     parts = [y.view(my, 2, mx, 2, 64).permute(0, 2, 1, 3, 4)
              .reshape(my, mx, 4, 64)]
     for ch in (1, 2):
         src = _pad_edges(ycc[..., ch], 2 * _ceil_div(height, 2), 16 * mx)
         sub = _pad_edges(h2v2_downsample(src), 8 * my, 8 * mx)
-        parts.append(_blocks(sub, chroma).view(my, mx, 1, 64))
+        grids.append(_blocks(sub, chroma))
+        real.append((my, mx))
+        parts.append(grids[-1].view(my, mx, 1, 64))
     blocks = torch.cat(parts, 2).reshape(-1, 64)
     comp = torch.tensor([0, 0, 0, 0, 1, 2], dtype=torch.int32).repeat(my * mx)
     return Encoded(height, width, blocks, comp, [(2, 2), (1, 1), (1, 1)],
-                   [luma, chroma])
+                   [luma, chroma], grids, real)
 
 
 def _segment(marker: int, payload: bytes) -> bytes:
     return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
 
 
-def encode_file(enc: Encoded) -> bytes:
-    """The host part of encoding: the entropy-coded scan and the markers
-    libjpeg writes around it."""
+# jcparam.c's jpeg_simple_progression: (components, Ss, Se, Ah, Al)
+PROGRESSION_YCC = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                   ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                   ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                   ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                   ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+PROGRESSION_GRAY = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                    ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                    ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def _progressive_scans(enc: Encoded, tabs: List[int]) -> List[bytes]:
+    """Each scan of jpeg_simple_progression as libjpeg writes it: the DHT
+    segments of the tables it codes with (optimised for the scan, each
+    table once), its SOS segment and its entropy-coded data."""
+    grids = [np.ascontiguousarray(g.cpu().numpy()) for g in enc.grids]
+    hmax = max(h for h, _ in enc.sampling)
+    vmax = max(v for _, v in enc.sampling)
+    frame_mcus = (_ceil_div(enc.height, 8 * vmax),
+                  _ceil_div(enc.width, 8 * hmax))
+    script = PROGRESSION_YCC if len(grids) == 3 else PROGRESSION_GRAY
+    lib = entropy_library()
+    out = []
+    for comps, ss, se, ah, al in script:
+        n = len(comps)
+        if n == 1:
+            hv, mcus = [(1, 1)], enc.real[comps[0]]
+        else:
+            hv, mcus = [enc.sampling[c] for c in comps], frame_mcus
+        grid = np.asarray([grids[c].shape[:2] for c in comps], np.int32)
+        tab = np.asarray([tabs[c] for c in comps], np.int32)
+        ptrs = (ctypes.c_void_p * n)(*[grids[c].ctypes.data for c in comps])
+        counts = np.zeros((4, 16), np.uint8)
+        symbols = np.zeros((4, 256), np.uint8)
+        cap = sum(int(np.prod(grids[c].shape[:2])) for c in comps) * 512 + 64
+        data = np.empty(cap, np.uint8)
+        size = lib.jpeg_encode_progressive_scan(
+            n, _ptr(np.asarray(hv, np.int32), ctypes.c_int32),
+            _ptr(grid, ctypes.c_int32), _ptr(tab, ctypes.c_int32), mcus[1],
+            mcus[0], 0, ss, se, ah, al, ptrs, _ptr(counts, ctypes.c_uint8),
+            _ptr(symbols, ctypes.c_uint8), _ptr(data, ctypes.c_uint8), cap)
+        if size < 0:
+            raise ValueError(f"JPEG encoding failed: "
+                             f"{ENTROPY_ERRORS.get(size, f'error {size}')}")
+        head, sos = [], bytes([n])
+        for c in comps:
+            t = tabs[c]
+            if not (ss == 0 and ah) and t not in head:
+                head.append(t)
+            td, ta = (t if ah == 0 else 0, 0) if ss == 0 else (0, t)
+            sos += bytes([c + 1, (td << 4) | ta])
+        tc = 0 if ss == 0 else 1
+        segs = [_segment(0xC4, bytes([(tc << 4) | t]) + counts[t].tobytes()
+                         + symbols[t, :int(counts[t].sum())].tobytes())
+                for t in head]
+        segs.append(_segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])))
+        out.append(b"".join(segs) + data[:size].tobytes())
+    return out
+
+
+def encode_file(enc: Encoded, progressive: bool = False) -> bytes:
+    """The host part of encoding: the entropy-coded scan (or, with
+    ``progressive``, the scans) and the markers libjpeg writes around
+    it."""
     n_comp = len(enc.sampling)
     tabs = [0] + [1] * (n_comp - 1)                 # quantisation and Huffman
+    head = [b"\xff\xd8",
+            _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    head += [_segment(0xDB, bytes([t]) + t_vals[ZIGZAG].astype(
+        np.uint8).tobytes()) for t, t_vals in enumerate(enc.tables)]
+    sof = struct.pack(">BHHB", 8, enc.height, enc.width, n_comp)
+    sos = bytes([n_comp])
+    for i, ((h, v), t) in enumerate(zip(enc.sampling, tabs)):
+        sof += bytes([i + 1, (h << 4) | v, t])
+        sos += bytes([i + 1, (t << 4) | t])
+    if progressive:
+        head.append(_segment(0xC2, sof))
+        return b"".join(head + _progressive_scans(enc, tabs)) + b"\xff\xd9"
     blocks = np.ascontiguousarray(enc.blocks.cpu().numpy())
     comp = np.ascontiguousarray(enc.block_comp.cpu().numpy())
     comp_tables = np.asarray([(t, t) for t in tabs], np.int32)
@@ -723,15 +969,6 @@ def encode_file(enc: Encoded) -> bytes:
     if size < 0:
         raise ValueError(f"JPEG encoding failed: "
                          f"{ENTROPY_ERRORS.get(size, f'error {size}')}")
-    head = [b"\xff\xd8",
-            _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    head += [_segment(0xDB, bytes([t]) + t_vals[ZIGZAG].astype(
-        np.uint8).tobytes()) for t, t_vals in enumerate(enc.tables)]
-    sof = struct.pack(">BHHB", 8, enc.height, enc.width, n_comp)
-    sos = bytes([n_comp])
-    for i, ((h, v), t) in enumerate(zip(enc.sampling, tabs)):
-        sof += bytes([i + 1, (h << 4) | v, t])
-        sos += bytes([i + 1, (t << 4) | t])
     head.append(_segment(0xC0, sof))
     for t in sorted(set(tabs)):
         for tc in (0, 1):
@@ -741,13 +978,21 @@ def encode_file(enc: Encoded) -> bytes:
     return b"".join(head) + out[:size].tobytes() + b"\xff\xd9"
 
 
-def encode_jpeg(img, quality: int = 95, device="cuda") -> bytes:
+def encode_jpeg(img, quality: int = 95, device="cuda",
+                progressive: bool = False) -> bytes:
     """A uint8 [H, W], [H, W, 1] or [H, W, 3] (RGB) image as JPEG bytes:
     cv2.imencode(".jpg") of it (in BGR) at ``quality`` (95 is OpenCV's
-    default)."""
-    return encode_file(jpeg_blocks(img, quality, device))
+    default), with ``progressive`` cv2.imencode(".jpg", img,
+    [IMWRITE_JPEG_PROGRESSIVE, 1]): jpeg_simple_progression's scans, each
+    with its own optimised Huffman tables."""
+    return encode_file(jpeg_blocks(img, quality, device), progressive)
 
 
-def write_jpeg(path, img, quality: int = 95, device="cuda") -> None:
-    """Write ``encode_jpeg(img, quality, device)`` to ``path``."""
-    Path(path).write_bytes(encode_jpeg(img, quality, device))
+def write_jpeg(path, img, quality: int = 95, device="cuda",
+               progressive: bool = False) -> None:
+    """Write ``encode_jpeg(img, quality, device, progressive)`` to
+    ``path``. Only scripts/colmap_export.py and chip_smoke.py write
+    progressive files (to make progressive captures where no OpenCV is
+    installed); the loaders and the CLI write baseline JPEG, as the JAX
+    package's cv2.imwrite(".jpg") does at its defaults."""
+    Path(path).write_bytes(encode_jpeg(img, quality, device, progressive))

@@ -1,6 +1,7 @@
 """Write a synthetic scene as a COLMAP workspace: a capture with two
-distorted cameras, its sparse model (.bin and a .txt copy) and PNG or JPEG
-images.
+distorted cameras, its sparse model (.bin and a .txt copy) and its images,
+in a format chosen for each camera (PNG, JPEG, progressive JPEG or TIFF, at
+8 or 16 bits where the format has them).
 
 The writer is support for the tests and for ``chip_smoke.py`` (which trains
 the port on the workspace it writes); neither package has a COLMAP writer.
@@ -11,9 +12,13 @@ It imports torch, numpy and the port, never OpenCV or the JAX package.
 takes a SceneData with poses on a sphere (data/synthetic.py's
 ``make_synthetic_scene``; attached images are not used) and writes:
 
-- ``images/view_NNN.png`` (or ``.jpg`` with ``image_format="jpg"``, as
-  cv2.imwrite writes it at quality 95, encoded on the device): every train
-  view rendered from the scene's
+- ``images/view_NNN.<ext>``, in ``image_format`` (one of ``FORMATS``, or
+  a pair: the first camera's and the second's): "png" and "png16" (8- and
+  16-bit PNG), "jpg" (baseline JPEG as cv2.imwrite writes it at quality
+  95), "pjpg" (progressive JPEG, ``.jpg``, as cv2.imwrite writes it with
+  IMWRITE_JPEG_PROGRESSIVE), "tif" (8-bit LZW TIFF as cv2.imwrite writes
+  it), encoded on the device where the format has device stages:
+  every train view rendered from the scene's
   analytic field, distorted: each pixel's ray goes through the undistorted
   point of that pixel (OpenCV's model inverted to convergence), so the
   image is the pinhole render resampled through the distortion model.
@@ -46,6 +51,7 @@ from nerfpp_tpu_torch.data.colmap import (MODEL_NAME_TO_ID, ColmapCamera,
                                           ColmapImage, qvec_to_rotmat)
 from nerfpp_tpu_torch.data.synthetic import scene_field
 from nerfpp_tpu_torch.utils.image import write_image
+from nerfpp_tpu_torch.utils.jpeg import write_jpeg
 
 # small, non-zero OPENCV coefficients (k1, k2, p1, p2) of the two cameras
 DISTORTION = ((-0.03, 0.01, 0.001, -0.0008), (0.02, -0.006, -0.0006, 0.0009))
@@ -53,6 +59,10 @@ SECOND_EVERY = 4                # every 4th view by the second camera
 SECOND_SCALE = 1.25             # its size over the first camera's
 DEPTH_TOL = 0.02                # an observation's distance test
 RENDER_CHUNK = 16384
+# image format -> (extension, bits, progressive)
+FORMATS = {"png": (".png", 8, False), "png16": (".png", 16, False),
+           "jpg": (".jpg", 8, False), "pjpg": (".jpg", 8, True),
+           "tif": (".tif", 8, False)}
 
 
 @dataclasses.dataclass
@@ -240,15 +250,35 @@ def view_rays(cam: ColmapCamera, pose: np.ndarray, dev):
 
 # ------------------------------------------------------------------- export
 
+def write_view(path_stem: Path, rgb: torch.Tensor, fmt: str, dev) -> Path:
+    """Write a float [h, w, 3] image in [0, 1] as ``fmt`` (FORMATS) at
+    ``path_stem`` + the format's extension: rounded to 8 bits (x 255) or 16
+    bits (x 65535)."""
+    ext, bits, progressive = FORMATS[fmt]
+    path = path_stem.with_suffix(ext)
+    top = (1 << bits) - 1
+    img = (torch.clamp(rgb, 0.0, 1.0) * top).round().to(torch.int32)
+    img = img.to(torch.uint8 if bits == 8 else torch.uint16)
+    if progressive:
+        write_jpeg(path, img, device=dev, progressive=True)
+    else:
+        write_image(path, img, dev)
+    return path
+
+
 def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
                         n_points: int = 50_000, log=None,
-                        image_format: str = "png") -> Export:
+                        image_format="png") -> Export:
     """Write the scene's train views as a COLMAP workspace (see the module
     docstring), rendered at ``n_samples`` a ray, with about ``n_points``
-    points drawn from numpy seed 0, the images as ``image_format`` ("png"
-    or "jpg"); ``log`` takes a summary line."""
-    if image_format not in ("png", "jpg"):
-        raise ValueError(f"image_format {image_format!r} is not png or jpg")
+    points drawn from numpy seed 0, the images as ``image_format`` (a key
+    of FORMATS, or a pair of them: the first camera's and the second's);
+    ``log`` takes a summary line."""
+    formats = ((image_format, image_format) if isinstance(image_format, str)
+               else tuple(image_format))
+    if len(formats) != 2 or any(f not in FORMATS for f in formats):
+        raise ValueError(f"image_format {image_format!r}: one of "
+                         f"{sorted(FORMATS)} or a pair of them")
     dev = resolve_device(device)
     workspace = Path(workspace)
     (workspace / "images").mkdir(parents=True, exist_ok=True)
@@ -267,7 +297,8 @@ def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
     maps, images, poses = [], [], []
     with torch.no_grad():
         for j, vi in enumerate(idx):
-            cam = cameras[int(j % SECOND_EVERY == SECOND_EVERY - 1)]
+            second = int(j % SECOND_EVERY == SECOND_EVERY - 1)
+            cam = cameras[second]
             pose = np.asarray(scene.views[vi].pose, np.float32)
             ro, rd = view_rays(cam, pose, dev)
             parts = [render_rgb_depth(ro[c:c + RENDER_CHUNK],
@@ -277,9 +308,9 @@ def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
             rgb, t, acc = (torch.cat(x) for x in zip(*parts))
             dist = t * torch.linalg.norm(rd, dim=-1)
             rgb8 = (torch.clamp(rgb, 0.0, 1.0) * 255.0).round().to(torch.uint8)
-            name = f"view_{j:03d}.{image_format}"
-            write_image(workspace / "images" / name,
-                        rgb8.reshape(cam.height, cam.width, 3), dev)
+            name = write_view(workspace / "images" / f"view_{j:03d}",
+                              rgb.reshape(cam.height, cam.width, 3),
+                              formats[second], dev).name
             maps.append((cam, rd.cpu().numpy(), dist.cpu().numpy(),
                          acc.cpu().numpy(), rgb8.cpu().numpy()))
             qvec, tvec = c2w_to_colmap(pose)

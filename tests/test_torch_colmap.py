@@ -220,14 +220,12 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    # PNG and baseline JPEG views are read; a TIFF view raises when the
-    # undistortion reads it, a progressive JPEG when load_images does, each
-    # naming the file and its kind
+    # PNG, JPEG and TIFF views are read; a BMP view raises when the
+    # undistortion reads it, a WebP view when load_images does, each naming
+    # the file and its kind
     from scripts.colmap_export import write_images_bin
     img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
-    for ext, params, kind in ((".tif", [], "TIFF"),
-                              (".jpg", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
-                               "progressive")):
+    for ext, params, kind in ((".bmp", [], "BMP"), (".webp", [], "WebP")):
         ws = tmp_path / ext[1:]
         (ws / "sparse" / "0").mkdir(parents=True)
         for f in synthetic_model.iterdir():
@@ -239,7 +237,7 @@ def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
         write_images_bin(ws / "sparse" / "0" / "images.bin",
                          [rec.images[i] for i in sorted(rec.images)])
         match = rf"img_1\{ext}.*{kind}"
-        if kind == "TIFF":
+        if kind == "BMP":
             with pytest.raises(NotImplementedError, match=match):
                 PC.load_from_colmap_reconstruction(ws, device="cpu")
         else:

@@ -130,10 +130,19 @@ def test_writer_round_trips_through_cv2(tmp_path, channels):
 
 
 def test_reader_refuses_what_it_does_not_read(tmp_path):
+    # every PNG kind is read (tests/test_torch_png_kinds.py); an unknown
+    # critical chunk is a kind the reader cannot take, and raises
+    # NotImplementedError naming the file and the chunk
     deep = tmp_path / "deep.png"
     cv2.imwrite(str(deep), np.zeros((4, 4, 3), np.uint16))
-    with pytest.raises(ValueError, match="deep.png.*bit depth 16"):
-        read_png(deep)
+    assert read_png(deep).dtype == np.uint16
+    data = deep.read_bytes()
+    crit = struct.pack(">I", 2) + b"ABCD\0\0" + struct.pack(
+        ">I", zlib.crc32(b"ABCD\0\0") & 0xFFFFFFFF)
+    odd = tmp_path / "odd.png"
+    odd.write_bytes(data[:33] + crit + data[33:])
+    with pytest.raises(NotImplementedError, match="odd.png.*ABCD"):
+        read_png(odd)
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"not a png")
     with pytest.raises(ValueError, match="bad.png: not a PNG"):

@@ -9,8 +9,9 @@ OpenCV's libjpeg-turbo on the CPU, bit for bit.
   order) exactly.
 - Encoding: ``encode_jpeg`` at its defaults must be ``cv2.imencode(".jpg")``
   byte for byte on RGB and gray images of odd sizes (header included).
-- Refusals: progressive, arithmetic-coded, 12-bit and 4-component files,
-  and TIFF, name the file; a missing g++ raises.
+- Refusals: arithmetic-coded, lossless, 12-bit and 4-component files, and
+  BMP, name the file; a missing g++ raises. (Progressive files are read:
+  tests/test_torch_jpeg_progressive.py.)
 - The committed fixtures under tests/data/jpeg (made by ``make_fixtures``
   below with OpenCV 5.0.0's libjpeg-turbo 3.1.2; run this file as a script
   to write them again) still match the installed cv2, and the port reads
@@ -127,8 +128,10 @@ def _header_only(sof: bytes) -> bytes:
 
 def test_unread_files_raise_naming_the_file(tmp_path):
     img = pattern(24, 24, 3)
-    cases = {"progressive.jpg": (cv2_file(img, [cv2.IMWRITE_JPEG_PROGRESSIVE,
-                                                1])[0], "progressive"),
+    cases = {"lossless.jpg": (_header_only(b"\xff\xc3\x00\x11\x08\x00\x08"
+                                           b"\x00\x08\x03"
+                                           + b"\x01\x11\x00" * 3),
+                              "lossless"),
              "cmyk.jpg": (_header_only(b"\xff\xc0\x00\x14\x08\x00\x08\x00"
                                        b"\x08\x04" + b"\x01\x11\x00" * 4),
                           "CMYK"),
@@ -142,14 +145,20 @@ def test_unread_files_raise_naming_the_file(tmp_path):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(NotImplementedError, match=f"{name}.*{kind}"):
             read_image(tmp_path / name, "cpu")
-    assert cv2.imwrite(str(tmp_path / "view.tif"), img)
-    with pytest.raises(NotImplementedError, match=r"view\.tif.*TIFF"):
-        read_image(tmp_path / "view.tif", "cpu")
+    assert cv2.imwrite(str(tmp_path / "view.bmp"), img)
+    with pytest.raises(NotImplementedError, match=r"view\.bmp.*BMP"):
+        read_image(tmp_path / "view.bmp", "cpu")
     (tmp_path / "junk.jpg").write_bytes(b"not an image")
     with pytest.raises(NotImplementedError, match=r"junk\.jpg.*unknown"):
         read_image(tmp_path / "junk.jpg", "cpu")
+    # a baseline scan header with zeros where 0, 63, 0 belongs is read, as
+    # libjpeg reads it (with a warning)
+    data, want = cv2_file(img)
+    sos = data.index(b"\xff\xda")
+    at = sos + 5 + 2 * data[sos + 4]
+    zeroed = data[:at] + b"\0\0\0" + data[at + 3:]
+    np.testing.assert_array_equal(decode(zeroed), want)
     # a truncated scan of a readable file is data, not a format: ValueError
-    data, _ = cv2_file(img)
     (tmp_path / "cut.jpg").write_bytes(data[:200])
     with pytest.raises(ValueError, match=r"cut\.jpg"):
         J.read_jpeg(tmp_path / "cut.jpg", "cpu")

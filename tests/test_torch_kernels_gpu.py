@@ -29,7 +29,11 @@ kernels at the LeRF language table (2^16 entries, 10-15 levels), a LeRF
 render and train step on the card against the CPU; utils/image.py's
 undistortion and resizes on the card against the CPU, K1-K3 on the box
 of a bbox refit, and the JPEG codec's device stages (utils/jpeg.py) on the
-card against the CPU and the committed cv2 fixtures (tests/data/jpeg).
+card against the CPU and the committed cv2 fixtures (tests/data/jpeg),
+and every committed image fixture of tests/data/image (progressive JPEG
+whole and cut, PNG kinds, TIFF variants) decoded on the card to cv2's
+pixels, with the 16-bit resize and undistortion on the card against the
+CPU.
 """
 import numpy as np
 import pytest
@@ -1192,3 +1196,51 @@ def test_jpeg_codec_on_the_card_is_the_cpus_and_opencvs(cuda):
             frame = J.decode_coefficients(data)
             assert torch.equal(J.frame_pixels(frame, cuda).cpu(),
                                J.frame_pixels(frame, "cpu")), (h, w, c)
+
+
+def test_image_files_on_the_card_are_the_cpus_and_opencvs(cuda):
+    # the committed cv2 fixtures of tests/data/image (progressive JPEG whole
+    # and cut, PNG kinds, TIFF variants) decode on the card to cv2's pixels,
+    # prog_source.npy encodes progressive to cv2's bytes, and the 16-bit
+    # resize and undistortion on the card equal the CPU's bit for bit
+    from pathlib import Path
+
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import jpeg as J
+    fixtures = Path(__file__).resolve().parent / "data" / "image"
+    files = sorted(f for f in fixtures.iterdir()
+                   if f.suffix != ".npy" and f.stem != "prog_source")
+    assert len(files) >= 15
+    for f in files:
+        got = I.read_image(f, cuda)
+        assert got.device.type == cuda.type
+        want = np.load(f.with_suffix(".npy"))
+        got = got.cpu().numpy()
+        assert got.dtype == want.dtype, f.name
+        np.testing.assert_array_equal(got, want, err_msg=f.name)
+    src = np.load(fixtures / "prog_source.npy")
+    assert J.encode_jpeg(src, device=cuda, progressive=True) == (
+        fixtures / "prog_source.jpg").read_bytes()
+    for k in (5, 7, 9):                  # block smoothing, card against CPU
+        frame = J.decode_coefficients(
+            (fixtures / f"prog_420_21x27_cut{k}.jpg").read_bytes())
+        assert frame.smooth
+        assert torch.equal(J.frame_pixels(frame, cuda).cpu(),
+                           J.frame_pixels(frame, "cpu"))
+    rng = np.random.RandomState(1)
+    for (w, h), c in (((64, 48), 3), ((37, 29), 0), ((50, 40), 4)):
+        img = torch.from_numpy(rng.randint(0, 65536, (h, w) if c == 0 else
+                                           (h, w, c)).astype(np.uint16))
+        k = np.array([[1.1 * w, 0, w / 2 + 0.3], [0, 1.11 * w, h / 2 - 0.7],
+                      [0, 0, 1]])
+        d = (0.01, -0.002, 0.001, -0.001)
+        nk = I.optimal_new_camera_matrix(k, d, (w, h), 0.0, "cpu")
+        card = I.undistort(img.to(cuda), k, d, nk).cpu()
+        assert card.dtype == torch.uint16
+        assert torch.equal(card.to(torch.int32),
+                           I.undistort(img, k, d, nk).to(torch.int32))
+        for oh, ow in ((h // 2, w // 2), (h + 7, w - 5), (2 * h + 1, 3 * w)):
+            assert torch.equal(
+                I.resize_linear_u16(img.to(cuda), (oh, ow)).cpu().to(
+                    torch.int32),
+                I.resize_linear_u16(img, (oh, ow)).to(torch.int32))
