@@ -189,25 +189,30 @@ Phases, each printing its own lines:
      index, no other kernel; steps 1,056-1,087 timed, 1,024-1,055 after a
      cut; the loss must fall), its held-out PSNR beside phase 17's.
  21. image files (utils/png.py, utils/jpeg.py progressive, utils/tiff.py,
-     csrc/tiff_codec.cpp): (a) phase 17's COLMAP export with the 800x800
-     camera's 12 views as progressive JPEG and the 1000x1000 camera's 4 as
-     LZW TIFF, written on the card; (b) the undistortion on the card
-     (progressive views written back as baseline JPEG at quality 95, TIFF
-     as TIFF), views 1 and 4 also through the CPU, every exported and
+     utils/bmp.py, utils/pxm.py, utils/hdr.py, utils/sunras.py,
+     csrc/tiff_codec.cpp, csrc/image_rle.cpp): (a) phase 17's COLMAP
+     export with each view in its format (TRAIN_FORMATS: the 800x800
+     camera's 12 views progressive JPEG, BMP, PPM, Sun raster and PAM, the
+     1000x1000 camera's 4 LZW TIFF), written on the card; (b) the
+     undistortion on the card (each view written back in its format, a
+     progressive one as baseline JPEG at quality 95), one view of each
+     format also through the CPU (the same bytes), every exported and
      undistorted file decoded on the card and the CPU (bitwise equal), the
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
-     cut, PNG kinds, TIFF variants) decoded on the card to cv2's pixels and
-     prog_source encoded progressive on the card to cv2's bytes, a 16-bit
-     PNG copy of views 1 and 4 through undistort_images and load_images on
-     the card against the CPU, the decode seconds of the 12 progressive
-     views and of a 4,000x3,000 progressive upscale (host entropy pass and
-     device stages apart), of the 4 TIFF views, the undistortion and
-     load_images; (c) phase 17(c)'s flagship ``cli train --dataset-type
-     colmap`` on the mixed workspace to NIters 2,100 (cut to 1,088, and
-     the cut printed, if the script would pass 1,080 s; launch counts reset
-     before step 0 and read after: K1, K2, K3 and its index, no other
-     kernel; steps 1,056-1,087 timed; the loss must fall), its held-out
-     PSNR beside phases 17 and 20.
+     cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
+     Radiance HDR, Sun raster, signed and float TIFF) decoded on the card
+     to cv2's pixels and prog_source encoded progressive on the card to
+     cv2's bytes, views 1 and 4 as 16-bit PNG and PPM, int16 TIFF and
+     float PFM, HDR and TIFF through undistort_images and load_images on
+     the card against the CPU, the decode and encode seconds of each new
+     format and of the TIFF views, of the progressive views and a
+     4,000x3,000 progressive upscale (host entropy pass and device stages
+     apart), the undistortion and load_images; (c) phase 17(c)'s flagship
+     ``cli train --dataset-type colmap`` on the mixed workspace to NIters
+     2,100 (cut to 1,088, and the cut printed, if the script would pass
+     1,080 s; launch counts reset before step 0 and read after: K1, K2, K3
+     and its index, no other kernel; steps 1,056-1,087 timed; the loss
+     must fall), its held-out PSNR beside phases 17 and 20.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
 phase 8's, phase 17's, phase 20's and phase 21's COLMAP training for K1-K3
@@ -3355,55 +3360,78 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     return {k: counts[k] for k in TRAIN_KERNELS}, psnr
 
 
-def tiff_times(files, dev):
-    """Read every TIFF file (host: the IFD, the C++ LZW pass, the numpy
-    predictor and layout) and move it to ``dev`` (synchronised): (host s,
-    device s, bytes, pixels), and the images on ``dev``."""
+def format_times(files, dev, root):
+    """Read every file to ``dev`` (read_image, synchronised) and write the
+    image back in its format from the card (write_image): {"extension
+    (dtype)": [decode s, encode s, bytes, pixels]}."""
     import torch
-    from nerfpp_tpu_torch.utils.tiff import read_tiff
-    host = device = 0.0
-    size = pixels = 0
-    images = []
+    from nerfpp_tpu_torch.utils import image as I
+    t = {}
     for path in files:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = read_tiff(path)
-        t1 = time.perf_counter()
-        images.append(torch.from_numpy(img).to(dev))
+        img = I.read_image(path, dev)
         torch.cuda.synchronize()
-        host += t1 - t0
-        device += time.perf_counter() - t1
-        size += Path(path).stat().st_size
-        pixels += img.shape[0] * img.shape[1]
-    return (host, device, size, pixels), images
+        t1 = time.perf_counter()
+        I.write_image(root / f"again{path.suffix}", img, dev)
+        t2 = time.perf_counter()
+        kind = f"{path.suffix} ({str(img.dtype).replace('torch.', '')})"
+        row = t.setdefault(kind, [0.0, 0.0, 0, 0])
+        row[0] += t1 - t0
+        row[1] += t2 - t1
+        row[2] += path.stat().st_size
+        row[3] += img.shape[0] * img.shape[1]
+    return t
+
+
+def format_lines(label, t):
+    """One log line per kind of format_times' figures."""
+    return [f"{label} {ext} ({n} bytes, {px / 1e6:.2f} Mpix): decode "
+            f"{dec:.4f} s ({n / dec / 1e6:.1f} MB/s, {px / dec / 1e6:.1f} "
+            f"Mpix/s), encode {enc:.4f} s ({n / enc / 1e6:.1f} MB/s, "
+            f"{px / enc / 1e6:.1f} Mpix/s)"
+            for ext, (dec, enc, n, px) in sorted(t.items())]
+
+
+# phase 21's trained capture, cycled over the 16 views: the 1000x1000
+# camera's 4 views (3, 7, ...) TIFF, the 800x800 camera's 12 progressive
+# JPEG, BMP, PPM, Sun raster and PAM
+TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "pjpg", "ras", "pam", "tif")
+# views 1 and 4 in the deep and float formats: undistortion and load_images
+DEEP_FORMATS = ("png16", "ppm16", "itif", "pfm", "hdr", "ftif")
 
 
 def formats_phase(scene, dev, psnrs, t_start):
-    """Phase 21, the image files cv2.imread reads (utils/png.py,
-    utils/jpeg.py progressive, utils/tiff.py, csrc/tiff_codec.cpp): (a)
-    phase 17's COLMAP export with the 800x800 camera's 12 views as
-    progressive JPEG and the 1000x1000 camera's 4 as 8-bit LZW TIFF, written
-    on the card; (b) the undistortion on the card (progressive decode,
-    undistort, baseline JPEG at quality 95; TIFF read, undistort, TIFF
-    write), views 1 and 4 also through the CPU (the JPEG byte for byte, the
-    TIFF pixel for pixel), every exported and undistorted file decoded on
-    the card and the CPU (bitwise equal), the committed cv2 fixtures
-    (tests/data/image: progressive JPEG whole and cut, PNG kinds, TIFF
-    variants) decoded on the card to cv2's pixels and prog_source encoded
-    progressive on the card to cv2's bytes, a 16-bit PNG copy of views 1
-    and 4 through undistort_images and load_images on the card and the CPU
-    (bitwise equal; values up to 257, the JAX package's division of every
-    depth by 255), decode seconds of the 12 progressive views and of a
-    4,000 x 3,000 progressive upscale (host entropy pass and device stages
-    apart, with the progressive encode's), of the 4 TIFF views (host read
-    and the copy to the card), the undistortion and load_images; (c) phase
-    17(c)'s flagship ``cli train --dataset-type colmap`` on the mixed
-    workspace to NIters 2,100, or 1,088 if the whole script would pass
-    1,080 s (the cut is printed; steps 1,024-1,055 then timed in place of
-    1,056-1,087), launch counts reset before step 0 and read after (K1, K2,
-    K3 and its index, no other kernel), the loss must fall, the held-out
-    PSNR beside ``psnrs`` (phases 17 and 20). Returns (c)'s launch
-    counts."""
+    """Phase 21, the image files cv2.imread reads and cv2.imwrite writes
+    (utils/png.py, utils/jpeg.py progressive, utils/tiff.py, utils/bmp.py,
+    utils/pxm.py, utils/hdr.py, utils/sunras.py, csrc/tiff_codec.cpp,
+    csrc/image_rle.cpp): (a) phase 17's COLMAP export with each view in a
+    format of TRAIN_FORMATS (the 800x800 camera's 12 views progressive JPEG,
+    BMP, PPM, Sun raster and PAM, the 1000x1000 camera's 4 8-bit LZW TIFF),
+    written on the card's path; (b) the undistortion on the card (each view
+    read, undistorted and written back in its format), one view of each
+    format also through the CPU (the same bytes), every exported and
+    undistorted file decoded on the card and the CPU (bitwise equal), the
+    committed cv2 fixtures (tests/data/image: progressive JPEG whole and
+    cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
+    Radiance HDR, Sun raster, signed and float TIFF) decoded on the card to
+    cv2's pixels and prog_source encoded progressive on the card to cv2's
+    bytes, views 1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
+    PFM, HDR and TIFF (the 8-bit view / 255 times a seeded exposure)
+    through undistort_images and load_images on the card and the CPU
+    (bitwise equal; 16-bit values up to 257, int16 from -128.5 to 128.5
+    and float values divided by 255, the JAX package's division of every
+    depth by 255), decode and encode seconds of each new format and of
+    the 4 TIFF views (read_image to the card and write_image from it), of
+    the 4 progressive views and a 4,000 x 3,000 progressive upscale (host
+    entropy pass and device stages apart), the undistortion and
+    load_images; (c) phase 17(c)'s flagship ``cli train
+    --dataset-type colmap`` on the mixed workspace to NIters 2,100, or 1,088
+    if the whole script would pass 1,080 s (the cut is printed; steps
+    1,024-1,055 then timed in place of 1,056-1,087), launch counts reset
+    before step 0 and read after (K1, K2, K3 and its index, no other
+    kernel), the loss must fall, the held-out PSNR beside ``psnrs`` (phases
+    17 and 20). Returns (c)'s launch counts."""
     import copy
 
     import numpy as np
@@ -3412,36 +3440,44 @@ def formats_phase(scene, dev, psnrs, t_start):
     from nerfpp_tpu_torch.data.dataset import SceneData, View, load_images
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
     from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import image_rle
     from nerfpp_tpu_torch.utils import jpeg as J
     from nerfpp_tpu_torch.utils import tiff as T
-    from nerfpp_tpu_torch.utils.png import write_png
-    from scripts.colmap_export import export_colmap_scene
+    from scripts.colmap_export import FORMATS, export_colmap_scene, write_view
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     ws = root / "colmap_formats"
     cpu = torch.device("cpu")
-    t0 = time.perf_counter()
-    lib = T.codec_library()
-    log("formats", f"TIFF codec built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({lib._name})")
+    for name, load in (("TIFF codec", T.codec_library),
+                       ("BMP / HDR run-length codec", image_rle.library)):
+        t0 = time.perf_counter()
+        lib = load()
+        log("formats", f"{name} built and loaded in "
+            f"{time.perf_counter() - t0:.2f} s ({lib._name})")
 
-    # (a) export: progressive JPEG and TIFF
+    # (a) export: each view in its format
     t0 = time.perf_counter()
     export_colmap_scene(scene, ws, dev, n_samples=64, n_points=50_000,
-                        image_format=("pjpg", "tif"),
+                        image_format=TRAIN_FORMATS,
                         log=lambda m: log("formats", m))
     sources = sorted((ws / "images").iterdir())
+    want_ext = [FORMATS[TRAIN_FORMATS[j % len(TRAIN_FORMATS)]][0]
+                for j in range(len(sources))]
+    if len(sources) != 16 or [f.suffix for f in sources] != want_ext:
+        raise AssertionError(f"export: {[f.name for f in sources]}")
     jpgs = [f for f in sources if f.suffix == ".jpg"]
-    tifs = [f for f in sources if f.suffix == ".tif"]
-    if len(jpgs) != 12 or len(tifs) != 4 or not all(
-            J.decode_coefficients(f.read_bytes()).progressive for f in jpgs):
-        raise AssertionError(f"export: {len(jpgs)} progressive JPEG and "
-                             f"{len(tifs)} TIFF views")
+    if not all(J.decode_coefficients(f.read_bytes()).progressive
+               for f in jpgs):
+        raise AssertionError("export: a JPEG view is not progressive")
+    sizes = {}
+    for f in sources:
+        sizes.setdefault(f.suffix, [0, 0])
+        sizes[f.suffix][0] += 1
+        sizes[f.suffix][1] += f.stat().st_size
     log("formats", f"(a) exported in {time.perf_counter() - t0:.2f} s: "
-        f"{len(jpgs)} progressive JPEG views "
-        f"({sum(f.stat().st_size for f in jpgs)} bytes), {len(tifs)} TIFF "
-        f"views ({sum(f.stat().st_size for f in tifs)} bytes)")
+        + ", ".join(f"{n} {ext} views ({b} bytes)"
+                    for ext, (n, b) in sorted(sizes.items())))
 
     # (b) undistortion on the card, then the codecs card against CPU
     torch.cuda.synchronize()
@@ -3454,40 +3490,39 @@ def formats_phase(scene, dev, psnrs, t_start):
             any(f.parent.name != "undistorted" for f in undistorted):
         raise AssertionError(f"undistorted files {undistorted[:3]}...")
     raw = C.read_model(ws / "sparse" / "0")
-    for i in (0, 3):
+    checked = []
+    (root / "cpu_check").mkdir()
+    for i in (0, 1, 2, 3, 5, 6):              # one view of each format
         cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
         k = cam.k_matrix().astype(np.float64)
         d = cam.distortion().astype(np.float64)
         new_k = I.optimal_new_camera_matrix(k, d, (cam.width, cam.height),
                                             0.0, cpu)
         und = I.undistort(I.read_image(sources[i], cpu), k, d, new_k)
-        if undistorted[i].suffix == ".jpg":
-            same = J.encode_jpeg(und, device=cpu) == undistorted[
-                i].read_bytes()
-        else:
-            same = np.array_equal(T.read_tiff(undistorted[i]), und.numpy())
-        if not same:
+        mine = root / "cpu_check" / undistorted[i].name
+        I.write_image(mine, und, cpu)
+        if mine.read_bytes() != undistorted[i].read_bytes():
             raise AssertionError(f"{undistorted[i].name}: the card's "
                                  "undistorted file differs from the CPU's")
+        checked.append(undistorted[i].name)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     C.load_from_colmap_reconstruction(ws, device=dev)
     torch.cuda.synchronize()
     und_warm = time.perf_counter() - t0
     log("formats", f"(b) load_from_colmap_reconstruction with undistortion "
-        f"on the card (parse, near/far, box; progressive decode, undistort, "
-        f"baseline encode of 12 views; TIFF read, undistort, TIFF write of "
-        f"4): {und_s:.3f} s the first time, {und_warm:.3f} s again; views 1 "
-        f"(JPEG) and 4 (TIFF) through the CPU: the same files")
+        f"on the card (parse, near/far, box; each of the 16 views read, "
+        f"undistorted and written back in its format): {und_s:.3f} s the "
+        f"first time, {und_warm:.3f} s again; {', '.join(checked)} through "
+        "the CPU: the same bytes")
     for f in sources + undistorted:
         card = I.read_image(f, dev).cpu()
         host = I.read_image(f, cpu)
-        if card.dtype != host.dtype or not torch.equal(
-                card.to(torch.int32), host.to(torch.int32)):
+        if card.dtype != host.dtype or not torch.equal(card, host):
             raise AssertionError(f"{f}: decode card against CPU differs")
     log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
-        "undistorted files (progressive and baseline JPEG, TIFF) decoded on "
-        "the card bitwise the CPU's")
+        "undistorted files (progressive and baseline JPEG, TIFF, BMP, PPM, "
+        "Sun raster, PAM) decoded on the card bitwise the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
     names = []
     for f in sorted(fixtures.iterdir()):
@@ -3508,52 +3543,94 @@ def formats_phase(scene, dev, psnrs, t_start):
         "decoded on the card to cv2.imread's pixels; prog_source encoded "
         "progressive on the card to cv2.imencode's bytes")
 
-    # a 16-bit PNG copy of views 1 and 4 (x 257 plus seeded noise below
-    # 257) through the undistortion and load_images, card against CPU
+    # views 1 and 4 in the deep and float formats (16 bits: the 8-bit view
+    # x 257 plus seeded noise below 257, int16 that less 32,768 through
+    # write_view; float: the view / 255 times a seeded exposure,
+    # e^N(0, 1.5)) through the undistortion and load_images, card against
+    # CPU
     rng = np.random.RandomState(SEED)
-    deep_views = []
-    for i in (0, 3):
-        cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
-        img8 = I.read_image(sources[i], cpu).numpy().astype(np.uint32)
-        img16 = (img8 * 257 + rng.randint(0, 257, img8.shape)).clip(
-            0, 65535).astype(np.uint16)
-        path = root / "deep" / f"view_{i:03d}.png"
-        path.parent.mkdir(exist_ok=True)
-        write_png(path, img16)
-        deep_views.append(View(
-            id=len(deep_views), h=cam.height, w=cam.width,
-            focal=float(cam.params[0]), near=sc.views[i].near,
-            far=sc.views[i].far, k=cam.k_matrix().astype(np.float32),
-            pose=sc.views[i].pose, d=cam.distortion().astype(np.float32),
-            image_path=str(path)))
-    stacks, files = {}, {}
+    deep_views, deep_files, peaks = [], [], {}
+    (root / "deep").mkdir()
+    for fmt in DEEP_FORMATS:
+        for i in (0, 3):
+            cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
+            img8 = I.read_image(sources[i], cpu).numpy().astype(np.float64)
+            if FORMATS[fmt][1] in ("uint16", "int16"):
+                rgb = (img8 * 257 + rng.randint(0, 257, img8.shape)) / 65535
+            else:
+                rgb = img8 / 255 * np.exp(rng.randn(*img8.shape[:2], 1)
+                                          * 1.5)
+            rgb = torch.from_numpy(rgb.astype(np.float32))
+            peaks[fmt] = max(peaks.get(fmt, 0.0), float(rgb.max()))
+            if FORMATS[fmt][1] == "float32":
+                path = root / "deep" / f"{fmt}_{i:03d}{FORMATS[fmt][0]}"
+                I.write_image(path, rgb, cpu)
+            else:
+                path = write_view(root / "deep" / f"{fmt}_{i:03d}",
+                                  rgb.clamp(0, 1), fmt, cpu)
+            deep_files.append(path)
+            deep_views.append(View(
+                id=len(deep_views), h=cam.height, w=cam.width,
+                focal=float(cam.params[0]), near=sc.views[i].near,
+                far=sc.views[i].far, k=cam.k_matrix().astype(np.float32),
+                pose=sc.views[i].pose,
+                d=cam.distortion().astype(np.float32),
+                image_path=str(path)))
+    n_deep = len(deep_views)
+    stacks, files, deep_s = {}, {}, {}
     for name, device in (("card", dev), ("cpu", cpu)):
         deep = SceneData(views=copy.deepcopy(deep_views),
-                         splits_idx=[2, 0, 0])
+                         splits_idx=[n_deep, 0, 0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         C.undistort_images(deep, root / f"deep_{name}", device)
-        stacks[name] = load_images(deep, [0, 1], target_hw=(800, 800),
-                                   device=device)
         torch.cuda.synchronize()
-        files[name] = [I.read_image(v.image_path, cpu) for v in deep.views]
-        if name == "card":
-            deep_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stacks[name] = load_images(deep, list(range(n_deep)),
+                                   target_hw=(800, 800), device=device)
+        torch.cuda.synchronize()
+        deep_s[name] = (t1 - t0, time.perf_counter() - t1)
+        files[name] = [Path(v.image_path) for v in deep.views]
     for a, b in zip(files["card"], files["cpu"]):
-        if a.dtype != torch.uint16 or not torch.equal(a.to(torch.int32),
-                                                      b.to(torch.int32)):
-            raise AssertionError("16-bit undistortion card against CPU "
-                                 "differs")
+        if a.read_bytes() != b.read_bytes():
+            raise AssertionError(f"{a.name}: the card's undistorted file "
+                                 "differs from the CPU's")
     if not np.array_equal(stacks["card"], stacks["cpu"]):
-        raise AssertionError("16-bit load_images card against CPU differs")
-    top = float(stacks["card"].max())
-    if not 1.0 < top <= 65535 / 255:
-        raise AssertionError(f"16-bit load_images: max {top}")
-    log("formats", f"(b) 16-bit PNG views 1 and 4 ("
-        + " and ".join(f"{v.w}x{v.h}" for v in deep_views)
-        + f"): undistorted and loaded (resized to 800x800 in 16 bits, then "
-        f"/ 255) on the card in {deep_s:.3f} s, bitwise the CPU's; values up "
-        f"to {top:.4f} (the JAX package's / 255 of every depth, mirrored)")
+        raise AssertionError("deep and float load_images card against CPU "
+                             "differs")
+    tops = {fmt: float(stacks["card"][2 * k:2 * k + 2].max())
+            for k, fmt in enumerate(DEEP_FORMATS)}
+    # 16 bits: up to 65535 / 255; float: the interpolated (and, in HDR,
+    # truncated) values stay below the largest written value, / 255
+    k = DEEP_FORMATS.index("itif")
+    itif_min = float(stacks["card"][2 * k:2 * k + 2].min())
+    # int16 / 255 in f32, as load_images divides
+    lo16, hi16 = (float(np.float32(v) / np.float32(255))
+                  for v in (-32768, 32767))
+    if not all(1.0 < tops[f] <= 65535 / 255 for f in ("png16", "ppm16")) \
+            or not 1.0 < tops["itif"] <= hi16 \
+            or not lo16 <= itif_min < -1.0 \
+            or not all(0.0 < tops[f] <= peaks[f] / 255 * (1 + 1e-6)
+                       for f in ("pfm", "hdr", "ftif")):
+        raise AssertionError(f"deep load_images maxima {tops} (int16 "
+                             f"minimum {itif_min}), the written maxima "
+                             f"{peaks}")
+    log("formats", f"(b) views 1 and 4 ({deep_views[0].w}x{deep_views[0].h}"
+        f" and {deep_views[1].w}x{deep_views[1].h}) as "
+        + ", ".join(DEEP_FORMATS) + f": undistorted on the card in "
+        f"{deep_s['card'][0]:.3f} s (the CPU {deep_s['cpu'][0]:.3f} s) and "
+        f"loaded (resized to 800x800 in their stored type, then / 255) in "
+        f"{deep_s['card'][1]:.3f} s (the CPU {deep_s['cpu'][1]:.3f} s), the "
+        "files and the stack bitwise the CPU's; maxima after / 255: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in tops.items())
+        + " (the JAX package's / 255 of every depth, mirrored)")
+    new = [f for f in sources if f.suffix in (".bmp", ".ppm", ".ras",
+                                              ".pam", ".tif")]
+    new += [f for f in deep_files if f.suffix != ".png"]
+    format_times(new[:1] + [deep_files[-1]], dev, root)     # warm the path
+    for line in format_lines("(b) per format:", format_times(new, dev,
+                                                             root)):
+        log("formats", line)
 
     codec_times(jpgs[:1], dev, progressive=True)      # warm the card's path
     t, images = codec_times(jpgs, dev, progressive=True)
@@ -3570,21 +3647,15 @@ def formats_phase(scene, dev, psnrs, t_start):
     log("formats", codec_line("(b) view 1 upscaled to 4000x3000, "
                               "progressive (decoded bitwise the CPU's)", t))
     del big, back, images
-    tiff_times(tifs[:1], dev)
-    (host, device, size, pixels), _ = tiff_times(tifs, dev)
-    log("formats", f"(b) the {len(tifs)} TIFF views ({size} bytes of LZW, "
-        f"{pixels / 1e6:.2f} Mpix): read {host + device:.4f} s (host IFD, "
-        f"LZW and predictor {host:.4f} s, copy to the card {device:.4f} s): "
-        f"{size / (host + device) / 1e6:.1f} MB/s, "
-        f"{pixels / (host + device) / 1e6:.1f} Mpix/s")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stack = load_images(sc, list(range(len(sc.views))),
                         target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
     load_s = time.perf_counter() - t0
     log("formats", f"(b) load_images of the {len(sc.views)} undistorted "
-        f"views (baseline JPEG and TIFF decoded on the card, 1000x1000 "
-        f"resized to 800x800): {load_s:.3f} s, stack {stack.shape}")
+        f"views (baseline JPEG, TIFF, BMP, PPM, Sun raster and PAM decoded "
+        f"on the card, 1000x1000 resized to 800x800): {load_s:.3f} s, "
+        f"stack {stack.shape}")
     del stack
     torch.cuda.empty_cache()
 
@@ -3613,8 +3684,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     if any(others.values()):
         raise AssertionError(f"the mixed capture's training launched other "
                              f"kernels: {others}")
-    log("formats", f"(c) cli train --dataset-type colmap on the progressive "
-        f"JPEG + TIFF capture (flagship): {loss.size} steps in "
+    log("formats", f"(c) cli train --dataset-type colmap on the mixed "
+        f"capture (progressive JPEG, TIFF, BMP, PPM, Sun raster, PAM; "
+        f"flagship): {loss.size} steps in "
         f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
         f"included: about {und_warm + load_s:.2f} s of it, "
         f"{100 * (und_warm + load_s) / train_s:.1f} %); steps "
@@ -3629,8 +3701,8 @@ def formats_phase(scene, dev, psnrs, t_start):
         f"({i}, {loss[i]:.5f})" for i in range(0, loss.size, 300))
         + f"; mean {first:.5f} (steps 0-31) -> {last:.5f} (last 32)")
     log("formats", f"(c) held-out PSNR after {loss.size} steps (test view at "
-        f"its true pose and K, 800x800, unbudgeted): the progressive JPEG + "
-        f"TIFF capture {psnr:.2f} dB; "
+        f"its true pose and K, 800x800, unbudgeted): the mixed capture "
+        f"{psnr:.2f} dB; "
         + "; ".join(f"{k} {v:.2f} dB" if v is not None else f"{k} not run"
                     for k, v in psnrs.items()))
     del run
@@ -3660,8 +3732,8 @@ def main(argv=None) -> int:
     ap.add_argument("--jpeg-only", action="store_true",
                     help="only phases 1-2, then phase 20 (JPEG capture)")
     ap.add_argument("--formats-only", action="store_true",
-                    help="only phases 1-2, then phase 21 (progressive JPEG, "
-                    "PNG kinds and TIFF)")
+                    help="only phases 1-2, then phase 21 (the image files "
+                    "cv2 reads and writes)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3918,14 +3990,14 @@ def main(argv=None) -> int:
         counts[k] += v
     log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
 
-    # 21. progressive JPEG, PNG kinds and TIFF: the codecs, and the flagship
-    # on a progressive JPEG + TIFF workspace (its K1-K3 launches join the
-    # kernels line's)
+    # 21. the image files cv2 reads and writes: the codecs, and the flagship
+    # on a workspace of progressive JPEG, TIFF, BMP, PPM, Sun raster and
+    # PAM views (its K1-K3 launches join the kernels line's)
     formats = formats_phase(scene, dev, {
         "phase 17's PNG capture": psnr_capture,
         "phase 20's JPEG capture": psnr_jpeg}, t_start)
     log("formats", "phase 21 launches (cli train --dataset-type colmap on "
-        "progressive JPEG + TIFF): " + ", ".join(
+        "the mixed capture): " + ", ".join(
             f"{k} {v}" for k, v in formats.items()))
     for k, v in formats.items():
         counts[k] += v

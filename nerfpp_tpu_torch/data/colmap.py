@@ -16,20 +16,25 @@ undistortion, and the optional SfM shell-out.
 - ``undistort_images``: OPENCV-model undistortion of every distorted view
   into ``workspace/undistorted/`` with utils/image.py (OpenCV's
   getOptimalNewCameraMatrix at alpha 0 and undistort, in PyTorch on the
-  given device), written under the source's own name and format as
-  cv2.imwrite writes it: a .png as PNG and a .tif / .tiff as LZW TIFF, both
-  in the source's depth (8 or 16 bits), a .jpg (baseline or progressive)
-  re-encoded as baseline JPEG at quality 95, 4:2:0 (utils/jpeg.py, byte for
-  byte OpenCV's).
+  given device; uint8, uint16, int16, float32 and float64 views, as
+  cv2.undistort takes them), written under the source's own name and
+  format as cv2.imwrite writes it: a .png as PNG and a .tif / .tiff as TIFF
+  in the source's depth (8 or 16 bits; signed and float TIFF as they
+  are), a .jpg (baseline or progressive) re-encoded as baseline JPEG at
+  quality 95, 4:2:0 (utils/jpeg.py, byte for byte OpenCV's), a .bmp as
+  BMP, a .pbm / .pgm / .ppm / .pnm / .pam / .pfm in its portable format, a
+  .hdr as run-length RGBE and a .ras / .sr as Sun raster (byte for byte
+  OpenCV's).
 - ``run_colmap_reconstruction``: a ``colmap automatic_reconstructor`` run,
   when the binary is installed.
 
 Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
 them: PNG of every colour type and depth, baseline and progressive JPEG,
-and TIFF (8 or 16 bits, LZW, Deflate, PackBits or none). A view in another
-format (BMP, WebP, JPEG 2000, AVIF, arithmetic-coded, 12-bit or CMYK JPEG,
-float or JPEG-compressed TIFF, ...) raises NotImplementedError naming the
-file and the kind when it is read.
+TIFF (8- to 64-bit integer or float samples; LZW, Deflate, PackBits or
+none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR and Sun raster. A
+view in another format (WebP, JPEG 2000, GIF, AVIF, arithmetic-coded,
+12-bit or CMYK JPEG, JPEG-compressed TIFF, ...) raises NotImplementedError
+naming the file and the kind when it is read.
 """
 from __future__ import annotations
 

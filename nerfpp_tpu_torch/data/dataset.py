@@ -123,18 +123,22 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     """Decode view images into one [n, H, W, 3] f32 stack, as
     nerfpp_tpu/data/dataset.py ``load_images`` does. The files are what
     utils/image.py ``read_image`` reads on ``device``: PNG of any colour
-    type and depth, baseline or progressive JPEG, TIFF; other formats (BMP,
-    WebP, JPEG 2000, arithmetic-coded, 12-bit or CMYK JPEG, float TIFF,
-    ...) raise NotImplementedError naming the file. Each image is resized
-    in its stored depth, then divided by 255, whatever that depth: a 16-bit
-    file's values reach 65535 / 255 = 257, as the JAX package's do (the
-    reference's behaviour, mirrored; ROADMAP.md). RGBA images lose their
-    alpha, or with ``white_bkgr`` (default: the scene's) are composited
-    onto white, on those values; gray images are repeated to 3 channels.
-    Each image takes its view's (h, w), or ``target_hw``: an image of
-    another size is resized on ``device`` (alpha included, as OpenCV
-    resizes it), and the caller scales the intrinsics
-    (RayBatchSampler.from_scene does)."""
+    type and depth, baseline or progressive JPEG, TIFF (integer or float
+    samples), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR and Sun
+    raster; other formats (WebP, JPEG 2000, GIF, AVIF, arithmetic-coded,
+    12-bit or CMYK JPEG, ...) raise NotImplementedError naming the file.
+    Each image is resized in its stored type (uint8, uint16, int16,
+    float32 or float64, as cv2.resize; int8, int32 and uint32 raise when a
+    resize is needed), then cast to f32 and divided by 255, whatever its
+    type: a 16-bit file's values reach 65535 / 255 = 257, and a float
+    file's (PFM, HDR, float TIFF) radiance or depth values come out divided
+    by 255, as the JAX package's do (the reference's behaviour, mirrored;
+    ROADMAP.md). RGBA images lose their alpha, or with ``white_bkgr``
+    (default: the scene's) are composited onto white, on those values;
+    gray images are repeated to 3 channels. Each image takes its view's
+    (h, w), or ``target_hw``: an image of another size is resized on
+    ``device`` (alpha included, as OpenCV resizes it), and the caller
+    scales the intrinsics (RayBatchSampler.from_scene does)."""
     if white_bkgr is None:
         white_bkgr = scene.white_bkgr
     out = []

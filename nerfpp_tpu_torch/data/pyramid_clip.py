@@ -12,9 +12,9 @@ package reads the other's file.
 
 The JAX package resizes with OpenCV (``cv2.resize``, INTER_LINEAR, float32);
 the port with ``resize_linear`` of utils/image.py, that resize in PyTorch
-on any device (tests/test_torch_lerf.py holds it within 1e-6 of OpenCV's on
-[0, 1] images). The embedder cuts, resizes and encodes all windows of one
-shape at once, on the images' device.
+on any device (tests/test_torch_lerf_resize.py holds it within 1e-6 of
+OpenCV's on [0, 1] images). The embedder cuts, resizes and encodes all
+windows of one shape at once, on the images' device.
 
 The image encoder is pluggable: a callable mapping a [N, S, S, 3] float
 batch (a tensor, or a numpy array) to [N, E] embeddings.

@@ -6,20 +6,26 @@ The machine with the card has neither OpenCV nor Pillow, so the port
 computes these itself, on the device of the tensors it is given (the card,
 unless the caller passes CPU tensors). Each follows OpenCV's arithmetic
 step by step, so that its results are OpenCV's bit for bit where the tests
-can show it (tests/test_torch_colmap.py):
+can show it (tests/test_torch_colmap_resample.py,
+tests/test_torch_tiff_float.py):
 
 - ``resize_linear``: ``cv2.resize`` with INTER_LINEAR on float images:
   half-pixel centres, no antialiasing, the source coordinate and its
   fraction in double, the horizontal taps clamped at the edges, the 2x2 box
   mean at an exact halving. Values agree with OpenCV's to float rounding
   (measured within 1.2e-7 on [0, 1] images), not bit for bit.
-- ``resize_linear_u16``: the same on 16-bit images, which OpenCV hands to
-  its IPP HAL: a lerp along x, then along y, each a fused multiply-add in
-  f32 (S0 + (S1 - S0) * f with one rounding), the fraction of the
-  double-precision source coordinate rounded to f32, the sum rounded half
-  to even; an exact halving is no special case. (Measured equal to cv2
-  5.0.0 on every shape tried except sources one pixel wide or high, where
-  OpenCV leaves the HAL and a few values differ by one.)
+- ``resize_linear_u16``: the same on 16-bit images. Those of 1, 3 or 4
+  channels at least 2 pixels wide and high OpenCV hands to its IPP HAL: a
+  lerp along x, then along y, each a fused multiply-add in f32 (S0 + (S1 -
+  S0) * f with one rounding), the fraction of the source coordinate
+  (d + 0.5) * (n_src / n_dst) - 0.5, taken in double, rounded to f32, the
+  sum rounded half to even; an exact halving is no special case. On int16
+  images the HAL computes rows and columns whose coordinate lies at or
+  past an edge as a lerp along the other axis alone, S0 + round((S1 - S0)
+  * f). Other images take OpenCV's own code: S0 * (1 - f) + S1 * f in f32,
+  along x then y, with the coordinate rounded to f32. (Equal to cv2 5.0.0
+  on full-range uint16 and int16 images of 1 to 5 channels, sources one
+  pixel wide or high included.)
 - ``resize_linear_u8``: the same on 8-bit images, in OpenCV's fixed point:
   11-bit tap weights (the float weight times 2,048, rounded), the horizontal
   pass in int32, then the vertical pass as OpenCV's vector code computes it
@@ -43,22 +49,37 @@ can show it (tests/test_torch_colmap.py):
   image reads 0. On 16-bit images ``remap`` interpolates in f32 instead:
   each tap times its weight from OpenCV's table ((1 - fy)(1 - fx) and so
   on, with f = k / 32), the four products summed left to right, rounded
-  half to even.
+  half to even; signed 16-bit images the same, saturated to int16; float32
+  and float64 images the same without the rounding (the products in the
+  image's precision, the weights f32). A tap outside the image reads 0.
+  int8, int32 and uint32 images are refused, as cv2.undistort refuses
+  them.
+- ``resize_stored``: ``cv2.resize`` in the image's stored type: uint8
+  through ``resize_linear_u8``, uint16 and int16 through
+  ``resize_linear_u16``, float32 and float64 through ``resize_linear``
+  (not bit for bit: OpenCV's float paths round differently; measured
+  within 2e-7 of the image's largest magnitude on high-dynamic-range
+  images, and held to 1e-6 of it); int8, int32 and uint32 are refused, as
+  cv2.resize refuses them.
 
 Distortion coefficients follow OpenCV's order: k1, k2, p1, p2 [, k3 [, k4,
 k5, k6]].
 
 ``read_image`` and ``write_image`` are ``cv2.imread(path,
 IMREAD_UNCHANGED)`` and ``cv2.imwrite`` for the formats the port reads and
-writes: PNG of every colour type and depth (utils/png.py), baseline,
-extended sequential and progressive Huffman JPEG (utils/jpeg.py) and TIFF
-(utils/tiff.py); 16-bit PNG and TIFF come back as uint16, as OpenCV returns
-them. Reading goes by the file's leading bytes, as OpenCV's does, writing
-by the extension (PNG and TIFF keep 16 bits; JPEG is written baseline at
-quality 95, as cv2.imwrite writes it at its defaults). BMP, WebP, JPEG
-2000, AVIF and the formats' unread kinds (arithmetic-coded, 12-bit and CMYK
-JPEG, float or JPEG-compressed TIFF, ...) raise NotImplementedError naming
-the file and the kind.
+writes, each in its own module: PNG of every colour type and depth
+(utils/png.py), baseline, extended sequential and progressive Huffman JPEG
+(utils/jpeg.py), TIFF of 8- to 64-bit integer and float samples
+(utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
+(utils/pxm.py), Radiance HDR (utils/hdr.py) and Sun raster
+(utils/sunras.py); 16-bit PNG, TIFF, PGM, PPM and PAM come back as uint16,
+PFM and HDR as float32, as OpenCV returns them. Reading goes by the file's
+leading bytes, as OpenCV's does, writing by the extension (PNG, TIFF and
+the portable formats keep 16 bits; JPEG is written baseline at quality 95,
+as cv2.imwrite writes it at its defaults). WebP, JPEG 2000, AVIF, GIF and
+the formats' unread kinds (arithmetic-coded, 12-bit and CMYK JPEG,
+JPEG-compressed TIFF, ...) raise NotImplementedError naming the file and
+the kind; files cv2.imread returns None for raise ValueError.
 """
 from __future__ import annotations
 
@@ -69,6 +90,7 @@ import numpy as np
 import torch
 
 from nerfpp_tpu_torch import resolve_device
+from nerfpp_tpu_torch.utils import bmp, hdr, pxm, sunras
 from nerfpp_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
 from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 from nerfpp_tpu_torch.utils.png import read_png, write_png
@@ -106,8 +128,10 @@ def _fixed(w: np.ndarray) -> np.ndarray:
 
 def resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """cv2.resize(img, (w, h)) with INTER_LINEAR for float images:
-    img [..., H, W, C] -> [..., h, w, C] (float32)."""
-    img = img.float()
+    img [..., H, W, C] -> [..., h, w, C] (float64 stays float64, anything
+    else becomes float32; the weights are f32, as OpenCV's)."""
+    if img.dtype != torch.float64:
+        img = img.float()
     h_src, w_src = img.shape[-3], img.shape[-2]
     h, w = out_hw
     if (h_src, w_src) == (h, w):
@@ -124,6 +148,7 @@ def resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
     x0, x1, a0, a1 = (t(v) for v in _taps(w_src, w))
     y0, y1, b0, b1 = (t(v) for v in _taps(h_src, h, clamp_weights=False))
+    a0, a1, b0, b1 = (v.to(img.dtype) for v in (a0, a1, b0, b1))
     rows = img[..., x0, :] * a0[:, None] + img[..., x1, :] * a1[:, None]
     return (rows[..., y0, :, :] * b0[:, None, None]
             + rows[..., y1, :, :] * b1[:, None, None])
@@ -162,35 +187,89 @@ def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
     return torch.clamp(out, 0, 255).to(torch.uint8)
 
 
+def _ipp_taps(n_src: int, n_dst: int):
+    """The IPP HAL's taps along one axis: (i0, i1, f, edge), the source
+    coordinate (d + 0.5) * (n_src / n_dst) - 0.5 in double (the ratio
+    itself, not OpenCV's reciprocal of its inverse), its fraction rounded
+    to f32 (1.0 stays on the lower pixel), indices clamped to the image;
+    ``edge`` marks a coordinate left of the first pixel or at or right of
+    the last."""
+    fd = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
+    s = np.floor(fd).astype(np.int64)
+    return (np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1),
+            (fd - s).astype(np.float32), (s < 0) | (s >= n_src - 1))
+
+
+def _ocv_taps(n_src: int, n_dst: int, clamp: bool):
+    """OpenCV's own taps along one axis (resize.cpp, for sources the HAL
+    does not take): (i0, i1, w0, w1), the coordinate rounded to f32 before
+    its floor, the weights 1 - f and f in f32; with ``clamp`` a coordinate
+    left of the first pixel or at or right of the last takes that pixel
+    alone (the horizontal pass)."""
+    scale = 1.0 / (n_dst / n_src)
+    fd = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(fd).astype(np.int64)
+    f = fd - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0.0
+        s[edge] = np.where(s[edge] < 0, 0, n_src - 1)
+    return (np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1),
+            np.float32(1.0) - f, f)
+
+
 def resize_linear_u16(img: torch.Tensor, out_hw: Tuple[int, int]
                       ) -> torch.Tensor:
-    """cv2.resize(img, (w, h)) with INTER_LINEAR for 16-bit images (through
-    OpenCV's IPP HAL): uint16 [H, W] or [H, W, C] -> the same layout at (h,
-    w), on img's device. A fused multiply-add is emulated in f64, where the
-    product of two f32 values and the sum are exact, then rounded once to
-    f32."""
-    if img.dtype != torch.uint16:
-        raise TypeError(f"resize_linear_u16 takes uint16, got {img.dtype}")
+    """cv2.resize(img, (w, h)) with INTER_LINEAR for 16-bit images: uint16
+    or int16 [H, W] or [H, W, C] -> the same layout and dtype at (h, w), on
+    img's device, through the IPP HAL's arithmetic or OpenCV's own as
+    OpenCV chooses (the module docstring). The HAL's fused multiply-add is
+    emulated in f64, where the product of two f32 values is exact, then
+    rounded once to f32."""
+    if img.dtype not in (torch.uint16, torch.int16):
+        raise TypeError(f"resize_linear_u16 takes uint16 or int16, got "
+                        f"{img.dtype}")
     h_src, w_src = img.shape[0], img.shape[1]
     h, w = out_hw
     if (h_src, w_src) == (h, w):
         return img.clone()
     dev = img.device
     x = img.to(torch.int32).to(torch.float32)
-    x0, x1, _, a1 = _taps(w_src, w)
-    y0, y1, _, b1 = _taps(h_src, h, clamp_weights=False)
+    col = (slice(None),) + (None,) * (img.dim() - 2)
+    row = (slice(None), None) + (None,) * (img.dim() - 2)
 
     def t(v):
         return torch.as_tensor(v, device=dev)
 
+    if min(h_src, w_src) < 2 or (img.dim() == 3 and img.shape[2] not in
+                                 (1, 3, 4)):
+        x0, x1, a0, a1 = (t(v) for v in _ocv_taps(w_src, w, True))
+        y0, y1, b0, b1 = (t(v) for v in _ocv_taps(h_src, h, False))
+        rows = x[:, x0] * a0[col] + x[:, x1] * a1[col]           # [H, w, ...]
+        out = rows[y0] * b0[row] + rows[y1] * b1[row]
+        return _saturate(torch.round(out), img.dtype)
+
     def lerp(s0, s1, f):
         return ((s1 - s0).double() * f.double() + s0.double()).float()
 
-    col = (slice(None),) + (None,) * (img.dim() - 2)
-    rows = lerp(x[:, t(x0)], x[:, t(x1)], t(a1)[col])          # [H, w, ...]
-    row = (slice(None), None) + (None,) * (img.dim() - 2)
-    out = lerp(rows[t(y0)], rows[t(y1)], t(b1)[row])
-    return torch.round(out).clamp(0, 65535).to(torch.int32).to(torch.uint16)
+    def step(s0, s1, f):
+        return s0 + torch.round((s1 - s0) * f)
+
+    x0, x1, fx, ex = (t(v) for v in _ipp_taps(w_src, w))
+    y0, y1, fy, ey = (t(v) for v in _ipp_taps(h_src, h))
+    rows = lerp(x[:, x0], x[:, x1], fx[col])                     # [H, w, ...]
+    out = torch.round(lerp(rows[y0], rows[y1], fy[row]))
+    if img.dtype == torch.int16:
+        out[:, ex] = step(x[y0][:, x0[ex]], x[y1][:, x0[ex]], fy[row])
+        out[ey] = step(x[y0[ey]][:, x0], x[y0[ey]][:, x1], fx[col])
+    return _saturate(out, img.dtype)
+
+
+def _saturate(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OpenCV's saturate_cast of integral float values to uint16 or
+    int16."""
+    lo, hi = (0, 65535) if dtype == torch.uint16 else (-32768, 32767)
+    return x.clamp(lo, hi).to(torch.int32).to(dtype)
 
 
 # ------------------------------------------------------------ undistortion
@@ -310,18 +389,25 @@ def remap_linear_u8(img: torch.Tensor, map_u: torch.Tensor,
         *map_u.shape, *img.shape[2:])
 
 
-def remap_linear_u16(img: torch.Tensor, map_u: torch.Tensor,
-                     map_v: torch.Tensor) -> torch.Tensor:
-    """cv2.remap(img, map1, map2, INTER_LINEAR, BORDER_CONSTANT) on uint16
-    [H, W] or [H, W, C] with 1/32-pixel int maps [h, w]: OpenCV's float
-    path (the weights of its interpolation table, products and sums in
-    f32)."""
+def remap_linear_float(img: torch.Tensor, map_u: torch.Tensor,
+                       map_v: torch.Tensor) -> torch.Tensor:
+    """cv2.remap(img, map1, map2, INTER_LINEAR, BORDER_CONSTANT) on uint16,
+    int16, float32 or float64 [H, W] or [H, W, C] with 1/32-pixel int maps
+    [h, w]: OpenCV's float path (the weights of its interpolation table in
+    f32, each tap times its weight and the four summed left to right in
+    f32, or in f64 for float64 images; 16-bit results rounded half to even
+    and saturated). A tap outside the image reads 0."""
     hs, ws = img.shape[0], img.shape[1]
-    src = img.reshape(hs * ws, -1).to(torch.int32).to(torch.float32)
+    work = torch.float64 if img.dtype == torch.float64 else torch.float32
+    src = img.reshape(hs * ws, -1)
+    if not img.is_floating_point():
+        src = src.to(torch.int32)
+    src = src.to(work)
     sx, sy = map_u >> REMAP_BITS, map_v >> REMAP_BITS
     one = 1 << REMAP_BITS
     fx = (map_u & (one - 1)).to(torch.float32) / one
     fy = (map_v & (one - 1)).to(torch.float32) / one
+    zero = torch.zeros((), dtype=work, device=img.device)
     acc = None
     for dy, wy in ((0, 1.0 - fy), (1, fy)):
         for dx, wx in ((0, 1.0 - fx), (1, fx)):
@@ -329,54 +415,77 @@ def remap_linear_u16(img: torch.Tensor, map_u: torch.Tensor,
             inside = (xx >= 0) & (xx < ws) & (yy >= 0) & (yy < hs)
             at = (torch.clamp(yy, 0, hs - 1) * ws
                   + torch.clamp(xx, 0, ws - 1)).reshape(-1)
-            tap = src[at] * inside.reshape(-1, 1)
-            tap = tap * (wy * wx).reshape(-1, 1)
+            tap = torch.where(inside.reshape(-1, 1), src[at], zero)
+            tap = tap * (wy * wx).reshape(-1, 1).to(work)
             acc = tap if acc is None else acc + tap
-    out = torch.round(acc).clamp(0, 65535).to(torch.int32).to(torch.uint16)
-    return out.reshape(*map_u.shape, *img.shape[2:])
+    if img.dtype in (torch.uint16, torch.int16):
+        acc = _saturate(torch.round(acc), img.dtype)
+    return acc.reshape(*map_u.shape, *img.shape[2:])
+
+
+UNDISTORTED = (torch.uint8, torch.uint16, torch.int16, torch.float32,
+               torch.float64)
 
 
 def undistort(img: torch.Tensor, k, d, new_k) -> torch.Tensor:
-    """cv2.undistort(img, k, d, None, new_k) for uint8 or uint16 [H, W] or
-    [H, W, C] on img's device: the same layout, size and dtype."""
-    if img.dtype not in (torch.uint8, torch.uint16):
-        raise TypeError(f"undistort takes uint8 or uint16, got {img.dtype}")
+    """cv2.undistort(img, k, d, None, new_k) for uint8, uint16, int16,
+    float32 or float64 [H, W] or [H, W, C] on img's device: the same
+    layout, size and dtype. Other dtypes raise TypeError, as cv2.undistort
+    raises for them."""
+    if img.dtype not in UNDISTORTED:
+        raise TypeError(f"undistort takes uint8, uint16, int16, float32 or "
+                        f"float64, got {img.dtype} (cv2.undistort refuses "
+                        "it too)")
     h, w = img.shape[0], img.shape[1]
     mu, mv = undistort_map(k, d, new_k, (w, h), img.device)
-    if img.dtype == torch.uint16:
-        return remap_linear_u16(img, mu, mv)
-    return remap_linear_u8(img, mu, mv)
+    if img.dtype == torch.uint8:
+        return remap_linear_u8(img, mu, mv)
+    return remap_linear_float(img, mu, mv)
 
 
 def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """cv2.resize(img, (w, h)) with INTER_LINEAR in the image's stored
-    depth (uint8 or uint16), as the JAX package resizes a view before it
-    divides by 255."""
-    if img.dtype == torch.uint16:
+    """cv2.resize(img, (w, h)) with INTER_LINEAR in the image's stored type
+    (uint8, uint16, int16, float32 or float64), as the JAX package resizes
+    a view before it divides by 255. Other dtypes raise TypeError, as
+    cv2.resize raises for them."""
+    if img.dtype == torch.uint8:
+        return resize_linear_u8(img, out_hw)
+    if img.dtype in (torch.uint16, torch.int16):
         return resize_linear_u16(img, out_hw)
-    return resize_linear_u8(img, out_hw)
+    if img.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"resize takes uint8, uint16, int16, float32 or "
+                        f"float64, got {img.dtype} (cv2.resize refuses it "
+                        "too)")
+    x = img if img.dim() == 3 else img[..., None]
+    out = resize_linear(x, out_hw)
+    return out if img.dim() == 3 else out[..., 0]
 
 
 # ---------------------------------------------------------------- files
 
 # leading bytes of formats cv2.imread reads and the port does not
-OTHER_FORMATS = ((b"BM", "BMP"),
-                 (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
                  (b"\xff\x4f\xff\x51", "JPEG 2000"),
-                 (b"P1", "PBM"), (b"P2", "PGM"), (b"P3", "PPM"),
-                 (b"P4", "PBM"), (b"P5", "PGM"), (b"P6", "PPM"),
-                 (b"Pf", "PFM"), (b"PF", "PFM"), (b"#?RADIANCE", "HDR"),
-                 (b"#?RGBE", "HDR"))
+                 (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
-READ = ("PNG (every colour type and depth), baseline and progressive JPEG "
-        "and TIFF")
+READ = ("PNG, baseline and progressive JPEG, TIFF, BMP, PBM / PGM / PPM / "
+        "PAM / PFM, Radiance HDR and Sun raster")
+# extension -> the writer of a numpy image (JPEG is encoded on the device)
+WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
+           ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,
+           ".pbm": pxm.write_pxm, ".pgm": pxm.write_pxm,
+           ".ppm": pxm.write_pxm, ".pnm": pxm.write_pxm,
+           ".pam": pxm.write_pam, ".pfm": pxm.write_pfm,
+           ".hdr": hdr.write_hdr, ".pic": hdr.write_hdr,
+           ".sr": sunras.write_sunras, ".ras": sunras.write_sunras}
 
 
 def image_format(path) -> str:
-    """"png", "jpeg" or "tiff" from the file's leading bytes; anything else
-    raises NotImplementedError naming the file and, where known, its
-    format."""
+    """The format from the file's leading bytes, as cv2.imread finds it:
+    "png", "jpeg", "tiff", "bmp", "pxm" (P1-P6), "pam" (P7), "pfm", "hdr"
+    or "sunras"; anything else raises NotImplementedError naming the file
+    and, where known, its format."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
@@ -385,6 +494,18 @@ def image_format(path) -> str:
         return "jpeg"
     if head[:4] in TIFF_SIGNATURES:
         return "tiff"
+    if head.startswith(b"BM"):
+        return "bmp"
+    if head[:1] == b"P" and head[2:3].isspace():
+        kind = {b"1": "pxm", b"2": "pxm", b"3": "pxm", b"4": "pxm",
+                b"5": "pxm", b"6": "pxm", b"7": "pam", b"F": "pfm",
+                b"f": "pfm"}.get(head[1:2])
+        if kind:
+            return kind
+    if head.startswith(hdr.SIGNATURES):
+        return "hdr"
+    if head.startswith(sunras.MAGIC):
+        return "sunras"
     kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         kind = "WebP"
@@ -395,33 +516,40 @@ def image_format(path) -> str:
         f"(leading bytes {head[:8].hex()}); the port reads {READ}")
 
 
+READERS = {"png": read_png, "tiff": read_tiff, "bmp": bmp.read_bmp,
+           "pxm": pxm.read_pxm, "pam": pxm.read_pam, "pfm": pxm.read_pfm,
+           "sunras": sunras.read_sunras}
+
+
 def read_image(path, device="cuda") -> torch.Tensor:
-    """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: uint8 or (16-bit
-    PNG and TIFF) uint16 [H, W] or [H, W, C] on ``device``, by the leading
-    bytes."""
+    """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: [H, W] or [H, W,
+    C] on ``device``, in the dtype OpenCV returns (uint8; uint16 for 16-bit
+    PNG, TIFF and portable files; float32 for PFM and HDR; TIFF's signed,
+    32-bit and float samples as they are), by the leading bytes."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":
         return read_jpeg(path, dev)
-    return torch.from_numpy(read_png(path) if kind == "png" else
-                            read_tiff(path)).to(dev)
+    if kind == "hdr":
+        return hdr.read_hdr(path, dev)
+    return torch.from_numpy(READERS[kind](path)).to(dev)
 
 
 def write_image(path, img, device="cuda") -> None:
-    """cv2.imwrite(path, img) of a uint8 or uint16 [H, W] or [H, W, C]
-    image in RGB(A) order: PNG for .png and TIFF for .tif and .tiff (both
-    keep 16 bits), baseline JPEG at quality 95 (encoded on ``device``) for
-    .jpg, .jpeg and .jpe; any other extension raises."""
+    """cv2.imwrite(path, img) of an [H, W] or [H, W, C] image in RGB(A)
+    order, by the extension: baseline JPEG at quality 95 (encoded on
+    ``device``) for .jpg, .jpeg and .jpe; PNG, TIFF, BMP (.bmp, .dib),
+    PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic) and Sun
+    raster (.sr, .ras) as their modules write them, each taking the dtypes
+    that format reads back; any other extension raises."""
     ext = Path(path).suffix.lower()
     if ext in JPEG_EXTENSIONS:
         write_jpeg(path, img, device=device)
         return
-    arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
-    if ext == ".png":
-        write_png(path, arr)
-    elif ext in TIFF_EXTENSIONS:
-        write_tiff(path, arr)
-    else:
+    if ext not in WRITERS:
         raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
                                   'without extension'}; the port writes PNG, "
-                                  "JPEG and TIFF")
+                                  "JPEG, TIFF, BMP, PBM / PGM / PPM / PNM, "
+                                  "PAM, PFM, HDR and Sun raster")
+    arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+    WRITERS[ext](path, arr)

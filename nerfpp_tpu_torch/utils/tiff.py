@@ -16,29 +16,37 @@ both directions to cv2.
   (planar), compression none (1), LZW (5), Deflate (8, 32946) or PackBits
   (32773), horizontal predictor 2 (which libtiff applies to LZW and
   Deflate only; with other compressions the tag is ignored, and so the
-  differences come back as they are), 8 or 16 bits a sample, gray
-  (MinIsBlack or MinIsWhite), RGB, RGB with a fourth (extra) sample, and
-  8-bit palette. OpenCV reads 8-bit images through libtiff's RGBA
-  interface and 16-bit ones raw, and each path leaves its mark, kept here:
-  8-bit MinIsWhite is inverted and 16-bit MinIsWhite is not; an 8-bit
+  differences come back as they are) and, on float samples, the
+  floating-point predictor 3 (byte planes, most significant first, each
+  row differenced byte by byte), gray (MinIsBlack or MinIsWhite), RGB, RGB
+  with a fourth (extra) sample, and 8-bit palette; samples of 8, 16 or 32
+  bits unsigned (SampleFormat 1), 8, 16 or 32 bits signed (2) and 32 or 64
+  bits float (3), returned as uint8, uint16, uint32, int8, int16, int32,
+  float32 or float64. OpenCV reads 8-bit images through libtiff's RGBA
+  interface and deeper ones raw, and each path leaves its mark, kept here:
+  8-bit MinIsWhite is inverted and deeper MinIsWhite is not; an 8-bit
   fourth sample marked unassociated alpha (ExtraSamples 2) premultiplies
   the colour, (v * a + 127) // 255, and any other fourth sample is kept as
-  alpha beside the colour as stored; a palette of 16-bit entries is
-  scaled by >> 8 unless every entry is below 256. uint8 or uint16 [H, W]
-  (gray) or [H, W, 3 | 4].
+  alpha beside the colour as stored; signed 8-bit samples take the same
+  path as unsigned bytes and are then read as int8; a palette of 16-bit
+  entries is scaled by >> 8 unless every entry is below 256. [H, W] (gray)
+  or [H, W, 3 | 4].
 - ``write_tiff`` writes as cv2.imwrite(".tif") does: little-endian, one
-  strip, LZW with predictor 2, SampleFormat 1, no ExtraSamples for a
-  fourth channel; uint8 or uint16 gray, RGB or RGBA. The pixels read back
-  equal in cv2 and in ``read_tiff``; the bytes are not libtiff's.
+  strip, integer samples LZW with predictor 2, float samples uncompressed
+  with no predictor, SampleFormat 1, 2 or 3, no ExtraSamples for a fourth
+  channel; uint8, uint16, uint32, int8, int16, int32, float32 or float64
+  gray, RGB or RGBA. The pixels read back equal in cv2 and in
+  ``read_tiff``; the bytes are not libtiff's.
 
 Still refused with NotImplementedError naming the file and the kind:
-BigTIFF, JPEG-in-TIFF (compression 6 and 7) and other compressions,
-float, signed and 32-bit samples (and depths other than 8 and 16), CMYK,
-YCbCr (subsampled or not) and other photometric interpretations, gray
-with alpha, 16-bit palettes, 16-bit planar images of more than one sample
-(OpenCV's raw path reads their planes as interleaved samples), the
-floating-point predictor, an Orientation other than 1 and FillOrder 2.
-Malformed files raise ValueError naming the file.
+BigTIFF, JPEG-in-TIFF (compression 6 and 7) and other compressions, depths
+other than 8, 16, 32 and 64 bits (and 64-bit integers, and 8-bit floats),
+complex samples, CMYK, YCbCr (subsampled or not) and other photometric
+interpretations, gray with alpha, 16-bit and signed palettes, planar
+images deeper than 8 bits of more than one sample (OpenCV's raw path reads
+their planes as interleaved samples), an Orientation other than 1 and
+FillOrder 2. A half-float (16-bit SampleFormat 3) TIFF, which cv2.imread
+returns None for, and malformed files raise ValueError naming the file.
 """
 from __future__ import annotations
 
@@ -75,6 +83,11 @@ PHOTOMETRICS = {4: "transparency mask", 5: "CMYK (separated)",
 # field type -> (struct code, size); rationals and floats are not needed
 FIELD = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1),
          7: ("B", 1), 8: ("h", 2), 9: ("i", 4)}
+# (SampleFormat, bits) -> the dtype cv2.imread returns
+SAMPLE_TYPES = {(1, 8): "u1", (1, 16): "u2", (1, 32): "u4", (2, 8): "i1",
+                (2, 16): "i2", (2, 32): "i4", (3, 32): "f4", (3, 64): "f8"}
+SAMPLE_FORMATS = {1: "unsigned", 2: "signed", 3: "float", 4: "void",
+                  5: "complex signed", 6: "complex float"}
 ERRORS = {-1: "a bad LZW code", -2: "no room for the output",
           -3: "old-style LZW (libtiff 4.0 and earlier), which is not read"}
 
@@ -220,25 +233,29 @@ def read_tiff(path) -> np.ndarray:
         _refuse(path, f"a {PHOTOMETRICS[photo]} TIFF")
     if photo not in (0, 1, 2, 3):
         _refuse(path, f"a TIFF of photometric interpretation {photo}")
-    if fmt == 3:
-        _refuse(path, "a TIFF of float samples")
-    if fmt != 1:
-        _refuse(path, f"a TIFF of sample format {fmt} (signed or other)")
-    if len(set(bits)) != 1 or bits[0] not in (8, 16):
+    if len(set(bits)) != 1:
         _refuse(path, f"a TIFF of {'/'.join(map(str, bits))}-bit samples")
     bits = bits[0]
+    if (fmt, bits) == (3, 16):
+        raise ValueError(f"{path}: a half-float TIFF; cv2.imread returns no "
+                         "image for it")
+    if (fmt, bits) not in SAMPLE_TYPES:
+        _refuse(path, f"a TIFF of {bits}-bit "
+                f"{SAMPLE_FORMATS.get(fmt, f'format {fmt}')} samples")
+    target = np.dtype(SAMPLE_TYPES[fmt, bits])
     if photo in (0, 1) and spp != 1:
         _refuse(path, f"a gray TIFF of {spp} samples (gray with alpha)")
     if photo == 2 and spp not in (3, 4):
         _refuse(path, f"an RGB TIFF of {spp} samples")
-    if photo == 3 and (spp != 1 or bits != 8):
-        _refuse(path, f"a {bits}-bit palette TIFF")
-    if bits == 16 and planar == 2 and spp > 1:
-        _refuse(path, "a 16-bit planar (PlanarConfiguration 2) TIFF of "
+    if photo == 3 and (spp != 1 or bits != 8 or fmt != 1):
+        _refuse(path, f"a {bits}-bit {SAMPLE_FORMATS[fmt]} palette TIFF")
+    if bits > 8 and planar == 2 and spp > 1:
+        _refuse(path, f"a {bits}-bit planar (PlanarConfiguration 2) TIFF of "
                 f"{spp} samples (OpenCV reads its planes as interleaved "
                 "samples)")
-    if pred not in (1, 2):
-        _refuse(path, f"a TIFF with predictor {pred} (floating point)")
+    if pred not in (1, 2, 3) or (pred == 3 and fmt != 3):
+        _refuse(path, f"a TIFF of {SAMPLE_FORMATS[fmt]} samples with "
+                f"predictor {pred}")
     if _one(tags, ORIENTATION, 1) != 1:
         _refuse(path, f"a TIFF of orientation {_one(tags, ORIENTATION)}")
     if _one(tags, FILL_ORDER, 1) != 1:
@@ -247,7 +264,8 @@ def read_tiff(path) -> np.ndarray:
     if planar not in (1, 2):
         raise ValueError(f"{path}: planar configuration {planar}")
     item = bits // 8
-    dtype = np.dtype(np.uint8) if bits == 8 else np.dtype(bo + "u2")
+    # the samples as stored, as unsigned integers of their width
+    dtype = np.dtype(f"{bo}u{item}")
     planes = 1 if planar == 1 else spp
     per = spp if planar == 1 else 1               # samples in a chunk
     tiled = TILE_OFFSETS in tags
@@ -274,14 +292,18 @@ def read_tiff(path) -> np.ndarray:
         start = offsets[i]
         end = start + counts[i] if counts is not None else start + size
         chunk = _decompress(path, comp, data[start:end], size)
-        a = np.frombuffer(chunk, dtype).reshape(rows, cols, per)
+        if pred == 3 and comp in (LZW, DEFLATE, DEFLATE_OLD):
+            a = _float_predictor(chunk, rows, cols, per, item)
+        else:
+            a = np.frombuffer(chunk, dtype).reshape(rows, cols, per)
         if pred == 2 and comp in (LZW, DEFLATE, DEFLATE_OLD):
             a = np.cumsum(a.astype(dtype.newbyteorder("=")), axis=1,
                           dtype=dtype.newbyteorder("="))
         rr, cc = min(rows, h - y), min(cols, w - x)
         out[p, y:y + rr, x:x + cc] = a[:rr, :cc]
     img = (out[0] if planar == 1 else out[..., 0].transpose(1, 2, 0))
-    img = img.astype(np.uint8 if bits == 8 else np.uint16)
+    img = img.astype(dtype.newbyteorder("=")).view(
+        np.uint8 if bits == 8 else target)
     if photo == 3:
         cmap = np.asarray(tags.get(COLORMAP, ()), np.int64)
         if cmap.size != 3 * 256:
@@ -293,22 +315,37 @@ def read_tiff(path) -> np.ndarray:
         return cmap.T.astype(np.uint8)[img[..., 0]]
     if photo in (0, 1):
         img = img[..., 0]
-        return 255 - img if photo == 0 and bits == 8 else img
-    if spp == 4 and bits == 8 and _one(tags, EXTRA_SAMPLES) == 2:
+        img = 255 - img if photo == 0 and bits == 8 else img
+    elif spp == 4 and bits == 8 and _one(tags, EXTRA_SAMPLES) == 2:
         a = img[..., 3:].astype(np.int64)
         rgb = (img[..., :3].astype(np.int64) * a + 127) // 255
         img = np.concatenate([rgb, a], -1).astype(np.uint8)
-    return img
+    return img.view(target)
+
+
+def _float_predictor(chunk: bytes, rows: int, cols: int, per: int,
+                     item: int) -> np.ndarray:
+    """libtiff's fpAcc: each row's bytes summed at a stride of ``per``,
+    then read as ``item`` byte planes, the most significant first ->
+    unsigned samples [rows, cols, per] in the host's order."""
+    b = np.frombuffer(chunk, np.uint8, rows * cols * per * item)
+    b = np.cumsum(b.reshape(rows, -1, per), axis=1, dtype=np.uint8)
+    b = b.reshape(rows, item, cols * per).transpose(0, 2, 1)
+    return np.ascontiguousarray(b).view(f">u{item}").astype(
+        f"u{item}").reshape(rows, cols, per)
 
 
 # ------------------------------------------------------------------ writing
 
 def write_tiff(path, image: np.ndarray) -> None:
-    """Write a uint8 or uint16 [H, W] or [H, W, C] (C in 1, 3, 4; RGB(A)
-    order) image as cv2.imwrite(".tif") writes it."""
+    """Write a uint8, uint16, uint32, int8, int16, int32, float32 or float64
+    [H, W] or [H, W, C] (C in 1, 3, 4; RGB(A) order) image as
+    cv2.imwrite(".tif") writes it."""
     img = np.asarray(image)
-    if img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"{path}: TIFF writing takes uint8 or uint16, not "
+    fmt = {"u": 1, "i": 2, "f": 3}.get(img.dtype.kind)
+    if (fmt, 8 * img.itemsize) not in SAMPLE_TYPES or img.dtype == np.float16:
+        raise ValueError(f"{path}: TIFF writing takes uint8, uint16, uint32, "
+                         f"int8, int16, int32, float32 or float64, not "
                          f"{img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
@@ -317,17 +354,23 @@ def write_tiff(path, image: np.ndarray) -> None:
                          "or [H, W, 1 | 3 | 4]")
     h, w, spp = img.shape
     bits = 8 * img.itemsize
-    diff = img.astype(np.int64)
-    diff[:, 1:] -= img[:, :-1].astype(np.int64)
-    raw = (diff % (1 << bits)).astype("<u2" if bits == 16 else np.uint8)
-    strip = lzw_encode(raw.tobytes())
+    word = np.dtype(f"<u{img.itemsize}")
+    if fmt == 3:
+        strip, comp = img.astype(img.dtype.newbyteorder("<")).tobytes(), NONE
+    else:
+        u = img.view(f"u{img.itemsize}")
+        diff = u.copy()
+        diff[:, 1:] -= u[:, :-1]                    # wraps, as unsigned
+        strip, comp = lzw_encode(diff.astype(word).tobytes()), LZW
     entries = [(WIDTH, 4, [w]), (HEIGHT, 4, [h]), (BITS, 3, [bits] * spp),
-               (COMPRESSION, 3, [LZW]),
+               (COMPRESSION, 3, [comp]),
                (PHOTOMETRIC, 3, [1 if spp == 1 else 2]),
                (STRIP_OFFSETS, 4, [8]), (SAMPLES, 3, [spp]),
                (ROWS_PER_STRIP, 4, [h]), (STRIP_BYTES, 4, [len(strip)]),
-               (PLANAR, 3, [1]), (PREDICTOR, 3, [2]),
-               (SAMPLE_FORMAT, 3, [1] * spp)]
+               (PLANAR, 3, [1])]
+    if fmt != 3:
+        entries.append((PREDICTOR, 3, [2]))
+    entries.append((SAMPLE_FORMAT, 3, [fmt] * spp))
     body = strip + b"\0" * (len(strip) % 2)
     ifd_at = 8 + len(body)
     extra_at = ifd_at + 2 + 12 * len(entries) + 4

@@ -1,7 +1,8 @@
 """Write a synthetic scene as a COLMAP workspace: a capture with two
 distorted cameras, its sparse model (.bin and a .txt copy) and its images,
-in a format chosen for each camera (PNG, JPEG, progressive JPEG or TIFF, at
-8 or 16 bits where the format has them).
+in a format chosen for each view (PNG, JPEG, progressive
+JPEG, TIFF, BMP, PPM, PAM, Sun raster, PFM or Radiance HDR, at 8 or 16 bits
+or in float where the format has them).
 
 The writer is support for the tests and for ``chip_smoke.py`` (which trains
 the port on the workspace it writes); neither package has a COLMAP writer.
@@ -13,11 +14,16 @@ takes a SceneData with poses on a sphere (data/synthetic.py's
 ``make_synthetic_scene``; attached images are not used) and writes:
 
 - ``images/view_NNN.<ext>``, in ``image_format`` (one of ``FORMATS``, or
-  a pair: the first camera's and the second's): "png" and "png16" (8- and
+  a sequence of them cycled over the views): "png" and "png16" (8- and
   16-bit PNG), "jpg" (baseline JPEG as cv2.imwrite writes it at quality
   95), "pjpg" (progressive JPEG, ``.jpg``, as cv2.imwrite writes it with
   IMWRITE_JPEG_PROGRESSIVE), "tif" (8-bit LZW TIFF as cv2.imwrite writes
-  it), encoded on the device where the format has device stages:
+  it), "itif" and "ftif" (int16 and float32 TIFF), "bmp" (24-bit BMP),
+  "ppm" and "ppm16" (binary PPM at 8 and 16 bits), "pam" (3-channel PAM),
+  "ras" (24-bit Sun raster), "pfm" and "hdr" (float32 PFM and run-length
+  RGBE), each as cv2.imwrite writes it; integer views are the render
+  spread over their type's range and rounded, float views the render as
+  it is. Encoded on the device where the format has device stages:
   every train view rendered from the scene's
   analytic field, distorted: each pixel's ray goes through the undistorted
   point of that pixel (OpenCV's model inverted to convergence), so the
@@ -59,10 +65,15 @@ SECOND_EVERY = 4                # every 4th view by the second camera
 SECOND_SCALE = 1.25             # its size over the first camera's
 DEPTH_TOL = 0.02                # an observation's distance test
 RENDER_CHUNK = 16384
-# image format -> (extension, bits, progressive)
-FORMATS = {"png": (".png", 8, False), "png16": (".png", 16, False),
-           "jpg": (".jpg", 8, False), "pjpg": (".jpg", 8, True),
-           "tif": (".tif", 8, False)}
+# image format -> (extension, stored dtype, progressive)
+FORMATS = {"png": (".png", "uint8", False), "png16": (".png", "uint16", False),
+           "jpg": (".jpg", "uint8", False), "pjpg": (".jpg", "uint8", True),
+           "tif": (".tif", "uint8", False), "itif": (".tif", "int16", False),
+           "ftif": (".tif", "float32", False),
+           "bmp": (".bmp", "uint8", False), "ppm": (".ppm", "uint8", False),
+           "ppm16": (".ppm", "uint16", False), "pam": (".pam", "uint8", False),
+           "ras": (".ras", "uint8", False), "pfm": (".pfm", "float32", False),
+           "hdr": (".hdr", "float32", False)}
 
 
 @dataclasses.dataclass
@@ -252,13 +263,18 @@ def view_rays(cam: ColmapCamera, pose: np.ndarray, dev):
 
 def write_view(path_stem: Path, rgb: torch.Tensor, fmt: str, dev) -> Path:
     """Write a float [h, w, 3] image in [0, 1] as ``fmt`` (FORMATS) at
-    ``path_stem`` + the format's extension: rounded to 8 bits (x 255) or 16
-    bits (x 65535)."""
-    ext, bits, progressive = FORMATS[fmt]
+    ``path_stem`` + the format's extension: spread over the stored integer
+    type's range and rounded (x 255, x 65535, or x 65535 - 32768 for
+    int16), or float32 as it is."""
+    ext, dtype, progressive = FORMATS[fmt]
     path = path_stem.with_suffix(ext)
-    top = (1 << bits) - 1
-    img = (torch.clamp(rgb, 0.0, 1.0) * top).round().to(torch.int32)
-    img = img.to(torch.uint8 if bits == 8 else torch.uint16)
+    rgb = torch.clamp(rgb, 0.0, 1.0)
+    if dtype == "float32":
+        write_image(path, rgb.float(), dev)
+        return path
+    info = torch.iinfo(getattr(torch, dtype))
+    img = (rgb * (info.max - info.min) + info.min).round().to(torch.int32)
+    img = img.to(getattr(torch, dtype))
     if progressive:
         write_jpeg(path, img, device=dev, progressive=True)
     else:
@@ -272,13 +288,14 @@ def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
     """Write the scene's train views as a COLMAP workspace (see the module
     docstring), rendered at ``n_samples`` a ray, with about ``n_points``
     points drawn from numpy seed 0, the images as ``image_format`` (a key
-    of FORMATS, or a pair of them: the first camera's and the second's);
-    ``log`` takes a summary line."""
-    formats = ((image_format, image_format) if isinstance(image_format, str)
+    of FORMATS, or a sequence of them cycled over the views: view j takes
+    ``image_format[j % len(image_format)]``); ``log`` takes a summary
+    line."""
+    formats = ((image_format,) if isinstance(image_format, str)
                else tuple(image_format))
-    if len(formats) != 2 or any(f not in FORMATS for f in formats):
+    if not formats or any(f not in FORMATS for f in formats):
         raise ValueError(f"image_format {image_format!r}: one of "
-                         f"{sorted(FORMATS)} or a pair of them")
+                         f"{sorted(FORMATS)} or a sequence of them")
     dev = resolve_device(device)
     workspace = Path(workspace)
     (workspace / "images").mkdir(parents=True, exist_ok=True)
@@ -310,7 +327,7 @@ def export_colmap_scene(scene, workspace, device="cuda", n_samples: int = 64,
             rgb8 = (torch.clamp(rgb, 0.0, 1.0) * 255.0).round().to(torch.uint8)
             name = write_view(workspace / "images" / f"view_{j:03d}",
                               rgb.reshape(cam.height, cam.width, 3),
-                              formats[second], dev).name
+                              formats[j % len(formats)], dev).name
             maps.append((cam, rd.cpu().numpy(), dist.cpu().numpy(),
                          acc.cpu().numpy(), rgb8.cpu().numpy()))
             qvec, tvec = c2w_to_colmap(pose)

@@ -10,6 +10,10 @@ Measured against cv2 5.0.0 on the CPU: the new camera matrices, the
 undistorted images and the 8-bit resizes are OpenCV's bit for bit (the
 tests hold them exactly; the bound asked of them was one gray level), the
 float resize within 1e-6.
+
+OpenCV's resampling without a workspace (resize, the new camera matrix,
+undistortion), the .txt model as the JAX test writes it and the SfM
+shell-out: tests/test_torch_colmap_resample.py.
 """
 import shutil
 from pathlib import Path
@@ -26,55 +30,11 @@ from nerfpp_tpu_torch import native
 from nerfpp_tpu_torch.data import colmap as PC
 from nerfpp_tpu_torch.data.dataset import RayBatchSampler, load_images
 from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
-from nerfpp_tpu_torch.utils import image as I
 from nerfpp_tpu_torch.utils.png import read_png
-from scripts.colmap_export import export_colmap_scene
-from tests.test_colmap import _synthetic_model
+from tests.torch_colmap_common import (ROOT, _copy, _same_reconstruction,
+                                       capture, synthetic_model)
 
 torch.set_num_threads(1)
-
-ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module")
-def capture(tmp_path_factory):
-    """A tiny exported capture: 8 train views, every 4th by the second
-    camera at 30x30."""
-    scene = make_synthetic_scene(n_train=8, n_val=1, n_test=1, image_hw=24,
-                                 n_samples=8, white_bkgr=False, device="cpu")
-    ws = tmp_path_factory.mktemp("capture")
-    return export_colmap_scene(scene, ws, "cpu", n_samples=32,
-                               n_points=1500)
-
-
-@pytest.fixture(scope="module")
-def synthetic_model(tmp_path_factory):
-    d = tmp_path_factory.mktemp("model")
-    _synthetic_model(d)
-    return d
-
-
-def _copy(ws: Path, dst: Path) -> Path:
-    shutil.copytree(ws, dst)
-    return dst
-
-
-def _same_reconstruction(a, b):
-    """Field by field, exactly."""
-    assert sorted(a.cameras) == sorted(b.cameras)
-    for cid in a.cameras:
-        x, y = a.cameras[cid], b.cameras[cid]
-        assert (x.model, x.width, x.height) == (y.model, y.width, y.height)
-        np.testing.assert_array_equal(x.params, y.params)
-    assert sorted(a.images) == sorted(b.images)
-    for iid in a.images:
-        x, y = a.images[iid], b.images[iid]
-        assert (x.image_id, x.camera_id, x.name) == (y.image_id, y.camera_id,
-                                                     y.name)
-        for f in ("qvec", "tvec", "xys", "point3d_ids"):
-            np.testing.assert_array_equal(getattr(x, f), getattr(y, f), f)
-    np.testing.assert_array_equal(a.points_xyz, b.points_xyz)
-    np.testing.assert_array_equal(a.points_ids, b.points_ids)
 
 
 # ----------------------------------------------------------------- parsers
@@ -112,17 +72,6 @@ def test_txt_parser_matches_the_bin_model(capture):
         JC._read_images_txt(sparse / "images.txt"),
         *JC._read_points3d_txt(sparse / "points3D.txt"))
     _same_reconstruction(txt, ref)
-
-
-def test_txt_model_as_the_jax_test_writes_it(tmp_path):
-    (tmp_path / "cameras.txt").write_text(
-        "# comment\n1 PINHOLE 64 48 60.0 61.0 32.0 24.0\n")
-    (tmp_path / "images.txt").write_text(
-        "# comment\n1 1 0 0 0 0.5 0.5 0.5 1 img.png\n"
-        "1.0 2.0 15 3.0 4.0 -1\n")
-    (tmp_path / "points3D.txt").write_text(
-        "# comment\n15 1.0 2.0 3.0 128 128 128 0.5\n")
-    _same_reconstruction(PC.read_model(tmp_path), JC.read_model(tmp_path))
 
 
 def test_native_library_builds_into_the_port(synthetic_model):
@@ -220,12 +169,12 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    # PNG, JPEG and TIFF views are read; a BMP view raises when the
-    # undistortion reads it, a WebP view when load_images does, each naming
-    # the file and its kind
+    # PNG, JPEG, TIFF, BMP and the other formats the port reads are read; a
+    # GIF view raises when the undistortion reads it, a WebP view when
+    # load_images does, each naming the file and its kind
     from scripts.colmap_export import write_images_bin
     img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
-    for ext, params, kind in ((".bmp", [], "BMP"), (".webp", [], "WebP")):
+    for ext, params, kind in ((".gif", [], "GIF"), (".webp", [], "WebP")):
         ws = tmp_path / ext[1:]
         (ws / "sparse" / "0").mkdir(parents=True)
         for f in synthetic_model.iterdir():
@@ -237,7 +186,7 @@ def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
         write_images_bin(ws / "sparse" / "0" / "images.bin",
                          [rec.images[i] for i in sorted(rec.images)])
         match = rf"img_1\{ext}.*{kind}"
-        if kind == "BMP":
+        if kind == "GIF":
             with pytest.raises(NotImplementedError, match=match):
                 PC.load_from_colmap_reconstruction(ws, device="cpu")
         else:
@@ -245,65 +194,6 @@ def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
                                                     device="cpu")
             with pytest.raises(NotImplementedError, match=match):
                 load_images(sc, [0], device="cpu")
-
-
-def test_without_a_colmap_binary_sfm_raises(tmp_path):
-    if shutil.which("colmap") is not None:
-        pytest.skip("a colmap binary is installed")
-    with pytest.raises(RuntimeError, match="colmap binary not found"):
-        PC.run_colmap_reconstruction(tmp_path, tmp_path / "ws")
-
-
-# ---------------------------------------------------------- image module
-
-RESIZES = [((37, 53), (23, 41)), ((23, 41), (37, 53)), ((17, 19), (31, 29)),
-           ((45, 33), (20, 70)), ((30, 30), (24, 24)), ((24, 24), (30, 30)),
-           ((40, 26), (20, 13)), ((5, 3), (1, 1))]
-
-
-@pytest.mark.parametrize("channels", [0, 3, 4])
-def test_resize_u8_matches_opencv(channels):
-    # odd sizes up and down, gray, RGB and RGBA, and the exact halving;
-    # equal to cv2.resize's INTER_LINEAR bit for bit
-    rng = np.random.RandomState(channels)
-    for (h, w), (oh, ow) in RESIZES:
-        shape = (h, w) if channels == 0 else (h, w, channels)
-        img = rng.randint(0, 256, shape).astype(np.uint8)
-        got = I.resize_linear_u8(torch.from_numpy(img), (oh, ow)).numpy()
-        np.testing.assert_array_equal(got, cv2.resize(img, (ow, oh)),
-                                      f"{(h, w)} -> {(oh, ow)}")
-
-
-def test_resize_float_matches_opencv():
-    rng = np.random.RandomState(5)
-    for (h, w), (oh, ow) in RESIZES:
-        img = rng.rand(h, w, 3).astype(np.float32)
-        got = I.resize_linear(torch.from_numpy(img), (oh, ow)).numpy()
-        assert np.abs(got - cv2.resize(img, (ow, oh))).max() <= 1e-6
-
-
-@pytest.mark.parametrize("d", [(0.01, -0.002, 0.0, 0.0),
-                               (-0.05, 0.02, 0.002, 0.001),
-                               (0.1, 0.05, 0.01, -0.02, 0.01),
-                               (0.1, 0.05, 0.01, -0.02, 0.01, 0.02, 0.01,
-                                0.003)])
-def test_camera_matrix_and_undistort_match_opencv(d):
-    # 4, 5 and 8 coefficients; alpha 0 and 1; gray, RGB and RGBA images
-    rng = np.random.RandomState(len(d))
-    d = np.asarray(d, np.float64)
-    for (w, h), c in (((64, 48), 3), ((37, 29), 0), ((50, 40), 4)):
-        k = np.array([[1.1 * w, 0, w / 2 + 0.3], [0, 1.11 * w, h / 2 - 0.7],
-                      [0, 0, 1]])
-        for alpha in (0.0, 1.0):
-            want, _ = cv2.getOptimalNewCameraMatrix(k, d, (w, h), alpha,
-                                                    (w, h))
-            got = I.optimal_new_camera_matrix(k, d, (w, h), alpha, "cpu")
-            np.testing.assert_array_equal(got, want)
-        img = rng.randint(0, 256, (h, w) if c == 0 else (h, w, c)).astype(
-            np.uint8)
-        out = I.undistort(torch.from_numpy(img), k, d, got).numpy()
-        np.testing.assert_array_equal(out, cv2.undistort(img, k, d, None,
-                                                         got))
 
 
 # ----------------------------------------------------------------- sampler

@@ -2,6 +2,9 @@
 
 The port on the CPU against the JAX package on the same numpy inputs; the
 JAX side runs jitted, as the renderer runs it. Tolerances are stated per test.
+
+Sampling (sample_pdf, z values, the unit linspace):
+tests/test_torch_core_sampling.py.
 """
 import numpy as np
 import jax
@@ -24,35 +27,9 @@ from nerfpp_tpu_torch.core import sampling as TS
 from nerfpp_tpu_torch.encoders.sh import SHEncoder, sh_encode
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.render.renderer import probe_tile_mass
+from tests.torch_core_common import BBOX, _rays, _sphere_grid, t
 
 torch.set_num_threads(1)
-
-BBOX = np.array([-1.2, -1.2, -1.2, 1.2, 1.2, 1.2], np.float32)
-
-
-def t(x):
-    return torch.from_numpy(np.array(x))
-
-
-def _rays(n, seed=0):
-    rng = np.random.RandomState(seed)
-    o = np.tile([[0.1, -0.2, 3.0]], (n, 1)).astype(np.float32)
-    d = (np.array([[0.0, 0.0, -1.0]]) + rng.uniform(-0.3, 0.3, (n, 3))
-         ).astype(np.float32)
-    return o, d
-
-
-def _sphere_grid(g=16, r=4.0, density=10.0):
-    ii = np.indices((g, g, g)).transpose(1, 2, 3, 0)
-    d = np.zeros((g, g, g), np.float32)
-    d[((ii - (g - 1) / 2) ** 2).sum(-1) < r * r] = density
-    return d
-
-
-@pytest.mark.parametrize("n", [2, 8, 16, 17, 33, 64, 65])
-def test_unit_linspace_bits(n):
-    want = np.asarray(jnp.linspace(0.0, 1.0, n, dtype=jnp.float32))
-    np.testing.assert_array_equal(TS.unit_linspace(n).numpy(), want)
 
 
 def test_get_rays_and_intersect_aabb():
@@ -138,54 +115,6 @@ def test_trunc_exp_gradient():
     np.testing.assert_allclose(
         x.grad.numpy(), np.exp(np.clip(x.detach().numpy(), -100.0, 5.0)),
         rtol=1e-6)
-
-
-def test_sample_pdf_det():
-    rng = np.random.RandomState(6)
-    bins = np.sort(rng.uniform(0.0, 5.0, (50, 17)), -1).astype(np.float32)
-    w = rng.uniform(0.0, 1.0, (50, 16)).astype(np.float32)
-    w[:5] = 0.0                                   # degenerate rays
-    # small, not zero, tails: with exactly zero weights the CDF plateaus
-    # within one ulp of 1, and whether u = 1 lands before the plateau
-    # depends on the cumsum's summation order (XLA's associative scan vs a
-    # sequential sum) -- a discrete, order-dependent edge the occupancy
-    # prior never reaches (it has a uniform floor)
-    w[5:10, 3:] = 1e-3
-    want = np.asarray(jax.jit(lambda b, w: JS.sample_pdf(
-        b, w, 24, det=True))(bins, w))
-    got = TS.sample_pdf(t(bins), t(w), 24, det=True).numpy()
-    # a depth moves by ~ulp(cdf) x bin width / bin mass when the two cumsums
-    # round differently: ~2e-4 in the 1e-4-mass tail bins, 1e-6 elsewhere
-    np.testing.assert_allclose(got, want, atol=5e-4)
-    assert np.mean(np.abs(got - want) <= 2e-6) >= 0.98
-    assert (np.diff(got, axis=-1) >= 0).all()
-
-
-def test_sample_pdf_stochastic_sorted_in_range():
-    # the draws differ from JAX's, so this holds the law: sorted depths
-    # inside the bins, reproducible from the generator's seed, and the
-    # inverse CDF of uniform weights on [0, 1] has mean 1/2
-    bins = t(np.tile(np.linspace(0.0, 1.0, 9, dtype=np.float32), (400, 1)))
-    w = torch.ones(400, 8)
-    z = TS.sample_pdf(bins, w, 32, generator=torch.Generator().manual_seed(1))
-    again = TS.sample_pdf(bins, w, 32,
-                          generator=torch.Generator().manual_seed(1))
-    assert torch.equal(z, again)
-    assert bool((z.diff(dim=-1) >= 0).all())
-    assert 0.0 <= float(z.min()) and float(z.max()) <= 1.0
-    assert abs(float(z.mean()) - 0.5) < 0.01
-    with pytest.raises(ValueError, match="generator"):
-        TS.sample_pdf(bins, w, 4)
-
-
-def test_sample_z_vals_linear_and_disparity():
-    near = np.full((8, 1), 0.5, np.float32)
-    far = np.linspace(1.0, 6.0, 8, dtype=np.float32)[:, None]
-    for lin_disp in (False, True):
-        want = np.asarray(jax.jit(lambda n, f: JS.sample_z_vals(
-            n, f, 16, lin_disp))(near, far))
-        got = TS.sample_z_vals(t(near), t(far), 16, lin_disp).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_tangent_scatter_shared_uniforms():

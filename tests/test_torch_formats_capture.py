@@ -38,7 +38,8 @@ from tests.torch_image_common import cv2_read
 
 torch.set_num_threads(1)
 
-CAPTURES = {"mixed": ("pjpg", "tif"), "png16": ("png16", "png16")}
+# formats cycled over the views: views 3 and 7 are the second camera's
+CAPTURES = {"mixed": ("pjpg", "pjpg", "pjpg", "tif"), "png16": "png16"}
 
 
 @pytest.fixture(scope="module")

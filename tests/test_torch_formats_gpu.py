@@ -1,0 +1,83 @@
+"""The uncompressed, run-length and float image formats on the card against
+the CPU and the committed cv2 fixtures (marker ``cuda``: skipped without a
+card; the card's machine has no OpenCV, so this file imports none, and
+``--noconftest`` runs it without JAX):
+
+    python -m pytest --noconftest tests/test_torch_formats_gpu.py -q
+
+- every committed BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun
+  raster and signed or float TIFF fixture (tests/data/image) decoded on the
+  card to cv2's pixels (its .npy) and the CPU's;
+- the undistortion and resize of float32, float64 and int16 images on the
+  card bit for bit the CPU's;
+- each format written from an image on the card with the CPU's bytes.
+"""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from nerfpp_tpu_torch.utils import image as I
+
+pytestmark = pytest.mark.cuda
+
+FIXTURES = Path(__file__).resolve().parent / "data" / "image"
+NEW_KINDS = (".bmp", ".pbm", ".pgm", ".ppm", ".pam", ".pfm", ".hdr", ".ras")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_fixtures_on_the_card_are_the_cpus_and_opencvs(cuda):
+    files = sorted(f for f in FIXTURES.iterdir() if f.suffix in NEW_KINDS
+                   or (f.suffix == ".tif" and f.stem.startswith(
+                       ("tif_float", "tif_int"))))
+    assert len(files) == 23
+    for f in files:
+        card = I.read_image(f, cuda)
+        assert card.device.type == cuda.type
+        want = np.load(f.with_suffix(".npy"))
+        got = card.cpu().numpy()
+        assert got.dtype == want.dtype, f.name
+        np.testing.assert_array_equal(got, want, err_msg=f.name)
+        np.testing.assert_array_equal(got, I.read_image(f, "cpu").numpy())
+
+
+def test_float_and_int16_resampling_on_the_card_is_the_cpus(cuda):
+    rng = np.random.RandomState(2)
+    for dtype, (h, w), c in ((np.float32, (48, 64), 3),
+                             (np.float64, (29, 37), 1),
+                             (np.int16, (40, 50), 3)):
+        x = rng.randn(h, w, c) * np.exp(rng.randn(h, w, c) * 3)
+        img = torch.from_numpy((x * 3000).astype(dtype) if dtype == np.int16
+                               else x.astype(dtype))
+        k = np.array([[1.1 * w, 0, w / 2 + 0.3], [0, 1.11 * w, h / 2 - 0.7],
+                      [0, 0, 1]])
+        d = (0.01, -0.002, 0.001, -0.001)
+        nk = I.optimal_new_camera_matrix(k, d, (w, h), 0.0, "cpu")
+        card = I.undistort(img.to(cuda), k, d, nk).cpu()
+        assert card.dtype == img.dtype
+        assert torch.equal(card, I.undistort(img, k, d, nk))
+        for oh, ow in ((h // 2, w // 2), (h + 7, w - 5), (2 * h + 1, 3 * w)):
+            assert torch.equal(I.resize_stored(img.to(cuda), (oh, ow)).cpu(),
+                               I.resize_stored(img, (oh, ow)))
+
+
+def test_writes_from_the_card_are_the_cpus(cuda, tmp_path):
+    rng = np.random.RandomState(3)
+    u8 = torch.from_numpy(rng.randint(0, 256, (9, 13, 3)).astype(np.uint8))
+    u16 = torch.from_numpy(rng.randint(0, 65536, (9, 13, 3)).astype(
+        np.uint16))
+    f32 = torch.from_numpy((rng.rand(9, 13, 3) * 40).astype(np.float32))
+    for ext, img in ((".bmp", u8), (".ppm", u16), (".pgm", u8[..., 0]),
+                     (".pbm", u8[..., 0]), (".pam", u8), (".ras", u8),
+                     (".pfm", f32), (".hdr", f32), (".tif", f32)):
+        I.write_image(tmp_path / f"card{ext}", img.to(cuda), cuda)
+        I.write_image(tmp_path / f"cpu{ext}", img, "cpu")
+        assert (tmp_path / f"card{ext}").read_bytes() == (
+            tmp_path / f"cpu{ext}").read_bytes(), ext

@@ -3,6 +3,10 @@
 The port (nerfpp_tpu_torch, on the CPU, where every kernel wrapper runs its
 plain PyTorch version) against the JAX package on the same numpy inputs.
 Integer layouts must match exactly, so tables move between the packages.
+
+The exact integer layouts (Morton codes, level scales and block offsets,
+corner indices, the packed table's bits) and the wrappers' checks:
+tests/test_torch_hashgrid_exact.py.
 """
 import numpy as np
 import jax
@@ -10,97 +14,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from nerfpp_tpu.encoders.hashgrid import HashGridEncoder as JaxEncoder
 from nerfpp_tpu.encoders.hashgrid import gather_trilerp_reference as jax_gather
-from nerfpp_tpu.encoders.hashgrid import morton3 as jax_morton3
-from nerfpp_tpu.pallas.hash_encode import pack_table_bf16 as jax_pack
 from nerfpp_tpu.pallas import hash_encode_blocked as JB
 from nerfpp_tpu.pallas.hash_encode_blocked import build_window_lists
-from nerfpp_tpu.pallas.hash_encode_blocked import hash_encode_blocked as jax_heb
-from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder, morton3
+from nerfpp_tpu.pallas.hash_encode_blocked import (
+    hash_encode_blocked as jax_heb)
+from nerfpp_tpu_torch.encoders.hashgrid import morton3
 from nerfpp_tpu_torch.kernels import hash_encode_blocked as K
-from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+from tests.torch_hashgrid_common import (KW, _bf16, _boundary_pts, _pair,
+                                         _pallas_form_codes, _pts)
 
 torch.set_num_threads(1)
-
-BBOX = np.array([-1.5, -1.0, -1.2, 1.5, 1.0, 1.3], np.float32)
-KW = dict(n_levels=4, log2_hashmap_size=12, base_resolution=16,
-          finest_resolution=128, scheme="blocked")
-
-
-def _pair(use_kernel=False, **kw):
-    args = dict(KW, **kw)
-    return JaxEncoder(BBOX, **args), HashGridEncoder(
-        BBOX, use_kernel=use_kernel, device="cpu", **args)
-
-
-def _pts(n, seed=1, lo=None, hi=None):
-    rng = np.random.RandomState(seed)
-    lo = BBOX[:3] if lo is None else lo
-    hi = BBOX[3:] if hi is None else hi
-    return rng.uniform(lo, hi, (n, 3)).astype(np.float32)
-
-
-def _bf16(x):
-    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
-
-
-@pytest.mark.parametrize("cfg", [
-    dict(),
-    dict(n_levels=16, log2_hashmap_size=19, finest_resolution=1024),
-    dict(primes_seed=3, base_resolution=8, finest_resolution=512)])
-def test_level_scales_and_block_offsets_exact(cfg):
-    je, te = _pair(**cfg)
-    np.testing.assert_array_equal(te.level_scales, je.level_scales)
-    np.testing.assert_array_equal(te.block_offsets, je.block_offsets)
-    assert te.block_slots == je.block_slots
-    assert tuple(te.table.shape) == (je.table_rows, 2)
-
-
-def test_morton3_exact():
-    rng = np.random.RandomState(0)
-    v = rng.randint(0, 1024, (3, 5000)).astype(np.int32)
-    want = np.asarray(jax_morton3(*(jnp.asarray(a) for a in v)))
-    got = morton3(*(torch.from_numpy(a) for a in v)).numpy()
-    np.testing.assert_array_equal(got, want)
-
-
-def _boundary_pts(enc, n, seed):
-    """Points within +-3 ulps of cell boundaries of random levels, where a
-    different rounding of the cell coordinate changes the cell."""
-    rng = np.random.RandomState(seed)
-    scale = enc.level_scales[rng.randint(0, enc.n_levels, n)][:, None]
-    cell = np.floor(rng.uniform(0, 1, (n, 3)) * scale)
-    x = (BBOX[:3] + cell / scale.astype(np.float64)
-         * (BBOX[3:] - BBOX[:3])).astype(np.float32)
-    steps = rng.randint(-3, 4, (n, 3))
-    for s in range(3):
-        x = np.where(steps > s, np.nextafter(x, np.float32(np.inf)), x)
-        x = np.where(steps < -s, np.nextafter(x, np.float32(-np.inf)), x)
-    return np.clip(x, BBOX[:3], BBOX[3:])
-
-
-def test_corner_indices_exact():
-    # exact integer match with the jitted oracle, at cell boundaries too
-    # (XLA folds the division by the constant extent into a reciprocal
-    # multiply; the port computes that folded form)
-    je, te = _pair()
-    pts = np.concatenate([_pts(8192), _boundary_pts(te, 8192, 3)])
-    idx_j, frac_j = jax.jit(je.corner_indices)(jnp.asarray(pts))
-    idx_t, frac_t = te.corner_indices(torch.from_numpy(pts))
-    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
-    np.testing.assert_array_equal(frac_t.numpy(), np.asarray(frac_j))
-
-
-def test_pack_table_bits_exact():
-    rng = np.random.RandomState(2)
-    tab = rng.standard_normal((4096, 2)).astype(np.float32)
-    tab[:4] = [[0.0, -0.0], [1e-40, -3e38], [65504.0, 1.0 / 3], [-2.5, 7.0]]
-    want = np.asarray(jax_pack(jnp.asarray(tab))).view(np.int32)
-    packed = K.pack_table_bf16(torch.from_numpy(tab))
-    np.testing.assert_array_equal(packed.numpy(), want)
-    np.testing.assert_array_equal(K.unpack_table_bf16(packed).numpy(),
-                                  _bf16(tab))
 
 
 @pytest.mark.parametrize("coherent", [False, True])
@@ -120,26 +44,6 @@ def test_window_lists_plain_matches_build_window_lists(coherent):
     np.testing.assert_array_equal(wids_t.numpy(), wids_j)
     np.testing.assert_array_equal(
         counts_t.numpy(), (wids_j != K.SENTINEL).sum(-1).astype(np.int32))
-
-
-def _pallas_form_codes(pts, je):
-    """Window Morton codes [L, NG, 128] with the Pallas K1's cell form,
-    (x - min) * (f32(inv) * scale) truncated (_make_windows_kernel), in
-    jitted XLA on the same f32 inputs."""
-    bmin = [float(v) for v in je.bounding_box[:3]]
-    inv = [1.0 / (float(je.bounding_box[3 + a]) - bmin[a]) for a in range(3)]
-    scales = jnp.asarray(je.level_scales, jnp.float32)
-    boffs = jnp.asarray(je.block_offsets, jnp.int32)
-
-    def codes(x):
-        m = 0
-        for a in range(3):
-            c = ((x[:, a:a + 1] - bmin[a]) * (inv[a] * scales)).astype(
-                jnp.int32)                                      # [N, L]
-            m = m | (JB._spread_bits(((c >> 2) + boffs[:, a]) >> 1) << a)
-        return m
-    m = np.asarray(jax.jit(codes)(jnp.asarray(pts)))
-    return m.reshape(-1, 128, je.n_levels).transpose(2, 0, 1)
 
 
 @pytest.mark.parametrize("points", ["random", "coherent", "boundary"])
@@ -240,31 +144,6 @@ def test_encoder_forward_clamps_and_masks(use_kernel):
     np.testing.assert_array_equal(keep_t.numpy(), np.asarray(keep_j))
     np.testing.assert_allclose(feats_t.numpy(), np.asarray(feats_j),
                                atol=5e-7)
-
-
-def test_cpu_wrappers_count_no_launches():
-    # the counters move only where a kernel launches; CPU tensors take the
-    # plain versions
-    reset_launch_counts()
-    _, te = _pair(use_kernel=True)
-    feats, _ = te(torch.from_numpy(_pts(300, seed=11)))
-    feats.sum().backward()
-    assert te.table.grad is not None
-    assert launch_counts() == {"window_lists": 0, "encode_blocked": 0,
-                               "grad_blocked_index": 0, "grad_blocked": 0,
-                               "encode_small": 0, "grad_small": 0,
-                               "encode_large": 0, "grad_large_bins": 0,
-                               "grad_large": 0}
-
-
-def test_kernel_wrappers_check_inputs():
-    _, te = _pair()
-    pts = torch.from_numpy(_pts(256, seed=12))
-    with pytest.raises(ValueError, match="unsupported device"):
-        K.window_lists(pts.to("meta"), te)
-    wids, counts = K.window_lists(pts, te)
-    assert wids.shape == (KW["n_levels"], 2, 128)
-    assert counts.dtype == torch.int32 and wids.dtype == torch.int32
 
 
 @pytest.mark.parametrize("points", ["uniform", "coherent", "aliasing"])

@@ -8,6 +8,9 @@ f32; the resize within 1e-6 of OpenCV's (both f32; OpenCV's own rounding
 order is not reproduced bit for bit); the stand-in's projection bitwise and
 its outputs within 1e-6; pyramid grids and lookups within 1e-6; JET and the
 blend exact.
+
+The resize and the JET colormap against OpenCV:
+tests/test_torch_lerf_resize.py.
 """
 import numpy as np
 import jax
@@ -21,7 +24,6 @@ from nerfpp_tpu.core.rays import calibration_matrix, pose_spherical
 from nerfpp_tpu.data import pyramid_clip as JP
 from nerfpp_tpu.encoders.hashgrid import HashGridEncoder as JaxEncoder
 from nerfpp_tpu.executor import NeRFExecutor as JaxExecutor
-from nerfpp_tpu.models.lerf_field import LeRFField as JaxLeRFField
 from nerfpp_tpu.render import debug as jax_debug
 from nerfpp_tpu.render import lerf as JL
 from nerfpp_tpu_torch.config import TrainParams, hashnerf_preset
@@ -29,33 +31,13 @@ from nerfpp_tpu_torch.convert import state_from_jax
 from nerfpp_tpu_torch.data import pyramid_clip as TP
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.executor import NeRFExecutor
-from nerfpp_tpu_torch.models.lerf_field import LeRFField
 from nerfpp_tpu_torch.render import debug as port_debug
 from nerfpp_tpu_torch.render import lerf as TL
-from nerfpp_tpu_torch.utils.colormap import JET_RGB, add_weighted, apply_jet
 from nerfpp_tpu_torch.utils.png import read_png
+from tests.torch_lerf_common import (BBOX, E, _fields, _pyramids, _raw,
+                                     _tiny_preset, t)
 
 torch.set_num_threads(1)
-
-BBOX = np.array([-1.5, -1.0, -1.2, 1.5, 1.0, 1.3], np.float32)
-E = 24
-
-
-def t(x):
-    return torch.as_tensor(np.array(x, np.float32))
-
-
-def _fields(dtype, n_in=8, seed=0):
-    """The JAX LeRF field, its params, and the port's with them loaded."""
-    jf = JaxLeRFField(32, 3, 64, E, n_in,
-                      compute_dtype=jnp.bfloat16 if dtype == "bfloat16"
-                      else None)
-    params = jf.init(jax.random.PRNGKey(seed))
-    tf = LeRFField(32, 3, 64, E, n_in, compute_dtype=dtype, device="cpu")
-    st = state_from_jax({"lang_model": jax.tree.map(np.asarray, params)},
-                        device="cpu")
-    tf.load_state_dict({k[len("lang_model."):]: v for k, v in st.items()})
-    return jf, params, tf
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -75,19 +57,6 @@ def test_lerf_field_matches_jax(dtype):
         # neighbouring bf16 value (2^-8 relative); the bulk stays at 1e-5
         diff = np.abs(out - ref)
         assert np.mean(diff <= 1e-5) >= 0.99 and diff.max() <= 1e-2
-
-
-def _raw(n_rays=64, n_samples=12, seed=2):
-    rng = np.random.RandomState(seed)
-    raw = rng.normal(0, 1, (n_rays, n_samples, E + 1)).astype(np.float32)
-    raw[..., :E] /= np.linalg.norm(raw[..., :E], axis=-1, keepdims=True)
-    raw[..., E] *= 3.0
-    z = np.sort(rng.uniform(2.0, 6.0, (n_rays, n_samples)), -1).astype(
-        np.float32)
-    rays_d = rng.normal(0, 1, (n_rays, 3)).astype(np.float32)
-    prompts = rng.normal(0, 1, (4, E)).astype(np.float32)
-    prompts /= np.linalg.norm(prompts, axis=-1, keepdims=True)
-    return raw, z, rays_d, prompts[:1], prompts[1:]
 
 
 @pytest.mark.parametrize("act", ["relu", "trunc_exp"])
@@ -164,26 +133,6 @@ def test_lerf_network_fn_masks_density_outside_the_box():
     np.testing.assert_array_equal(out_sm, out)
 
 
-@pytest.mark.parametrize("src,dst", [((168, 168), (336, 336)),
-                                     ((336, 336), (32, 32)),
-                                     ((16, 16), (8, 8)),
-                                     ((13, 7), (16, 16)),
-                                     ((16, 16), (9, 5)),
-                                     ((20, 30), (16, 16)),
-                                     ((5, 5), (40, 40))])
-def test_resize_matches_opencv(src, dst):
-    cv2 = pytest.importorskip("cv2")
-    img = np.random.RandomState(sum(src + dst)).uniform(
-        0, 1, (*src, 3)).astype(np.float32)
-    ref = cv2.resize(img, (dst[1], dst[0]))
-    out = TP.resize_linear(t(img), dst).numpy()
-    assert out.shape == ref.shape
-    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
-    # batched: each image as alone
-    both = TP.resize_linear(t(np.stack([img, img[::-1]])), dst).numpy()
-    np.testing.assert_array_equal(both[0], out)
-
-
 def test_stand_in_encoder_matches_jax():
     jenc = JP.RandomProjectionPatchEncoder(embed_dim=E, input_size=8, seed=3)
     tenc = TP.RandomProjectionPatchEncoder(embed_dim=E, input_size=8, seed=3)
@@ -202,21 +151,6 @@ def test_stand_in_encoder_matches_jax():
     # text: the salted hash() of the same process, as the JAX package
     np.testing.assert_array_equal(tenc.encode_text(["cup", "plate"]),
                                   jenc.encode_text(["cup", "plate"]))
-
-
-def _pyramids():
-    """The JAX and the port's pyramid of the same 2 images (40 x 52: the
-    windows at the right and bottom edges are cut)."""
-    props = dict(img_size=16, overlap=0.5, max_zoom_out=1)
-    images = np.random.RandomState(8).uniform(
-        0, 1, (2, 40, 52, 3)).astype(np.float32)
-    jemb = JP.PyramidEmbedder(
-        JP.RandomProjectionPatchEncoder(embed_dim=E, input_size=8),
-        JP.PyramidEmbedderProperties(**props))(images)
-    temb = TP.PyramidEmbedder(
-        TP.RandomProjectionPatchEncoder(embed_dim=E, input_size=8),
-        TP.PyramidEmbedderProperties(**props), device="cpu")(images)
-    return jemb, temb, images
 
 
 def test_pyramid_matches_jax_and_caches_both_ways(tmp_path):
@@ -266,19 +200,6 @@ def test_device_pyramid_lookup_matches_jax():
                                jemb.dense_pixel_embeddings(1), atol=1e-6)
 
 
-def test_jet_and_blend_equal_opencv():
-    cv2 = pytest.importorskip("cv2")
-    v = np.arange(256, dtype=np.uint8)
-    np.testing.assert_array_equal(
-        apply_jet(v), cv2.applyColorMap(v[None], cv2.COLORMAP_JET)[0][:, ::-1])
-    assert JET_RGB.shape == (256, 3)
-    rng = np.random.RandomState(10)
-    a = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
-    b = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
-    np.testing.assert_array_equal(add_weighted(a, 0.5, b, 0.5, 0.0),
-                                  cv2.addWeighted(a, 0.5, b, 0.5, 0.0))
-
-
 def test_pyramid_heatmap_matches_jax_png(tmp_path):
     pytest.importorskip("cv2")
     jemb, _, images = _pyramids()
@@ -303,14 +224,6 @@ def test_pyramid_heatmap_matches_jax_png(tmp_path):
         b = read_png(tmp_path / f"jax_{name}.png")
         assert a.shape == b.shape == (40, 52, 3)
         np.testing.assert_array_equal(a, b)
-
-
-def _tiny_preset(**kw):
-    return dict(n_levels=4, log2_hashmap_size=10, finest_resolution=64,
-                n_importance=16, hier_sparse_importance=4, multires_views=4,
-                thin_ray=True, compute_dtype="float32", use_lerf=True,
-                lang_embed_dim=E, n_levels_le=3, log2_hashmap_size_le=10,
-                finest_resolution_le=64, **kw)
 
 
 def test_render_view_with_relevancy_matches_jax():

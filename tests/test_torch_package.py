@@ -1,19 +1,19 @@
 """The port as a package: imports, device rule, config interchange, the
 small-table schemes and the importance pass on the CPU, and the parts of the
-JAX package that are not ported yet failing loudly."""
+JAX package that are not ported yet failing loudly.
+
+The config interchange and the small-table schemes:
+tests/test_torch_package_build.py.
+"""
 import ast
-import dataclasses
-import json
 import shutil
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from nerfpp_tpu import config as jax_config
 from nerfpp_tpu_torch import config as port_config
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.core.occupancy import make_occupancy_grid
@@ -21,24 +21,12 @@ from nerfpp_tpu_torch.data.dataset import RayBatchSampler
 from nerfpp_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfpp_tpu_torch.encoders.hashgrid import HashGridEncoder
 from nerfpp_tpu_torch.executor import NeRFExecutor
-from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 from nerfpp_tpu_torch.models.nerf_small import NeRFSmall
 from nerfpp_tpu_torch.nn import MLP
 from nerfpp_tpu_torch.render import renderer as TR
+from tests.torch_package_common import BBOX, PORT, ROOT, _banned
 
 torch.set_num_threads(1)
-
-ROOT = Path(__file__).resolve().parent.parent
-PORT = ROOT / "nerfpp_tpu_torch"
-BBOX = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
-
-
-def _banned(module: str) -> bool:
-    # the port reads and writes images itself (utils/png.py): no OpenCV or
-    # Pillow, which the machine with the card does not have
-    return (module in ("jax", "jaxlib", "nerfpp_tpu", "cv2", "PIL")
-            or module.startswith(("jax.", "jaxlib.", "nerfpp_tpu.", "cv2.",
-                                  "PIL.")))
 
 
 def test_import_loads_neither_jax_nor_nerfpp_tpu():
@@ -98,44 +86,6 @@ def test_default_device_is_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu").type == "cpu"
-
-
-@pytest.mark.parametrize("preset", ["hashnerf_preset",
-                                    "hashnerf_blocked_preset",
-                                    "hashnerf_tpu_preset",
-                                    "classic_nerf_preset"])
-def test_config_json_interchange(preset, tmp_path):
-    # same fields, defaults and JSON keys: a file written by one package
-    # loads in the other
-    jp = getattr(jax_config, preset)(n_importance=0)
-    tp = getattr(port_config, preset)(n_importance=0)
-    assert tp.to_json() == jp.to_json()
-    jp.save(tmp_path / "p.json")
-    assert port_config.ExecutorParams.load(tmp_path / "p.json") == tp
-    assert (port_config.TrainParams().to_json()
-            == jax_config.TrainParams().to_json())
-    j = json.loads(json.dumps(port_config.TrainParams(chunk=4096).to_json()))
-    assert jax_config.TrainParams.from_json(j).chunk == 4096
-    assert ([f.name for f in dataclasses.fields(port_config.ExecutorParams)]
-            == [f.name for f in dataclasses.fields(jax_config.ExecutorParams)])
-
-
-@pytest.mark.parametrize("scheme", ["fixed", "random"])
-def test_small_table_schemes_build_and_encode_on_cpu(scheme):
-    # the kernel path by default; on CPU tensors its plain versions, which
-    # count no launches, forward and backward
-    reset_launch_counts()
-    enc = HashGridEncoder(BBOX, n_levels=4, log2_hashmap_size=10,
-                          scheme=scheme, device="cpu")
-    assert enc.use_kernel and enc.level_size == 1024
-    x = torch.rand(100, 3, generator=torch.Generator().manual_seed(0)) * 3 - 1
-    feats, keep = enc(x)
-    assert feats.shape == (100, 8) and bool(torch.isfinite(feats).all())
-    assert bool(keep.any()) and not bool(keep.all())
-    feats.sum().backward()
-    assert enc.table.grad.shape == (4 * 1024, 2)
-    assert bool(enc.table.grad.abs().sum() > 0)
-    assert set(launch_counts().values()) == {0}
 
 
 def test_render_rays_runs_the_importance_pass():

@@ -10,6 +10,13 @@ custom VJP, and the TV loss with the same cube origins. The order-fixed
 gradient that grad_small launches on the card, at the small table's bins:
 its bin pass's plan read back against its definition, and the sum in the
 plan's order against jax.vjp of the XLA gather.
+
+This file: the encode against the Pallas kernels and the XLA gather, the
+table gradient, the kernel's accepted inputs and the TV loss; the exact
+integer parts are in tests/test_torch_small_table_exact.py, the bin pass
+and the sum in its order in tests/test_torch_small_table_bins.py, the
+launch plan in tests/test_torch_small_table_plan.py and
+tests/test_torch_small_table_plan_deep.py.
 """
 import numpy as np
 import jax
@@ -22,129 +29,14 @@ from nerfpp_tpu.encoders.hashgrid import gather_trilerp_reference
 from nerfpp_tpu.encoders.hashgrid import total_variation_loss as jax_tv
 from nerfpp_tpu.pallas import hash_encode as JHE
 from nerfpp_tpu_torch.encoders.hashgrid import (HashGridEncoder,
-                                               total_variation_loss,
-                                               trilerp_weights, tv_cube_size)
+                                                total_variation_loss,
+                                                trilerp_weights, tv_cube_size)
 from nerfpp_tpu_torch.kernels import hash_encode as KS
-from nerfpp_tpu_torch.kernels import hash_encode_large as KL
+from tests.torch_small_table_common import (BBOX, KW, _faces_and_boundaries,
+                                            _fused_kwargs, _grad_case, _pair,
+                                            _pallas_rel, _pts, _table, t)
 
 torch.set_num_threads(1)
-
-BBOX = np.array([-1.5, -1.0, -1.2, 1.5, 1.0, 1.3], np.float32)
-KW = dict(n_levels=4, log2_hashmap_size=10, base_resolution=16,
-          finest_resolution=128, primes_seed=5)
-
-
-def t(x):
-    return torch.as_tensor(np.asarray(x, np.float32))
-
-
-def _pair(scheme, use_kernel=False, **kw):
-    args = dict(KW, scheme=scheme, **kw)
-    return (JaxEncoder(BBOX, **args),
-            HashGridEncoder(BBOX, use_kernel=use_kernel, device="cpu",
-                            **args))
-
-
-def _pts(n, seed, lo=None, hi=None):
-    rng = np.random.RandomState(seed)
-    lo = BBOX[:3] if lo is None else lo
-    hi = BBOX[3:] if hi is None else hi
-    return rng.uniform(lo, hi, (n, 3)).astype(np.float32)
-
-
-def _table(rows, seed):
-    """|table| <= 1, so 1e-6 is a few ulps of any feature."""
-    return np.random.RandomState(seed).uniform(-1, 1, (rows, 2)).astype(
-        np.float32)
-
-
-def _faces_and_boundaries(enc, n, seed):
-    """Points on the box faces and corners, and within +-2 ulps of cell
-    boundaries of random levels, where another rounding of the cell
-    coordinate changes the cell."""
-    rng = np.random.RandomState(seed)
-    lvl = rng.randint(0, enc.n_levels, n)
-    if enc.scheme == "fixed":
-        res = enc.resolutions[lvl].astype(np.float64)[:, None]
-    else:
-        res = enc.level_scales[lvl].astype(np.float64)[:, None]
-    cell = np.floor(rng.uniform(0, 1, (n, 3)) * res)
-    x = (BBOX[:3] + cell / res * (BBOX[3:] - BBOX[:3])).astype(np.float32)
-    steps = rng.randint(-2, 3, (n, 3))
-    for s in range(2):
-        x = np.where(steps > s, np.nextafter(x, np.float32(np.inf)), x)
-        x = np.where(steps < -s, np.nextafter(x, np.float32(-np.inf)), x)
-    corners = np.array([[BBOX[3 * ((d >> (2 - a)) & 1) + a] for a in range(3)]
-                        for d in range(8)], np.float32)
-    faces = _pts(64, seed + 1)
-    axis, side = np.arange(64) % 3, (np.arange(64) // 3) % 2
-    faces[np.arange(64), axis] = BBOX[3 * side + axis]
-    return np.clip(np.concatenate([x, corners, faces]), BBOX[:3], BBOX[3:])
-
-
-@pytest.mark.parametrize("scheme", ["fixed", "random"])
-@pytest.mark.parametrize("cfg", [
-    dict(),
-    dict(n_levels=16, log2_hashmap_size=13, finest_resolution=1024),
-    dict(primes_seed=3, base_resolution=8, finest_resolution=512)])
-def test_primes_and_resolutions_exact(scheme, cfg):
-    je, te = _pair(scheme, **cfg)
-    assert te.level_size == je.level_size
-    assert te.table_rows == je.table_rows
-    if scheme == "fixed":
-        np.testing.assert_array_equal(te.resolutions, je.resolutions)
-    else:
-        np.testing.assert_array_equal(te.primes, je.primes)
-        np.testing.assert_array_equal(te.level_scales, je.level_scales)
-
-
-@pytest.mark.parametrize("scheme", ["fixed", "random"])
-@pytest.mark.parametrize("box", ["whole", "corner", "thin"])
-def test_corner_indices_exact(scheme, box):
-    # exact against jax.jit(enc.corner_indices), boundaries and faces too:
-    # XLA folds the divisions by constants into reciprocal multiplies
-    # (random: (x - min) * f32(1/extent) * scale; fixed: (x - min) /
-    # f32(extent * f32(1/res))), and the port computes those forms
-    je, te = _pair(scheme, n_levels=6, log2_hashmap_size=12,
-                   finest_resolution=600)
-    lo, hi = {"whole": (None, None),
-              "corner": (BBOX[3:] - 0.2, None),
-              "thin": (np.float32([0.1, -0.9, 0.0]),
-                       np.float32([0.1001, 0.9, 0.05]))}[box]
-    pts = np.concatenate([_pts(4096, 3, lo, hi),
-                          _faces_and_boundaries(te, 2048, 4)])
-    idx_j, frac_j = jax.jit(je.corner_indices)(jnp.asarray(pts))
-    idx_t, frac_t = te.corner_indices(torch.from_numpy(pts))
-    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
-    np.testing.assert_array_equal(frac_t.numpy(), np.asarray(frac_j))
-
-
-def _fused_kwargs(je, version, packed):
-    if je.scheme == "random":
-        primes = tuple(tuple(int(v) for v in row) for row in je.primes)
-        scales = tuple(float(s) for s in je.level_scales)
-        res = (0.0,) * je.n_levels
-    else:
-        primes = (tuple(int(v) for v in (1, 2654435761, 805459861)),) \
-            * je.n_levels
-        scales = (0.0,) * je.n_levels
-        res = tuple(float(r) for r in je.resolutions)
-    return dict(n_levels=je.n_levels, level_size=je.level_size,
-                scheme=je.scheme,
-                box_min=tuple(float(v) for v in BBOX[:3]),
-                box_max=tuple(float(v) for v in BBOX[3:]),
-                level_scales=scales, primes=primes, resolutions=res,
-                version=version, packed=packed)
-
-
-def _pallas_rel(je, pts):
-    """The Pallas kernels' cell coordinate, (x - min) * f32(inv_extent *
-    scale) with the product folded in double ([N, L, 3])."""
-    scale = je.level_scales if je.scheme == "random" else je.resolutions
-    inv = 1.0 / (BBOX[3:].astype(np.float64) - BBOX[:3].astype(np.float64))
-    fold = (inv[None, :] * np.asarray(scale, np.float64)[:, None]).astype(
-        np.float32)
-    return (pts - BBOX[:3])[:, None, :] * fold[None]
 
 
 @pytest.mark.parametrize("scheme,version,packed", [
@@ -193,14 +85,6 @@ def test_plain_matches_xla_and_v1_equals_v2(scheme):
     np.testing.assert_allclose(v2.numpy(), ref.reshape(len(pts), -1),
                                atol=1e-6)
     assert torch.equal(v1, v2)
-
-
-def _grad_case(scheme, n, seed):
-    je, te = _pair(scheme)
-    pts = _pts(n, seed)
-    g = np.random.RandomState(seed + 1).standard_normal(
-        (n, je.output_dims)).astype(np.float32)
-    return je, te, pts, g
 
 
 @pytest.mark.parametrize("scheme", ["fixed", "random"])
@@ -307,159 +191,3 @@ def test_kernel_accepts_what_the_jax_kernel_accepts():
                         torch.zeros(8, 3, device="meta"), te)
     with pytest.raises(ValueError, match="not a small-table"):
         KS._check_enc(_pair("blocked", log2_hashmap_size=12)[1], "cpu")
-
-
-@pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("log2_t", range(10, 20))
-def test_small_plan_covers_every_level_and_tile_once(log2_t, packed):
-    # every (L, T, packed) that supports() admits at this T: the level
-    # groups partition the levels, each group's slice of a row is a whole
-    # 32-byte sector or more (or the whole row), the persistent blocks of
-    # each group visit every 1,024-point tile exactly once (as the kernel
-    # strides them), and a block's stage and output tiles fit its 232,448
-    # bytes
-    size = 1 << log2_t
-    esize = 4 if packed else 8
-    for levels in range(1, (1 << 19) // size + 1):
-        assert KS.supports(levels, size, 2)
-        g, staged, smem = KS.small_stage(levels, size, packed)
-        assert 0 <= staged <= g <= levels
-        assert smem == staged * size * esize + KS.small_tile_bytes(g)
-        assert smem + KS.SMEM_STATIC <= 232448
-        # a row slice is a whole sector or more, or the whole row
-        assert g >= min(4, levels)
-        if staged == g > min(4, levels):
-            assert g & (g - 1) == 0
-        if staged < g:       # as many levels staged as fit
-            assert smem + size * esize + KS.SMEM_STATIC > 232448
-        for n in (1, 1023, 1025, 1_000_003, 3_000_000):
-            for blocks in (132, 264, 3):
-                plan = KS.small_plan(n, levels, size, packed, blocks)
-                assert (plan.group_levels, plan.staged_levels,
-                        plan.smem) == (g, staged, smem)
-                first = np.arange(plan.n_groups) * plan.group_levels
-                span = np.minimum(first + plan.group_levels, levels) - first
-                assert span.min() >= 1 and span.sum() == levels
-                # block b: group b % n_groups, tiles b // n_groups + k *
-                # grid / n_groups
-                assert plan.grid % plan.n_groups == 0
-                assert plan.grid <= max(blocks, plan.n_groups)
-                b = np.arange(plan.grid)
-                per_group = plan.grid // plan.n_groups
-                tiles = -(-n // KS.TILE)
-                assert per_group <= tiles
-                t = (b // plan.n_groups)[:, None] + per_group * np.arange(
-                    -(-tiles // per_group))[None, :]
-                grp = np.broadcast_to((b % plan.n_groups)[:, None], t.shape)
-                cell = (grp * tiles + t)[t < tiles]
-                assert np.array_equal(
-                    np.bincount(cell, minlength=plan.n_groups * tiles),
-                    np.ones(plan.n_groups * tiles, np.int64))
-
-
-def test_small_plan_at_the_serving_shape():
-    # 16 levels, T = 2^13: four levels a group (one 32-byte sector of each
-    # row), all staged packed, three of four with the f32 table. T = 2^15:
-    # four levels a group, one staged packed; the f32 table is gathered
-    # from L2 in whole rows
-    serving = 8_388_608
-    assert KS.small_stage(16, 1 << 13, True) == (4, 4, 163840)
-    assert KS.small_stage(16, 1 << 13, False) == (4, 3, 229376)
-    assert KS.small_stage(16, 1 << 15, True) == (4, 1, 163840)
-    assert KS.small_stage(16, 1 << 15, False) == (16, 0, 131072)
-    plan = KS.small_plan(serving, 16, 1 << 13, True, 132)
-    assert (plan.n_groups, plan.grid) == (4, 132)
-    assert KS.small_plan(1000, 16, 1 << 13, True, 132).grid == 4
-
-
-# --------------------------- the order-fixed gradient at the small table
-
-def _crowded(te, n, seed):
-    """n points in one cell of the finest level."""
-    rng = np.random.RandomState(seed)
-    res = float((te.resolutions if te.scheme == "fixed"
-                 else te.level_scales)[-1])
-    cell = np.floor(rng.uniform(0, res - 1, (1, 3)))
-    x = BBOX[:3] + (cell + rng.uniform(0.1, 0.9, (n, 3))) / res * (
-        BBOX[3:] - BBOX[:3])
-    return np.clip(x.astype(np.float32), BBOX[:3], BBOX[3:])
-
-
-@pytest.mark.parametrize("scheme", ["fixed", "random"])
-@pytest.mark.parametrize("log2_t,levels,case", [(10, 4, "uniform"),
-                                                (13, 2, "crowded"),
-                                                (13, 1, "few")])
-def test_small_bin_pass_plan(scheme, log2_t, levels, case):
-    # at the small table's bins (512 entries; the whole level at 2^9 and
-    # less): every (point, level, corner) once, in its entry's bin, each
-    # bin's records one run in the fixed order (tile, then points 32 at a
-    # time, corners in order, lanes ascending); the run offsets the
-    # exclusive scan of the counts; a crowded cell splits its bins into
-    # parts, few points leave bins empty; the plan's items list each bin's
-    # parts in order
-    _, te = _pair(scheme, use_kernel=True, n_levels=levels,
-                  log2_hashmap_size=log2_t)
-    pts = {"uniform": _pts(1100, 21), "crowded": _crowded(te, 4500, 22),
-           "few": _pts(5, 23)}[case]
-    n = len(pts)
-    bl, nb, tp, part, nt, _ = KL.bins_shape(n, te)
-    recs, offs, plan = KL.grad_large_bins(t(pts), te)
-    idx, _ = te.corner_indices(t(pts))
-    local = (idx - torch.arange(levels)[None, :, None]
-             * te.level_size).numpy()
-    r = recs.numpy().astype(np.int64)
-    p, d = r >> 3, r & 7
-    # the counts per (level, bin, tile), read off the records themselves
-    l_of = np.repeat(np.arange(levels), 8 * n)
-    counts = np.zeros((levels, nb, nt), np.int64)
-    np.add.at(counts, (l_of, local[p, l_of, d] >> bl, p // tp), 1)
-    flat = counts.reshape(-1)
-    np.testing.assert_array_equal(offs.numpy().reshape(-1),
-                                  np.cumsum(flat) - flat)
-    # each (level, bin, tile) run holds its records
-    run = (l_of * nb + (local[p, l_of, d] >> bl)) * nt + p // tp
-    assert (np.diff(run) >= 0).all()
-    seen = np.zeros((n, levels, 8), np.int64)
-    np.add.at(seen, (p, l_of, d), 1)
-    assert (seen == 1).all()
-    q = p % tp
-    key = run * 8 * tp + ((q // 32) * 8 + d) * 32 + q % 32
-    assert (np.diff(key) > 0).all()
-    totals = counts.sum(-1).reshape(-1)
-    parts = np.where(totals == 0, 1, -(-totals // part))
-    n_items = int(parts.sum())
-    head = 4 + 4 * levels * nb
-    assert int(plan[0]) == n_items
-    np.testing.assert_array_equal(plan[4:head].numpy(), np.concatenate(
-        [totals, parts, plan[4 + 2 * levels * nb:4 + 3 * levels * nb].numpy(),
-         np.cumsum(totals) - totals]))
-    items = plan[head:head + 2 * n_items].numpy().reshape(-1, 2)
-    np.testing.assert_array_equal(items[:, 0], np.repeat(
-        np.arange(levels * nb), parts))
-    np.testing.assert_array_equal(items[:, 1], np.concatenate(
-        [np.arange(k) for k in parts]))
-    if case == "crowded":
-        assert int(plan[1]) > 0
-    if case == "few":
-        assert (totals == 0).any()
-
-
-@pytest.mark.parametrize("scheme", ["fixed", "random"])
-@pytest.mark.parametrize("log2_t,levels,case", [(10, 4, "uniform"),
-                                                (13, 2, "crowded")])
-def test_small_binned_sum_matches_jax_vjp(scheme, log2_t, levels, case):
-    # the terms summed in the bin pass's order against jax.vjp of the JAX
-    # package's gather_trilerp_reference over the JAX encoder's corners,
-    # each entry within 1e-5 of the sum of its terms' magnitudes
-    je, te = _pair(scheme, n_levels=levels, log2_hashmap_size=log2_t)
-    pts = _pts(1100, 24) if case == "uniform" else _crowded(te, 4500, 25)
-    g = np.random.RandomState(26).standard_normal(
-        (len(pts), je.output_dims)).astype(np.float32)
-    idx, frac = jax.jit(je.corner_indices)(jnp.asarray(pts))
-    _, vjp = jax.vjp(lambda tab: gather_trilerp_reference(tab, idx, frac),
-                     jnp.zeros((je.table_rows, 2), jnp.float32))
-    ref = np.asarray(vjp(jnp.asarray(g.reshape(len(pts), -1, 2)))[0])
-    got = KL.grad_large_binned_plain(t(g), t(pts), te).numpy()
-    mag = KS.grad_small_plain(t(np.abs(g)), t(pts), te).numpy()
-    assert np.all(np.abs(got - ref) <= 1e-5 * mag + 1e-30)
-    assert np.abs(got).max() > 0

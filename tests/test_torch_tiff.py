@@ -12,9 +12,10 @@ port's writes must read back in cv2 to the same pixels.
   ExtraSamples 0, 1 or 2 (premultiplied at 8 bits when unassociated), and
   8-bit palettes of 8- and 16-bit entries;
 - LZW both ways, past a full code table;
-- refusals naming the file and the kind: BigTIFF, JPEG-in-TIFF, float
-  and 32-bit samples, CMYK, subsampled YCbCr, gray with alpha, 16-bit
-  planar RGB;
+- refusals naming the file and the kind: BigTIFF, JPEG-in-TIFF, 8-bit
+  float and 64-bit integer samples, CMYK, subsampled YCbCr, gray with
+  alpha, 16-bit planar RGB (signed and float samples are read:
+  tests/test_torch_tiff_float.py);
 - the committed TIFF fixtures under tests/data/image.
 """
 import itertools
@@ -139,11 +140,11 @@ def test_still_unread_kinds_raise_naming_the_file(tmp_path):
             b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
             b"\x03\x01\x03\x00\x01\x00\x00\x00\x07\x00"), "JPEG-in-TIFF"),
         "float.tif": (make_tiff(img8, extra_tags=[(339, 3, [3, 3, 3])]),
-                      "float samples"),
+                      "8-bit float samples"),
         "deep.tif": (make_tiff(np.zeros((4, 4, 1), np.uint8), extra_tags=[
             ]).replace(b"\x02\x01\x03\x00\x01\x00\x00\x00\x08\x00",
-                       b"\x02\x01\x03\x00\x01\x00\x00\x00\x20\x00"),
-                     "32-bit samples"),
+                       b"\x02\x01\x03\x00\x01\x00\x00\x00\x40\x00"),
+                     "64-bit unsigned samples"),
         "cmyk.tif": (make_tiff(np.zeros((4, 4, 4), np.uint8),
                                photometric=5), "CMYK"),
         "ycc.tif": (make_tiff(img8, photometric=6,
@@ -156,8 +157,8 @@ def test_still_unread_kinds_raise_naming_the_file(tmp_path):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(NotImplementedError, match=f"{name}.*{kind}"):
             read_image(tmp_path / name, "cpu")
-    with pytest.raises(ValueError, match="uint8 or uint16"):
-        T.write_tiff(tmp_path / "f.tif", np.zeros((2, 2), np.float32))
+    with pytest.raises(ValueError, match="TIFF writing takes uint8, uint16"):
+        T.write_tiff(tmp_path / "f.tif", np.zeros((2, 2), np.float16))
 
 
 def test_committed_fixtures_match_opencv_and_the_port():

@@ -1,11 +1,12 @@
 """Helpers shared by the image codec tests (a module, not a test file):
-test images, cut progressive JPEGs, PNGs and TIFFs of every kind built
+test images, cut progressive JPEGs, PNGs, TIFFs, BMPs (with RLE8 / RLE4
+streams), PAMs, PFMs, Radiance HDRs and Sun rasters of every kind built
 with zlib, struct and numpy, and the committed fixtures under
 tests/data/image (see ``make_fixtures``).
 
-``make_png`` and ``make_tiff`` write what the format allows, so that each
-kind can be held to what ``cv2.imread(IMREAD_UNCHANGED)`` returns for it;
-they are test code, independent of the port's readers.
+The builders write what each format allows, so that each kind can be held
+to what ``cv2.imread(IMREAD_UNCHANGED)`` returns for it; they are test
+code, independent of the port's readers.
 """
 import struct
 import zlib
@@ -29,8 +30,8 @@ def pattern(h, w, c, seed=0):
 
 
 def to_rgb(img):
-    """cv2's BGR(A) order -> RGB(A) (gray unchanged)."""
-    if img is None or img.ndim == 2:
+    """cv2's BGR(A) order -> RGB(A) (gray and gray-alpha unchanged)."""
+    if img is None or img.ndim == 2 or img.shape[2] == 2:
         return img
     return img[..., [2, 1, 0, 3][:img.shape[2]]]
 
@@ -151,29 +152,53 @@ def packbits(b: bytes) -> bytes:
     return bytes(out)
 
 
+def _float_predict(a):
+    """TIFF's floating-point predictor forward on a chunk [rows, cols,
+    per]: each row's samples as byte planes, the most significant first,
+    differenced byte by byte at a stride of ``per``."""
+    rows, cols, per = a.shape
+    out = []
+    for r in a:
+        b = r.astype(r.dtype.newbyteorder(">")).view(np.uint8).reshape(
+            cols * per, a.itemsize).T.reshape(-1).astype(np.int64)
+        d = b.copy()
+        d[per:] = b[per:] - b[:-per]
+        out.append((d % 256).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
 def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
               rows_per_strip=None, photometric=None, extra=None,
-              colormap=None, version=42, extra_tags=()):
-    """A TIFF of samples [h, w, spp] (uint8 or uint16): ``comp`` 1 (none),
-    8 or 32946 (Deflate) or 32773 (PackBits), horizontal ``predictor`` 2,
-    ``planar`` 2, ``tile`` (width, length) or strips of ``rows_per_strip``,
-    the tags given; ``extra_tags`` [(tag, type, values)] added as they
-    are."""
+              colormap=None, version=42, extra_tags=(), sample_format=None):
+    """A TIFF of samples [h, w, spp] (any integer or float dtype, its
+    SampleFormat written unless it is unsigned): ``comp`` 1 (none), 5
+    (LZW, through the port's encoder), 8 or 32946 (Deflate) or 32773
+    (PackBits), horizontal ``predictor`` 2 or floating-point 3, ``planar``
+    2, ``tile`` (width, length) or strips of ``rows_per_strip``, the tags
+    given; ``extra_tags`` [(tag, type, values)] added as they are."""
     h, w, spp = img.shape
     bits = img.itemsize * 8
     if photometric is None:
         photometric = 1 if spp == 1 else 2
-    dt = np.dtype(bo + ("u1" if bits == 8 else "u2"))
+    if sample_format is None:
+        sample_format = {"u": 1, "i": 2, "f": 3}[img.dtype.kind]
+    dt = np.dtype(f"{bo}u{img.itemsize}")
 
     def encode(a):
-        a = a.astype(np.int64)
-        if predictor == 2:
-            d = a.copy()
-            d[:, 1:] = a[:, 1:] - a[:, :-1]
-            a = d % (1 << bits)
-        raw = a.astype(dt).tobytes()
+        if predictor == 3:
+            raw = _float_predict(a)
+        else:
+            u = a.view(f"u{a.itemsize}")
+            if predictor == 2:
+                d = u.copy()
+                d[:, 1:] = u[:, 1:] - u[:, :-1]
+                u = d
+            raw = u.astype(dt).tobytes()
         if comp == 1:
             return raw
+        if comp == 5:
+            from nerfpp_tpu_torch.utils.tiff import lzw_encode
+            return lzw_encode(raw)
         if comp in (8, 32946):
             return zlib.compress(raw)
         rb = a.shape[1] * a.shape[2] * dt.itemsize
@@ -197,6 +222,8 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
                (259, 3, [comp]), (262, 3, [photometric]), (277, 3, [spp]),
                (284, 3, [planar])] + list(extra_tags)
+    if sample_format != 1:
+        entries.append((339, 3, [sample_format] * spp))
     if predictor != 1:
         entries.append((317, 3, [predictor]))
     if extra is not None:
@@ -234,6 +261,170 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
     return bytes(out)
 
 
+# ------------------------------------------------------------------- BMP
+
+def make_bmp(w, h, bpp, pixels, header=40, comp=0, palette=None,
+             clrused=0, masks=None, top_down=False):
+    """A BMP of the given pixel data (rows as stored, padded): ``header``
+    12 (OS/2, a 3-byte palette), 40, 108 or 124; ``comp`` 0 (RGB), 1
+    (RLE8), 2 (RLE4) or 3 (BITFIELDS, ``masks`` (R, G, B[, A]) after a
+    40-byte header, inside a larger one); ``palette`` [(B, G, R)];
+    ``top_down`` a negative height."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bpp, comp, len(pixels), 2835, 2835, clrused, 0)
+        if header > 40 and masks:
+            info += struct.pack("<4I", *(list(masks) + [0])[:4])
+        info = info.ljust(header, b"\0")
+    extra = (struct.pack("<3I", *masks[:3]) if masks and header == 40
+             else b"")
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes(map(int, p[:3])) + (b"" if header == 12
+                                                 else b"\0")
+                       for p in palette)
+    off = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off) + info
+            + extra + pal + pixels)
+
+
+def bmp_rows(idx, bpp):
+    """Palette indices or samples [h, w(, c)] -> bottom-up rows as BMP
+    stores them (1, 4, 8, 16 (uint16 samples), 24 or 32 bits), each padded
+    to 4 bytes."""
+    rows = []
+    for r in idx[::-1]:
+        if bpp == 1:
+            b = np.packbits(r.astype(np.uint8)).tobytes()
+        elif bpp == 4:
+            r = np.concatenate([r, np.zeros(len(r) % 2, r.dtype)])
+            b = ((r[0::2] << 4) | r[1::2]).astype(np.uint8).tobytes()
+        elif bpp == 16:
+            b = r.astype("<u2").tobytes()
+        else:
+            b = r.astype(np.uint8).tobytes()
+        rows.append(b + b"\0" * (-len(b) % 4))
+    return b"".join(rows)
+
+
+def bmp_rle(w, h, bits, rng, ops=None):
+    """A random RLE8 (``bits`` 8) or RLE4 (4) stream for a w x h bitmap:
+    runs, literals, end-of-line, deltas (dx + dy * w pixels skipped) and,
+    now and then, an early end-of-bitmap; ``ops`` limits the kinds used.
+    Each line is ended by an end-of-line; runs and literals stay within
+    their line. The decode is what cv2 makes of it."""
+    ops = ops or ("run", "literal", "eol", "delta")
+    out, x, y = bytearray(), 0, 0
+    top = 255 if bits == 8 else 15
+    while y < h:
+        op = ops[rng.randint(len(ops))]
+        room = w - x
+        if op == "eol" or room == 0:
+            out += b"\0\0"
+            x, y = 0, y + 1
+            if y < h and rng.rand() < 0.03:
+                break
+        elif op == "run":
+            n = rng.randint(1, min(room, 255) + 1)
+            out += bytes([n, rng.randint(0, 256) if bits == 4
+                          else rng.randint(top + 1)])
+            x += n
+        elif op == "literal" and room >= 3:
+            n = rng.randint(3, min(room, 255) + 1)
+            vals = rng.randint(0, top + 1, n)
+            if bits == 4:
+                vals = np.concatenate([vals, np.zeros(n % 2, vals.dtype)])
+                vals = (vals[0::2] << 4) | vals[1::2]
+            data = vals.astype(np.uint8).tobytes()
+            out += bytes([0, n]) + data + b"\0" * (len(data) % 2)
+            x += n
+        elif op == "delta":
+            dx = rng.randint(0, room)
+            dy = rng.randint(0, 2) if y + 1 < h else 0
+            out += bytes([0, 2, dx, dy])
+            x, y = x + dx, y + dy
+    return bytes(out + b"\0\1")
+
+
+# ------------------------------------------------- PAM, PFM, HDR, Sun raster
+
+def make_pam(samples, maxval, tupltype=None, extra=""):
+    """A PAM of samples [h, w, depth] as stored (big-endian above 255)."""
+    h, w, d = samples.shape
+    head = (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {d}\nMAXVAL {maxval}\n"
+            + (f"TUPLTYPE {tupltype}\n" if tupltype else "") + extra
+            + "ENDHDR\n")
+    body = (samples.astype(">u2") if maxval > 255
+            else samples.astype(np.uint8)).tobytes()
+    return head.encode() + body
+
+
+def make_pfm(img, scale=-1.0, header=None):
+    """A PFM of float32 [h, w] or [h, w, 3] (RGB), little-endian when the
+    scale is negative, rows bottom-up."""
+    h, w = img.shape[:2]
+    kind = "f" if img.ndim == 2 else "F"
+    head = header or f"P{kind}\n{w} {h}\n{scale}\n".encode()
+    bo = "<" if float(scale) < 0 else ">"
+    return head + img[::-1].astype(bo + "f4").tobytes()
+
+
+def hdr_rle_plane(b, rng):
+    """One byte plane of a new-style scanline as runs and literals chosen
+    at random (a valid coding, not rgbe.cpp's)."""
+    out, i = bytearray(), 0
+    while i < len(b):
+        j = i
+        while j + 1 < len(b) and b[j + 1] == b[i] and j - i < 126:
+            j += 1
+        if j > i and rng.rand() < 0.8:
+            out += bytes([128 + j - i + 1, b[i]])
+            i = j + 1
+        else:
+            n = rng.randint(1, min(128, len(b) - i) + 1)
+            out += bytes([n]) + bytes(b[i:i + n])
+            i += n
+    return bytes(out)
+
+
+def make_hdr(rgbe, rng=None, flat_from=None, header=None):
+    """A Radiance HDR of RGBE bytes [h, w, 4]: new-style run-length
+    scanlines (when ``rng`` is given and 8 <= w <= 32767), flat from row
+    ``flat_from`` on."""
+    h, w = rgbe.shape[:2]
+    head = header or (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                      + f"-Y {h} +X {w}\n".encode())
+    body = bytearray()
+    for y in range(h):
+        if rng is None or (flat_from is not None and y >= flat_from):
+            body += rgbe[y].tobytes()
+            continue
+        body += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            body += hdr_rle_plane(rgbe[y, :, c].tobytes(), rng)
+    return head + bytes(body)
+
+
+def make_sunras(w, h, bpp, pixels, typ=1, cmap=None):
+    """A Sun raster of rows as stored; ``cmap`` [3, n] (R, G, B planes) as
+    an RMT_EQUAL_RGB colour map."""
+    cm = b"" if cmap is None else np.asarray(cmap, np.uint8).tobytes()
+    return (struct.pack(">8I", 0x59A66A95, w, h, bpp, len(pixels), typ,
+                        0 if cmap is None else 1, len(cm)) + cm + pixels)
+
+
+def sunras_rows(samples, bpp):
+    """Indices or bytes [h, w(, c)] -> rows padded to an even length."""
+    rows = []
+    for r in samples:
+        b = (np.packbits(r.astype(np.uint8)).tobytes() if bpp == 1
+             else r.astype(np.uint8).tobytes())
+        rows.append(b + b"\0" * (len(b) % 2))
+    return b"".join(rows)
+
+
 # -------------------------------------------------------------- fixtures
 
 def cv2_read(path):
@@ -245,8 +436,8 @@ def cv2_read(path):
 def fixture_files():
     """{file name: bytes} of the committed fixtures: progressive JPEGs
     (cv2.imencode, whole and cut), PNG kinds and TIFF variants (built
-    here), and prog_source.jpg, cv2's progressive encoding of
-    prog_source.npy."""
+    here), prog_source.jpg, cv2's progressive encoding of prog_source.npy,
+    and ``raw_fixture_files``."""
     import cv2
     files = {}
     rgb = pattern(21, 27, 3, 1)
@@ -294,6 +485,79 @@ def fixture_files():
     files["tif_rgba_unassoc8.tif"] = make_tiff(
         rng.randint(0, 256, (5, 6, 4)).astype(np.uint8), comp=8, predictor=2,
         extra=(2,))
+    files.update(raw_fixture_files())
+    return files
+
+
+def hdr_image(h, w, seed):
+    """Radiance-like float32 [h, w, 3]: a smooth image times a wide
+    exposure range, some pixels black."""
+    rng = np.random.RandomState(seed)
+    img = pattern(h, w, 3, seed).astype(np.float32) / 255
+    img *= np.exp(rng.randn(h, w, 1) * 3).astype(np.float32)
+    img[rng.rand(h, w) < 0.1] = 0
+    return img
+
+
+def raw_fixture_files():
+    """{file name: bytes} of the uncompressed, run-length and float
+    fixtures: BMP kinds, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun
+    raster and signed and float TIFF, built here."""
+    files = {}
+    rng = np.random.RandomState(11)
+    pal = rng.randint(0, 256, (256, 3))
+    files["bmp_rle8_13x10.bmp"] = make_bmp(
+        13, 10, 8, bmp_rle(13, 10, 8, rng), comp=1, palette=pal,
+        clrused=256)
+    files["bmp_rle4_11x9.bmp"] = make_bmp(
+        11, 9, 4, bmp_rle(11, 9, 4, rng), comp=2, palette=pal[:16],
+        clrused=16)
+    files["bmp_os2_pal4_7x5.bmp"] = make_bmp(
+        7, 5, 4, bmp_rows(rng.randint(0, 16, (5, 7)), 4), header=12,
+        palette=pal[:16])
+    files["bmp_v5_1010102_6x4.bmp"] = make_bmp(
+        6, 4, 32, bmp_rows(rng.randint(0, 256, (4, 6, 4)), 32), header=124,
+        comp=3, masks=(0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000))
+    files["bmp_565_9x3.bmp"] = make_bmp(
+        9, 3, 16, bmp_rows(rng.randint(0, 65536, (3, 9)), 16), comp=3,
+        masks=(0xF800, 0x7E0, 0x1F))
+    files["bmp_topdown_gray1_10x3.bmp"] = make_bmp(
+        10, 3, 1, bmp_rows(rng.randint(0, 2, (3, 10))[::-1], 1),
+        palette=[(0, 0, 0), (200, 200, 200)], clrused=2, top_down=True)
+    files["pbm_ascii_5x3.pbm"] = (b"P1\n# a comment\n5 3\n"
+                                  + b"1 0 1 1 0\n0 0 1 0 1\n11100\n")
+    files["pgm_ascii_maxval100_4x3.pgm"] = b"P2\n4 3\n100\n" + " ".join(
+        str(v) for v in rng.randint(0, 110, 12)).encode() + b"\n"
+    files["ppm_16_5x4.ppm"] = b"P6\n5 4\n65535\n" + rng.randint(
+        0, 65536, 60).astype(">u2").tobytes()
+    files["pam_rgba16_4x3.pam"] = make_pam(
+        rng.randint(0, 1001, (3, 4, 4)), 1000, "RGB_ALPHA")
+    files["pam_bw_9x2.pam"] = make_pam(rng.randint(0, 256, (2, 9, 1)), 1)
+    files["pfm_be_scale2_6x5.pfm"] = make_pfm(hdr_image(5, 6, 1), 2.0)
+    files["pfm_gray_7x4.pfm"] = make_pfm(hdr_image(4, 7, 2)[..., 1], -1.0)
+    rgbe = rng.randint(0, 256, (6, 17, 4)).astype(np.uint8)
+    rgbe[:, 3:11] = rgbe[:, 3:4]
+    files["hdr_rle_17x6.hdr"] = make_hdr(rgbe, rng, flat_from=4)
+    files["hdr_flat_5x3.hdr"] = make_hdr(rgbe[:3, :5])
+    cmap = rng.randint(0, 256, (3, 200))
+    files["ras_pal8_7x5.ras"] = make_sunras(
+        7, 5, 8, sunras_rows(rng.randint(0, 256, (5, 7)), 8), cmap=cmap)
+    files["ras_32_5x3.ras"] = make_sunras(
+        5, 3, 32, sunras_rows(rng.randint(0, 256, (3, 5, 4)), 32))
+    files["ras_1bit_gray_11x3.ras"] = make_sunras(
+        11, 3, 1, sunras_rows(rng.randint(0, 2, (3, 11)), 1),
+        cmap=[[10, 240]] * 3)
+    files["tif_float32_pred3_9x7.tif"] = make_tiff(
+        hdr_image(7, 9, 3), comp=8, predictor=3)
+    files["tif_float64_lzw_pred2_5x4.tif"] = make_tiff(
+        hdr_image(4, 5, 4).astype(np.float64), ">", 5, 2, rows_per_strip=2)
+    files["tif_int16_tiles_20x18.tif"] = make_tiff(
+        rng.randint(-32768, 32768, (18, 20, 3)).astype(np.int16), comp=8,
+        predictor=2, tile=(16, 16))
+    files["tif_int8_miniswhite_6x5.tif"] = make_tiff(
+        rng.randint(-128, 128, (5, 6, 1)).astype(np.int8), photometric=0)
+    files["tif_int32_packbits_4x3.tif"] = make_tiff(
+        rng.randint(-2 ** 31, 2 ** 31, (3, 4, 1)).astype(np.int32), comp=32773)
     return files
 
 

@@ -1,4 +1,5 @@
-"""Rank bodies for tests/test_torch_parallel.py.
+"""Rank bodies for tests/test_torch_parallel.py and
+tests/test_torch_parallel_cli.py.
 
 ``nerfpp_tpu_torch.parallel.mesh.launch`` runs module-level functions in
 spawned processes, and a spawned child imports the module its target lives
