@@ -190,24 +190,28 @@ Phases, each printing its own lines:
      cut; the loss must fall), its held-out PSNR beside phase 17's.
  21. image files (utils/png.py, utils/jpeg.py progressive, utils/tiff.py,
      utils/bmp.py, utils/pxm.py, utils/hdr.py, utils/sunras.py,
-     csrc/tiff_codec.cpp, csrc/image_rle.cpp): (a) phase 17's COLMAP
-     export with each view in its format (TRAIN_FORMATS: the 800x800
-     camera's 12 views progressive JPEG, BMP, PPM, Sun raster and PAM, the
-     1000x1000 camera's 4 LZW TIFF), written on the card; (b) the
-     undistortion on the card (each view written back in its format, a
-     progressive one as baseline JPEG at quality 95), one view of each
+     utils/webp.py, csrc/tiff_codec.cpp, csrc/image_rle.cpp,
+     csrc/webp_codec.cpp): (a) phase 17's COLMAP export with each view in
+     its format (TRAIN_FORMATS: the 800x800 camera's 12 views progressive
+     JPEG, BMP, PPM, lossless WebP, Sun raster and PAM, the 1000x1000
+     camera's 4 LZW TIFF), written on the card; (b) the undistortion on the
+     card (each view written back in its format, a progressive one as
+     baseline JPEG at quality 95, a WebP lossless), one view of each
      format also through the CPU (the same bytes), every exported and
      undistorted file decoded on the card and the CPU (bitwise equal), the
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
      cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
-     Radiance HDR, Sun raster, signed and float TIFF) decoded on the card
-     to cv2's pixels and prog_source encoded progressive on the card to
-     cv2's bytes, views 1 and 4 as 16-bit PNG and PPM, int16 TIFF and
-     float PFM, HDR and TIFF through undistort_images and load_images on
-     the card against the CPU, the decode and encode seconds of each new
-     format and of the TIFF views, of the progressive views and a
-     4,000x3,000 progressive upscale (host entropy pass and device stages
-     apart), the undistortion and load_images; (c) phase 17(c)'s flagship
+     Radiance HDR, Sun raster, signed and float TIFF, lossy, lossless and
+     alpha WebP) decoded on the card to cv2's pixels and prog_source
+     encoded progressive on the card to cv2's bytes, views 1 and 4 as
+     16-bit PNG and PPM, int16 TIFF and float PFM, HDR and TIFF through
+     undistort_images and load_images on the card against the CPU, the
+     decode and encode seconds of each new format and of the TIFF views,
+     of the progressive views and a 4,000x3,000 progressive upscale (host
+     entropy pass and device stages apart), of the 800x800 lossy WebP
+     fixture and the WebP views (host C++ and device stages apart), the
+     port's lossless WebP sizes beside cv2's, the undistortion and
+     load_images; (c) phase 17(c)'s flagship
      ``cli train --dataset-type colmap`` on the mixed workspace to NIters
      2,100 (cut to 1,088, and the cut printed, if the script would pass
      1,080 s; launch counts reset before step 0 and read after: K1, K2, K3
@@ -3142,6 +3146,58 @@ def codec_times(files, dev, progressive=False):
     return t, images
 
 
+def webp_times(files, dev):
+    """Decode every WebP file on ``dev`` and encode the decoded image again
+    (lossless, write_webp's encoder), each split into its host part (the
+    container and the C++ decoder; the C++ encoder) and its device part
+    (synchronised: the chroma upsampling, colour conversion and alpha, or
+    a lossless image's copy to the card; for encoding the copy back to the
+    host): {"decode": (host s, device s), "encode": (...), "bytes",
+    "encoded", "pixels"}, and the decoded images."""
+    import torch
+    from nerfpp_tpu_torch.utils import webp as W
+    t = {"decode": [0.0, 0.0], "encode": [0.0, 0.0], "bytes": 0,
+         "encoded": 0, "pixels": 0}
+    images = []
+    for path in files:
+        data = Path(path).read_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes = W.decode_planes(W.parse(path, data), path)
+        t1 = time.perf_counter()
+        img = W.frame_pixels(planes, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = img.cpu().numpy()
+        t3 = time.perf_counter()
+        enc = W.encode_webp(host, str(path))
+        t4 = time.perf_counter()
+        t["decode"][0] += t1 - t0
+        t["decode"][1] += t2 - t1
+        t["encode"][1] += t3 - t2
+        t["encode"][0] += t4 - t3
+        t["bytes"] += len(data)
+        t["encoded"] += len(enc)
+        t["pixels"] += img.shape[0] * img.shape[1]
+        images.append(img)
+    return t, images
+
+
+def webp_line(label, t):
+    """One log line of webp_times' figures."""
+    parts = []
+    for what, n in (("decode", t["bytes"]), ("encode", t["encoded"])):
+        host, device = t[what]
+        total = host + device
+        parts.append(f"{what} {1e3 * total:.3f} ms (host C++ "
+                     f"{1e3 * host:.3f} ms, device {1e3 * device:.3f} ms): "
+                     f"{n / total / 1e6:.1f} MB/s of WebP, "
+                     f"{t['pixels'] / total / 1e6:.1f} Mpix/s")
+    return (f"{label} ({t['bytes']} bytes of WebP, {t['pixels'] / 1e6:.2f} "
+            f"Mpix; re-encoded lossless {t['encoded']} bytes): "
+            + "; ".join(parts))
+
+
 def codec_line(label, t):
     """One log line of codec_times' figures."""
     parts = []
@@ -3395,8 +3451,11 @@ def format_lines(label, t):
 
 # phase 21's trained capture, cycled over the 16 views: the 1000x1000
 # camera's 4 views (3, 7, ...) TIFF, the 800x800 camera's 12 progressive
-# JPEG, BMP, PPM, Sun raster and PAM
-TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "pjpg", "ras", "pam", "tif")
+# JPEG, BMP, PPM, lossless WebP (views 4 and 12), Sun raster and PAM
+TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "webp", "ras", "pam", "tif")
+# the committed 800x800 lossy WebP that phase 21 times (no .npy: a Tier-1
+# test holds its pixels to cv2's)
+WEBP_TIMING = Path("tests") / "data" / "webp" / "timing_800x800.webp"
 # views 1 and 4 in the deep and float formats: undistortion and load_images
 DEEP_FORMATS = ("png16", "ppm16", "itif", "pfm", "hdr", "ftif")
 
@@ -3404,27 +3463,33 @@ DEEP_FORMATS = ("png16", "ppm16", "itif", "pfm", "hdr", "ftif")
 def formats_phase(scene, dev, psnrs, t_start):
     """Phase 21, the image files cv2.imread reads and cv2.imwrite writes
     (utils/png.py, utils/jpeg.py progressive, utils/tiff.py, utils/bmp.py,
-    utils/pxm.py, utils/hdr.py, utils/sunras.py, csrc/tiff_codec.cpp,
-    csrc/image_rle.cpp): (a) phase 17's COLMAP export with each view in a
-    format of TRAIN_FORMATS (the 800x800 camera's 12 views progressive JPEG,
-    BMP, PPM, Sun raster and PAM, the 1000x1000 camera's 4 8-bit LZW TIFF),
+    utils/pxm.py, utils/hdr.py, utils/sunras.py, utils/webp.py,
+    csrc/tiff_codec.cpp, csrc/image_rle.cpp, csrc/webp_codec.cpp): (a)
+    phase 17's COLMAP export with each view in a format of TRAIN_FORMATS
+    (the 800x800 camera's 12 views progressive JPEG, BMP, PPM, lossless
+    WebP, Sun raster and PAM, the 1000x1000 camera's 4 8-bit LZW TIFF),
     written on the card's path; (b) the undistortion on the card (each view
     read, undistorted and written back in its format), one view of each
     format also through the CPU (the same bytes), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal), the
     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
     cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
-    Radiance HDR, Sun raster, signed and float TIFF) decoded on the card to
-    cv2's pixels and prog_source encoded progressive on the card to cv2's
-    bytes, views 1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
+    Radiance HDR, Sun raster, signed and float TIFF, WebP lossy, lossless,
+    with alpha and in a VP8X wrapper) decoded on the card to cv2's pixels
+    and prog_source encoded progressive on the card to cv2's bytes, the
+    800x800 lossy WebP fixture decoded on the card bitwise the CPU's, views
+    1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
     PFM, HDR and TIFF (the 8-bit view / 255 times a seeded exposure)
     through undistort_images and load_images on the card and the CPU
     (bitwise equal; 16-bit values up to 257, int16 from -128.5 to 128.5
     and float values divided by 255, the JAX package's division of every
     depth by 255), decode and encode seconds of each new format and of
     the 4 TIFF views (read_image to the card and write_image from it), of
-    the 4 progressive views and a 4,000 x 3,000 progressive upscale (host
-    entropy pass and device stages apart), the undistortion and
+    the 2 progressive views and a 4,000 x 3,000 progressive upscale (host
+    entropy pass and device stages apart), of the 800x800 lossy WebP
+    fixture and the exported and undistorted WebP views (webp_times: host
+    C++ and device stages apart), the port's lossless WebP sizes beside
+    cv2's files for the lossless fixtures, the undistortion and
     load_images; (c) phase 17(c)'s flagship ``cli train
     --dataset-type colmap`` on the mixed workspace to NIters 2,100, or 1,088
     if the whole script would pass 1,080 s (the cut is printed; steps
@@ -3443,6 +3508,7 @@ def formats_phase(scene, dev, psnrs, t_start):
     from nerfpp_tpu_torch.utils import image_rle
     from nerfpp_tpu_torch.utils import jpeg as J
     from nerfpp_tpu_torch.utils import tiff as T
+    from nerfpp_tpu_torch.utils import webp as W
     from scripts.colmap_export import FORMATS, export_colmap_scene, write_view
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
@@ -3450,7 +3516,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     ws = root / "colmap_formats"
     cpu = torch.device("cpu")
     for name, load in (("TIFF codec", T.codec_library),
-                       ("BMP / HDR run-length codec", image_rle.library)):
+                       ("BMP / HDR run-length codec", image_rle.library),
+                       ("WebP codec", W.codec_library)):
         t0 = time.perf_counter()
         lib = load()
         log("formats", f"{name} built and loaded in "
@@ -3492,7 +3559,7 @@ def formats_phase(scene, dev, psnrs, t_start):
     raw = C.read_model(ws / "sparse" / "0")
     checked = []
     (root / "cpu_check").mkdir()
-    for i in (0, 1, 2, 3, 5, 6):              # one view of each format
+    for i in (0, 1, 2, 3, 4, 5, 6):           # one view of each format
         cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
         k = cam.k_matrix().astype(np.float64)
         d = cam.distortion().astype(np.float64)
@@ -3522,7 +3589,7 @@ def formats_phase(scene, dev, psnrs, t_start):
             raise AssertionError(f"{f}: decode card against CPU differs")
     log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
         "undistorted files (progressive and baseline JPEG, TIFF, BMP, PPM, "
-        "Sun raster, PAM) decoded on the card bitwise the CPU's")
+        "WebP, Sun raster, PAM) decoded on the card bitwise the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
     names = []
     for f in sorted(fixtures.iterdir()):
@@ -3647,14 +3714,38 @@ def formats_phase(scene, dev, psnrs, t_start):
     log("formats", codec_line("(b) view 1 upscaled to 4000x3000, "
                               "progressive (decoded bitwise the CPU's)", t))
     del big, back, images
+
+    # WebP: the 800x800 lossy fixture and the views, host and device apart;
+    # the port's lossless sizes beside cv2's for the lossless fixtures
+    timing = Path(__file__).resolve().parent / WEBP_TIMING
+    webp_times([timing], dev)                       # warm the card's path
+    t, (img,) = webp_times([timing], dev)
+    if not torch.equal(img.cpu(), W.read_webp(timing, cpu)):
+        raise AssertionError(f"{WEBP_TIMING}: decode card against CPU "
+                             "differs")
+    log("formats", webp_line(f"(b) {WEBP_TIMING} (lossy VP8, quality 75)",
+                             t))
+    webps = [f for f in sources + undistorted if f.suffix == ".webp"]
+    t, _ = webp_times(webps, dev)
+    log("formats", webp_line(f"(b) the {len(webps)} exported and undistorted "
+                             "lossless WebP views", t))
+    webp_sizes = []
+    for f in sorted(fixtures.glob("webp_lossless*.webp")):
+        mine = W.encode_webp(I.read_image(f, dev), str(f))
+        webp_sizes.append(f"{f.name} {len(mine)} bytes (cv2 "
+                          f"{f.stat().st_size})")
+    log("formats", "(b) the port's lossless WebP beside cv2.imwrite's of the "
+        "same pixels: " + ", ".join(webp_sizes))
+    del img
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stack = load_images(sc, list(range(len(sc.views))),
                         target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
     load_s = time.perf_counter() - t0
     log("formats", f"(b) load_images of the {len(sc.views)} undistorted "
-        f"views (baseline JPEG, TIFF, BMP, PPM, Sun raster and PAM decoded "
-        f"on the card, 1000x1000 resized to 800x800): {load_s:.3f} s, "
+        f"views (baseline JPEG, TIFF, BMP, PPM, WebP, Sun raster and PAM "
+        f"decoded on the card, 1000x1000 resized to 800x800): "
+        f"{load_s:.3f} s, "
         f"stack {stack.shape}")
     del stack
     torch.cuda.empty_cache()
@@ -3685,7 +3776,7 @@ def formats_phase(scene, dev, psnrs, t_start):
         raise AssertionError(f"the mixed capture's training launched other "
                              f"kernels: {others}")
     log("formats", f"(c) cli train --dataset-type colmap on the mixed "
-        f"capture (progressive JPEG, TIFF, BMP, PPM, Sun raster, PAM; "
+        f"capture (progressive JPEG, TIFF, BMP, PPM, WebP, Sun raster, PAM; "
         f"flagship): {loss.size} steps in "
         f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
         f"included: about {und_warm + load_s:.2f} s of it, "

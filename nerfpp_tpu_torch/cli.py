@@ -23,11 +23,12 @@ alone writes. N = 0 means every visible card (with ``--device cpu`` give
 the count). NRand must divide by N.
 
 ``--dataset-type colmap --data-dir <workspace>`` reads a COLMAP workspace
-(sparse/0 in .bin or .txt, PNG or baseline JPEG images under images/):
-distorted views are undistorted on ``--device`` into
-<workspace>/undistorted (a JPEG re-encoded at quality 95, as the JAX
-package's cv2.imwrite does), and views of
-other sizes than the first are resized to it when training. With
+(sparse/0 in .bin or .txt, images under images/ in any format that
+utils/image.py ``read_image`` reads: PNG, JPEG, TIFF, BMP, the portable
+formats, HDR, Sun raster or WebP): distorted views are undistorted on
+``--device`` into <workspace>/undistorted (a JPEG re-encoded at quality 95,
+a WebP written lossless, as the JAX package's cv2.imwrite does), and views
+of other sizes than the first are resized to it when training. With
 ``--set-train BboxRefitStep=N`` (and an occupancy grid) training shrinks
 the loader's box to the field's mass at step N.
 
@@ -277,7 +278,8 @@ def build_parser() -> argparse.ArgumentParser:
         s.add_argument("--dataset-type", default="synthetic",
                        choices=["blender", "colmap", "synthetic"],
                        help="blender: a Blender export; colmap: a COLMAP "
-                       "workspace (sparse/0, PNG or baseline JPEG images); "
+                       "workspace (sparse/0, images in any format that "
+                       "utils/image.py read_image reads); "
                        "synthetic: the generated scene")
         s.add_argument("--data-dir", default="")
         s.add_argument("--half-res", action="store_true")

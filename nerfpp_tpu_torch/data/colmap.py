@@ -23,18 +23,22 @@ undistortion, and the optional SfM shell-out.
   are), a .jpg (baseline or progressive) re-encoded as baseline JPEG at
   quality 95, 4:2:0 (utils/jpeg.py, byte for byte OpenCV's), a .bmp as
   BMP, a .pbm / .pgm / .ppm / .pnm / .pam / .pfm in its portable format, a
-  .hdr as run-length RGBE and a .ras / .sr as Sun raster (byte for byte
-  OpenCV's).
+  .hdr as run-length RGBE, a .ras / .sr as Sun raster (byte for byte
+  OpenCV's) and a .webp as lossless WebP (utils/webp.py; cv2.imread reads
+  it back to cv2's own file's pixels).
 - ``run_colmap_reconstruction``: a ``colmap automatic_reconstructor`` run,
   when the binary is installed.
 
 Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
 them: PNG of every colour type and depth, baseline and progressive JPEG,
 TIFF (8- to 64-bit integer or float samples; LZW, Deflate, PackBits or
-none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR and Sun raster. A
-view in another format (WebP, JPEG 2000, GIF, AVIF, arithmetic-coded,
-12-bit or CMYK JPEG, JPEG-compressed TIFF, ...) raises NotImplementedError
-naming the file and the kind when it is read.
+none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster and
+WebP (lossy VP8, lossless VP8L, alpha). A view in another format (JPEG
+2000, GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK JPEG,
+JPEG-compressed TIFF, ...) raises NotImplementedError naming the file and
+the kind when it is read, and an undistorted RGBA WebP view with fully
+transparent pixels (the zero border of the undistortion) when it is
+written.
 """
 from __future__ import annotations
 

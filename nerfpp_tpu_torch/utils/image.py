@@ -71,15 +71,17 @@ writes, each in its own module: PNG of every colour type and depth
 (utils/png.py), baseline, extended sequential and progressive Huffman JPEG
 (utils/jpeg.py), TIFF of 8- to 64-bit integer and float samples
 (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
-(utils/pxm.py), Radiance HDR (utils/hdr.py) and Sun raster
-(utils/sunras.py); 16-bit PNG, TIFF, PGM, PPM and PAM come back as uint16,
-PFM and HDR as float32, as OpenCV returns them. Reading goes by the file's
-leading bytes, as OpenCV's does, writing by the extension (PNG, TIFF and
-the portable formats keep 16 bits; JPEG is written baseline at quality 95,
-as cv2.imwrite writes it at its defaults). WebP, JPEG 2000, AVIF, GIF and
-the formats' unread kinds (arithmetic-coded, 12-bit and CMYK JPEG,
-JPEG-compressed TIFF, ...) raise NotImplementedError naming the file and
-the kind; files cv2.imread returns None for raise ValueError.
+(utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
+(utils/sunras.py) and WebP, lossy, lossless and with alpha (utils/webp.py);
+16-bit PNG, TIFF, PGM, PPM and PAM come back as uint16, PFM and HDR as
+float32, as OpenCV returns them. Reading goes by the file's leading bytes,
+as OpenCV's does, writing by the extension (PNG, TIFF and the portable
+formats keep 16 bits; JPEG is written baseline at quality 95 and WebP
+lossless, as cv2.imwrite writes them at its defaults). JPEG 2000, AVIF, GIF,
+animated WebP and the formats' unread kinds (arithmetic-coded, 12-bit and
+CMYK JPEG, JPEG-compressed TIFF, ...) raise NotImplementedError naming the
+file and the kind, as does writing an RGBA WebP with fully transparent
+pixels; files cv2.imread returns None for raise ValueError.
 """
 from __future__ import annotations
 
@@ -96,6 +98,7 @@ from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 from nerfpp_tpu_torch.utils.png import read_png, write_png
 from nerfpp_tpu_torch.utils.tiff import SIGNATURES as TIFF_SIGNATURES
 from nerfpp_tpu_torch.utils.tiff import read_tiff, write_tiff
+from nerfpp_tpu_torch.utils.webp import read_webp, write_webp
 
 RESIZE_COEF_BITS = 11            # INTER_RESIZE_COEF_BITS
 REMAP_BITS = 5                   # INTER_BITS: the map in 1/32 pixel
@@ -470,7 +473,7 @@ OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
 READ = ("PNG, baseline and progressive JPEG, TIFF, BMP, PBM / PGM / PPM / "
-        "PAM / PFM, Radiance HDR and Sun raster")
+        "PAM / PFM, Radiance HDR, Sun raster and WebP")
 # extension -> the writer of a numpy image (JPEG is encoded on the device)
 WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,
@@ -478,14 +481,15 @@ WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".ppm": pxm.write_pxm, ".pnm": pxm.write_pxm,
            ".pam": pxm.write_pam, ".pfm": pxm.write_pfm,
            ".hdr": hdr.write_hdr, ".pic": hdr.write_hdr,
-           ".sr": sunras.write_sunras, ".ras": sunras.write_sunras}
+           ".sr": sunras.write_sunras, ".ras": sunras.write_sunras,
+           ".webp": write_webp}
 
 
 def image_format(path) -> str:
     """The format from the file's leading bytes, as cv2.imread finds it:
-    "png", "jpeg", "tiff", "bmp", "pxm" (P1-P6), "pam" (P7), "pfm", "hdr"
-    or "sunras"; anything else raises NotImplementedError naming the file
-    and, where known, its format."""
+    "png", "jpeg", "tiff", "bmp", "pxm" (P1-P6), "pam" (P7), "pfm", "hdr",
+    "sunras" or "webp"; anything else raises NotImplementedError naming the
+    file and, where known, its format."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
@@ -506,9 +510,9 @@ def image_format(path) -> str:
         return "hdr"
     if head.startswith(sunras.MAGIC):
         return "sunras"
-    kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        kind = "WebP"
+        return "webp"
+    kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
     if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
         kind = "AVIF"
     raise NotImplementedError(
@@ -525,13 +529,16 @@ def read_image(path, device="cuda") -> torch.Tensor:
     """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: [H, W] or [H, W,
     C] on ``device``, in the dtype OpenCV returns (uint8; uint16 for 16-bit
     PNG, TIFF and portable files; float32 for PFM and HDR; TIFF's signed,
-    32-bit and float samples as they are), by the leading bytes."""
+    32-bit and float samples as they are), by the leading bytes. WebP's
+    chroma upsampling and colour conversion run on ``device``."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":
         return read_jpeg(path, dev)
     if kind == "hdr":
         return hdr.read_hdr(path, dev)
+    if kind == "webp":
+        return read_webp(path, dev)
     return torch.from_numpy(READERS[kind](path)).to(dev)
 
 
@@ -539,9 +546,10 @@ def write_image(path, img, device="cuda") -> None:
     """cv2.imwrite(path, img) of an [H, W] or [H, W, C] image in RGB(A)
     order, by the extension: baseline JPEG at quality 95 (encoded on
     ``device``) for .jpg, .jpeg and .jpe; PNG, TIFF, BMP (.bmp, .dib),
-    PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic) and Sun
-    raster (.sr, .ras) as their modules write them, each taking the dtypes
-    that format reads back; any other extension raises."""
+    PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic), Sun raster
+    (.sr, .ras) and lossless WebP (.webp) as their modules write them, each
+    taking the dtypes that format reads back; any other extension
+    raises."""
     ext = Path(path).suffix.lower()
     if ext in JPEG_EXTENSIONS:
         write_jpeg(path, img, device=device)
@@ -550,6 +558,6 @@ def write_image(path, img, device="cuda") -> None:
         raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
                                   'without extension'}; the port writes PNG, "
                                   "JPEG, TIFF, BMP, PBM / PGM / PPM / PNM, "
-                                  "PAM, PFM, HDR and Sun raster")
+                                  "PAM, PFM, HDR, Sun raster and WebP")
     arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
     WRITERS[ext](path, arr)

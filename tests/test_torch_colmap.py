@@ -169,12 +169,12 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    # PNG, JPEG, TIFF, BMP and the other formats the port reads are read; a
-    # GIF view raises when the undistortion reads it, a WebP view when
-    # load_images does, each naming the file and its kind
+    # PNG, JPEG, TIFF, BMP, WebP and the other formats the port reads are
+    # read; a GIF view raises when the undistortion reads it, a JPEG 2000
+    # view when load_images does, each naming the file and its kind
     from scripts.colmap_export import write_images_bin
     img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
-    for ext, params, kind in ((".gif", [], "GIF"), (".webp", [], "WebP")):
+    for ext, params, kind in ((".gif", [], "GIF"), (".jp2", [], "JPEG 2000")):
         ws = tmp_path / ext[1:]
         (ws / "sparse" / "0").mkdir(parents=True)
         for f in synthetic_model.iterdir():

@@ -10,7 +10,14 @@ card; the card's machine has no OpenCV, so this file imports none, and
   card to cv2's pixels (its .npy) and the CPU's;
 - the undistortion and resize of float32, float64 and int16 images on the
   card bit for bit the CPU's;
-- each format written from an image on the card with the CPU's bytes.
+- each format written from an image on the card with the CPU's bytes;
+- every committed WebP fixture (tests/data/image/webp_*: lossy, lossy with
+  alpha, lossless, VP8X with ICCP and EXIF) decoded on the card to cv2's
+  pixels and the CPU's, the 800x800 lossy timing file
+  (tests/data/webp) and random YUV
+  planes of odd and even sizes through the card's upsampling and colour
+  conversion bitwise the CPU's, and a lossless WebP written from the card
+  with the CPU's bytes.
 """
 from pathlib import Path
 
@@ -76,8 +83,33 @@ def test_writes_from_the_card_are_the_cpus(cuda, tmp_path):
     f32 = torch.from_numpy((rng.rand(9, 13, 3) * 40).astype(np.float32))
     for ext, img in ((".bmp", u8), (".ppm", u16), (".pgm", u8[..., 0]),
                      (".pbm", u8[..., 0]), (".pam", u8), (".ras", u8),
-                     (".pfm", f32), (".hdr", f32), (".tif", f32)):
+                     (".pfm", f32), (".hdr", f32), (".tif", f32),
+                     (".webp", u8)):
         I.write_image(tmp_path / f"card{ext}", img.to(cuda), cuda)
         I.write_image(tmp_path / f"cpu{ext}", img, "cpu")
         assert (tmp_path / f"card{ext}").read_bytes() == (
             tmp_path / f"cpu{ext}").read_bytes(), ext
+
+
+def test_webp_on_the_card_is_the_cpus_and_opencvs(cuda):
+    from nerfpp_tpu_torch.utils import webp as W
+    files = sorted(FIXTURES.glob("webp_*.webp"))
+    assert len(files) == 7
+    timing = FIXTURES.parent / "webp" / "timing_800x800.webp"
+    for f in files + [timing]:
+        card = I.read_image(f, cuda)
+        assert card.device.type == cuda.type and card.dtype == torch.uint8
+        got = card.cpu().numpy()
+        np.testing.assert_array_equal(got, I.read_image(f, "cpu").numpy(),
+                                      err_msg=f.name)
+        if f != timing:
+            np.testing.assert_array_equal(got, np.load(f.with_suffix(".npy")),
+                                          err_msg=f.name)
+    rng = np.random.RandomState(4)
+    for h, w in ((1, 1), (2, 3), (7, 8), (33, 65), (480, 641)):
+        y = torch.from_numpy(rng.randint(0, 256, (h, w)).astype(np.uint8))
+        u, v = (torch.from_numpy(rng.randint(
+            0, 256, ((h + 1) // 2, (w + 1) // 2)).astype(np.uint8))
+            for _ in range(2))
+        assert torch.equal(W.yuv_to_rgb(y.to(cuda), u.to(cuda), v.to(cuda))
+                           .cpu(), W.yuv_to_rgb(y, u, v)), (h, w)
