@@ -194,7 +194,9 @@ Phases, each printing its own lines:
      csrc/webp_codec.cpp): (a) phase 17's COLMAP export with each view in
      its format (TRAIN_FORMATS: the 800x800 camera's 12 views progressive
      JPEG, BMP, PPM, lossless WebP, Sun raster and PAM, the 1000x1000
-     camera's 4 LZW TIFF), written on the card; (b) the undistortion on the
+     camera's 4 TIFF, rewritten as the TIFF kinds of TIFF_KINDS: RGB
+     JPEG-in-TIFF with JPEGTables, BigTIFF, YCbCr 4:2:0 JPEG tiles, CMYK
+     under Orientation 3), written on the card; (b) the undistortion on the
      card (each view written back in its format, a progressive one as
      baseline JPEG at quality 95, a WebP lossless), one view of each
      format also through the CPU (the same bytes), every exported and
@@ -207,6 +209,7 @@ Phases, each printing its own lines:
      16-bit PNG and PPM, int16 TIFF and float PFM, HDR and TIFF through
      undistort_images and load_images on the card against the CPU, the
      decode and encode seconds of each new format and of the TIFF views,
+     each TIFF kind's decode (host and device parts apart),
      of the progressive views and a 4,000x3,000 progressive upscale (host
      entropy pass and device stages apart), of the 800x800 lossy WebP
      fixture and the WebP views (host C++ and device stages apart), the
@@ -249,6 +252,7 @@ import argparse
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3453,6 +3457,171 @@ def format_lines(label, t):
 # camera's 4 views (3, 7, ...) TIFF, the 800x800 camera's 12 progressive
 # JPEG, BMP, PPM, lossless WebP (views 4 and 12), Sun raster and PAM
 TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "webp", "ras", "pam", "tif")
+# the TIFF kind each of those 4 views is rewritten as (write_tiff_kind)
+TIFF_KINDS = {3: "jpeg_rgb_tables", 7: "bigtiff", 11: "jpeg_ycbcr_tiles",
+              15: "cmyk_orientation3"}
+
+
+def tiff_bytes(width, height, entries, chunks, big=False):
+    """A little-endian TIFF (``big``: BigTIFF) of one image: ``chunks`` as
+    its strips or tiles, ``entries`` [(tag, type, values)] (type 3 SHORT,
+    4 LONG, 7 UNDEFINED bytes) with the offsets and byte counts (tags 273
+    and 279, or 324 and 325 when 322 is among them) added."""
+    tiled = any(tag == 322 for tag, _, _ in entries)
+    head = 16 if big else 8
+    offsets, at = [], head
+    for c in chunks:
+        offsets.append(at)
+        at += len(c) + len(c) % 2
+    word = 16 if big else 4
+    entries = sorted(list(entries) + [
+        (324 if tiled else 273, word, offsets),
+        (325 if tiled else 279, word, [len(c) for c in chunks]),
+        (256, 4, [width]), (257, 4, [height])])
+    codes = {3: "H", 4: "I", 16: "Q"}
+    inline, ptr, count = (8, "Q", "Q") if big else (4, "I", "H")
+    ifd = at
+    extra_at = ifd + struct.calcsize(count) + (20 if big else 12) * len(
+        entries) + inline
+    fields, extra = b"", b""
+    for tag, typ, vals in entries:
+        data = bytes(vals) if typ == 7 else struct.pack(
+            f"<{len(vals)}{codes[typ]}", *vals)
+        if len(data) <= inline:
+            value = data.ljust(inline, b"\0")
+        else:
+            value = struct.pack("<" + ptr, extra_at + len(extra))
+            extra += data + b"\0" * (len(data) % 2)
+        fields += struct.pack(f"<HH{ptr}", tag, typ, len(vals)) + value
+    header = (b"II+\0" + struct.pack("<HHQ", 8, 0, ifd) if big
+              else b"II*\0" + struct.pack("<I", ifd))
+    body = b"".join(c + b"\0" * (len(c) % 2) for c in chunks)
+    return (header + body + struct.pack("<" + count, len(entries)) + fields
+            + b"\0" * inline + extra)
+
+
+def jpeg_rgb_stream(img, dev):
+    """A baseline JPEG of an RGB uint8 image's three channels as they are
+    (1x1 sampling, no colour conversion, as libtiff's JPEG codec writes a
+    photometric-RGB image), each quantised with the port's quality-95 luma
+    table: its tables stream (SOI, DQT, DHT, EOI) and its abbreviated
+    stream (SOI, SOF0, SOS, data, EOI)."""
+    import torch
+    from nerfpp_tpu_torch.utils import jpeg as J
+    encs = [J.jpeg_blocks(img[..., c].contiguous(), 95, dev) for c in range(3)]
+    grids = [e.grids[0] for e in encs]
+    blocks = torch.stack(grids, 2).reshape(-1, 64)
+    comp = torch.tensor([0, 1, 2], dtype=torch.int32).repeat(
+        blocks.shape[0] // 3)
+    luma = encs[0].tables[0]
+    stream = J.encode_file(J.Encoded(
+        encs[0].height, encs[0].width, blocks, comp, [(1, 1)] * 3,
+        [luma, luma], grids, [encs[0].real[0]] * 3))
+    tables, rest, pos = [b"\xff\xd8"], [b"\xff\xd8"], 2
+    while True:
+        marker = stream[pos + 1]
+        length = int.from_bytes(stream[pos + 2:pos + 4], "big")
+        seg = stream[pos:pos + 2 + length]
+        if marker in (0xC4, 0xDB):
+            tables.append(seg)
+        elif marker != 0xE0:                         # no JFIF marker
+            rest.append(seg)
+        pos += 2 + length
+        if marker == 0xDA:
+            return (b"".join(tables) + b"\xff\xd9",
+                    b"".join(rest) + stream[pos:])
+
+
+def write_tiff_kind(path, kind, dev):
+    """Rewrite the 8-bit RGB TIFF at ``path`` as a TIFF kind that cv2.imread
+    reads (TIFF_KINDS): "jpeg_rgb_tables" (photometric RGB, compression
+    7, JPEGTables and an abbreviated stream a 64-row strip, as libtiff's
+    JPEG codec writes it for cv2.imwrite), "bigtiff" (LZW strips of 64
+    rows), "jpeg_ycbcr_tiles" (photometric YCbCr 4:2:0, a whole baseline
+    JPEG stream a 256x256 tile) or "cmyk_orientation3" (C, M, Y = 255 -
+    R, G, B and K = 0, which reads back to the same RGB, stored turned 180
+    degrees under Orientation 3, Deflate strips of 64 rows). The JPEG
+    streams are the port's encoder's, the container this script's own."""
+    import zlib
+
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.utils import jpeg as J
+    from nerfpp_tpu_torch.utils import tiff as T
+    from nerfpp_tpu_torch.utils.image import read_image
+    img = read_image(path, dev)
+    h, w = img.shape[:2]
+    rgb = [(258, 3, [8, 8, 8]), (277, 3, [3]), (284, 3, [1])]
+    if kind == "jpeg_rgb_tables":
+        parts = [jpeg_rgb_stream(img[y:y + 64], dev) for y in range(0, h, 64)]
+        data = tiff_bytes(w, h, rgb + [
+            (259, 3, [7]), (262, 3, [2]), (278, 4, [64]),
+            (347, 7, parts[0][0])], [p[1] for p in parts])
+    elif kind == "bigtiff":
+        host = img.cpu().numpy()
+        chunks = [T.lzw_encode(host[y:y + 64].tobytes())
+                  for y in range(0, h, 64)]
+        data = tiff_bytes(w, h, rgb + [(259, 3, [5]), (262, 3, [2]),
+                                       (278, 4, [64])], chunks, big=True)
+    elif kind == "jpeg_ycbcr_tiles":
+        chunks = []
+        for y in range(0, h, 256):
+            for x in range(0, w, 256):
+                tile = torch.zeros((256, 256, 3), dtype=torch.uint8,
+                                   device=img.device)
+                part = img[y:y + 256, x:x + 256]
+                tile[:part.shape[0], :part.shape[1]] = part
+                chunks.append(J.encode_jpeg(tile, 95, dev))
+        data = tiff_bytes(w, h, rgb + [
+            (259, 3, [7]), (262, 3, [6]), (322, 4, [256]), (323, 4, [256]),
+            (530, 3, [2, 2])], chunks)
+    else:
+        cmyk = torch.cat([255 - img, torch.zeros_like(img[..., :1])], -1)
+        host = np.ascontiguousarray(cmyk.flip(0, 1).cpu().numpy())
+        chunks = [zlib.compress(host[y:y + 64].tobytes())
+                  for y in range(0, h, 64)]
+        data = tiff_bytes(w, h, [
+            (258, 3, [8] * 4), (259, 3, [8]), (262, 3, [5]), (274, 3, [3]),
+            (277, 3, [4]), (278, 4, [64]), (284, 3, [1])], chunks)
+    Path(path).write_bytes(data)
+    back = read_image(path, dev)
+    if kind != "cmyk_orientation3" and tuple(back.shape) != (h, w, 3) or \
+            kind == "cmyk_orientation3" and not (
+                torch.equal(back[..., :3], img) and bool((back[..., 3] == 255)
+                                                         .all())):
+        raise AssertionError(f"{path}: the {kind} rewrite reads back as "
+                             f"{tuple(back.shape)}")
+    if kind == "bigtiff" and not torch.equal(back, img):
+        raise AssertionError(f"{path}: the BigTIFF rewrite is not lossless")
+    return len(data)
+
+
+def tiff_times(files, dev, reps=3):
+    """Decode each TIFF file to ``dev``: {file name: (host ms, device ms,
+    bytes, pixels)}, the host part (the directory, decompression and the
+    JPEG entropy pass: decode_tiff) and the device part (tiff_pixels,
+    synchronised) apart, each the median of ``reps`` decodes after a first
+    one."""
+    import torch
+    from nerfpp_tpu_torch.utils import tiff as T
+    out = {}
+    for path in files:
+        host, device = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec = T.decode_tiff(path)
+            t1 = time.perf_counter()
+            img = T.tiff_pixels(dec, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append(1e3 * (t1 - t0))
+            device.append(1e3 * (t2 - t1))
+        out[Path(path).name] = (statistics.median(host[1:]),
+                                statistics.median(device[1:]),
+                                Path(path).stat().st_size,
+                                img.shape[0] * img.shape[1])
+    return out
 # the committed 800x800 lossy WebP that phase 21 times (no .npy: a Tier-1
 # test holds its pixels to cv2's)
 WEBP_TIMING = Path("tests") / "data" / "webp" / "timing_800x800.webp"
@@ -3467,8 +3636,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     csrc/tiff_codec.cpp, csrc/image_rle.cpp, csrc/webp_codec.cpp): (a)
     phase 17's COLMAP export with each view in a format of TRAIN_FORMATS
     (the 800x800 camera's 12 views progressive JPEG, BMP, PPM, lossless
-    WebP, Sun raster and PAM, the 1000x1000 camera's 4 8-bit LZW TIFF),
-    written on the card's path; (b) the undistortion on the card (each view
+    WebP, Sun raster and PAM, the 1000x1000 camera's 4 TIFF, rewritten as
+    the kinds of TIFF_KINDS by write_tiff_kind), written on the card's
+    path; (b) the undistortion on the card (each view
     read, undistorted and written back in its format), one view of each
     format also through the CPU (the same bytes), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal), the
@@ -3484,7 +3654,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     (bitwise equal; 16-bit values up to 257, int16 from -128.5 to 128.5
     and float values divided by 255, the JAX package's division of every
     depth by 255), decode and encode seconds of each new format and of
-    the 4 TIFF views (read_image to the card and write_image from it), of
+    the 4 TIFF views (read_image to the card and write_image from it), each
+    TIFF kind's and TIFF kind fixture's decode (tiff_times), of
     the 2 progressive views and a 4,000 x 3,000 progressive upscale (host
     entropy pass and device stages apart), of the 800x800 lossy WebP
     fixture and the exported and undistorted WebP views (webp_times: host
@@ -3533,6 +3704,8 @@ def formats_phase(scene, dev, psnrs, t_start):
                 for j in range(len(sources))]
     if len(sources) != 16 or [f.suffix for f in sources] != want_ext:
         raise AssertionError(f"export: {[f.name for f in sources]}")
+    tiff_sizes = {kind: write_tiff_kind(sources[j], kind, dev)
+                  for j, kind in TIFF_KINDS.items()}
     jpgs = [f for f in sources if f.suffix == ".jpg"]
     if not all(J.decode_coefficients(f.read_bytes()).progressive
                for f in jpgs):
@@ -3544,7 +3717,10 @@ def formats_phase(scene, dev, psnrs, t_start):
         sizes[f.suffix][1] += f.stat().st_size
     log("formats", f"(a) exported in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(f"{n} {ext} views ({b} bytes)"
-                    for ext, (n, b) in sorted(sizes.items())))
+                    for ext, (n, b) in sorted(sizes.items()))
+        + "; the TIFF views rewritten as "
+        + ", ".join(f"{k} (view {j}, {tiff_sizes[k]} bytes)"
+                    for j, k in TIFF_KINDS.items()))
 
     # (b) undistortion on the card, then the codecs card against CPU
     torch.cuda.synchronize()
@@ -3588,8 +3764,9 @@ def formats_phase(scene, dev, psnrs, t_start):
         if card.dtype != host.dtype or not torch.equal(card, host):
             raise AssertionError(f"{f}: decode card against CPU differs")
     log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
-        "undistorted files (progressive and baseline JPEG, TIFF, BMP, PPM, "
-        "WebP, Sun raster, PAM) decoded on the card bitwise the CPU's")
+        "undistorted files (progressive and baseline JPEG, TIFF of the "
+        "kinds of TIFF_KINDS and LZW, BMP, PPM, WebP, Sun raster, PAM) "
+        "decoded on the card bitwise the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
     names = []
     for f in sorted(fixtures.iterdir()):
@@ -3699,6 +3876,17 @@ def formats_phase(scene, dev, psnrs, t_start):
                                                              root)):
         log("formats", line)
 
+    # each TIFF kind's decode, host and device parts apart (the fixture of
+    # each kind too: small files, the per-call cost)
+    kinds = [sources[j] for j in TIFF_KINDS] + sorted(fixtures.glob(
+        "tiff_*.tif"))
+    for name, (host, device, n, px) in tiff_times(kinds, dev).items():
+        total = host + device
+        log("formats", f"(b) TIFF {name} ({n} bytes, {px / 1e6:.3f} Mpix): "
+            f"decode {total:.3f} ms (host {host:.3f} ms, device "
+            f"{device:.3f} ms): {n / total / 1e3:.1f} MB/s, "
+            f"{px / total / 1e3:.1f} Mpix/s")
+
     codec_times(jpgs[:1], dev, progressive=True)      # warm the card's path
     t, images = codec_times(jpgs, dev, progressive=True)
     log("formats", codec_line(f"(b) the {len(jpgs)} progressive views "
@@ -3776,7 +3964,8 @@ def formats_phase(scene, dev, psnrs, t_start):
         raise AssertionError(f"the mixed capture's training launched other "
                              f"kernels: {others}")
     log("formats", f"(c) cli train --dataset-type colmap on the mixed "
-        f"capture (progressive JPEG, TIFF, BMP, PPM, WebP, Sun raster, PAM; "
+        f"capture (progressive JPEG, RGB JPEG-in-TIFF, BigTIFF, YCbCr JPEG "
+        f"tiles, CMYK TIFF, BMP, PPM, WebP, Sun raster, PAM; "
         f"flagship): {loss.size} steps in "
         f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
         f"included: about {und_warm + load_s:.2f} s of it, "

@@ -103,6 +103,16 @@ def get_ray_batch(px_x: torch.Tensor, px_y: torch.Tensor, k: torch.Tensor,
     return c2w[:3, -1].expand(rays_d.shape), rays_d, cone_angle_of(k)
 
 
+def c2w_to_w2c(pose: torch.Tensor) -> torch.Tensor:
+    """Invert a rigid camera pose [4, 4] (c2w <-> w2c): the rotation
+    inverted, the translation -R^-1 t."""
+    r_inv = torch.linalg.inv(pose[:3, :3])
+    out = torch.eye(4, dtype=pose.dtype, device=pose.device)
+    out[:3, :3] = r_inv
+    out[:3, 3] = -(r_inv @ pose[:3, 3])
+    return out
+
+
 # -- host-side pose helpers (numpy) ------------------------------------------
 
 def _trans_t(t: float) -> np.ndarray:
@@ -143,3 +153,14 @@ def calibration_matrix(focal: float, w: float, h: float) -> np.ndarray:
     """3x3 intrinsics with the principal point at the image centre."""
     return np.array([[focal, 0, 0.5 * w], [0, focal, 0.5 * h], [0, 0, 1]],
                     np.float32)
+
+
+def same_fov_calibration_matrix(k: np.ndarray, new_w: float,
+                                new_h: float) -> np.ndarray:
+    """Intrinsics ``k`` (principal point at the centre) rescaled to a new
+    resolution with the same field of view across the longer side."""
+    focal = float(k[0, 0])
+    w, h = float(k[0, 2]) * 2, float(k[1, 2]) * 2
+    camera_angle = 2.0 * np.arctan(max(w, h) / 2.0 / focal)
+    new_focal = 0.5 * max(new_w, new_h) / np.tan(0.5 * camera_angle)
+    return calibration_matrix(new_focal, new_w, new_h)

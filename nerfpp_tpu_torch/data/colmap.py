@@ -31,10 +31,11 @@ undistortion, and the optional SfM shell-out.
 
 Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
 them: PNG of every colour type and depth, baseline and progressive JPEG,
-TIFF (8- to 64-bit integer or float samples; LZW, Deflate, PackBits or
-none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster and
-WebP (lossy VP8, lossless VP8L, alpha). A view in another format (JPEG
-2000, GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK JPEG,
+classic and BigTIFF (1- to 64-bit integer or float samples, gray, RGB(A),
+palette, CMYK, YCbCr; LZW, Deflate, PackBits, JPEG or none), BMP, PBM /
+PGM / PPM / PAM / PFM, Radiance HDR, Sun raster and WebP (lossy VP8,
+lossless VP8L, alpha). A view in another format (JPEG 2000, GIF, AVIF,
+animated WebP, arithmetic-coded, 12-bit or CMYK JPEG, old-style
 JPEG-compressed TIFF, ...) raises NotImplementedError naming the file and
 the kind when it is read, and an undistorted RGBA WebP view with fully
 transparent pixels (the zero border of the undistortion) when it is

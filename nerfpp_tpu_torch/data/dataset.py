@@ -124,8 +124,8 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     nerfpp_tpu/data/dataset.py ``load_images`` does. The files are what
     utils/image.py ``read_image`` reads on ``device``: PNG of any colour
     type and depth, baseline or progressive JPEG, TIFF (integer or float
-    samples), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster
-    and WebP (lossy, lossless or with alpha); other formats (JPEG 2000,
+    samples, CMYK, YCbCr, JPEG-compressed, BigTIFF), BMP, PBM / PGM / PPM
+    / PAM / PFM, Radiance HDR, Sun raster and WebP (lossy, lossless or with alpha); other formats (JPEG 2000,
     GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK JPEG, ...)
     raise NotImplementedError naming the file.
     Each image is resized in its stored type (uint8, uint16, int16,

@@ -69,7 +69,8 @@ k5, k6]].
 IMREAD_UNCHANGED)`` and ``cv2.imwrite`` for the formats the port reads and
 writes, each in its own module: PNG of every colour type and depth
 (utils/png.py), baseline, extended sequential and progressive Huffman JPEG
-(utils/jpeg.py), TIFF of 8- to 64-bit integer and float samples
+(utils/jpeg.py), classic and BigTIFF of 1- to 64-bit integer and float
+samples, gray, RGB(A), palette, CMYK and YCbCr, JPEG-compressed too
 (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
 (utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
 (utils/sunras.py) and WebP, lossy, lossless and with alpha (utils/webp.py);
@@ -79,9 +80,9 @@ as OpenCV's does, writing by the extension (PNG, TIFF and the portable
 formats keep 16 bits; JPEG is written baseline at quality 95 and WebP
 lossless, as cv2.imwrite writes them at its defaults). JPEG 2000, AVIF, GIF,
 animated WebP and the formats' unread kinds (arithmetic-coded, 12-bit and
-CMYK JPEG, JPEG-compressed TIFF, ...) raise NotImplementedError naming the
-file and the kind, as does writing an RGBA WebP with fully transparent
-pixels; files cv2.imread returns None for raise ValueError.
+CMYK JPEG, old-style JPEG-compressed TIFF, ...) raise NotImplementedError
+naming the file and the kind, as does writing an RGBA WebP with fully
+transparent pixels; files cv2.imread returns None for raise ValueError.
 """
 from __future__ import annotations
 
@@ -97,7 +98,7 @@ from nerfpp_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
 from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 from nerfpp_tpu_torch.utils.png import read_png, write_png
 from nerfpp_tpu_torch.utils.tiff import SIGNATURES as TIFF_SIGNATURES
-from nerfpp_tpu_torch.utils.tiff import read_tiff, write_tiff
+from nerfpp_tpu_torch.utils.tiff import decode_tiff, tiff_pixels, write_tiff
 from nerfpp_tpu_torch.utils.webp import read_webp, write_webp
 
 RESIZE_COEF_BITS = 11            # INTER_RESIZE_COEF_BITS
@@ -520,7 +521,7 @@ def image_format(path) -> str:
         f"(leading bytes {head[:8].hex()}); the port reads {READ}")
 
 
-READERS = {"png": read_png, "tiff": read_tiff, "bmp": bmp.read_bmp,
+READERS = {"png": read_png, "bmp": bmp.read_bmp,
            "pxm": pxm.read_pxm, "pam": pxm.read_pam, "pfm": pxm.read_pfm,
            "sunras": sunras.read_sunras}
 
@@ -530,7 +531,8 @@ def read_image(path, device="cuda") -> torch.Tensor:
     C] on ``device``, in the dtype OpenCV returns (uint8; uint16 for 16-bit
     PNG, TIFF and portable files; float32 for PFM and HDR; TIFF's signed,
     32-bit and float samples as they are), by the leading bytes. WebP's
-    chroma upsampling and colour conversion run on ``device``."""
+    chroma upsampling and colour conversion, and JPEG-in-TIFF's, YCbCr
+    TIFF's and CMYK TIFF's pixel stages, run on ``device``."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":
@@ -539,6 +541,8 @@ def read_image(path, device="cuda") -> torch.Tensor:
         return hdr.read_hdr(path, dev)
     if kind == "webp":
         return read_webp(path, dev)
+    if kind == "tiff":
+        return tiff_pixels(decode_tiff(path), dev)
     return torch.from_numpy(READERS[kind](path)).to(dev)
 
 

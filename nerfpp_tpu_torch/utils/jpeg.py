@@ -350,14 +350,43 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
     return int(end)
 
 
-def decode_coefficients(data: bytes, name="<bytes>") -> Frame:
+def _table_segments(name, tables: bytes, quant: dict, huffman: dict) -> None:
+    """The DQT and DHT segments of an abbreviated table-specification
+    stream (SOI, tables, EOI; a JPEG-in-TIFF's JPEGTables), as libjpeg
+    reads one ahead of the image streams that use its tables."""
+    if tables[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: JPEG tables without an SOI marker")
+    pos = 2
+    while pos + 2 <= len(tables) and tables[pos] == 0xFF:
+        marker = tables[pos + 1]
+        if marker == 0xD9:
+            return
+        (length,) = struct.unpack(">H", tables[pos + 2:pos + 4].rjust(2))
+        seg = tables[pos + 4:pos + 2 + length]
+        if length < 2 or len(seg) != length - 2:
+            raise ValueError(f"{name}: truncated JPEG tables")
+        if marker == 0xC4:
+            _huffman_segment(name, seg, huffman)
+        elif marker == 0xDB:
+            _quant_segment(name, seg, quant)
+        pos += 2 + length
+    raise ValueError(f"{name}: JPEG tables without an EOI marker")
+
+
+def decode_coefficients(data: bytes, name="<bytes>",
+                        tables: Optional[bytes] = None) -> Frame:
     """The host part of decoding: the markers, and every scan's blocks
-    through the C++ entropy decoder. ``name`` goes into the errors."""
+    through the C++ entropy decoder. ``name`` goes into the errors;
+    ``tables``, an abbreviated table-specification stream, gives the
+    quantisation and Huffman tables that the stream's own DQT and DHT
+    segments may then replace."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     buf = np.frombuffer(data, np.uint8)
     n = len(data)
     frame, quant, huffman, restart = None, {}, {}, 0
+    if tables:
+        _table_segments(name, tables, quant, huffman)
     jfif, adobe = False, None
     pos = 2
     while True:

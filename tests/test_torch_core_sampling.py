@@ -1,5 +1,6 @@
 """Port parity: sampling along rays (sample_pdf, deterministic and
-stochastic, linear and disparity z values, the unit linspace's bits).
+stochastic, linear and disparity z values, the unit linspace's bits), and
+two pose helpers of core/rays.py (c2w_to_w2c, same_fov_calibration_matrix).
 
 The port on the CPU against the JAX package on the same numpy inputs; the
 JAX side runs jitted, as the renderer runs it. Tolerances are stated per
@@ -11,7 +12,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from nerfpp_tpu.core import rays as JR
 from nerfpp_tpu.core import sampling as JS
+from nerfpp_tpu_torch.core import rays as TR
 from nerfpp_tpu_torch.core import sampling as TS
 from tests.torch_core_common import t
 
@@ -70,3 +73,26 @@ def test_sample_z_vals_linear_and_disparity():
             n, f, 16, lin_disp))(near, far))
         got = TS.sample_z_vals(t(near), t(far), 16, lin_disp).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_c2w_to_w2c_inverts_the_pose_as_jax_does():
+    for theta, phi, radius in ((30.0, -20.0, 4.0), (-170.0, 75.0, 2.5)):
+        pose = JR.pose_spherical(theta, phi, radius, x=0.3, y=-0.1)
+        want = np.asarray(JR.c2w_to_w2c(jnp.asarray(pose)))
+        got = TR.c2w_to_w2c(t(pose))
+        assert got.dtype == torch.float32
+        # float32 inverses of a rotation: within 1e-6 of each other
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose((got @ t(pose)).numpy(), np.eye(4),
+                                   rtol=0, atol=1e-6)
+
+
+def test_same_fov_calibration_matrix_is_jaxs():
+    for focal, (w, h), (nw, nh) in ((1111.0, (800, 800), (400, 400)),
+                                    (525.5, (640, 480), (320, 241)),
+                                    (300.0, (200, 500), (1000, 999))):
+        k = JR.calibration_matrix(focal, w, h)
+        got = TR.same_fov_calibration_matrix(k, nw, nh)
+        want = JR.same_fov_calibration_matrix(k, nw, nh)
+        assert got.dtype == want.dtype                  # exact: numpy both
+        np.testing.assert_array_equal(got, want)

@@ -17,7 +17,11 @@ card; the card's machine has no OpenCV, so this file imports none, and
   (tests/data/webp) and random YUV
   planes of odd and even sizes through the card's upsampling and colour
   conversion bitwise the CPU's, and a lossless WebP written from the card
-  with the CPU's bytes.
+  with the CPU's bytes;
+- every committed TIFF kind fixture (tests/data/image/tiff_*: BigTIFF,
+  JPEG-in-TIFF, YCbCr, CMYK, gray with alpha, 1- to 14-bit samples,
+  orientations) decoded on the card to cv2's pixels and the CPU's, and
+  its host part decoded once for both.
 """
 from pathlib import Path
 
@@ -113,3 +117,21 @@ def test_webp_on_the_card_is_the_cpus_and_opencvs(cuda):
             for _ in range(2))
         assert torch.equal(W.yuv_to_rgb(y.to(cuda), u.to(cuda), v.to(cuda))
                            .cpu(), W.yuv_to_rgb(y, u, v)), (h, w)
+
+
+def test_tiff_kinds_on_the_card_are_the_cpus_and_opencvs(cuda):
+    from nerfpp_tpu_torch.utils import tiff as T
+    files = sorted(FIXTURES.glob("tiff_*.tif"))
+    assert len(files) == 16
+    for f in files:
+        dec = T.decode_tiff(f)
+        card = T.tiff_pixels(dec, cuda)
+        assert card.device.type == cuda.type
+        got = card.cpu().numpy()
+        want = np.load(f.with_suffix(".npy"))
+        assert got.dtype == want.dtype, f.name
+        np.testing.assert_array_equal(got, want, err_msg=f.name)
+        np.testing.assert_array_equal(got, T.tiff_pixels(dec, "cpu").numpy(),
+                                      err_msg=f.name)
+        np.testing.assert_array_equal(I.read_image(f, cuda).cpu().numpy(),
+                                      want, err_msg=f.name)

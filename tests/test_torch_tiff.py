@@ -12,10 +12,12 @@ port's writes must read back in cv2 to the same pixels.
   ExtraSamples 0, 1 or 2 (premultiplied at 8 bits when unassociated), and
   8-bit palettes of 8- and 16-bit entries;
 - LZW both ways, past a full code table;
-- refusals naming the file and the kind: BigTIFF, JPEG-in-TIFF, 8-bit
-  float and 64-bit integer samples, CMYK, subsampled YCbCr, gray with
-  alpha, 16-bit planar RGB (signed and float samples are read:
-  tests/test_torch_tiff_float.py);
+- refusals naming the file and the kind: old-style JPEG-in-TIFF, 8-bit
+  float and 64-bit integer samples, 16-bit planar RGB (signed and float
+  samples are read: tests/test_torch_tiff_float.py; BigTIFF, CMYK, YCbCr,
+  gray with alpha, other depths and orientations:
+  tests/test_torch_tiff_kinds.py; JPEG-in-TIFF:
+  tests/test_torch_tiff_jpeg.py);
 - the committed TIFF fixtures under tests/data/image.
 """
 import itertools
@@ -135,22 +137,14 @@ def test_lzw_round_trips_past_a_full_table():
 def test_still_unread_kinds_raise_naming_the_file(tmp_path):
     img8 = np.zeros((4, 4, 3), np.uint8)
     cases = {
-        "big.tif": (b"II+\x00\x08\x00\x00\x00" + bytes(16), "BigTIFF"),
-        "jpeg.tif": (make_tiff(img8, extra_tags=[]).replace(
-            b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
-            b"\x03\x01\x03\x00\x01\x00\x00\x00\x07\x00"), "JPEG-in-TIFF"),
+        "ojpeg.tif": (make_tiff(img8, comp=6, photometric=6),
+                      "old-style JPEG"),
         "float.tif": (make_tiff(img8, extra_tags=[(339, 3, [3, 3, 3])]),
                       "8-bit float samples"),
         "deep.tif": (make_tiff(np.zeros((4, 4, 1), np.uint8), extra_tags=[
             ]).replace(b"\x02\x01\x03\x00\x01\x00\x00\x00\x08\x00",
                        b"\x02\x01\x03\x00\x01\x00\x00\x00\x40\x00"),
                      "64-bit unsigned samples"),
-        "cmyk.tif": (make_tiff(np.zeros((4, 4, 4), np.uint8),
-                               photometric=5), "CMYK"),
-        "ycc.tif": (make_tiff(img8, photometric=6,
-                              extra_tags=[(530, 3, [2, 2])]), "YCbCr"),
-        "ga.tif": (make_tiff(np.zeros((4, 4, 2), np.uint8), photometric=1,
-                             extra=(2,)), "gray with alpha"),
         "planar16.tif": (make_tiff(np.zeros((4, 4, 3), np.uint16), planar=2),
                          "16-bit planar")}
     for name, (data, kind) in cases.items():

@@ -9,6 +9,7 @@ to what ``cv2.imread(IMREAD_UNCHANGED)`` returns for it; they are test
 code, independent of the port's readers.
 """
 import struct
+import tempfile
 import zlib
 from pathlib import Path
 
@@ -167,17 +168,50 @@ def _float_predict(a):
     return b"".join(out)
 
 
+def pack_bits(samples, bits):
+    """Integer samples [rows, n] -> rows of ``bits``-bit samples packed
+    most significant bit first, each row padded to a whole byte."""
+    rows, n = samples.shape
+    shifts = np.arange(bits - 1, -1, -1)
+    b = (samples.astype(np.uint64)[..., None] >> shifts.astype(np.uint64)) & 1
+    b = b.reshape(rows, n * bits).astype(np.uint8)
+    return np.packbits(b, axis=1).tobytes()
+
+
+# field type -> struct code of one value (5 and 10: a numerator and a
+# denominator)
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h",
+              9: "i", 10: "i", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+
+
+def _field(bo, typ, vals):
+    if isinstance(vals, (bytes, bytearray)):
+        return len(vals), bytes(vals)
+    n = len(vals) // 2 if typ in (5, 10) else len(vals)
+    return n, struct.pack(f"{bo}{len(vals)}{TIFF_TYPES[typ]}", *vals)
+
+
 def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
               rows_per_strip=None, photometric=None, extra=None,
-              colormap=None, version=42, extra_tags=(), sample_format=None):
+              colormap=None, version=42, extra_tags=(), sample_format=None,
+              bits=None, chunks=None, fill_order=1, orientation=None):
     """A TIFF of samples [h, w, spp] (any integer or float dtype, its
     SampleFormat written unless it is unsigned): ``comp`` 1 (none), 5
     (LZW, through the port's encoder), 8 or 32946 (Deflate) or 32773
     (PackBits), horizontal ``predictor`` 2 or floating-point 3, ``planar``
     2, ``tile`` (width, length) or strips of ``rows_per_strip``, the tags
-    given; ``extra_tags`` [(tag, type, values)] added as they are."""
+    given; ``extra_tags`` [(tag, type, values)] added as they are (values
+    bytes for types 1 and 7, numerator-denominator pairs for 5).
+    ``version`` 43 writes a BigTIFF (8-byte offsets, LONG8 strip and tile
+    fields). ``bits`` packs samples of fewer or more bits than the dtype's
+    (1, 2, 4, 10, 12, 14) into rows, most significant bit first;
+    ``chunks`` gives each strip's or tile's bytes as stored (JPEG,
+    subsampled YCbCr), ``img`` then giving only the sizes; ``fill_order``
+    2 reverses the bits of every stored byte and writes the tag;
+    ``orientation`` writes the tag."""
     h, w, spp = img.shape
-    bits = img.itemsize * 8
+    if bits is None:
+        bits = img.itemsize * 8
     if photometric is None:
         photometric = 1 if spp == 1 else 2
     if sample_format is None:
@@ -185,7 +219,9 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
     dt = np.dtype(f"{bo}u{img.itemsize}")
 
     def encode(a):
-        if predictor == 3:
+        if bits != img.itemsize * 8:
+            raw = pack_bits(a.reshape(a.shape[0], -1), bits)
+        elif predictor == 3:
             raw = _float_predict(a)
         else:
             u = a.view(f"u{a.itemsize}")
@@ -201,27 +237,38 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
             return lzw_encode(raw)
         if comp in (8, 32946):
             return zlib.compress(raw)
-        rb = a.shape[1] * a.shape[2] * dt.itemsize
+        rb = len(raw) // a.shape[0]
         return b"".join(packbits(raw[i:i + rb])
                         for i in range(0, len(raw), rb))
 
     planes = [img] if planar == 1 else [img[..., k:k + 1] for k in range(spp)]
-    chunks = []
-    for p in planes:
-        if tile:
-            tw, th = tile
-            for ty in range(0, h, th):
-                for tx in range(0, w, tw):
-                    t = np.zeros((th, tw, p.shape[2]), img.dtype)
-                    b = p[ty:ty + th, tx:tx + tw]
-                    t[:b.shape[0], :b.shape[1]] = b
-                    chunks.append(encode(t))
-        else:
-            for y in range(0, h, rows_per_strip or h):
-                chunks.append(encode(p[y:y + (rows_per_strip or h)]))
+    if chunks is None:
+        chunks = []
+        for p in planes:
+            if tile:
+                tw, th = tile
+                for ty in range(0, h, th):
+                    for tx in range(0, w, tw):
+                        t = np.zeros((th, tw, p.shape[2]), img.dtype)
+                        b = p[ty:ty + th, tx:tx + tw]
+                        t[:b.shape[0], :b.shape[1]] = b
+                        chunks.append(encode(t))
+            else:
+                for y in range(0, h, rows_per_strip or h):
+                    chunks.append(encode(p[y:y + (rows_per_strip or h)]))
+    if fill_order == 2:
+        rev = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1)
+        rev = np.packbits(rev[:, ::-1], axis=1)[:, 0]
+        chunks = [rev[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
+    big = version == 43
+    word = 16 if big else 4
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
                (259, 3, [comp]), (262, 3, [photometric]), (277, 3, [spp]),
                (284, 3, [planar])] + list(extra_tags)
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    if orientation is not None:
+        entries.append((274, 3, [orientation]))
     if sample_format != 1:
         entries.append((339, 3, [sample_format] * spp))
     if predictor != 1:
@@ -231,34 +278,88 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
     if colormap is not None:
         entries.append((320, 3, [int(v) for v in colormap.reshape(-1)]))
     if tile:
-        entries += [(322, 4, [tile[0]]), (323, 4, [tile[1]]), (324, 4, None),
-                    (325, 4, [len(c) for c in chunks])]
+        entries += [(322, 4, [tile[0]]), (323, 4, [tile[1]]),
+                    (324, word, None), (325, word, [len(c) for c in chunks])]
     else:
-        entries += [(273, 4, None), (278, 4, [rows_per_strip or h]),
-                    (279, 4, [len(c) for c in chunks])]
+        entries += [(273, word, None), (278, 4, [rows_per_strip or h]),
+                    (279, word, [len(c) for c in chunks])]
     entries.sort(key=lambda e: e[0])
     magic = b"II" if bo == "<" else b"MM"
-    out = bytearray(magic + struct.pack(bo + "H", version) + b"\0" * 4)
+    if big:
+        out = bytearray(magic + struct.pack(bo + "HHH", 43, 8, 0) + bytes(8))
+    else:
+        out = bytearray(magic + struct.pack(bo + "H", version) + b"\0" * 4)
     offsets = []
     for c in chunks:
         offsets.append(len(out))
         out += c + b"\0" * (len(c) % 2)
     ifd = len(out)
-    ext_at = ifd + 2 + 12 * len(entries) + 4
+    inline, count, size = (8, "Q", 20) if big else (4, "I", 12)
+    ext_at = ifd + (8 if big else 2) + size * len(entries) + inline
     ents, ext = bytearray(), bytearray()
     for tag, typ, vals in entries:
-        vals = offsets if vals is None else vals
-        data = struct.pack(f"{bo}{len(vals)}{'H' if typ == 3 else 'I'}",
-                           *vals)
-        if len(data) <= 4:
-            field = data.ljust(4, b"\0")
+        n, data = _field(bo, typ, offsets if vals is None else vals)
+        if len(data) <= inline:
+            field = data.ljust(inline, b"\0")
         else:
-            field = struct.pack(bo + "I", ext_at + len(ext))
+            field = struct.pack(bo + count, ext_at + len(ext))
             ext += data + b"\0" * (len(data) % 2)
-        ents += struct.pack(bo + "HHI", tag, typ, len(vals)) + field
-    out += struct.pack(bo + "H", len(entries)) + ents + b"\0" * 4 + ext
-    out[4:8] = struct.pack(bo + "I", ifd)
+        ents += struct.pack(bo + "HH" + count, tag, typ, n) + field
+    out += (struct.pack(bo + ("Q" if big else "H"), len(entries))
+            + ents + b"\0" * inline + ext)
+    if big:
+        out[8:16] = struct.pack(bo + "Q", ifd)
+    else:
+        out[4:8] = struct.pack(bo + "I", ifd)
     return bytes(out)
+
+
+def split_jpeg(stream: bytes):
+    """A whole JPEG stream -> (tables, abbreviated): SOI, its DQT and DHT
+    segments and EOI, as a JPEG-in-TIFF's JPEGTables holds them, and the
+    stream without them, as libtiff writes each strip or tile."""
+    tables, rest, pos = [stream[:2]], [stream[:2]], 2
+    while True:
+        marker = stream[pos + 1]
+        (length,) = struct.unpack(">H", stream[pos + 2:pos + 4])
+        seg = stream[pos:pos + 2 + length]
+        (tables if marker in (0xC4, 0xDB) else rest).append(seg)
+        pos += 2 + length
+        if marker == 0xDA:
+            return (b"".join(tables) + b"\xff\xd9",
+                    b"".join(rest) + stream[pos:])
+
+
+def ycbcr_units(rng, h, w, hs, vs, boxes):
+    """Random YCbCr data units for each (y, x, rows, cols) box: hs x vs
+    luma bytes, then Cb and Cr, row by row of units, partial units at the
+    right and bottom kept whole. Returns the chunks and the full-resolution
+    uint8 Y, Cb, Cr [h, w, 3] that libtiff's RGBA reader spreads them to."""
+    ycc = np.zeros((h, w, 3), np.uint8)
+    chunks = []
+    for y0, x0, rows, cols in boxes:
+        down, across = -(-rows // vs), -(-cols // hs)
+        u = rng.randint(0, 256, (down, across, hs * vs + 2)).astype(np.uint8)
+        chunks.append(u.tobytes())
+        luma = u[..., :hs * vs].reshape(down, across, vs, hs).transpose(
+            0, 2, 1, 3).reshape(down * vs, across * hs)
+        rr, cc = min(rows, h - y0), min(cols, w - x0)
+        ycc[y0:y0 + rr, x0:x0 + cc, 0] = luma[:rr, :cc]
+        for k in (1, 2):
+            full = np.repeat(np.repeat(u[..., hs * vs + k - 1], vs, 0), hs, 1)
+            ycc[y0:y0 + rr, x0:x0 + cc, k] = full[:rr, :cc]
+    return chunks, ycc
+
+
+def boxes_of(h, w, rows_per_strip=None, tile=None):
+    """Each strip's or tile's (y, x, rows, cols) box, in the file's order
+    (a last strip cut to the image, tiles whole)."""
+    if tile:
+        tw, th = tile
+        return [(y, x, th, tw) for y in range(0, h, th)
+                for x in range(0, w, tw)]
+    rps = rows_per_strip or h
+    return [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
 
 
 # ------------------------------------------------------------------- BMP
@@ -437,7 +538,7 @@ def fixture_files():
     """{file name: bytes} of the committed fixtures: progressive JPEGs
     (cv2.imencode, whole and cut), PNG kinds and TIFF variants (built
     here), prog_source.jpg, cv2's progressive encoding of prog_source.npy,
-    and ``raw_fixture_files``."""
+    ``raw_fixture_files`` and ``tiff_kind_fixture_files``."""
     import cv2
     files = {}
     rgb = pattern(21, 27, 3, 1)
@@ -486,6 +587,82 @@ def fixture_files():
         rng.randint(0, 256, (5, 6, 4)).astype(np.uint8), comp=8, predictor=2,
         extra=(2,))
     files.update(raw_fixture_files())
+    files.update(tiff_kind_fixture_files())
+    return files
+
+
+def tiff_kind_fixture_files():
+    """{file name: bytes} of the TIFF kinds beyond the baseline, one a
+    kind: BigTIFF, JPEG-in-TIFF (cv2.imwrite's own, whole streams in
+    tiles, abbreviated gray strips), YCbCr, CMYK, gray with alpha at 8 and
+    16 bits, bilevel with FillOrder 2, 1- and 4-bit palettes, 12- and
+    14-bit samples and Orientation 2 and 3."""
+    import cv2
+    files = {}
+    rng = np.random.RandomState(17)
+    files["tiff_bigtiff_be_lzw_rgb8_19x13.tif"] = make_tiff(
+        pattern(13, 19, 3, 17), ">", 5, version=43, rows_per_strip=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cv2.tif"
+        cv2.imwrite(str(path), pattern(37, 45, 3, 18),
+                    [cv2.IMWRITE_TIFF_COMPRESSION, 7])
+        files["tiff_jpeg_cv2_rgb_45x37.tif"] = path.read_bytes()
+    img = pattern(37, 45, 3, 19)
+    chunks = []
+    for y, x, rows, cols in boxes_of(37, 45, tile=(16, 16)):
+        box = np.zeros((16, 16, 3), np.uint8)
+        part = img[y:y + rows, x:x + cols]
+        box[:part.shape[0], :part.shape[1]] = part
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(box[..., ::-1]))
+        chunks.append(buf.tobytes())
+    files["tiff_jpeg_ycbcr420_tiles_45x37.tif"] = make_tiff(
+        img, comp=7, photometric=6, tile=(16, 16), chunks=chunks,
+        extra_tags=[(530, 3, [2, 2])])
+    gray = pattern(29, 23, 1, 20)
+    streams = [split_jpeg(cv2.imencode(".jpg", gray[y:y + 16])[1].tobytes())
+               for y in (0, 16)]
+    files["tiff_jpeg_gray_tables_23x29.tif"] = make_tiff(
+        gray[..., None], ">", 7, rows_per_strip=16,
+        chunks=[s for _, s in streams], extra_tags=[(347, 7, streams[0][0])])
+    boxes = boxes_of(13, 11, rows_per_strip=4)
+    chunks, _ = ycbcr_units(rng, 13, 11, 2, 1, boxes)
+    files["tiff_ycbcr422_strips_11x13.tif"] = make_tiff(
+        np.zeros((13, 11, 3), np.uint8), photometric=6, chunks=chunks,
+        rows_per_strip=4, extra_tags=[(530, 3, [2, 1]), (532, 5, [
+            v for r in (16, 235, 128, 240, 128, 240) for v in (r, 1)])])
+    chunks, _ = ycbcr_units(rng, 21, 35, 4, 2, boxes_of(21, 35, tile=(16, 16)))
+    files["tiff_ycbcr42_tiles_35x21.tif"] = make_tiff(
+        np.zeros((21, 35, 3), np.uint8), ">", photometric=6, chunks=chunks,
+        tile=(16, 16), extra_tags=[(530, 3, [4, 2])])
+    files["tiff_cmyk_planar_9x7.tif"] = make_tiff(
+        rng.randint(0, 256, (7, 9, 4)).astype(np.uint8), comp=8, planar=2,
+        photometric=5, rows_per_strip=3)
+    files["tiff_gray_alpha8_tiles_21x19.tif"] = make_tiff(
+        rng.randint(0, 256, (19, 21, 2)).astype(np.uint8), photometric=0,
+        extra=(2,), tile=(16, 16))
+    files["tiff_gray_alpha16_13x6.tif"] = make_tiff(
+        rng.randint(0, 65536, (6, 13, 2)).astype(np.uint16), ">", 5,
+        photometric=1, extra=(1,))
+    files["tiff_bilevel_fillorder2_13x11.tif"] = make_tiff(
+        rng.randint(0, 2, (11, 13, 1)).astype(np.uint8), comp=32773,
+        photometric=0, bits=1, fill_order=2, rows_per_strip=5)
+    files["tiff_palette1_9x5.tif"] = make_tiff(
+        rng.randint(0, 2, (5, 9, 1)).astype(np.uint8), photometric=3, bits=1,
+        colormap=rng.randint(0, 65536, (3, 2)).astype(np.uint16))
+    files["tiff_palette4_7x6.tif"] = make_tiff(
+        rng.randint(0, 16, (6, 7, 1)).astype(np.uint8), photometric=3, bits=4,
+        colormap=rng.randint(0, 65536, (3, 16)).astype(np.uint16))
+    files["tiff_gray12_lzw_11x7.tif"] = make_tiff(
+        rng.randint(0, 4096, (7, 11, 1)).astype(np.uint16), ">", 5, bits=12,
+        rows_per_strip=3)
+    files["tiff_rgb14_tiles_19x17.tif"] = make_tiff(
+        rng.randint(0, 16384, (17, 19, 3)).astype(np.uint16), bits=14,
+        tile=(16, 16))
+    files["tiff_orientation3_tiles_45x37.tif"] = make_tiff(
+        pattern(37, 45, 3, 21), comp=8, orientation=3, tile=(16, 16))
+    files["tiff_orientation2_rgb16_9x8.tif"] = make_tiff(
+        rng.randint(0, 65536, (8, 9, 3)).astype(np.uint16), ">",
+        orientation=2)
     return files
 
 
