@@ -137,7 +137,12 @@ Phases, each printing its own lines:
      Blender export of the scene (the loader's loose corner-ray box),
      without and with ``--set-train BboxRefitStep=1024``: the refit must
      fire with a volume shrink of at least 1.5 and K1-K3 must launch after
-     it on the new box; both held-out PSNRs beside phase 8's.
+     it on the new box; both held-out PSNRs beside phase 8's. Each of the
+     three runs of (c) and (d) is cut to NIters 1,088 (the cut printed;
+     steps 1,024-1,055 timed) when the script, with it, the runs after it
+     and phases 18-21 at their shortest, would pass 1,080 s, so that a
+     slow host keeps the script inside its limit (one took 1,222 s with
+     phase 17 uncut and phases 20-21 cut).
  18. data parallelism (parallel/mesh.py): (a) the flagship under an NCCL
      mesh of one rank for 64 steps from seed 0, bitwise phase 8's
      determinism run, steps 32-63 timed beside phase 8's 33-64; (b) two
@@ -190,30 +195,37 @@ Phases, each printing its own lines:
      cut; the loss must fall), its held-out PSNR beside phase 17's.
  21. image files (utils/png.py, utils/jpeg.py progressive, utils/tiff.py,
      utils/bmp.py, utils/pxm.py, utils/hdr.py, utils/sunras.py,
-     utils/webp.py, csrc/tiff_codec.cpp, csrc/image_rle.cpp,
-     csrc/webp_codec.cpp): (a) phase 17's COLMAP export with each view in
+     utils/webp.py, utils/jpeg2000.py, csrc/tiff_codec.cpp,
+     csrc/image_rle.cpp, csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp):
+     (a) phase 17's COLMAP export with each view in
      its format (TRAIN_FORMATS: the 800x800 camera's 12 views progressive
-     JPEG, BMP, PPM, lossless WebP, Sun raster and PAM, the 1000x1000
+     JPEG, BMP, PPM, lossless WebP, JPEG 2000 and PAM, the 1000x1000
      camera's 4 TIFF, rewritten as the TIFF kinds of TIFF_KINDS: RGB
      JPEG-in-TIFF with JPEGTables, BigTIFF, YCbCr 4:2:0 JPEG tiles, CMYK
      under Orientation 3), written on the card; (b) the undistortion on the
      card (each view written back in its format, a progressive one as
-     baseline JPEG at quality 95, a WebP lossless), one view of each
+     baseline JPEG at quality 95, a WebP lossless, a .jp2 as cv2.imwrite
+     writes it), one view of each
      format also through the CPU (the same bytes), every exported and
      undistorted file decoded on the card and the CPU (bitwise equal), the
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
      cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
      Radiance HDR, Sun raster, signed and float TIFF, lossy, lossless and
-     alpha WebP) decoded on the card to cv2's pixels and prog_source
+     alpha WebP, JPEG 2000 of cv2 and Pillow) decoded on the card to cv2's
+     pixels and prog_source
      encoded progressive on the card to cv2's bytes, views 1 and 4 as
      16-bit PNG and PPM, int16 TIFF and float PFM, HDR and TIFF through
      undistort_images and load_images on the card against the CPU, the
-     decode and encode seconds of each new format and of the TIFF views,
-     each TIFF kind's decode (host and device parts apart),
+     decode and encode seconds of each new format (a Sun raster copy of
+     view 6 among them) and of the TIFF views, each TIFF kind's decode
+     (host and device parts apart),
      of the progressive views and a 4,000x3,000 progressive upscale (host
      entropy pass and device stages apart), of the 800x800 lossy WebP
      fixture and the WebP views (host C++ and device stages apart), the
-     port's lossless WebP sizes beside cv2's, the undistortion and
+     port's lossless WebP sizes beside cv2's, the exported and undistorted
+     .jp2 views re-encoded on the card and the CPU (the same bytes), the
+     JPEG 2000 decode and encode of an 800x800 view and a 4,000x3,000
+     upscale (host C++ and device stages apart), the undistortion and
      load_images; (c) phase 17(c)'s flagship
      ``cli train --dataset-type colmap`` on the mixed workspace to NIters
      2,100 (cut to 1,088, and the cut printed, if the script would pass
@@ -274,6 +286,8 @@ DP_FIRST, DP_STEPS = 992, 64   # phase 18's 2-rank window: across step 1,024
 COLMAP_TRAIN_S = 100           # a 2,100-step flagship cli train and its
                                # render in phases 20-21: 66-87 s on an H100
 FORMATS_MIN_S = 70             # phase 21 with its cut: 62 s on an H100
+REST_AFTER_CAPTURE_S = 360     # phases 18-21 after phase 17, phases 20-21
+                               # cut: 337-361 s on slow H100 hosts
 SOFT_LIMIT_S = 1080            # phases 20-21 cut their training to end by it
 
 
@@ -2189,7 +2203,7 @@ def same_reconstruction(a, b):
     return bad
 
 
-def capture_phase(scene, dev, psnr_direct):
+def capture_phase(scene, dev, psnr_direct, t_start=None):
     """Phase 17, real capture: (a) the bench scene exported as a COLMAP
     workspace (scripts/colmap_export.py: 12 train views at 800x800 and 4
     by a second camera at 1000x1000, two distorted OPENCV cameras, surface
@@ -2204,8 +2218,10 @@ def capture_phase(scene, dev, psnr_direct):
     equal; (d) the same command on phase 14's Blender export (its loose
     corner-ray box) without and with ``BboxRefitStep=1024``: the refit
     must fire with a shrink of at least 1.5 and K1-K3 launch after it;
-    both held-out PSNRs. Returns the launch counts of (c)'s 2,100-step
-    run and its held-out PSNR."""
+    both held-out PSNRs. Each of the three runs takes colmap_depth's NIters
+    (from ``t_start``, with the runs after it and REST_AFTER_CAPTURE_S
+    still to come). Returns the launch counts of (c)'s run and its
+    held-out PSNR."""
     import numpy as np
     import torch
     from nerfpp_tpu_torch import native
@@ -2316,7 +2332,10 @@ def capture_phase(scene, dev, psnr_direct):
         f"near/far of view 1 {sc.views[0].near:.4f} / {sc.views[0].far:.4f}")
 
     # (c) cli train --dataset-type colmap, the flagship
-    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev))
+    n_iters, window = colmap_depth("capture", t_start, 2 * COLMAP_TRAIN_S
+                                   + REST_AFTER_CAPTURE_S)
+    run = CliTrain(flagship_argv("colmap", ws, root / "out", dev, n_iters),
+                   window)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     train_s = run.run()
@@ -2326,7 +2345,7 @@ def capture_phase(scene, dev, psnr_direct):
     ms, per_step = run.window_ms()
     psnr = run.held_out_psnr(scene)
     first, last = float(loss[:32].mean()), float(loss[-32:].mean())
-    if not (loss.size == 2099 and math.isfinite(last)
+    if not (loss.size == n_iters - 1 and math.isfinite(last)
             and last < 0.5 * first):
         raise AssertionError(f"colmap train: {loss.size} steps, loss mean "
                              f"{first} (steps 0-31) -> {last} (last 32)")
@@ -2340,7 +2359,8 @@ def capture_phase(scene, dev, psnr_direct):
                              f"{others}")
     log("capture", f"cli train --dataset-type colmap (flagship): "
         f"{loss.size} steps in {train_s:.1f} s (load, undistortion and "
-        f"validation images included); steps 1056-1087: {ms:.3f} ms/step, "
+        f"validation images included); steps {window[0]}-{window[1] - 1}: "
+        f"{ms:.3f} ms/step, "
         f"{4096 / (ms / 1e3):.1f} rays/s; launches per step "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
         + f"; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
@@ -2384,13 +2404,15 @@ def capture_phase(scene, dev, psnr_direct):
     # (d) the refit, on the Blender export's loose corner-ray box
     data = root / "blender"
     export_blender_scene(scene, data)
-    psnrs = {}
-    for label, extra in (("no refit", ()),
-                         ("BboxRefitStep=1024",
-                          ("--set-train", "BboxRefitStep=1024"))):
+    psnrs, steps = {}, {}
+    for k, (label, extra) in enumerate((
+            ("no refit", ()),
+            ("BboxRefitStep=1024", ("--set-train", "BboxRefitStep=1024")))):
+        n, win = colmap_depth("capture", t_start, (1 - k) * COLMAP_TRAIN_S
+                              + REST_AFTER_CAPTURE_S, f"(d) {label}:")
         f = CliTrain(flagship_argv("blender", data,
                                    root / label.replace("=", "_"), dev,
-                                   extra=extra))
+                                   n, extra=extra), win)
         reset_launch_counts()
         secs = f.run()
         after = launch_counts()
@@ -2399,12 +2421,12 @@ def capture_phase(scene, dev, psnr_direct):
         if not (math.isfinite(last) and last < 0.5 * first):
             raise AssertionError(f"blender train ({label}): loss mean "
                                  f"{first} -> {last}")
-        psnrs[label] = f.held_out_psnr(scene)
+        psnrs[label], steps[label] = f.held_out_psnr(scene), loss.size
         ms, _ = f.window_ms()
         log("capture", f"cli train --dataset-type blender ({label}): "
-            f"{loss.size} steps in {secs:.1f} s, steps 1056-1087 {ms:.3f} "
-            f"ms/step; loss {first:.5f} -> {last:.5f}; held-out PSNR "
-            f"{psnrs[label]:.2f} dB")
+            f"{loss.size} steps in {secs:.1f} s, steps {win[0]}-{win[1] - 1}"
+            f" {ms:.3f} ms/step; loss {first:.5f} -> {last:.5f}; held-out "
+            f"PSNR {psnrs[label]:.2f} dB")
         if extra:
             fired = [r for r in f.refits if r[1]]
             if len(f.refits) != 1 or not fired:
@@ -2428,12 +2450,14 @@ def capture_phase(scene, dev, psnr_direct):
                                          "refit")
         del f
         torch.cuda.empty_cache()
-    log("capture", "held-out PSNR at 2,100 steps (test view, 800x800, "
-        "unbudgeted): the scene itself (phase 8) "
+    log("capture", "held-out PSNR (test view, 800x800, unbudgeted): the "
+        "scene itself (phase 8, 2,099 steps) "
         + (f"{psnr_direct:.2f}" if psnr_direct is not None else "not run")
-        + f" dB; the COLMAP capture {psnr:.2f} dB; the Blender export "
-        f"{psnrs['no refit']:.2f} dB, with the refit at 1,024 "
-        f"{psnrs['BboxRefitStep=1024']:.2f} dB")
+        + f" dB; the COLMAP capture {psnr:.2f} dB ({n_iters - 1} steps); "
+        f"the Blender export {psnrs['no refit']:.2f} dB ({steps['no refit']}"
+        f" steps), with the refit at 1,024 "
+        f"{psnrs['BboxRefitStep=1024']:.2f} dB "
+        f"({steps['BboxRefitStep=1024']} steps)")
     tmp.cleanup()
     log("capture", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return {k: counts[k] for k in TRAIN_KERNELS}, psnr
@@ -3150,16 +3174,14 @@ def codec_times(files, dev, progressive=False):
     return t, images
 
 
-def webp_times(files, dev):
-    """Decode every WebP file on ``dev`` and encode the decoded image again
-    (lossless, write_webp's encoder), each split into its host part (the
-    container and the C++ decoder; the C++ encoder) and its device part
-    (synchronised: the chroma upsampling, colour conversion and alpha, or
-    a lossless image's copy to the card; for encoding the copy back to the
-    host): {"decode": (host s, device s), "encode": (...), "bytes",
-    "encoded", "pixels"}, and the decoded images."""
+def split_times(files, decode, pixels, planes, encode):
+    """Decode every file and encode the decoded image again, each split
+    into its host part (``decode(path, data)``, ``encode(planes, path)``)
+    and its device part (synchronised: ``pixels(decoded)``, the image on
+    the card; ``planes(image, path)``, what the host encoder takes):
+    {"decode": [host s, device s], "encode": [...], "bytes", "encoded",
+    "pixels"}, and the decoded images."""
     import torch
-    from nerfpp_tpu_torch.utils import webp as W
     t = {"decode": [0.0, 0.0], "encode": [0.0, 0.0], "bytes": 0,
          "encoded": 0, "pixels": 0}
     images = []
@@ -3167,14 +3189,14 @@ def webp_times(files, dev):
         data = Path(path).read_bytes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        planes = W.decode_planes(W.parse(path, data), path)
+        dec = decode(path, data)
         t1 = time.perf_counter()
-        img = W.frame_pixels(planes, dev)
+        img = pixels(dec)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        host = img.cpu().numpy()
+        host = planes(img, path)
         t3 = time.perf_counter()
-        enc = W.encode_webp(host, str(path))
+        enc = encode(host, path)
         t4 = time.perf_counter()
         t["decode"][0] += t1 - t0
         t["decode"][1] += t2 - t1
@@ -3187,19 +3209,45 @@ def webp_times(files, dev):
     return t, images
 
 
-def webp_line(label, t):
-    """One log line of webp_times' figures."""
+def webp_times(files, dev):
+    """split_times of WebP files: the host parts the container and the C++
+    decoder, the C++ lossless encoder (write_webp's); the device parts the
+    chroma upsampling, colour conversion and alpha (a lossless image's
+    copy to the card), the copy back to the host."""
+    from nerfpp_tpu_torch.utils import webp as W
+    return split_times(
+        files, lambda path, data: W.decode_planes(W.parse(path, data), path),
+        lambda planes: W.frame_pixels(planes, dev),
+        lambda img, path: img.cpu().numpy(),
+        lambda host, path: W.encode_webp(host, str(path)))
+
+
+def jp2_times(files, dev):
+    """split_times of JPEG 2000 files, encoded again as cv2.imwrite writes
+    .jp2: the host parts the boxes and markers with tier-2 and tier-1 in
+    C++, tier-1, the rate search and tier-2; the device parts the
+    dequantisation, inverse wavelet and colour transforms, the forward 5/3
+    and the copy of its coefficients to the host."""
+    from nerfpp_tpu_torch.utils import jpeg2000 as JP
+    return split_times(
+        files, JP.decode_jpeg2000, lambda dec: JP.jpeg2000_pixels(dec, dev),
+        lambda img, path: JP.encoder_planes(img, dev, str(path)),
+        lambda planes, path: JP.encode_planes(planes, str(path)))
+
+
+def split_line(label, t, fmt, again):
+    """One log line of split_times' figures for files of ``fmt``,
+    ``again`` naming the second encoding."""
     parts = []
     for what, n in (("decode", t["bytes"]), ("encode", t["encoded"])):
         host, device = t[what]
         total = host + device
         parts.append(f"{what} {1e3 * total:.3f} ms (host C++ "
                      f"{1e3 * host:.3f} ms, device {1e3 * device:.3f} ms): "
-                     f"{n / total / 1e6:.1f} MB/s of WebP, "
+                     f"{n / total / 1e6:.1f} MB/s of {fmt}, "
                      f"{t['pixels'] / total / 1e6:.1f} Mpix/s")
-    return (f"{label} ({t['bytes']} bytes of WebP, {t['pixels'] / 1e6:.2f} "
-            f"Mpix; re-encoded lossless {t['encoded']} bytes): "
-            + "; ".join(parts))
+    return (f"{label} ({t['bytes']} bytes of {fmt}, {t['pixels'] / 1e6:.2f} "
+            f"Mpix; {again} {t['encoded']} bytes): " + "; ".join(parts))
 
 
 def codec_line(label, t):
@@ -3216,18 +3264,21 @@ def codec_line(label, t):
             f"Mpix): " + "; ".join(parts))
 
 
-def colmap_depth(label, t_start, after_s=0.0):
-    """(NIters, timed window) of phase 20's or 21's flagship ``cli train``:
-    2,100 steps (window 1,056-1,088), or 1,088 (phase 8's first PSNR point;
-    window 1,024-1,056) when the script, with the full run and the
-    ``after_s`` seconds still to come after it, would pass SOFT_LIMIT_S. The
-    cut is printed."""
+def colmap_depth(label, t_start, after_s=0.0, part="(c)"):
+    """(NIters, timed window) of a flagship ``cli train`` of phases 17, 20
+    and 21: 2,100 steps (window 1,056-1,088), or 1,088 (phase 8's first
+    PSNR point; window 1,024-1,056) when the script, with the full run and
+    the ``after_s`` seconds still to come after it, would pass
+    SOFT_LIMIT_S (always 2,100 without ``t_start``). The cut is printed,
+    headed by ``part``."""
+    if t_start is None:
+        return 2100, (1056, 1088)
     elapsed = time.perf_counter() - t_start
     if elapsed + COLMAP_TRAIN_S + after_s <= SOFT_LIMIT_S:
         return 2100, (1056, 1088)
-    log(label, f"(c) cut to NIters 1088: the script is at {elapsed:.1f} s, "
-        f"and the full run (about {COLMAP_TRAIN_S} s) with {after_s:.0f} s "
-        f"still to come would take it past {SOFT_LIMIT_S} s")
+    log(label, f"{part} cut to NIters 1088: the script is at {elapsed:.1f} "
+        f"s, and the full run (about {COLMAP_TRAIN_S} s) with {after_s:.0f} "
+        f"s still to come would take it past {SOFT_LIMIT_S} s")
     return 1088, (1024, 1056)
 
 
@@ -3455,8 +3506,9 @@ def format_lines(label, t):
 
 # phase 21's trained capture, cycled over the 16 views: the 1000x1000
 # camera's 4 views (3, 7, ...) TIFF, the 800x800 camera's 12 progressive
-# JPEG, BMP, PPM, lossless WebP (views 4 and 12), Sun raster and PAM
-TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "webp", "ras", "pam", "tif")
+# JPEG, BMP, PPM, lossless WebP (views 4 and 12), JPEG 2000 (views 5 and
+# 13) and PAM
+TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "webp", "jp2", "pam", "tif")
 # the TIFF kind each of those 4 views is rewritten as (write_tiff_kind)
 TIFF_KINDS = {3: "jpeg_rgb_tables", 7: "bigtiff", 11: "jpeg_ycbcr_tiles",
               15: "cmyk_orientation3"}
@@ -3633,10 +3685,11 @@ def formats_phase(scene, dev, psnrs, t_start):
     """Phase 21, the image files cv2.imread reads and cv2.imwrite writes
     (utils/png.py, utils/jpeg.py progressive, utils/tiff.py, utils/bmp.py,
     utils/pxm.py, utils/hdr.py, utils/sunras.py, utils/webp.py,
-    csrc/tiff_codec.cpp, csrc/image_rle.cpp, csrc/webp_codec.cpp): (a)
+    utils/jpeg2000.py, csrc/tiff_codec.cpp, csrc/image_rle.cpp,
+    csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp): (a)
     phase 17's COLMAP export with each view in a format of TRAIN_FORMATS
     (the 800x800 camera's 12 views progressive JPEG, BMP, PPM, lossless
-    WebP, Sun raster and PAM, the 1000x1000 camera's 4 TIFF, rewritten as
+    WebP, JPEG 2000 and PAM, the 1000x1000 camera's 4 TIFF, rewritten as
     the kinds of TIFF_KINDS by write_tiff_kind), written on the card's
     path; (b) the undistortion on the card (each view
     read, undistorted and written back in its format), one view of each
@@ -3645,7 +3698,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
     cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
     Radiance HDR, Sun raster, signed and float TIFF, WebP lossy, lossless,
-    with alpha and in a VP8X wrapper) decoded on the card to cv2's pixels
+    with alpha and in a VP8X wrapper, JPEG 2000 of cv2 and Pillow) decoded
+    on the card to cv2's pixels
     and prog_source encoded progressive on the card to cv2's bytes, the
     800x800 lossy WebP fixture decoded on the card bitwise the CPU's, views
     1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
@@ -3653,8 +3707,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     through undistort_images and load_images on the card and the CPU
     (bitwise equal; 16-bit values up to 257, int16 from -128.5 to 128.5
     and float values divided by 255, the JAX package's division of every
-    depth by 255), decode and encode seconds of each new format and of
-    the 4 TIFF views (read_image to the card and write_image from it), each
+    depth by 255), decode and encode seconds of each new format (a Sun
+    raster copy of view 6 among them) and of the 4 TIFF views (read_image
+    to the card and write_image from it), each
     TIFF kind's and TIFF kind fixture's decode (tiff_times), of
     the 2 progressive views and a 4,000 x 3,000 progressive upscale (host
     entropy pass and device stages apart), of the 800x800 lossy WebP
@@ -3678,6 +3733,7 @@ def formats_phase(scene, dev, psnrs, t_start):
     from nerfpp_tpu_torch.utils import image as I
     from nerfpp_tpu_torch.utils import image_rle
     from nerfpp_tpu_torch.utils import jpeg as J
+    from nerfpp_tpu_torch.utils import jpeg2000 as JP
     from nerfpp_tpu_torch.utils import tiff as T
     from nerfpp_tpu_torch.utils import webp as W
     from scripts.colmap_export import FORMATS, export_colmap_scene, write_view
@@ -3688,7 +3744,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     cpu = torch.device("cpu")
     for name, load in (("TIFF codec", T.codec_library),
                        ("BMP / HDR run-length codec", image_rle.library),
-                       ("WebP codec", W.codec_library)):
+                       ("WebP codec", W.codec_library),
+                       ("JPEG 2000 codec", JP.codec_library)):
         t0 = time.perf_counter()
         lib = load()
         log("formats", f"{name} built and loaded in "
@@ -3765,7 +3822,7 @@ def formats_phase(scene, dev, psnrs, t_start):
             raise AssertionError(f"{f}: decode card against CPU differs")
     log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
         "undistorted files (progressive and baseline JPEG, TIFF of the "
-        "kinds of TIFF_KINDS and LZW, BMP, PPM, WebP, Sun raster, PAM) "
+        "kinds of TIFF_KINDS and LZW, BMP, PPM, WebP, JPEG 2000, PAM) "
         "decoded on the card bitwise the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
     names = []
@@ -3868,8 +3925,12 @@ def formats_phase(scene, dev, psnrs, t_start):
         "files and the stack bitwise the CPU's; maxima after / 255: "
         + ", ".join(f"{k} {v:.6f}" for k, v in tops.items())
         + " (the JAX package's / 255 of every depth, mirrored)")
-    new = [f for f in sources if f.suffix in (".bmp", ".ppm", ".ras",
-                                              ".pam", ".tif")]
+    # Sun raster left the capture for JPEG 2000: a copy of view 6 keeps
+    # its line
+    ras = root / "view_005_copy.ras"
+    I.write_image(ras, I.read_image(sources[5], dev), dev)
+    new = [f for f in sources if f.suffix in (".bmp", ".ppm", ".pam",
+                                              ".tif", ".jp2")] + [ras]
     new += [f for f in deep_files if f.suffix != ".png"]
     format_times(new[:1] + [deep_files[-1]], dev, root)     # warm the path
     for line in format_lines("(b) per format:", format_times(new, dev,
@@ -3911,12 +3972,13 @@ def formats_phase(scene, dev, psnrs, t_start):
     if not torch.equal(img.cpu(), W.read_webp(timing, cpu)):
         raise AssertionError(f"{WEBP_TIMING}: decode card against CPU "
                              "differs")
-    log("formats", webp_line(f"(b) {WEBP_TIMING} (lossy VP8, quality 75)",
-                             t))
+    log("formats", split_line(f"(b) {WEBP_TIMING} (lossy VP8, quality 75)",
+                              t, "WebP", "re-encoded lossless"))
     webps = [f for f in sources + undistorted if f.suffix == ".webp"]
     t, _ = webp_times(webps, dev)
-    log("formats", webp_line(f"(b) the {len(webps)} exported and undistorted "
-                             "lossless WebP views", t))
+    log("formats", split_line(f"(b) the {len(webps)} exported and "
+                              "undistorted lossless WebP views", t, "WebP",
+                              "re-encoded lossless"))
     webp_sizes = []
     for f in sorted(fixtures.glob("webp_lossless*.webp")):
         mine = W.encode_webp(I.read_image(f, dev), str(f))
@@ -3925,13 +3987,41 @@ def formats_phase(scene, dev, psnrs, t_start):
     log("formats", "(b) the port's lossless WebP beside cv2.imwrite's of the "
         "same pixels: " + ", ".join(webp_sizes))
     del img
+
+    # JPEG 2000: each exported and undistorted view re-encoded on the card
+    # and the CPU (the same bytes); an 800x800 view and its 4,000x3,000
+    # upscale decoded and encoded, host and device parts apart
+    jp2s = [f for f in sources + undistorted if f.suffix == ".jp2"]
+    for f in jp2s:
+        if JP.encode_jpeg2000(I.read_image(f, dev), dev, str(f)) != \
+                JP.encode_jpeg2000(I.read_image(f, cpu), cpu, str(f)):
+            raise AssertionError(f"{f.name}: the card's JPEG 2000 encoding "
+                                 "differs from the CPU's")
+    log("formats", f"(b) the {len(jp2s)} exported and undistorted .jp2 "
+        "views re-encoded on the card and the CPU: the same bytes")
+    jp2_times(jp2s[:1], dev)                        # warm the card's path
+    t, (img,) = jp2_times(jp2s[:1], dev)
+    log("formats", split_line(f"(b) {jp2s[0].name} (cv2.imwrite's .jp2, rate "
+                              f"4, {img.shape[1]}x{img.shape[0]})", t,
+                              "JPEG 2000", "encoded again to"))
+    big = I.resize_linear_u8(img, (3000, 4000))
+    big_path = root / "big.jp2"
+    I.write_image(big_path, big, dev)
+    t, (back,) = jp2_times([big_path], dev)
+    if not torch.equal(back.cpu(), JP.read_jpeg2000(big_path, cpu)):
+        raise AssertionError("4000x3000 JPEG 2000: decode card against CPU "
+                             "differs")
+    log("formats", split_line("(b) that view upscaled to 4000x3000, rate 4 "
+                              "(decoded bitwise the CPU's)", t, "JPEG 2000",
+                              "encoded again to"))
+    del img, big, back
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stack = load_images(sc, list(range(len(sc.views))),
                         target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
     load_s = time.perf_counter() - t0
     log("formats", f"(b) load_images of the {len(sc.views)} undistorted "
-        f"views (baseline JPEG, TIFF, BMP, PPM, WebP, Sun raster and PAM "
+        f"views (baseline JPEG, TIFF, BMP, PPM, WebP, JPEG 2000 and PAM "
         f"decoded on the card, 1000x1000 resized to 800x800): "
         f"{load_s:.3f} s, "
         f"stack {stack.shape}")
@@ -3965,7 +4055,7 @@ def formats_phase(scene, dev, psnrs, t_start):
                              f"kernels: {others}")
     log("formats", f"(c) cli train --dataset-type colmap on the mixed "
         f"capture (progressive JPEG, RGB JPEG-in-TIFF, BigTIFF, YCbCr JPEG "
-        f"tiles, CMYK TIFF, BMP, PPM, WebP, Sun raster, PAM; "
+        f"tiles, CMYK TIFF, BMP, PPM, WebP, JPEG 2000, PAM; "
         f"flagship): {loss.size} steps in "
         f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
         f"included: about {und_warm + load_s:.2f} s of it, "
@@ -4243,9 +4333,9 @@ def main(argv=None) -> int:
     # 17. real capture: the COLMAP path and the bbox refit -----------------
     # K1-K3's launches in the kernels line: phase 8's and phase 17's
     # COLMAP training together
-    capture, psnr_capture = capture_phase(scene, dev, psnr_2100)
-    log("capture", "phase 17 launches (cli train --dataset-type colmap, "
-        "steps 0-2098): " + ", ".join(f"{k} {v}" for k, v in capture.items()))
+    capture, psnr_capture = capture_phase(scene, dev, psnr_2100, t_start)
+    log("capture", "phase 17 launches (cli train --dataset-type colmap): "
+        + ", ".join(f"{k} {v}" for k, v in capture.items()))
     for k, v in capture.items():
         counts[k] += v
     log("capture", f"total run {time.perf_counter() - t_start:.1f} s")
@@ -4271,8 +4361,8 @@ def main(argv=None) -> int:
     log("jpeg", f"total run {time.perf_counter() - t_start:.1f} s")
 
     # 21. the image files cv2 reads and writes: the codecs, and the flagship
-    # on a workspace of progressive JPEG, TIFF, BMP, PPM, Sun raster and
-    # PAM views (its K1-K3 launches join the kernels line's)
+    # on a workspace of progressive JPEG, TIFF, BMP, PPM, WebP, JPEG 2000
+    # and PAM views (its K1-K3 launches join the kernels line's)
     formats = formats_phase(scene, dev, {
         "phase 17's PNG capture": psnr_capture,
         "phase 20's JPEG capture": psnr_jpeg}, t_start)

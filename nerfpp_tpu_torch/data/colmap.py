@@ -33,8 +33,10 @@ Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
 them: PNG of every colour type and depth, baseline and progressive JPEG,
 classic and BigTIFF (1- to 64-bit integer or float samples, gray, RGB(A),
 palette, CMYK, YCbCr; LZW, Deflate, PackBits, JPEG or none), BMP, PBM /
-PGM / PPM / PAM / PFM, Radiance HDR, Sun raster and WebP (lossy VP8,
-lossless VP8L, alpha). A view in another format (JPEG 2000, GIF, AVIF,
+PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy VP8,
+lossless VP8L, alpha) and JPEG 2000 (JP2 or raw codestreams; an undistorted
+.jp2 view is written back as cv2.imwrite writes it, OpenJPEG's rate-4 5/3).
+A view in another format (GIF, AVIF,
 animated WebP, arithmetic-coded, 12-bit or CMYK JPEG, old-style
 JPEG-compressed TIFF, ...) raises NotImplementedError naming the file and
 the kind when it is read, and an undistorted RGBA WebP view with fully

@@ -125,9 +125,10 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     utils/image.py ``read_image`` reads on ``device``: PNG of any colour
     type and depth, baseline or progressive JPEG, TIFF (integer or float
     samples, CMYK, YCbCr, JPEG-compressed, BigTIFF), BMP, PBM / PGM / PPM
-    / PAM / PFM, Radiance HDR, Sun raster and WebP (lossy, lossless or with alpha); other formats (JPEG 2000,
-    GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK JPEG, ...)
-    raise NotImplementedError naming the file.
+    / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy, lossless or with
+    alpha) and JPEG 2000 (JP2 or raw codestreams, 8 or 16 bits); other
+    formats (GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK
+    JPEG, ...) raise NotImplementedError naming the file.
     Each image is resized in its stored type (uint8, uint16, int16,
     float32 or float64, as cv2.resize; int8, int32 and uint32 raise when a
     resize is needed), then cast to f32 and divided by 255, whatever its

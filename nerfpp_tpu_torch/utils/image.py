@@ -73,14 +73,17 @@ writes, each in its own module: PNG of every colour type and depth
 samples, gray, RGB(A), palette, CMYK and YCbCr, JPEG-compressed too
 (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
 (utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
-(utils/sunras.py) and WebP, lossy, lossless and with alpha (utils/webp.py);
-16-bit PNG, TIFF, PGM, PPM and PAM come back as uint16, PFM and HDR as
-float32, as OpenCV returns them. Reading goes by the file's leading bytes,
-as OpenCV's does, writing by the extension (PNG, TIFF and the portable
-formats keep 16 bits; JPEG is written baseline at quality 95 and WebP
-lossless, as cv2.imwrite writes them at its defaults). JPEG 2000, AVIF, GIF,
-animated WebP and the formats' unread kinds (arithmetic-coded, 12-bit and
-CMYK JPEG, old-style JPEG-compressed TIFF, ...) raise NotImplementedError
+(utils/sunras.py), WebP, lossy, lossless and with alpha (utils/webp.py),
+and JPEG 2000, JP2 files and raw codestreams, 5/3 and 9/7, tiles,
+precincts, layers and the five progression orders (utils/jpeg2000.py);
+16-bit PNG, TIFF, PGM, PPM, PAM and JPEG 2000 come back as uint16, PFM and
+HDR as float32, as OpenCV returns them. Reading goes by the file's leading
+bytes, as OpenCV's does, writing by the extension (PNG, TIFF, JPEG 2000 and
+the portable formats keep 16 bits; JPEG is written baseline at quality 95,
+WebP lossless and .jp2 as OpenJPEG's rate-4 5/3, as cv2.imwrite writes them
+at its defaults). AVIF, GIF, animated WebP and the formats' unread kinds
+(arithmetic-coded, 12-bit and CMYK JPEG, old-style JPEG-compressed TIFF,
+JPEG 2000 code-block styles other than 0, ...) raise NotImplementedError
 naming the file and the kind, as does writing an RGBA WebP with fully
 transparent pixels; files cv2.imread returns None for raise ValueError.
 """
@@ -94,6 +97,9 @@ import torch
 
 from nerfpp_tpu_torch import resolve_device
 from nerfpp_tpu_torch.utils import bmp, hdr, pxm, sunras
+from nerfpp_tpu_torch.utils.jpeg2000 import SIGNATURES as JPEG2000_SIGNATURES
+from nerfpp_tpu_torch.utils.jpeg2000 import (decode_jpeg2000, jpeg2000_pixels,
+                                             write_jpeg2000)
 from nerfpp_tpu_torch.utils.jpeg import read_jpeg, write_jpeg
 from nerfpp_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 from nerfpp_tpu_torch.utils.png import read_png, write_png
@@ -468,13 +474,11 @@ def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 # ---------------------------------------------------------------- files
 
 # leading bytes of formats cv2.imread reads and the port does not
-OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                 (b"\xff\x4f\xff\x51", "JPEG 2000"),
-                 (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
 READ = ("PNG, baseline and progressive JPEG, TIFF, BMP, PBM / PGM / PPM / "
-        "PAM / PFM, Radiance HDR, Sun raster and WebP")
+        "PAM / PFM, Radiance HDR, Sun raster, WebP and JPEG 2000")
 # extension -> the writer of a numpy image (JPEG is encoded on the device)
 WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,
@@ -489,8 +493,9 @@ WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
 def image_format(path) -> str:
     """The format from the file's leading bytes, as cv2.imread finds it:
     "png", "jpeg", "tiff", "bmp", "pxm" (P1-P6), "pam" (P7), "pfm", "hdr",
-    "sunras" or "webp"; anything else raises NotImplementedError naming the
-    file and, where known, its format."""
+    "sunras", "webp" or "jpeg2000" (a JP2 file or a raw codestream);
+    anything else raises NotImplementedError naming the file and, where
+    known, its format."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
@@ -513,6 +518,8 @@ def image_format(path) -> str:
         return "sunras"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "webp"
+    if head.startswith(JPEG2000_SIGNATURES):
+        return "jpeg2000"
     kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
     if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
         kind = "AVIF"
@@ -529,10 +536,12 @@ READERS = {"png": read_png, "bmp": bmp.read_bmp,
 def read_image(path, device="cuda") -> torch.Tensor:
     """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: [H, W] or [H, W,
     C] on ``device``, in the dtype OpenCV returns (uint8; uint16 for 16-bit
-    PNG, TIFF and portable files; float32 for PFM and HDR; TIFF's signed,
-    32-bit and float samples as they are), by the leading bytes. WebP's
-    chroma upsampling and colour conversion, and JPEG-in-TIFF's, YCbCr
-    TIFF's and CMYK TIFF's pixel stages, run on ``device``."""
+    PNG, TIFF, portable and JPEG 2000 files; float32 for PFM and HDR;
+    TIFF's signed, 32-bit and float samples as they are), by the leading
+    bytes. WebP's chroma upsampling and colour conversion, JPEG-in-TIFF's,
+    YCbCr TIFF's and CMYK TIFF's pixel stages, and JPEG 2000's
+    dequantisation, inverse wavelet and colour transforms run on
+    ``device``."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":
@@ -543,25 +552,32 @@ def read_image(path, device="cuda") -> torch.Tensor:
         return read_webp(path, dev)
     if kind == "tiff":
         return tiff_pixels(decode_tiff(path), dev)
+    if kind == "jpeg2000":
+        return jpeg2000_pixels(decode_jpeg2000(path), dev)
     return torch.from_numpy(READERS[kind](path)).to(dev)
 
 
 def write_image(path, img, device="cuda") -> None:
     """cv2.imwrite(path, img) of an [H, W] or [H, W, C] image in RGB(A)
     order, by the extension: baseline JPEG at quality 95 (encoded on
-    ``device``) for .jpg, .jpeg and .jpe; PNG, TIFF, BMP (.bmp, .dib),
-    PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic), Sun raster
-    (.sr, .ras) and lossless WebP (.webp) as their modules write them, each
-    taking the dtypes that format reads back; any other extension
-    raises."""
+    ``device``) for .jpg, .jpeg and .jpe; JPEG 2000 at OpenJPEG's rate 4
+    (its wavelet transform on ``device``) for .jp2; PNG, TIFF, BMP (.bmp,
+    .dib), PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic), Sun
+    raster (.sr, .ras) and lossless WebP (.webp) as their modules write
+    them, each taking the dtypes that format reads back; any other
+    extension raises."""
     ext = Path(path).suffix.lower()
     if ext in JPEG_EXTENSIONS:
         write_jpeg(path, img, device=device)
         return
+    if ext == ".jp2":
+        write_jpeg2000(path, img, device)
+        return
     if ext not in WRITERS:
         raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
                                   'without extension'}; the port writes PNG, "
-                                  "JPEG, TIFF, BMP, PBM / PGM / PPM / PNM, "
-                                  "PAM, PFM, HDR, Sun raster and WebP")
+                                  "JPEG, JPEG 2000 (.jp2), TIFF, BMP, PBM / "
+                                  "PGM / PPM / PNM, PAM, PFM, HDR, Sun "
+                                  "raster and WebP")
     arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
     WRITERS[ext](path, arr)

@@ -22,7 +22,8 @@ takes a SceneData with poses on a sphere (data/synthetic.py's
   "ppm" and "ppm16" (binary PPM at 8 and 16 bits), "pam" (3-channel PAM),
   "ras" (24-bit Sun raster), "pfm" and "hdr" (float32 PFM and run-length
   RGBE), "webp" (lossless WebP, read back to the pixels of cv2.imwrite's
-  own file), each as cv2.imwrite writes it; integer views are the render
+  own file), "jp2" (JPEG 2000 at OpenJPEG's rate 4, cv2.imwrite's bytes),
+  each as cv2.imwrite writes it; integer views are the render
   spread over their type's range and rounded, float views the render as
   it is. Encoded on the device where the format has device stages:
   every train view rendered from the scene's
@@ -75,7 +76,8 @@ FORMATS = {"png": (".png", "uint8", False), "png16": (".png", "uint16", False),
            "ppm16": (".ppm", "uint16", False), "pam": (".pam", "uint8", False),
            "ras": (".ras", "uint8", False), "pfm": (".pfm", "float32", False),
            "hdr": (".hdr", "float32", False),
-           "webp": (".webp", "uint8", False)}
+           "webp": (".webp", "uint8", False),
+           "jp2": (".jp2", "uint8", False)}
 
 
 @dataclasses.dataclass

@@ -169,9 +169,11 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    # PNG, JPEG, TIFF, BMP, WebP and the other formats the port reads are
-    # read; a GIF view raises when the undistortion reads it, a JPEG 2000
-    # view when load_images does, each naming the file and its kind
+    # PNG, JPEG, TIFF, BMP, WebP, JPEG 2000 and the other formats the port
+    # reads are read; a GIF view raises when the undistortion reads it, a
+    # JPEG 2000 view of a kind the port does not read (its code-block style
+    # set to bypass) when load_images does, each naming the file and its
+    # kind
     from scripts.colmap_export import write_images_bin
     img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
     for ext, params, kind in ((".gif", [], "GIF"), (".jp2", [], "JPEG 2000")):
@@ -183,6 +185,10 @@ def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
         for im in rec.images.values():
             im.name = im.name.replace(".png", ext)
             assert cv2.imwrite(str(ws / im.name), img, params)
+            if ext == ".jp2":
+                data = bytearray((ws / im.name).read_bytes())
+                data[data.find(b"\xff\x52\x00\x0c") + 12] = 1
+                (ws / im.name).write_bytes(bytes(data))
         write_images_bin(ws / "sparse" / "0" / "images.bin",
                          [rec.images[i] for i in sorted(rec.images)])
         match = rf"img_1\{ext}.*{kind}"

@@ -21,7 +21,11 @@ card; the card's machine has no OpenCV, so this file imports none, and
 - every committed TIFF kind fixture (tests/data/image/tiff_*: BigTIFF,
   JPEG-in-TIFF, YCbCr, CMYK, gray with alpha, 1- to 14-bit samples,
   orientations) decoded on the card to cv2's pixels and the CPU's, and
-  its host part decoded once for both.
+  its host part decoded once for both;
+- every committed JPEG 2000 fixture (tests/data/image/jp2_*: cv2's and
+  Pillow's, 5/3 and 9/7, tiles, precincts, layers, YCbCr, 16 bits, raw
+  codestreams) decoded on the card to cv2's pixels and the CPU's, and
+  .jp2 files written from the card with the CPU's bytes.
 """
 from pathlib import Path
 
@@ -135,3 +139,27 @@ def test_tiff_kinds_on_the_card_are_the_cpus_and_opencvs(cuda):
                                       err_msg=f.name)
         np.testing.assert_array_equal(I.read_image(f, cuda).cpu().numpy(),
                                       want, err_msg=f.name)
+
+
+def test_jpeg2000_on_the_card_is_the_cpus_and_opencvs(cuda, tmp_path):
+    from nerfpp_tpu_torch.utils import jpeg2000 as J
+    files = sorted(FIXTURES.glob("jp2_*.jp2")) + sorted(FIXTURES.glob(
+        "jp2_*.j2k"))
+    assert len(files) == 9
+    for f in files:
+        dec = J.decode_jpeg2000(f)
+        card = J.jpeg2000_pixels(dec, cuda)
+        assert card.device.type == cuda.type
+        got = card.cpu().numpy()
+        want = np.load(f.with_suffix(".npy"))
+        assert got.dtype == want.dtype, f.name
+        np.testing.assert_array_equal(got, want, err_msg=f.name)
+        np.testing.assert_array_equal(
+            got, J.jpeg2000_pixels(dec, "cpu").numpy(), err_msg=f.name)
+    rng = np.random.RandomState(5)
+    for shape, dtype in (((40, 52, 3), np.uint8), ((33, 45), np.uint16),
+                         ((64, 32, 4), np.uint8)):
+        img = torch.from_numpy(rng.randint(0, np.iinfo(dtype).max + 1, shape)
+                               .astype(dtype))
+        assert J.encode_jpeg2000(img.to(cuda), cuda) == J.encode_jpeg2000(
+            img, "cpu"), shape

@@ -1,13 +1,15 @@
 """Helpers shared by the image codec tests (a module, not a test file):
 test images, cut progressive JPEGs, PNGs, TIFFs, BMPs (with RLE8 / RLE4
 streams), PAMs, PFMs, Radiance HDRs and Sun rasters of every kind built
-with zlib, struct and numpy, and the committed fixtures under
-tests/data/image (see ``make_fixtures``).
+with zlib, struct and numpy, JPEG 2000 files from cv2 and Pillow, and the
+committed fixtures under tests/data/image (see ``make_fixtures``; run
+``PYTHONPATH=. python tests/torch_image_common.py`` to write them).
 
 The builders write what each format allows, so that each kind can be held
 to what ``cv2.imread(IMREAD_UNCHANGED)`` returns for it; they are test
 code, independent of the port's readers.
 """
+import io
 import struct
 import tempfile
 import zlib
@@ -588,6 +590,74 @@ def fixture_files():
         extra=(2,))
     files.update(raw_fixture_files())
     files.update(tiff_kind_fixture_files())
+    files.update(jpeg2000_fixture_files())
+    return files
+
+
+def cv2_jp2(img, params=()) -> bytes:
+    """cv2.imencode(".jp2") of an image in cv2's BGR(A) order."""
+    import cv2
+    ok, buf = cv2.imencode(".jp2", np.ascontiguousarray(img), list(params))
+    assert ok
+    return buf.tobytes()
+
+
+def pillow_jp2(img, mode=None, **options) -> bytes:
+    """Pillow's JPEG 2000 of an RGB(A) or gray image (``mode``: converted to
+    it first), with Pillow's save options."""
+    from PIL import Image
+    im = Image.fromarray(img)
+    if mode:
+        im = im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, "JPEG2000", **options)
+    return buf.getvalue()
+
+
+def codestream(jp2: bytes) -> bytes:
+    """The codestream of a JP2 file (its jp2c box's payload)."""
+    pos = 12
+    while True:
+        size, kind = struct.unpack(">I4s", jp2[pos:pos + 8])
+        if kind == b"jp2c":
+            return jp2[pos + 8:pos + size] if size else jp2[pos + 8:]
+        pos += size
+
+
+def jpeg2000_fixture_files():
+    """{file name: bytes} of the JPEG 2000 fixtures: cv2.imwrite's own at
+    its defaults (RGB, RGBA, 16-bit gray), lossless, and the RGB file's
+    codestream alone (.j2k); Pillow's with the options cv2 never writes:
+    9/7 with MCT in 32 x 32 tiles, PCRL, 16 x 16 precincts, 8 x 8
+    code-blocks, 3 resolutions, 2 rate layers, PLT and COM; 9/7 without
+    MCT in RPCL with dB layers, as a raw codestream; YCbCr (sYCC) in CPRL;
+    16-bit gray in RLCP with precincts and 3 rate layers."""
+    rgb = pattern(33, 40, 3, 31)
+    files = {"jp2_cv2_rgb_40x33.jp2": cv2_jp2(rgb[..., ::-1])}
+    files["jp2_cv2_codestream_40x33.j2k"] = codestream(
+        files["jp2_cv2_rgb_40x33.jp2"])
+    rgba = np.dstack([pattern(32, 33, 3, 32), pattern(32, 33, 1, 33)])
+    files["jp2_cv2_rgba_33x32.jp2"] = cv2_jp2(rgba[..., [2, 1, 0, 3]])
+    gray16 = (pattern(45, 37, 1, 34).astype(np.uint16) * 257
+              + np.random.RandomState(34).randint(0, 257, (45, 37))
+              ).astype(np.uint16)
+    files["jp2_cv2_gray16_37x45.jp2"] = cv2_jp2(gray16)
+    import cv2
+    files["jp2_cv2_lossless_gray_36x32.jp2"] = cv2_jp2(
+        pattern(32, 36, 1, 35), [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])
+    files["jp2_pil_97_tiles_pcrl_45x39.jp2"] = pillow_jp2(
+        pattern(39, 45, 3, 36), irreversible=True, tile_size=(32, 32),
+        progression="PCRL", precinct_size=(16, 16), codeblock_size=(8, 8),
+        num_resolutions=3, quality_mode="rates", quality_layers=[12, 4],
+        plt=True, comment="nerfpp_tpu fixture")
+    files["jp2_pil_97_nomct_rpcl_db_29x34.j2k"] = pillow_jp2(
+        pattern(34, 29, 3, 37), irreversible=True, mct=0, progression="RPCL",
+        quality_mode="dB", quality_layers=[30, 40], no_jp2=True)
+    files["jp2_pil_ycbcr_cprl_31x26.jp2"] = pillow_jp2(
+        pattern(26, 31, 3, 38), "YCbCr", progression="CPRL")
+    files["jp2_pil_gray16_rlcp_27x30.jp2"] = pillow_jp2(
+        gray16[:30, :27].copy(), progression="RLCP", precinct_size=(8, 8),
+        num_resolutions=3, quality_mode="rates", quality_layers=[20, 8, 2])
     return files
 
 
