@@ -202,11 +202,13 @@ Phases, each printing its own lines:
      JPEG, BMP, PPM, lossless WebP, JPEG 2000 and PAM, the 1000x1000
      camera's 4 TIFF, rewritten as the TIFF kinds of TIFF_KINDS: RGB
      JPEG-in-TIFF with JPEGTables, BigTIFF, YCbCr 4:2:0 JPEG tiles, CMYK
-     under Orientation 3), written on the card; (b) the undistortion on the
-     card (each view written back in its format, a progressive one as
-     baseline JPEG at quality 95, a WebP lossless, a .jp2 as cv2.imwrite
-     writes it), one view of each
-     format also through the CPU (the same bytes), every exported and
+     under Orientation 3; WebP view 12 rewritten as RGBA, alpha 0 off a
+     disc, a masked object capture), written on the card; (b) the
+     undistortion on the card (each view written back in its format, a
+     progressive one as baseline JPEG at quality 95, a WebP lossless with
+     libwebp's rewrite under alpha 0, a .jp2 as cv2.imwrite writes it),
+     one view of each format and view 12
+     also through the CPU (the same bytes), every exported and
      undistorted file decoded on the card and the CPU (bitwise equal), the
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
      cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
@@ -222,7 +224,12 @@ Phases, each printing its own lines:
      of the progressive views and a 4,000x3,000 progressive upscale (host
      entropy pass and device stages apart), of the 800x800 lossy WebP
      fixture and the WebP views (host C++ and device stages apart), the
-     port's lossless WebP sizes beside cv2's, the exported and undistorted
+     port's lossless WebP sizes beside cv2's, the committed animated and
+     transparent WebP (tests/data/webp) decoded on the card to cv2's
+     pixels and the transparent ones written again from the card and read
+     back as cv2's, an 800x800 masked view's 4,000x3,000 upscale rewritten
+     under alpha 0 to the digest of cv2's pixels, the rewrite's host time
+     there and on view 12, the exported and undistorted
      .jp2 views re-encoded on the card and the CPU (the same bytes), the
      JPEG 2000 decode and encode of an 800x800 view and a 4,000x3,000
      upscale (host C++ and device stages apart), the undistortion and
@@ -3211,15 +3218,29 @@ def split_times(files, decode, pixels, planes, encode):
 
 def webp_times(files, dev):
     """split_times of WebP files: the host parts the container and the C++
-    decoder, the C++ lossless encoder (write_webp's); the device parts the
-    chroma upsampling, colour conversion and alpha (a lossless image's
-    copy to the card), the copy back to the host."""
+    decoder, the C++ lossless encoder (write_webp's, libwebp's rewrite
+    under alpha 0 first where an image has such pixels); the device parts
+    the chroma upsampling, colour conversion, alpha and an animation's
+    canvas (a lossless image's copy to the card), the copy back to the
+    host. ``"rewrite"``: the host seconds of the rewrite, part of the
+    encode's."""
     from nerfpp_tpu_torch.utils import webp as W
-    return split_times(
+    rewrite = [0.0]
+
+    def encode(host, path):
+        argb = W.argb_image(host, str(path))
+        if W.has_transparent(argb):
+            t0 = time.perf_counter()
+            W.transparent_rewrite(argb)
+            rewrite[0] += time.perf_counter() - t0
+        return W.encode_argb(argb, str(path))
+
+    t, images = split_times(
         files, lambda path, data: W.decode_planes(W.parse(path, data), path),
         lambda planes: W.frame_pixels(planes, dev),
-        lambda img, path: img.cpu().numpy(),
-        lambda host, path: W.encode_webp(host, str(path)))
+        lambda img, path: img.cpu().numpy(), encode)
+    t["rewrite"] = rewrite[0]
+    return t, images
 
 
 def jp2_times(files, dev):
@@ -3246,6 +3267,9 @@ def split_line(label, t, fmt, again):
                      f"{1e3 * host:.3f} ms, device {1e3 * device:.3f} ms): "
                      f"{n / total / 1e6:.1f} MB/s of {fmt}, "
                      f"{t['pixels'] / total / 1e6:.1f} Mpix/s")
+    if t.get("rewrite"):
+        parts.append(f"of the encode's host part, libwebp's rewrite under "
+                     f"alpha 0 {1e3 * t['rewrite']:.3f} ms")
     return (f"{label} ({t['bytes']} bytes of {fmt}, {t['pixels'] / 1e6:.2f} "
             f"Mpix; {again} {t['encoded']} bytes): " + "; ".join(parts))
 
@@ -3506,12 +3530,115 @@ def format_lines(label, t):
 
 # phase 21's trained capture, cycled over the 16 views: the 1000x1000
 # camera's 4 views (3, 7, ...) TIFF, the 800x800 camera's 12 progressive
-# JPEG, BMP, PPM, lossless WebP (views 4 and 12), JPEG 2000 (views 5 and
-# 13) and PAM
+# JPEG, BMP, PPM, lossless WebP (views 4 and 12; 12 rewritten as RGBA, a
+# masked object capture: WEBP_MASKED_VIEW), JPEG 2000 (views 5 and 13)
+# and PAM
 TRAIN_FORMATS = ("pjpg", "bmp", "ppm", "tif", "webp", "jp2", "pam", "tif")
+# the WebP view (0-based index 12, "view 12") given alpha 0 off a disc of
+# 0.4 of its short side: its writes go through libwebp's rewrite under
+# alpha 0 (utils/webp.py transparent_rewrite)
+WEBP_MASKED_VIEW = 12
 # the TIFF kind each of those 4 views is rewritten as (write_tiff_kind)
 TIFF_KINDS = {3: "jpeg_rgb_tables", 7: "bigtiff", 11: "jpeg_ycbcr_tiles",
               15: "cmyk_orientation3"}
+
+
+def webp_transparent_and_animated(root, dev, masked_view, webp_dir):
+    """Phase 21(b)'s WebP with fully transparent pixels and animated WebP:
+    the committed cv2 files of ``webp_dir`` (tests/data/webp: anim_* and
+    transparent_*, with cv2.imread's pixels as .npy) decoded on the card
+    to cv2's pixels; each transparent one written again from the card
+    (utils/webp.py: libwebp's rewrite under alpha 0, then the lossless
+    encoder) and read back as cv2's pixels (the 800x800 view, with no .npy,
+    as the CPU decodes it: cv2's file is a fixed point of the rewrite); the
+    view's 4,000 x 3,000 upscale (resize_linear_u8 on the card) rewritten
+    to the committed digest of cv2.imwrite's pixels; webp_times of the
+    capture's masked view (``masked_view``) and the rewrite's host time on
+    the upscale."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import webp as W
+    cpu = torch.device("cpu")
+    anims = sorted(webp_dir.glob("anim_*.webp"))
+    holed = sorted(webp_dir.glob("transparent_*.webp"))
+    if len(anims) != 7 or len(holed) != 7:
+        raise AssertionError(f"{webp_dir}: {len(anims)} animated and "
+                             f"{len(holed)} transparent files, not 7 and 7")
+    kinds = []
+    for f in anims + holed:
+        card = I.read_image(f, dev)
+        got = card.cpu().numpy()
+        npy = f.with_suffix(".npy")
+        want = np.load(npy) if npy.exists() else I.read_image(f, cpu).numpy()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{f.name}: the card's decode is not "
+                                 "cv2's")
+        if f in holed:
+            again = root / f"again_{f.name}"
+            I.write_image(again, card, dev)
+            back = I.read_image(again, dev).cpu().numpy()
+            if not np.array_equal(back, want):
+                raise AssertionError(f"{f.name}: written again from the "
+                                     "card, it does not read back as cv2's "
+                                     "pixels")
+            picked = W.transparent_rewrite(W.argb_image(want))
+            kinds.append(f"{f.stem} ({picked})")
+    log("formats", f"(b) {len(anims)} animated WebP fixtures ("
+        + ", ".join(f.name for f in anims) + ") decoded on the card to "
+        "cv2.imread's first frames on their canvases; "
+        f"{len(holed)} RGBA WebP with alpha 0 (" + ", ".join(kinds)
+        + ") decoded on the card to cv2's pixels and written again from "
+        "the card through libwebp's rewrite under alpha 0: read back as "
+        "cv2's")
+    view = I.read_image(webp_dir / "transparent_view_800x800.webp", dev)
+    big = I.resize_linear_u8(view, (3000, 4000))
+    torch.cuda.synchronize()
+    argb = W.argb_image(big)
+    t0 = time.perf_counter()
+    kind = W.transparent_rewrite(argb)
+    rewrite_s = time.perf_counter() - t0
+    digest = hashlib.sha256(argb.tobytes()).hexdigest()
+    want = (webp_dir / "transparent_4000x3000.sha256").read_text().strip()
+    if digest != want:
+        raise AssertionError(f"4000x3000 upscale: the rewrite's SHA-256 "
+                             f"{digest}, cv2's {want}")
+    share = float((argb < (1 << 24)).mean())
+    log("formats", f"(b) transparent_view_800x800 upscaled to 4000x3000 on "
+        f"the card ({share:.1%} alpha 0; libwebp's analysis: {kind}): the "
+        f"rewrite under alpha 0 took {1e3 * rewrite_s:.3f} ms on the host, "
+        "its pixels cv2.imwrite's (SHA-256)")
+    webp_times([masked_view], dev)                  # warm
+    t, (img,) = webp_times([masked_view], dev)
+    if img.shape[2] != 4 or not bool((img[..., 3] == 0).any()):
+        raise AssertionError(f"{masked_view.name}: not RGBA with alpha 0")
+    log("formats", split_line(f"(b) {masked_view.name}, the masked "
+                              f"{img.shape[1]}x{img.shape[0]} view "
+                              "(undistorted, RGBA)", t, "WebP",
+                              "re-encoded lossless"))
+
+
+def mask_webp_view(path, dev):
+    """Rewrites the WebP view at ``path`` as RGBA, a masked object capture
+    (alpha 0 off a centred disc of 0.4 of its short side, 255 on it),
+    written from the card through write_image; returns (the share of alpha
+    0, the transforms libwebp's analysis picks, the file's bytes)."""
+    import torch
+    from nerfpp_tpu_torch.utils import image as I
+    from nerfpp_tpu_torch.utils import webp as W
+    rgb = I.read_image(path, dev)[..., :3]
+    h, w = rgb.shape[:2]
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    disc = (yy - (h - 1) / 2) ** 2 + (xx - (w - 1) / 2) ** 2 \
+        <= (0.4 * min(h, w)) ** 2
+    alpha = (disc.to(torch.uint8) * 255)[..., None]
+    rgba = torch.cat([rgb, alpha], -1)
+    I.write_image(path, rgba, dev)
+    kind = W.transparent_rewrite(W.argb_image(rgba))
+    return (1.0 - float(disc.float().mean()), kind, path.stat().st_size)
 
 
 def tiff_bytes(width, height, entries, chunks, big=False):
@@ -3690,10 +3817,13 @@ def formats_phase(scene, dev, psnrs, t_start):
     phase 17's COLMAP export with each view in a format of TRAIN_FORMATS
     (the 800x800 camera's 12 views progressive JPEG, BMP, PPM, lossless
     WebP, JPEG 2000 and PAM, the 1000x1000 camera's 4 TIFF, rewritten as
-    the kinds of TIFF_KINDS by write_tiff_kind), written on the card's
-    path; (b) the undistortion on the card (each view
-    read, undistorted and written back in its format), one view of each
-    format also through the CPU (the same bytes), every exported and
+    the kinds of TIFF_KINDS by write_tiff_kind; WebP view
+    WEBP_MASKED_VIEW rewritten as an RGBA masked capture by
+    mask_webp_view), written on the card's path; (b) the undistortion on
+    the card (each view read, undistorted and written back in its format,
+    the masked view through libwebp's rewrite under alpha 0), one view of
+    each format and the masked view also through the CPU (the same
+    bytes), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal), the
     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
     cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
@@ -3715,7 +3845,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     entropy pass and device stages apart), of the 800x800 lossy WebP
     fixture and the exported and undistorted WebP views (webp_times: host
     C++ and device stages apart), the port's lossless WebP sizes beside
-    cv2's files for the lossless fixtures, the undistortion and
+    cv2's files for the lossless fixtures, the animated and transparent
+    WebP fixtures, the 4,000 x 3,000 rewrite and the masked view's times
+    (webp_transparent_and_animated), the undistortion and
     load_images; (c) phase 17(c)'s flagship ``cli train
     --dataset-type colmap`` on the mixed workspace to NIters 2,100, or 1,088
     if the whole script would pass 1,080 s (the cut is printed; steps
@@ -3763,6 +3895,7 @@ def formats_phase(scene, dev, psnrs, t_start):
         raise AssertionError(f"export: {[f.name for f in sources]}")
     tiff_sizes = {kind: write_tiff_kind(sources[j], kind, dev)
                   for j, kind in TIFF_KINDS.items()}
+    masked = mask_webp_view(sources[WEBP_MASKED_VIEW], dev)
     jpgs = [f for f in sources if f.suffix == ".jpg"]
     if not all(J.decode_coefficients(f.read_bytes()).progressive
                for f in jpgs):
@@ -3777,7 +3910,10 @@ def formats_phase(scene, dev, psnrs, t_start):
                     for ext, (n, b) in sorted(sizes.items()))
         + "; the TIFF views rewritten as "
         + ", ".join(f"{k} (view {j}, {tiff_sizes[k]} bytes)"
-                    for j, k in TIFF_KINDS.items()))
+                    for j, k in TIFF_KINDS.items())
+        + f"; view {WEBP_MASKED_VIEW} rewritten as RGBA, {masked[0]:.1%} "
+        f"of it alpha 0 (libwebp's analysis: {masked[1]}; {masked[2]} "
+        "bytes)")
 
     # (b) undistortion on the card, then the codecs card against CPU
     torch.cuda.synchronize()
@@ -3792,7 +3928,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     raw = C.read_model(ws / "sparse" / "0")
     checked = []
     (root / "cpu_check").mkdir()
-    for i in (0, 1, 2, 3, 4, 5, 6):           # one view of each format
+    # one view of each format, and the masked WebP view
+    for i in (0, 1, 2, 3, 4, 5, 6, WEBP_MASKED_VIEW):
         cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
         k = cam.k_matrix().astype(np.float64)
         d = cam.distortion().astype(np.float64)
@@ -3987,6 +4124,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     log("formats", "(b) the port's lossless WebP beside cv2.imwrite's of the "
         "same pixels: " + ", ".join(webp_sizes))
     del img
+    webp_transparent_and_animated(
+        root, dev, undistorted[WEBP_MASKED_VIEW],
+        Path(__file__).resolve().parent / WEBP_TIMING.parent)
 
     # JPEG 2000: each exported and undistorted view re-encoded on the card
     # and the CPU (the same bytes); an 800x800 view and its 4,000x3,000

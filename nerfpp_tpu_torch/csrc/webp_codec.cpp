@@ -1,7 +1,10 @@
 // WebP on the host: the VP8 (lossy) decoder to Y, U and V planes, the VP8L
-// (lossless) decoder to ARGB, the ALPH chunk to an alpha plane, and a VP8L
-// encoder. Built with g++ at first use by nerfpp_tpu_torch/native.py
-// build_library and loaded with ctypes (utils/webp.py); plain C interface.
+// (lossless) decoder to ARGB, the ALPH chunk to an alpha plane, a VP8L
+// encoder, and the image libwebp's lossless encoder writes in place of one
+// with fully transparent pixels (the colour under alpha 0 rewritten).
+// Built with g++ (-ffp-contract=off -fopenmp) at first use by
+// nerfpp_tpu_torch/native.py build_library and loaded with ctypes
+// (utils/webp.py); plain C interface.
 //
 // The decoders follow RFC 6386 (VP8) and RFC 9649 (VP8L) as libwebp decodes
 // them, step for step where a choice shows in the pixels: libwebp's boolean
@@ -14,6 +17,8 @@
 // Return codes: >= 0 success (the encoder: bytes written), -1 a bitstream
 // error, -2 data that ends too soon, -3 no room for the output.
 #include <algorithm>
+#include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -2134,6 +2139,431 @@ inline int residual_cost(uint32_t r) {
   return c;
 }
 
+
+// ------------------------------------- libwebp's rewrite under alpha 0
+// cv2.imwrite(".webp") encodes through libwebp's WebPEncodeLosslessBGRA
+// (quality 70, method 4, "exact" off), which does not keep the colour of a
+// pixel whose alpha is 0: WebPReplaceTransparentPixels first sets every such
+// pixel to 0, and when the encoder then runs the predictor transform,
+// GetResidual writes the prediction's colour there (a residual of 0), row by
+// row, so that later predictions read the written value. What comes back
+// depends on the transforms the encoder picks (AnalyzeEntropy in
+// vp8l_enc.c) and on the predictor mode it picks for each tile
+// (predictor_enc.c), both on libwebp's fixed-point entropy estimates (23
+// fraction bits), reproduced here in its integer arithmetic and order.
+
+constexpr int LOG2_BITS = 23;                         // LOG_2_PRECISION_BITS
+constexpr uint64_t LOG2_RECIPROCAL = 12102203;        // 2^23 / ln 2
+constexpr double LOG2_RECIPROCAL_DOUBLE = 12102203.161561485;
+constexpr int NUM_PRED_MODES = 14;
+
+struct LogTables {
+  uint32_t log2[256];   // round(2^23 log2(i))
+  uint64_t slog2[256];  // round(2^23 log2(i) i)
+  LogTables() {
+    log2[0] = 0;
+    slog2[0] = 0;
+    for (int i = 1; i < 256; ++i) {
+      const double l = std::log2((double)i);
+      log2[i] = (uint32_t)std::nearbyint(8388608.0 * l);
+      slog2[i] = (uint64_t)std::nearbyint(8388608.0 * l * i);
+    }
+  }
+};
+
+const LogTables& log_tables() {
+  static const LogTables t;
+  return t;
+}
+
+inline int64_t div_round(int64_t a, int64_t b) {
+  return ((a < 0) == (b < 0)) ? ((a + b / 2) / b) : ((a - b / 2) / b);
+}
+
+// VP8LFastSLog2: 2^23 v log2(v)
+uint64_t fast_slog2(uint32_t v) {
+  const LogTables& t = log_tables();
+  if (v < 256) return t.slog2[v];
+  if (v < 65536) {
+    const uint64_t orig = v;
+    const uint64_t log_cnt = (31 - __builtin_clz(v)) - 7;
+    const uint32_t y = 1u << log_cnt;
+    v >>= log_cnt;
+    const uint64_t correction = LOG2_RECIPROCAL * (orig & (y - 1));
+    return orig * (t.log2[v] + (log_cnt << LOG2_BITS)) + correction;
+  }
+  return (uint64_t)(LOG2_RECIPROCAL_DOUBLE * v * std::log((double)v) + .5);
+}
+
+// VP8LBitsEntropy: the Shannon entropy of a histogram, refined by the
+// least a prefix code can spend
+uint64_t bits_entropy(const uint32_t* a, int n) {
+  uint64_t ent = 0;
+  uint32_t sum = 0, nonzeros = 0, max_val = 0;
+  for (int i = 0; i < n; ++i) {
+    if (a[i] != 0) {
+      sum += a[i];
+      ++nonzeros;
+      ent += fast_slog2(a[i]);
+      if (max_val < a[i]) max_val = a[i];
+    }
+  }
+  ent = fast_slog2(sum) - ent;
+  uint64_t mix;
+  if (nonzeros < 5) {
+    if (nonzeros <= 1) return 0;
+    if (nonzeros == 2) {
+      return div_round(99 * ((int64_t)sum << LOG2_BITS) + (int64_t)ent, 100);
+    }
+    mix = nonzeros == 3 ? 950 : 700;
+  } else {
+    mix = 627;
+  }
+  int64_t min_limit = (int64_t)(2 * (uint64_t)sum - max_val) << LOG2_BITS;
+  min_limit = div_round((int64_t)mix * min_limit + (int64_t)(1000 - mix) * (int64_t)ent,
+                        1000);
+  return ent < (uint64_t)min_limit ? (uint64_t)min_limit : ent;
+}
+
+inline uint32_t sub_sample_size(uint32_t size, int bits) {
+  return (size + (1u << bits) - 1) >> bits;
+}
+
+// libwebp's ClampBits: ``bits`` in [lo, hi], raised until the sub-sampled
+// image holds at most ``limit`` entries, lowered while it stays one entry
+int clamp_bits(int w, int h, int bits, int lo, int hi, uint32_t limit) {
+  bits = bits < lo ? lo : bits > hi ? hi : bits;
+  uint32_t size = sub_sample_size(w, bits) * sub_sample_size(h, bits);
+  while (bits < hi && size > limit) {
+    ++bits;
+    size = sub_sample_size(w, bits) * sub_sample_size(h, bits);
+  }
+  while (bits > lo && size == 1) {
+    size = sub_sample_size(w, bits - 1) * sub_sample_size(h, bits - 1);
+    if (size != 1) break;
+    --bits;
+  }
+  return bits;
+}
+
+enum { DIRECT = 0, SPATIAL = 1, SUB_GREEN = 2, SPATIAL_SUB_GREEN = 3, PALETTE = 4 };
+
+inline void add_single(uint32_t p, uint32_t* a, uint32_t* r, uint32_t* g, uint32_t* b) {
+  ++a[(p >> 24) & 0xff];
+  ++r[(p >> 16) & 0xff];
+  ++g[(p >> 8) & 0xff];
+  ++b[p & 0xff];
+}
+
+inline void add_single_sub_green(uint32_t p, uint32_t* r, uint32_t* b) {
+  const int green = (int)p >> 8;
+  ++r[(((int)p >> 16) - green) & 0xff];
+  ++b[((int)p - green) & 0xff];
+}
+
+inline uint8_t hash_pix(uint32_t pix) {
+  return (uint8_t)(((((uint64_t)pix + (pix >> 19)) * 0x39c5fba7ull) & 0xffffffffu) >> 24);
+}
+
+// AnalyzeEntropy: the transform whose estimated entropy is least
+int analyze_entropy(const uint32_t* argb, int w, int h, int use_palette,
+                    int palette_size, int transform_bits) {
+  if (use_palette && palette_size <= 16) return PALETTE;
+  enum { A, AP, G, GP, R, RP, B, BP, RSG, RPSG, BSG, BPSG, PAL, TOTAL };
+  std::vector<uint32_t> histo(TOTAL * 256, 0);
+  auto H = [&](int k) { return histo.data() + 256 * k; };
+  const uint32_t* prev_row = nullptr;
+  const uint32_t* cur_row = argb;
+  uint32_t pix_prev = argb[0];
+  for (int y = 0; y < h; ++y) {
+    for (int x = 0; x < w; ++x) {
+      const uint32_t pix = cur_row[x];
+      const uint32_t diff = sub_pixels(pix, pix_prev);
+      pix_prev = pix;
+      if (diff == 0 || (prev_row != nullptr && pix == prev_row[x])) continue;
+      add_single(pix, H(A), H(R), H(G), H(B));
+      add_single(diff, H(AP), H(RP), H(GP), H(BP));
+      add_single_sub_green(pix, H(RSG), H(BSG));
+      add_single_sub_green(diff, H(RPSG), H(BPSG));
+      ++H(PAL)[hash_pix(pix)];
+    }
+    prev_row = cur_row;
+    cur_row += w;
+  }
+  ++H(RPSG)[0];
+  ++H(BPSG)[0];
+  ++H(RP)[0];
+  ++H(GP)[0];
+  ++H(BP)[0];
+  ++H(AP)[0];
+  uint64_t comp[TOTAL];
+  for (int j = 0; j < TOTAL; ++j) comp[j] = bits_entropy(H(j), 256);
+  uint64_t ent[5];
+  ent[DIRECT] = comp[A] + comp[R] + comp[G] + comp[B];
+  ent[SPATIAL] = comp[AP] + comp[RP] + comp[GP] + comp[BP];
+  ent[SUB_GREEN] = comp[A] + comp[RSG] + comp[G] + comp[BSG];
+  ent[SPATIAL_SUB_GREEN] = comp[AP] + comp[RPSG] + comp[GP] + comp[BPSG];
+  ent[PALETTE] = comp[PAL];
+  const uint64_t tiles = (uint64_t)sub_sample_size(w, transform_bits) *
+                         sub_sample_size(h, transform_bits);
+  ent[SPATIAL] += tiles * log_tables().log2[14];            // VP8LFastLog2
+  ent[SPATIAL_SUB_GREEN] += tiles * log_tables().log2[24];
+  ent[PALETTE] += ((uint64_t)palette_size * 8) << LOG2_BITS;
+  const int last = use_palette ? PALETTE : SPATIAL_SUB_GREEN;
+  int best = DIRECT;
+  for (int k = DIRECT + 1; k <= last; ++k) {
+    if (ent[best] > ent[k]) best = k;
+  }
+  return best;
+}
+
+// GetResidual with "exact" off and no near-lossless: the residuals of
+// pixels [x0, x1) of row y under ``mode``; a pixel of alpha 0 takes the
+// prediction's colour (and the copy of the row's first pixel that the row
+// above carries at [width] follows it)
+template <int MODE>
+void residual_row_mode(int width, uint32_t* upper, uint32_t* cur, int x0,
+                       int x1, int y, uint32_t* out) {
+  for (int x = x0; x < x1; ++x) {
+    uint32_t pred;
+    if (y == 0) {
+      pred = x == 0 ? 0xff000000u : cur[x - 1];
+    } else if (x == 0) {
+      pred = upper[x];
+    } else {
+      pred = predict(MODE, cur[x - 1], upper + x);
+    }
+    uint32_t res = sub_pixels(cur[x], pred);
+    if ((cur[x] & 0xff000000u) == 0) {
+      res &= 0xff000000u;
+      cur[x] = pred & 0x00ffffffu;
+      if (x == 0 && y != 0) upper[width] = cur[0];
+    }
+    if (out != nullptr) out[x - x0] = res;
+  }
+}
+
+void residual_row(int width, uint32_t* upper, uint32_t* cur, int mode, int x0,
+                  int x1, int y, uint32_t* out) {
+  using Fn = void (*)(int, uint32_t*, uint32_t*, int, int, int, uint32_t*);
+  static const Fn fns[NUM_PRED_MODES] = {
+      residual_row_mode<0>, residual_row_mode<1>, residual_row_mode<2>,
+      residual_row_mode<3>, residual_row_mode<4>, residual_row_mode<5>,
+      residual_row_mode<6>, residual_row_mode<7>, residual_row_mode<8>,
+      residual_row_mode<9>, residual_row_mode<10>, residual_row_mode<11>,
+      residual_row_mode<12>, residual_row_mode<13>};
+  fns[mode](width, upper, cur, x0, x1, y, out);
+}
+
+// PredictionCostBias: favours residuals near 0 (weight 1, 0.94 decaying by
+// 0.6 a step, in hundredths and tenths)
+int64_t prediction_cost_bias(const uint32_t* counts) {
+  uint64_t bits = (uint64_t)counts[0] << LOG2_BITS;
+  uint64_t exp_val = 94ull << LOG2_BITS;
+  for (int i = 1; i < 16; ++i) {
+    bits += div_round((int64_t)(exp_val * (counts[i] + counts[256 - i])), 100);
+    exp_val = div_round((int64_t)(6 * exp_val), 10);
+  }
+  return -div_round((int64_t)bits, 10);
+}
+
+// libwebp's VP8LCombinedShannonEntropy(X, Y), the entropy of X and of X +
+// Y, against one Y (the accumulated histogram) for many X (a tile's, under
+// each mode): Y's sum and sum of v log2(v) taken once, the same unsigned
+// sums as libwebp's in another order
+struct Accumulated {
+  const uint32_t* y;
+  uint32_t sum[4];
+  uint64_t slog[4];
+  explicit Accumulated(const uint32_t* histo) : y(histo) {
+    for (int c = 0; c < 4; ++c) {
+      sum[c] = 0;
+      slog[c] = 0;
+      for (int i = 0; i < 256; ++i) {
+        sum[c] += y[256 * c + i];
+        slog[c] += fast_slog2(y[256 * c + i]);
+      }
+    }
+  }
+  // VP8LCombinedShannonEntropy(X, Y's channel c)
+  uint64_t combined(const uint32_t* X, int c) const {
+    const uint32_t* Y = y + 256 * c;
+    uint64_t ret = slog[c];
+    uint32_t sum_x = 0;
+    for (int i = 0; i < 256; ++i) {
+      const uint32_t x = X[i];
+      if (x != 0) {
+        sum_x += x;
+        ret += fast_slog2(x) + fast_slog2(x + Y[i]) - fast_slog2(Y[i]);
+      }
+    }
+    return fast_slog2(sum_x) + fast_slog2(sum_x + sum[c]) - ret;
+  }
+};
+
+int64_t prediction_cost(const Accumulated& accumulated, const uint32_t* tile,
+                        int mode, int left_mode, int above_mode) {
+  int64_t ret = 0;
+  for (int i = 0; i < 4; ++i) {
+    ret += prediction_cost_bias(tile + 256 * i);
+    ret += (int64_t)accumulated.combined(tile + 256 * i, i);
+  }
+  const int64_t bias = 15ll << LOG2_BITS;   // kSpatialPredictorBias
+  if (mode == left_mode) ret -= bias;
+  if (mode == above_mode) ret -= bias;
+  return ret;
+}
+
+// GetBestPredictorForTile, part 1: the histograms of each mode's residuals
+// over tile (tx, ty), 4 x 256 a mode (the rows and columns around the tile
+// read as they were before any rewrite, which the mode search never makes)
+void tile_histograms(int w, int h, int tx, int ty, int bits,
+                     const uint32_t* argb, uint32_t* histos) {
+  const int start_x = tx << bits, start_y = ty << bits;
+  const int max_y = std::min(1 << bits, h - start_y);
+  const int max_x = std::min(1 << bits, w - start_x);
+  const int have_left = start_x > 0;
+  const int cx = start_x - have_left;
+  std::vector<uint32_t> scratch(2 * (size_t)(w + 1)), res(max_x);
+  uint32_t* upper = scratch.data();
+  uint32_t* cur = upper + w + 1;
+  std::fill(histos, histos + NUM_PRED_MODES * 1024, 0);
+  for (int mode = 0; mode < NUM_PRED_MODES; ++mode) {
+    uint32_t* histo = histos + mode * 1024;
+    if (start_y > 0) {
+      memcpy(cur + cx, argb + (size_t)(start_y - 1) * w + cx,
+             sizeof(uint32_t) * (max_x + have_left + 1));
+    }
+    for (int ry = 0; ry < max_y; ++ry) {
+      const int y = start_y + ry;
+      std::swap(upper, cur);
+      memcpy(cur + cx, argb + (size_t)y * w + cx,
+             sizeof(uint32_t) * (max_x + have_left + (y + 1 < h)));
+      residual_row(w, upper, cur, mode, start_x, start_x + max_x, y, res.data());
+      for (int i = 0; i < max_x; ++i) {
+        const uint32_t r = res[i];
+        ++histo[r >> 24];
+        ++histo[256 + ((r >> 16) & 0xff)];
+        ++histo[512 + ((r >> 8) & 0xff)];
+        ++histo[768 + (r & 0xff)];
+      }
+    }
+  }
+}
+
+// part 2: the mode of least cost against the histogram accumulated over
+// the tiles before it (the first of equal costs), which its histogram joins
+int pick_mode(std::vector<uint32_t>& accumulated, const uint32_t* histos,
+              int left_mode, int above_mode) {
+  const Accumulated acc(accumulated.data());
+  int64_t best_cost = INT64_MAX;
+  int best_mode = 0;
+  for (int mode = 0; mode < NUM_PRED_MODES; ++mode) {
+    const int64_t cost = prediction_cost(acc, histos + mode * 1024, mode,
+                                         left_mode, above_mode);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best_mode = mode;
+    }
+  }
+  const uint32_t* best = histos + best_mode * 1024;
+  for (int i = 0; i < 4 * 256; ++i) accumulated[i] += best[i];
+  return best_mode;
+}
+
+// the number of colours of an image, 0 when there are more than 256
+int count_colors(const uint32_t* argb, size_t n) {
+  constexpr int SLOTS = 1024;   // open addressing, never more than 257 used
+  uint32_t keys[SLOTS];
+  bool used[SLOTS] = {};
+  int count = 0;
+  uint32_t last = 0;
+  for (size_t i = 0; i < n; ++i) {
+    const uint32_t c = argb[i];
+    if (i > 0 && c == last) continue;
+    last = c;
+    uint32_t k = (c * 0x1e35a7bdu) >> 22;
+    while (used[k] && keys[k] != c) k = (k + 1) & (SLOTS - 1);
+    if (!used[k]) {
+      if (++count > 256) return 0;
+      used[k] = true;
+      keys[k] = c;
+    }
+  }
+  return count;
+}
+
+inline uint32_t subtract_green(uint32_t p) {
+  const uint32_t g = (p >> 8) & 0xff;
+  return (p & 0xff00ff00u) | (((p & 0x00ff00ffu) + 0x01000100u - ((g << 16) | g)) & 0x00ff00ffu);
+}
+
+inline uint32_t add_green(uint32_t p) {
+  const uint32_t g = (p >> 8) & 0xff;
+  return (p & 0xff00ff00u) | (((p & 0x00ff00ffu) + ((g << 16) | g)) & 0x00ff00ffu);
+}
+
+// the image libwebp encodes in place of ``argb`` (rewritten in place);
+// returns the transforms its analysis picked
+int rewrite_transparent(uint32_t* argb, int w, int h) {
+  const size_t n = (size_t)w * h;
+  for (size_t i = 0; i < n; ++i) {
+    if ((argb[i] >> 24) == 0) argb[i] = 0;
+  }
+  const int palette_size = count_colors(argb, n);
+  const int use_palette = palette_size > 0;
+  // GetHistoBits, then GetTransformBits at method 4
+  const int histo_bits = clamp_bits(w, h, (use_palette ? 9 : 7) - 4, 2, 9, 2600);
+  const int transform_bits = std::min(histo_bits, 5);
+  const int entropy_ix = analyze_entropy(argb, w, h, use_palette, palette_size,
+                                         transform_bits);
+  if (entropy_ix != SPATIAL && entropy_ix != SPATIAL_SUB_GREEN) return entropy_ix;
+  const bool sub_green = entropy_ix == SPATIAL_SUB_GREEN;
+  std::vector<uint32_t> px(argb, argb + n);
+  if (sub_green) {
+    for (uint32_t& p : px) p = subtract_green(p);
+  }
+  // ApplyPredictFilter's bits: at most 2^14 tiles
+  const int bits = clamp_bits(w, h, transform_bits, 2, 6, 1u << 14);
+  const int tw = sub_sample_size(w, bits), th = sub_sample_size(h, bits);
+  std::vector<uint8_t> modes((size_t)tw * th, 0);
+  std::vector<uint32_t> accumulated(4 * 256, 0);
+  // a row of tiles' histograms at once (threads), then its modes in order
+  std::vector<uint32_t> histos((size_t)tw * NUM_PRED_MODES * 1024);
+  for (int ty = 0; ty < th; ++ty) {
+#pragma omp parallel for schedule(dynamic)
+    for (int tx = 0; tx < tw; ++tx) {
+      tile_histograms(w, h, tx, ty, bits, px.data(),
+                      histos.data() + (size_t)tx * NUM_PRED_MODES * 1024);
+    }
+    for (int tx = 0; tx < tw; ++tx) {
+      const int left = tx > 0 ? modes[(size_t)ty * tw + tx - 1] : 0xff;
+      const int above = ty > 0 ? modes[(size_t)(ty - 1) * tw + tx] : 0xff;
+      modes[(size_t)ty * tw + tx] = (uint8_t)pick_mode(
+          accumulated, histos.data() + (size_t)tx * NUM_PRED_MODES * 1024,
+          left, above);
+    }
+  }
+  std::vector<uint32_t> scratch(2 * (size_t)(w + 1), 0);
+  // CopyImageWithPrediction: the whole image in rows, each row read as it
+  // was, the row above as it was rewritten
+  uint32_t* upper = scratch.data();
+  uint32_t* cur = upper + w + 1;
+  for (int y = 0; y < h; ++y) {
+    std::swap(upper, cur);
+    memcpy(cur, px.data() + (size_t)y * w, sizeof(uint32_t) * (w + (y + 1 < h)));
+    for (int x = 0; x < w; x += 1 << bits) {
+      const int mode = modes[(size_t)(y >> bits) * tw + (x >> bits)];
+      residual_row(w, upper, cur, mode, x, std::min(w, x + (1 << bits)), y, nullptr);
+    }
+    uint32_t* out = argb + (size_t)y * w;
+    for (int x = 0; x < w; ++x) {
+      if ((out[x] >> 24) == 0) out[x] = sub_green ? add_green(cur[x]) : cur[x];
+    }
+  }
+  return entropy_ix;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2337,6 +2767,15 @@ int64_t webp_vp8l_encode(const uint32_t* argb, int w, int h, int alpha_used,
   if ((int64_t)bw.buf.size() > cap) return ERR_ROOM;
   memcpy(out, bw.buf.data(), bw.buf.size());
   return (int64_t)bw.buf.size();
+}
+
+// ARGB [h][w] -> the image cv2.imwrite(".webp")'s libwebp encodes in its
+// place (the colour under alpha 0 rewritten, in place); returns the
+// transforms libwebp picked (0 none, 1 predictor, 2 subtract green, 3 both,
+// 4 palette)
+int64_t webp_transparent_rewrite(uint32_t* argb, int w, int h) {
+  if (w < 1 || h < 1) return ERR_BITSTREAM;
+  return rewrite_transparent(argb, w, h);
 }
 
 }  // extern "C"

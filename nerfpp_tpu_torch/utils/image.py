@@ -27,7 +27,9 @@ tests/test_torch_tiff_float.py):
   on full-range uint16 and int16 images of 1 to 5 channels, sources one
   pixel wide or high included.)
 - ``resize_linear_u8``: the same on 8-bit images, in OpenCV's fixed point:
-  11-bit tap weights (the float weight times 2,048, rounded), the horizontal
+  OpenCV's own taps (the source coordinate rounded to f32 before its
+  floor, the weights 1 - f and f in f32), 11-bit tap weights (the float
+  weight times 2,048, rounded), the horizontal
   pass in int32, then the vertical pass as OpenCV's vector code computes it
   (each row's sum shifted right by 4, times the 11-bit weight, the high 16
   bits kept, the two added, rounded off 2 bits). Unlike the horizontal
@@ -73,7 +75,8 @@ writes, each in its own module: PNG of every colour type and depth
 samples, gray, RGB(A), palette, CMYK and YCbCr, JPEG-compressed too
 (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
 (utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
-(utils/sunras.py), WebP, lossy, lossless and with alpha (utils/webp.py),
+(utils/sunras.py), WebP, lossy, lossless, with alpha and animated (the
+first frame on its canvas) (utils/webp.py),
 and JPEG 2000, JP2 files and raw codestreams, 5/3 and 9/7, tiles,
 precincts, layers and the five progression orders (utils/jpeg2000.py);
 16-bit PNG, TIFF, PGM, PPM, PAM and JPEG 2000 come back as uint16, PFM and
@@ -81,11 +84,11 @@ HDR as float32, as OpenCV returns them. Reading goes by the file's leading
 bytes, as OpenCV's does, writing by the extension (PNG, TIFF, JPEG 2000 and
 the portable formats keep 16 bits; JPEG is written baseline at quality 95,
 WebP lossless and .jp2 as OpenJPEG's rate-4 5/3, as cv2.imwrite writes them
-at its defaults). AVIF, GIF, animated WebP and the formats' unread kinds
-(arithmetic-coded, 12-bit and CMYK JPEG, old-style JPEG-compressed TIFF,
-JPEG 2000 code-block styles other than 0, ...) raise NotImplementedError
-naming the file and the kind, as does writing an RGBA WebP with fully
-transparent pixels; files cv2.imread returns None for raise ValueError.
+at its defaults, WebP's colour under alpha 0 as libwebp rewrites it).
+AVIF, GIF and the formats' unread kinds (arithmetic-coded, 12-bit and CMYK
+JPEG, old-style JPEG-compressed TIFF, JPEG 2000 code-block styles other
+than 0, ...) raise NotImplementedError naming the file and the kind; files
+cv2.imread returns None for raise ValueError.
 """
 from __future__ import annotations
 
@@ -180,8 +183,9 @@ def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
         b = x.reshape(h, 2, w, 2, *x.shape[2:])
         return ((b.sum(dim=(1, 3)) + 2) >> 2).to(torch.uint8)
     dev = img.device
-    x0, x1, a0, a1 = _taps(w_src, w)
-    y0, y1, b0, b1 = _taps(h_src, h, clamp_weights=False)
+    # OpenCV's own taps: the coordinate rounded to f32 before its floor
+    x0, x1, a0, a1 = _ocv_taps(w_src, w, True)
+    y0, y1, b0, b1 = _ocv_taps(h_src, h, False)
 
     def t(v):
         return torch.as_tensor(v, device=dev)

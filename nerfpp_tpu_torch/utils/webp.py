@@ -39,14 +39,28 @@ both directions to cv2.
   cv2 and in ``read_webp``; the bytes are not libwebp's (subtract-green and
   predictor transforms, or a palette of up to 256 colours, then LZ77 and
   prefix codes).
+- A pixel of alpha 0 is written as cv2's libwebp writes it, which does not
+  keep its colour (WebPEncodeLosslessBGRA: quality 70, method 4, "exact"
+  off): ``transparent_rewrite`` computes the image libwebp encodes in its
+  place (every such pixel set to 0; where libwebp's entropy analysis picks
+  the predictor transform, alone or after subtract-green, each such pixel
+  given the colour of its prediction under the mode libwebp picks for its
+  tile, in libwebp's fixed-point costs), and the encoder then keeps it
+  exactly. tests/test_torch_webp_transparent.py holds cv2's read-back of
+  both files equal.
+- An animated WebP (VP8X with ANIM and ANMF chunks) reads as OpenCV reads
+  it through WebPAnimDecoder: the first frame (an optional ALPH and a VP8,
+  or a VP8L) decoded into its rectangle (the offset stored halved, the
+  size the bitstream's) on a canvas of transparent black, neither blended
+  nor composited with the ANIM background colour; 4 channels when the
+  VP8X alpha flag is set, else 3. The file is checked as libwebp's
+  WebPDemux checks it (ANIM before the frames, every frame inside the
+  canvas, at least one frame). tests/test_torch_webp_animated.py holds it
+  to cv2.
 
-Refused with NotImplementedError naming the file and the kind: an animated
-WebP (cv2.imread returns the first frame composited on its canvas) and, in
-``write_webp``, an RGBA image with fully transparent pixels (libwebp
-rewrites the colour under alpha 0 as its encoder's predictors choose, which
-the port does not reproduce). Files cv2.imread returns None for (shorter
-than 32 bytes, a broken bitstream, a frame that disagrees with its VP8X
-canvas) raise ValueError naming the file.
+Files cv2.imread returns None for (shorter than 32 bytes, a broken
+bitstream, a frame that disagrees with its VP8X canvas, an animation
+WebPDemux refuses) raise ValueError naming the file.
 """
 from __future__ import annotations
 
@@ -61,12 +75,18 @@ import torch
 from nerfpp_tpu_torch import native, resolve_device
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "webp_codec.cpp"
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
+             "-shared", "-fPIC", "-std=c++17"]
 ERRORS = {-1: "a bitstream error", -2: "data that ends too soon",
           -3: "no room for the output"}
 HEADER_BYTES = 32        # what OpenCV hands WebPGetFeatures
 MAX_SIDE = 16383         # WEBP_MAX_DIMENSION
 ALPHA_FLAG, ANIMATION_FLAG = 0x10, 0x02
+# libwebp's lossless analysis outcomes (AnalyzeEntropy), in its order
+TRANSFORMS = ("none", "predictor", "subtract green",
+              "subtract green + predictor", "palette")
+VALID_FLAGS = 0x3E       # alpha, ICC, EXIF, XMP, animation
+MAX_AREA = 1 << 32       # libwebp's MAX_IMAGE_AREA
 
 _lib = None
 
@@ -87,6 +107,8 @@ def codec_library() -> ctypes.CDLL:
         lib.webp_alpha_decode.argtypes = [u8p, i64, i32, i32, u8p]
         lib.webp_vp8l_encode.restype = i64
         lib.webp_vp8l_encode.argtypes = [u32p, i32, i32, i32, u8p, i64]
+        lib.webp_transparent_rewrite.restype = i64
+        lib.webp_transparent_rewrite.argtypes = [u32p, i32, i32]
         _lib = lib
     return _lib
 
@@ -105,13 +127,16 @@ def _check(path, n: int) -> None:
 
 class Parsed(NamedTuple):
     """A WebP file's image: ``kind`` "VP8" or "VP8L", its payload, the ALPH
-    payload (or None), the frame size and the channel count cv2 takes."""
+    payload (or None), the frame size and the channel count cv2 takes; for
+    an animation, ``canvas`` (x, y, canvas width, canvas height) places the
+    first frame."""
     kind: str
     payload: bytes
     alpha: Optional[bytes]
     width: int
     height: int
     channels: int
+    canvas: Optional[Tuple[int, int, int, int]] = None
 
 
 def _bad(path, why: str):
@@ -158,6 +183,76 @@ def _chunks(path, data: bytes, start: int, end: int):
         pos += 8 + size + (size & 1)
 
 
+def first_frame(path, data: bytes, end: int, flags: int, cw: int,
+                ch: int) -> Parsed:
+    """The first frame of an animation, checked as libwebp's WebPDemux
+    checks the whole file (OpenCV reads animations through
+    WebPAnimDecoder): ANIM before the ANMF frames, each frame an optional
+    ALPH and a VP8 chunk, or a VP8L chunk, whose bitstream size (not the
+    ANMF header's) lies inside the canvas; at least one frame."""
+    if flags & ~VALID_FLAGS:
+        raise _bad(path, f"VP8X flags {flags:#04x}")
+    if cw * ch >= MAX_AREA:
+        raise _bad(path, f"a {cw}x{ch} canvas")
+    anim = False
+    first = None
+    pos = 30
+    for tag, off, size in _chunks(path, data, pos, end):
+        pos = off + size + (size & 1)
+        if tag in (b"VP8X", b"ALPH", b"VP8 ", b"VP8L"):
+            raise _bad(path, f"a {tag.decode()!r} chunk outside the frames "
+                       "of an animation")
+        if tag == b"ANIM":
+            if size < 6:
+                raise _bad(path, f"an ANIM chunk of {size} bytes")
+            anim = True
+        elif tag == b"ANMF":
+            if not anim:
+                raise _bad(path, "an ANMF frame before the ANIM chunk")
+            if size < 16:
+                raise _bad(path, f"an ANMF chunk of {size} bytes")
+            frame = _anmf(path, data, off, size, cw, ch)
+            if first is None:
+                first = frame
+    if end - pos > 0:
+        raise _bad(path, f"{end - pos} bytes where a chunk belongs")
+    if first is None:
+        raise _bad(path, "an animation without a frame")
+    return first._replace(channels=4 if flags & ALPHA_FLAG else 3)
+
+
+def _anmf(path, data: bytes, off: int, size: int, cw: int, ch: int
+          ) -> Optional[Parsed]:
+    """An ANMF chunk's frame (None when it holds no image), placed on the
+    ``cw`` x ``ch`` canvas."""
+    x = 2 * int.from_bytes(data[off:off + 3], "little")
+    y = 2 * int.from_bytes(data[off + 3:off + 6], "little")
+    fw = int.from_bytes(data[off + 6:off + 9], "little") + 1
+    fh = int.from_bytes(data[off + 9:off + 12], "little") + 1
+    if fw * fh >= MAX_AREA:
+        raise _bad(path, f"a {fw}x{fh} ANMF frame")
+    alpha = None
+    for tag, coff, csize in _chunks(path, data, off + 16, off + size):
+        payload = data[coff:coff + csize]
+        if tag == b"ALPH" and alpha is None:
+            alpha = payload
+            continue
+        if tag == b"VP8 ":
+            w, h = vp8_size(path, payload)
+        elif tag == b"VP8L":
+            if alpha is not None:
+                raise _bad(path, "an ALPH chunk before a VP8L frame")
+            w, h, _ = vp8l_header(path, payload)
+        else:
+            break
+        if x + w > cw or y + h > ch:
+            raise _bad(path, f"a {w}x{h} frame at ({x}, {y}) outside its "
+                       f"{cw}x{ch} canvas")
+        return Parsed(tag.decode().strip(), payload, alpha, w, h, 4,
+                      (x, y, cw, ch))
+    return None
+
+
 def parse(path, data: bytes) -> Parsed:
     """The image of a WebP file, as libwebp's WebPDecode finds it, with the
     channel count OpenCV takes from its first 32 bytes."""
@@ -178,12 +273,9 @@ def parse(path, data: bytes) -> Parsed:
         flags = data[20]
         cw = int.from_bytes(data[24:27], "little") + 1
         ch = int.from_bytes(data[27:30], "little") + 1
-        if flags & ANIMATION_FLAG:
-            raise NotImplementedError(
-                f"{path}: an animated WebP (ANIM / ANMF frames; cv2.imread "
-                "returns the first frame composited on its canvas), which "
-                "the port does not read")
         channels = 4 if flags & ALPHA_FLAG else 3
+        if flags & ANIMATION_FLAG:
+            return first_frame(path, data, end, flags, cw, ch)
         image = None
         for t, off, size in _chunks(path, data, 30, end):
             if t == b"ALPH":
@@ -224,6 +316,8 @@ def decode_planes(parsed: Parsed, path="<bytes>") -> Dict[str, np.ndarray]:
     lib = codec_library()
     w, h = parsed.width, parsed.height
     src = np.frombuffer(parsed.payload, np.uint8)
+    out = {} if parsed.canvas is None else {
+        "canvas": np.array(parsed.canvas, np.int64)}
     if parsed.kind == "VP8L":
         argb = np.empty((h, w), np.uint32)
         _check(path, lib.webp_vp8l_decode(_ptr(src[5:], ctypes.c_uint8),
@@ -231,7 +325,8 @@ def decode_planes(parsed: Parsed, path="<bytes>") -> Dict[str, np.ndarray]:
                                           _ptr(argb, ctypes.c_uint32)))
         bgra = argb.view(np.uint8).reshape(h, w, 4)     # little-endian ARGB
         order = [2, 1, 0, 3][:parsed.channels]
-        return {"rgb": np.ascontiguousarray(bgra[..., order])}
+        out["rgb"] = np.ascontiguousarray(bgra[..., order])
+        return out
     y = np.empty((h, w), np.uint8)
     u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
     v = np.empty_like(u)
@@ -239,7 +334,7 @@ def decode_planes(parsed: Parsed, path="<bytes>") -> Dict[str, np.ndarray]:
                                      w, h, _ptr(y, ctypes.c_uint8),
                                      _ptr(u, ctypes.c_uint8),
                                      _ptr(v, ctypes.c_uint8)))
-    out = {"y": y, "u": u, "v": v}
+    out.update(y=y, u=u, v=v)
     if parsed.channels == 4:
         alpha = np.full((h, w), 255, np.uint8)
         if parsed.alpha is not None:
@@ -300,13 +395,20 @@ def frame_pixels(planes: Dict[str, np.ndarray], device) -> torch.Tensor:
     image copied there)."""
     dev = resolve_device(device)
     if "rgb" in planes:
-        return torch.from_numpy(planes["rgb"]).to(dev)
-    y, u, v = (torch.from_numpy(planes[k]).to(dev) for k in "yuv")
-    rgb = yuv_to_rgb(y, u, v)
-    if "alpha" not in planes:
-        return rgb
-    alpha = torch.from_numpy(planes["alpha"]).to(dev)
-    return torch.cat([rgb, alpha[..., None]], -1)
+        img = torch.from_numpy(planes["rgb"]).to(dev)
+    else:
+        y, u, v = (torch.from_numpy(planes[k]).to(dev) for k in "yuv")
+        img = yuv_to_rgb(y, u, v)
+        if "alpha" in planes:
+            alpha = torch.from_numpy(planes["alpha"]).to(dev)
+            img = torch.cat([img, alpha[..., None]], -1)
+    if "canvas" not in planes:
+        return img
+    x, y0, cw, ch = (int(v) for v in planes["canvas"])
+    canvas = torch.zeros((ch, cw, img.shape[2]), dtype=torch.uint8,
+                         device=dev)
+    canvas[y0:y0 + img.shape[0], x:x + img.shape[1]] = img
+    return canvas
 
 
 def read_webp(path, device="cuda") -> torch.Tensor:
@@ -340,10 +442,28 @@ def to_uint8(arr: np.ndarray, name="to_uint8") -> np.ndarray:
                     f"got {arr.dtype}")
 
 
-def encode_webp(img, name="encode_webp") -> bytes:
-    """The bytes cv2.imwrite(".webp") would write at its defaults, up to
-    the entropy coding: a lossless RIFF WebP of an [H, W] or [H, W, 3 | 4]
-    RGB(A) image (``name``, the file's, heads any error)."""
+def transparent_rewrite(argb: np.ndarray) -> str:
+    """Rewrites ``argb`` (uint32 [h, w], C order) in place into what
+    cv2.imwrite(".webp")'s libwebp encodes in its place: every pixel of
+    alpha 0 set to 0 and then, when libwebp's analysis picks the predictor
+    transform, given the colour of its prediction under the mode libwebp
+    picks for its tile (see csrc/webp_codec.cpp). Returns the transforms
+    picked, one of TRANSFORMS."""
+    if argb.dtype != np.uint32 or argb.ndim != 2 \
+            or not argb.flags.c_contiguous:
+        raise ValueError("transparent_rewrite takes a C-ordered uint32 "
+                         f"[h, w] array, got {argb.dtype} {argb.shape}")
+    h, w = argb.shape
+    n = codec_library().webp_transparent_rewrite(
+        _ptr(argb, ctypes.c_uint32), w, h)
+    _check("transparent_rewrite", n)
+    return TRANSFORMS[n]
+
+
+def argb_image(img, name="argb_image") -> np.ndarray:
+    """An [H, W] or [H, W, 3 | 4] RGB(A) image (any dtype cv2 converts) as
+    libwebp's ARGB, uint32 [H, W] (``name``, the file's, heads any
+    error)."""
     arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
     if arr.ndim == 3 and arr.shape[2] == 1:
         arr = arr[..., 0]
@@ -357,25 +477,42 @@ def encode_webp(img, name="encode_webp") -> bytes:
         raise ValueError(f"{name}: {w}x{h} is outside WebP's 1 to "
                          f"{MAX_SIDE} pixels a side")
     px = to_uint8(arr, name)
-    if px.shape[2] == 4 and (px[..., 3] == 0).any():
-        raise NotImplementedError(
-            f"{name}: an RGBA WebP with fully transparent pixels: "
-            "cv2.imwrite's libwebp rewrites the colour under alpha 0 as its "
-            "encoder's predictors choose, which the port does not reproduce")
     alpha = px[..., 3] if px.shape[2] == 4 else np.full((h, w), 255, np.uint8)
     argb = (alpha.astype(np.uint32) << 24) | (px[..., 0].astype(np.uint32)
                                               << 16) \
         | (px[..., 1].astype(np.uint32) << 8) | px[..., 2].astype(np.uint32)
-    argb = np.ascontiguousarray(argb)
+    return np.ascontiguousarray(argb)
+
+
+def has_transparent(argb: np.ndarray) -> bool:
+    """Whether libwebp rewrites any pixel of ``argb`` (one of alpha 0)."""
+    return bool((argb < (1 << 24)).any())
+
+
+def encode_argb(argb: np.ndarray, name="encode_argb") -> bytes:
+    """A lossless RIFF WebP that keeps every pixel of ``argb`` (uint32 [H,
+    W]; the alpha bit set when some alpha is below 255)."""
+    h, w = argb.shape
     cap = 64 + 5 * argb.size + 4096
     out = np.empty(cap, np.uint8)
     n = codec_library().webp_vp8l_encode(
-        _ptr(argb, ctypes.c_uint32), w, h, int((alpha != 255).any()),
+        _ptr(argb, ctypes.c_uint32), w, h, int((argb < 0xFF000000).any()),
         _ptr(out, ctypes.c_uint8), cap)
     _check(name, n)
     chunk = out[:n].tobytes()
     body = b"VP8L" + struct.pack("<I", n) + chunk + (b"\x00" if n & 1 else b"")
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def encode_webp(img, name="encode_webp") -> bytes:
+    """The bytes cv2.imwrite(".webp") would write at its defaults, up to
+    the entropy coding: a lossless RIFF WebP of an [H, W] or [H, W, 3 | 4]
+    RGB(A) image, the colour under alpha 0 rewritten as libwebp rewrites it
+    (``name``, the file's, heads any error)."""
+    argb = argb_image(img, name)
+    if has_transparent(argb):
+        transparent_rewrite(argb)
+    return encode_argb(argb, name)
 
 
 def write_webp(path, img) -> None:

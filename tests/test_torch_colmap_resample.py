@@ -49,6 +49,17 @@ def test_resize_u8_matches_opencv(channels):
         got = I.resize_linear_u8(torch.from_numpy(img), (oh, ow)).numpy()
         np.testing.assert_array_equal(got, cv2.resize(img, (ow, oh)),
                                       f"{(h, w)} -> {(oh, ow)}")
+    # ratios whose source coordinate, rounded to f32 as OpenCV rounds it,
+    # crosses a pixel or moves a weight (an 800x800 view to 801x803 and to
+    # 4,000x3,000 among them)
+    for (h, w), (oh, ow) in (((42, 39), (155, 42)), ((58, 36), (147, 178)),
+                             ((32, 52), (127, 191)), ((57, 27), (151, 4)),
+                             ((800, 800), (801, 803))):
+        shape = (h, w) if channels == 0 else (h, w, channels)
+        img = rng.randint(0, 256, shape).astype(np.uint8)
+        got = I.resize_linear_u8(torch.from_numpy(img), (oh, ow)).numpy()
+        np.testing.assert_array_equal(got, cv2.resize(img, (ow, oh)),
+                                      f"{(h, w)} -> {(oh, ow)}")
 
 
 # sources one pixel wide or high, and the exact halving

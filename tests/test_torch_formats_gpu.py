@@ -18,6 +18,12 @@ card; the card's machine has no OpenCV, so this file imports none, and
   planes of odd and even sizes through the card's upsampling and colour
   conversion bitwise the CPU's, and a lossless WebP written from the card
   with the CPU's bytes;
+- every committed animated and transparent WebP (tests/data/webp:
+  anim_*, transparent_*) decoded on the card to cv2's pixels, each
+  transparent one written again from the card (libwebp's rewrite under
+  alpha 0) and read back as them, and the 800x800 masked view's 4,000 x
+  3,000 upscale, resized on the card, rewritten to the digest of cv2's
+  pixels;
 - every committed TIFF kind fixture (tests/data/image/tiff_*: BigTIFF,
   JPEG-in-TIFF, YCbCr, CMYK, gray with alpha, 1- to 14-bit samples,
   orientations) decoded on the card to cv2's pixels and the CPU's, and
@@ -121,6 +127,37 @@ def test_webp_on_the_card_is_the_cpus_and_opencvs(cuda):
             for _ in range(2))
         assert torch.equal(W.yuv_to_rgb(y.to(cuda), u.to(cuda), v.to(cuda))
                            .cpu(), W.yuv_to_rgb(y, u, v)), (h, w)
+
+
+def test_animated_and_transparent_webp_on_the_card_are_opencvs(cuda,
+                                                                tmp_path):
+    import hashlib
+
+    from nerfpp_tpu_torch.utils import webp as W
+    webp = FIXTURES.parent / "webp"
+    anims = sorted(webp.glob("anim_*.webp"))
+    holed = sorted(webp.glob("transparent_*.webp"))
+    assert len(anims) == 7 and len(holed) == 7
+    for f in anims + holed:
+        card = I.read_image(f, cuda)
+        assert card.device.type == cuda.type and card.dtype == torch.uint8
+        npy = f.with_suffix(".npy")
+        want = np.load(npy) if npy.exists() else I.read_image(f, "cpu")\
+            .numpy()
+        np.testing.assert_array_equal(card.cpu().numpy(), want,
+                                      err_msg=f.name)
+        if f in holed:
+            # written again from the card through libwebp's rewrite under
+            # alpha 0: cv2's pixels back
+            I.write_image(tmp_path / f.name, card, cuda)
+            np.testing.assert_array_equal(
+                I.read_image(tmp_path / f.name, cuda).cpu().numpy(), want,
+                err_msg=f.name)
+    view = I.read_image(webp / "transparent_view_800x800.webp", cuda)
+    big = W.argb_image(I.resize_linear_u8(view, (3000, 4000)))
+    assert W.transparent_rewrite(big) == "predictor"
+    assert hashlib.sha256(big.tobytes()).hexdigest() == (
+        webp / "transparent_4000x3000.sha256").read_text().strip()
 
 
 def test_tiff_kinds_on_the_card_are_the_cpus_and_opencvs(cuda):

@@ -6,8 +6,9 @@ chunk layouts cv2 does not write (ICCP, EXIF, XMP and unknown chunks, raw
 and filtered alpha, the VP8X alpha flag without an ALPH chunk); key frames
 made here with what cv2's encoder never writes (the simple filter,
 sharpness, several token partitions, segment features, loop-filter deltas,
-probability updates); the
-refusals (animation by name, malformed files as cv2's None); the device
+probability updates); an animation read as cv2 reads it (its first frame;
+tests/test_torch_webp_animated.py has the rest); malformed files as cv2's
+None; the device
 stage against a plain reading of libwebp's scalar upsampler; and the
 committed fixtures that the card is held to (tests/data/image/webp_*).
 """
@@ -159,6 +160,9 @@ def test_generated_frames_read_as_cv2_reads_them(part, tmp_path):
 
 
 def test_animated_files_are_refused_by_name(tmp_path):
+    """Once refused, now read: an animation reads as cv2.imread reads it,
+    the first frame on its canvas (tests/test_torch_webp_animated.py has
+    the rest)."""
     import cv2
     rng = np.random.RandomState(6)
     anim = cv2.Animation()
@@ -168,9 +172,11 @@ def test_animated_files_are_refused_by_name(tmp_path):
     anim.frames, anim.durations = frames, [100, 100]
     path = tmp_path / "anim.webp"
     assert cv2.imwriteanimation(str(path), anim)
-    assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED).shape == (20, 24, 3)
-    with pytest.raises(NotImplementedError, match=r"anim\.webp.*animated"):
-        read_image(path, "cpu")
+    want = cv2_read(path)
+    assert want.shape == (20, 24, 3)
+    got = read_image(path, "cpu")
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_malformed_files_raise_where_cv2_returns_none(tmp_path):

@@ -12,9 +12,10 @@ cv2.imwrite writes it) and ``load_images``:
   cv2.imread, K and near/far bitwise;
 - the image stacks bitwise equal;
 - the RGBA capture the same (getOptimalNewCameraMatrix at alpha 0 keeps
-  the undistortion's zero border out of the image); with a fully
-  transparent hole cut into one view, the port refuses that view's write
-  by name (cv2's libwebp rewrites the colour under alpha 0);
+  the undistortion's zero border out of the image), and with a fully
+  transparent hole cut into one view (cv2's libwebp rewrites the colour
+  under alpha 0, and load_images keeps it) the undistorted views and the
+  stack bitwise the JAX package's too;
 - then ``cli train --dataset-type colmap`` takes 4 steps on the capture.
 """
 import json
@@ -129,20 +130,34 @@ def test_rgba_capture_is_the_jax_packages_or_refused_by_name(captures,
         load_images(port, idx, target_hw=(v0.h, v0.w), device="cpu"),
         JD.load_images(ref, idx, target_hw=(v0.h, v0.w)))
     # a view with a fully transparent hole: cv2's libwebp rewrites the
-    # colour under it, which the port refuses to write, naming the file
+    # colour under it when the undistorted view is written, and load_images
+    # keeps that colour (it drops alpha); the port writes it alike
     holed = shutil.copytree(ws, tmp_path / "holed")
     view = holed / "images" / "view_002.webp"
     img = cv2.imread(str(view), cv2.IMREAD_UNCHANGED)
+    # a ramp over the view: libwebp picks its predictor transform, whose
+    # predictions it writes under alpha 0
+    ramp = 2 * np.add.outer(np.arange(img.shape[0]), np.arange(img.shape[1]))
+    img[..., :3] = np.clip(img[..., :3] + ramp[..., None], 0, 255)
+    img[..., 3] = 255
     img[6:14, 6:14, 3] = 0
     view.write_bytes(cv2_webp(img))
     ref = JC.load_from_colmap_reconstruction(
         shutil.copytree(holed, tmp_path / "holed_jax"))
+    port = PC.load_from_colmap_reconstruction(holed, device="cpu")
     back = cv2_read(ref.views[2].image_path)
     assert (back[..., 3] == 0).any()
-    with pytest.raises(NotImplementedError,
-                       match=r"view_002\.webp.*an RGBA WebP with fully "
-                             r"transparent pixels"):
-        PC.load_from_colmap_reconstruction(holed, device="cpu")
+    assert (back[back[..., 3] == 0, :3] != 0).any()
+    for a, b in zip(port.views, ref.views):
+        np.testing.assert_array_equal(cv2_read(a.image_path),
+                                      cv2_read(b.image_path))
+        np.testing.assert_array_equal(read_image(a.image_path, "cpu").numpy(),
+                                      cv2_read(b.image_path))
+        np.testing.assert_array_equal(a.k, b.k)
+        assert (a.near, a.far) == (b.near, b.far)
+    np.testing.assert_array_equal(
+        load_images(port, idx, target_hw=(v0.h, v0.w), device="cpu"),
+        JD.load_images(ref, idx, target_hw=(v0.h, v0.w)))
 
 
 def test_cli_trains_on_a_webp_capture(captures, tmp_path):

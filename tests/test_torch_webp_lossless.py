@@ -6,8 +6,9 @@ methods and qualities (the cross-colour transform, colour caches and meta
 prefix codes that cv2's default leaves out); and the writer: cv2.imread of
 the port's file equals cv2.imread of cv2's own file, and read_webp reads
 both the same, for every fuzzed gray, RGB and RGBA image and every dtype
-cv2.imwrite converts; an RGBA image with fully transparent pixels is
-refused by name.
+cv2.imwrite converts; an RGBA image with fully transparent pixels, whose
+colour under alpha 0 cv2's libwebp rewrites, read back as cv2's own
+(tests/test_torch_webp_transparent.py has the rest).
 """
 import io
 
@@ -131,6 +132,9 @@ def test_other_dtypes_are_converted_as_cv2_converts_them(tmp_path):
 
 
 def test_fully_transparent_pixels_are_refused_by_name(tmp_path):
+    """Once refused, now written: the colour under alpha 0 that cv2's
+    libwebp leaves is reproduced, so cv2 reads the port's file back as it
+    reads its own."""
     import cv2
     img = photo(40, 40, 4, 5)
     img[..., 3] = 255
@@ -140,13 +144,12 @@ def test_fully_transparent_pixels_are_refused_by_name(tmp_path):
     back = cv2_read(tmp_path / "cv2.webp")
     np.testing.assert_array_equal(back[..., 3], img[..., 3])
     assert not np.array_equal(back[8:24, 8:24, :3], img[8:24, 8:24, :3])
-    for call in (lambda: W.write_webp(tmp_path / "a.webp", img),
-                 lambda: write_image(tmp_path / "a.webp",
-                                     torch.from_numpy(img), "cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="an RGBA WebP with fully transparent pixels"):
-            call()
-    assert not (tmp_path / "a.webp").exists()
+    W.write_webp(tmp_path / "a.webp", img)
+    write_image(tmp_path / "b.webp", torch.from_numpy(img), "cpu")
+    for name in ("a.webp", "b.webp"):
+        np.testing.assert_array_equal(cv2_read(tmp_path / name), back)
+        np.testing.assert_array_equal(
+            read_image(tmp_path / name, "cpu").numpy(), back)
 
 
 def test_write_image_goes_by_the_extension(tmp_path):

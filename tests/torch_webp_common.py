@@ -1,10 +1,14 @@
 """Helpers shared by the WebP tests (a module, not a test file): photo-like
-test images, cv2's lossy and lossless encodings, RIFF / VP8X / ALPH
-builders for the chunk layouts cv2 does not write itself (ICCP and EXIF
-chunks, raw alpha with each filter), a VP8 key-frame generator, and the
-committed fixtures under tests/data/image/webp_* and the card's timing
-file tests/data/webp/timing_800x800.webp (``make_webp_fixtures``; run
-``PYTHONPATH=. python tests/torch_webp_common.py`` to write them).
+test images, cv2's lossy and lossless encodings, RIFF / VP8X / ALPH /
+ANIM / ANMF builders for the chunk layouts cv2 does not write itself (ICCP
+and EXIF chunks, raw alpha with each filter, first frames at an offset),
+images with fully transparent pixels for each transform libwebp's
+analysis picks, a VP8 key-frame generator, and the committed fixtures
+under tests/data/image/webp_*, the card's timing file
+tests/data/webp/timing_800x800.webp and the transparent and animated
+files tests/data/webp/{transparent,anim}_* with the 4,000 x 3,000
+upscale's digest (``make_webp_fixtures``; run ``PYTHONPATH=. python
+tests/torch_webp_common.py`` to write them).
 
 The builders are test code, independent of the port's codec: what they
 write is held to what ``cv2.imread(IMREAD_UNCHANGED)`` returns for it.
@@ -118,15 +122,236 @@ def timing_file() -> bytes:
     return cv2_webp(pattern(800, 800, 3, 8), 75)
 
 
+# ------------------------------------- transparent pixels and animations
+
+def alpha_mask(h, w, kind, seed=0) -> np.ndarray:
+    """Where an image is fully transparent (bool [h, w]): "holes" (three
+    rectangles), "ring", "border" (a frame two pixels wide and the top
+    quarter), "masked" (all but a disc of a quarter of the short side, as
+    a masked object capture) or "scatter" (30 % of the pixels)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    d = np.hypot(yy - (h - 1) / 2, xx - (w - 1) / 2)
+    r = min(h, w) / 2
+    if kind == "holes":
+        m = np.zeros((h, w), bool)
+        for _ in range(3):
+            y0, x0 = rng.randint(0, h), rng.randint(0, w)
+            m[y0:y0 + max(h // 4, 1), x0:x0 + max(w // 3, 1)] = True
+        return m
+    if kind == "ring":
+        return (d > 0.4 * r) & (d < 0.8 * r)
+    if kind == "border":
+        return (yy < 2) | (xx < 2) | (yy >= h - 2) | (xx >= w - 2) \
+            | (yy < h // 4)
+    if kind == "masked":
+        return d > r / 2
+    if kind == "scatter":
+        return rng.rand(h, w) < 0.3
+    raise ValueError(kind)
+
+
+def transparent_image(h, w, content, mask, seed=0) -> np.ndarray:
+    """An RGBA uint8 image [h, w, 4] of ``content`` with alpha 0 over
+    ``alpha_mask(h, w, mask)`` (random colours under it, which libwebp
+    drops) and alpha 255 or, for "noise", random elsewhere: "noise" (four
+    random channels), "noise3" (three), "photo", "gray" (a ramp shared by
+    the channels plus noise of 0-2), "palette" (12 colours) or "ramp" (a
+    ramp of at most 256 colours)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.full((h, w), 255)
+    if content == "noise":
+        rgb = rng.randint(0, 256, (h, w, 3))
+        alpha = rng.randint(1, 256, (h, w))
+    elif content == "noise3":
+        rgb = rng.randint(0, 256, (h, w, 3))
+    elif content == "photo":
+        rgb = photo(h, w, 3, seed)
+    elif content == "gray":
+        rgb = ((xx + yy) * 3)[..., None] + rng.randint(0, 3, (h, w, 3))
+    elif content == "palette":
+        pal = rng.randint(0, 256, (12, 3))
+        rgb = pal[(xx // 3 + yy // 2 + rng.randint(0, 2, (h, w))) % 12]
+    elif content == "ramp":
+        rgb = ((xx + yy) % 80 * 3)[..., None] + rng.randint(0, 3, (h, w, 1)) \
+            + np.array([0, 7, 21])
+    else:
+        raise ValueError(content)
+    img = np.dstack([rgb, alpha]).clip(0, 255).astype(np.uint8)
+    m = alpha_mask(h, w, mask, seed)
+    img[m, 3] = 0
+    img[m, :3] = rng.randint(0, 256, (int(m.sum()), 3))
+    return img
+
+
+def bgra(img) -> np.ndarray:
+    """RGB(A) -> cv2's BGR(A) order."""
+    return np.ascontiguousarray(img[..., [2, 1, 0, 3]] if img.shape[2] == 4
+                                else img[..., ::-1])
+
+
+# (content, mask, h, w, seed, the transform libwebp picks) of the committed
+# transparent files: each transform once, and the predictor also over
+# palette-sized tiles (an image of at most 256 colours that libwebp codes
+# without its palette)
+TRANSPARENT_CASES = (
+    ("noise", "ring", 25, 31, 0, "none"),
+    ("noise3", "holes", 21, 17, 1, "subtract green"),
+    ("photo", "ring", 33, 40, 2, "predictor"),
+    ("gray", "ring", 70, 64, 9, "subtract green + predictor"),
+    ("palette", "holes", 20, 30, 4, "palette"),
+    ("ramp", "ring", 19, 16, 5, "subtract green + predictor"))
+
+# the 800x800 masked view and its 4,000 x 3,000 upscale (``upscale``), whose
+# cv2 pixels the card is held to by digest
+TRANSPARENT_VIEW = FIXTURES.parent / "webp" / "transparent_view_800x800.webp"
+UPSCALE_DIGEST = FIXTURES.parent / "webp" / "transparent_4000x3000.sha256"
+
+
+def transparent_fixture_files():
+    """{file name: bytes} of cv2.imwrite's lossless RGBA files of images
+    with fully transparent pixels, one for each transform libwebp's
+    analysis picks (tests/data/webp/transparent_*; the card holds the
+    port's rewrite of each to cv2's pixels)."""
+    files = {}
+    for content, mask, h, w, seed, _ in TRANSPARENT_CASES:
+        img = transparent_image(h, w, content, mask, seed)
+        files[f"transparent_{content}_{mask}_{w}x{h}.webp"] = cv2_webp(
+            bgra(img))
+    files[TRANSPARENT_VIEW.name] = transparent_view_file()
+    return files
+
+
+def transparent_view_file() -> bytes:
+    """cv2.imwrite's file of the 800x800 masked view."""
+    return cv2_webp(bgra(transparent_image(800, 800, "photo", "masked", 9)))
+
+
+def upscale(view: np.ndarray) -> np.ndarray:
+    """An RGBA view resized to 4,000 x 3,000 by the port's resize_linear_u8
+    (the card's resize is bitwise the CPU's), in cv2's BGRA order: as
+    uint32 [3000, 4000], libwebp's ARGB."""
+    import torch
+
+    from nerfpp_tpu_torch.utils.image import resize_linear_u8
+    big = resize_linear_u8(torch.from_numpy(bgra(view)), (3000, 4000))
+    return big.numpy().view(np.uint32)[..., 0]
+
+
+def upscale_digest(view: np.ndarray) -> str:
+    """The SHA-256 of cv2.imread's pixels (BGRA, the bytes of libwebp's
+    ARGB) of cv2.imwrite's .webp of ``upscale(view)``."""
+    import hashlib
+
+    import cv2
+    big = upscale(view).view(np.uint8).reshape(3000, 4000, 4)
+    back = cv2.imdecode(np.frombuffer(cv2_webp(big), np.uint8),
+                        cv2.IMREAD_UNCHANGED)
+    return hashlib.sha256(back.tobytes()).hexdigest()
+
+
+def anmf(x2, y2, w, h, flags, payload, duration=100) -> bytes:
+    """An ANMF chunk: the offset halved as stored, the size the header
+    states, the duration, the blend / dispose bits and the frame's
+    chunks."""
+    return chunk(b"ANMF", b"".join(v.to_bytes(3, "little") for v in (
+        x2, y2, w - 1, h - 1, duration)) + bytes([flags]) + payload)
+
+
+def anim(background=0, loops=0) -> bytes:
+    return chunk(b"ANIM", struct.pack("<IH", background, loops))
+
+
+def still_chunks(data: bytes):
+    """{tag: chunk} of a still file's ALPH, VP8 and VP8L chunks."""
+    out, pos = {}, 12
+    while pos + 8 <= len(data):
+        tag = data[pos:pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+            out[tag] = chunk(tag, data[pos + 8:pos + 8 + size])
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def cv2_animation(frames, quality=None) -> bytes:
+    """cv2.imencodeanimation(".webp") of BGR(A) frames, 100 ms each (lossy
+    at its default quality without ``quality``)."""
+    import cv2
+    a = cv2.Animation()
+    a.frames, a.durations = list(frames), [100] * len(frames)
+    params = [] if quality is None else [cv2.IMWRITE_WEBP_QUALITY, quality]
+    ok, buf = cv2.imencodeanimation(".webp", a, params)
+    assert ok
+    return buf.tobytes()
+
+
+def pillow_animation(frames, lossless) -> bytes:
+    """Pillow's save_all WebP of RGB(A) frames, 100 ms each."""
+    import io
+
+    from PIL import Image
+    ims = [Image.fromarray(f) for f in frames]
+    bio = io.BytesIO()
+    ims[0].save(bio, "WEBP", save_all=True, append_images=ims[1:],
+                lossless=lossless, duration=100)
+    return bio.getvalue()
+
+
+def anim_fixture_files():
+    """{file name: bytes} of animated WebP files (tests/data/webp/anim_*):
+    cv2.imwriteanimation's and Pillow's, lossy and lossless, opaque and
+    with alpha, and first frames neither writes, assembled here around
+    payloads cv2 wrote as stills: an offset sub-rectangle on a canvas with
+    a background colour, an odd stored offset, a lossy frame with ALPH."""
+    f1, f2 = photo(20, 24, 4, 11), photo(20, 24, 4, 12)
+    f1[..., 3] = np.clip(f1[..., 3], 1, 255)
+    small = photo(9, 13, 4, 13)
+    small[..., 3] = np.clip(small[..., 3], 1, 255)
+    lossy = still_chunks(cv2_webp(bgra(small[..., :3]), 70))[b"VP8 "]
+    with_alpha = still_chunks(cv2_webp(bgra(small), 70))
+    lossless = still_chunks(cv2_webp(bgra(small)))[b"VP8L"]
+    return {
+        "anim_cv2_lossy_alpha_24x20.webp": cv2_animation(
+            [bgra(f1), bgra(f2)]),
+        "anim_cv2_lossless_rgb_24x20.webp": cv2_animation(
+            [bgra(f1[..., :3]), bgra(f2[..., :3])], 101),
+        "anim_pil_lossy_rgb_24x20.webp": pillow_animation(
+            [f1[..., :3], f2[..., :3]], False),
+        "anim_pil_lossless_rgba_24x20.webp": pillow_animation([f1, f2],
+                                                              True),
+        "anim_offset_lossy_40x30.webp": riff(
+            vp8x(40, 30, 0x02) + anim(0xFF336699, 3)
+            + anmf(3, 5, 13, 9, 0, lossy) + anmf(0, 0, 13, 9, 2, lossy)),
+        "anim_odd_offset_lossless_rgba_40x30.webp": riff(
+            vp8x(40, 30, 0x12) + anim(0x80FFFFFF)
+            + anmf(1, 7, 13, 9, 3, lossless)),
+        "anim_alph_lossy_20x12.webp": riff(
+            vp8x(20, 12, 0x12) + anim()
+            + anmf(2, 1, 13, 9, 1, with_alpha[b"ALPH"] + with_alpha[b"VP8 "])
+            + anmf(0, 0, 13, 9, 0, lossy)),
+    }
+
+
 def make_webp_fixtures(out=FIXTURES):
     """Write each fixture and its <stem>.npy, cv2.imread's pixels in RGB(A)
-    order, and the timing file."""
+    order, the timing file, the transparent and animated files (with their
+    .npy, but for the 800x800 view's) and the upscale's digest."""
     out.mkdir(parents=True, exist_ok=True)
     for name, data in fixture_files().items():
         (out / name).write_bytes(data)
         np.save(out / f"{Path(name).stem}.npy", cv2_read(out / name))
     TIMING.parent.mkdir(parents=True, exist_ok=True)
     TIMING.write_bytes(timing_file())
+    for name, data in {**transparent_fixture_files(),
+                       **anim_fixture_files()}.items():
+        (TIMING.parent / name).write_bytes(data)
+        if name != TRANSPARENT_VIEW.name:
+            np.save(TIMING.parent / f"{Path(name).stem}.npy",
+                    cv2_read(TIMING.parent / name))
+    UPSCALE_DIGEST.write_text(upscale_digest(cv2_read(TRANSPARENT_VIEW))
+                              + "\n")
 
 
 
