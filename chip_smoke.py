@@ -178,15 +178,25 @@ Phases, each printing its own lines:
      its fine pass's NDC points, 800x800 frames under TrainParams(ndc=True)
      with and without c2w_staticcam, and 64x64 windows GPU against CPU.
  20. JPEG capture (utils/jpeg.py, csrc/jpeg_entropy.cpp): (a) phase 17's
-     COLMAP export with JPEG views, encoded on the card; (b) the
-     undistortion on the card (decode, undistort, re-encode at quality
-     95), views 1 and 4 also through the CPU (the files byte-equal), every
-     exported and undistorted file decoded on the card and the CPU
-     (bitwise equal) and re-encoded on both (byte-equal), the committed
-     cv2 fixtures (tests/data/jpeg) decoded and encoded on the card to
-     cv2's pixels and bytes, decode and encode seconds, MB/s and Mpix/s
-     (host entropy pass and device stages apart) for the 16 views and a
-     4,000x3,000 upscale, load_images of the undistorted views; (c) phase
+     COLMAP export with JPEG views, encoded on the card, then four of the
+     800x800 views rewritten (JPEG_KINDS, scripts/jpeg_kinds.py) as
+     arithmetic-coded sequential (a restart every MCU row, DAC
+     conditioning), arithmetic-coded progressive, Adobe CMYK and lossless
+     RGB, each read back on the card (the arithmetic views bitwise the
+     baseline file's pixels, the lossless one bitwise the pixels it was
+     written from); (b) the undistortion on the card (decode, undistort,
+     re-encode at quality 95), views 1 and 4 and the four rewritten views
+     also through the CPU (the files byte-equal), every exported and
+     undistorted file decoded on the card and the CPU (bitwise equal) and
+     re-encoded on both (byte-equal), the committed cv2 fixtures
+     (tests/data/jpeg, and tests/data/jpeg_kinds: arithmetic sequential
+     and progressive, Pillow's progressive CMYK, YCCK, lossless) decoded
+     on the card to cv2's pixels and tests/data/jpeg's encoded to cv2's
+     bytes, each kind's decode ms on its 800x800 view (host entropy pass
+     and device stages apart, medians of 3), decode and encode seconds,
+     MB/s and Mpix/s (host entropy pass and device stages apart) for the
+     16 views and a 4,000x3,000 upscale, load_images of the undistorted
+     views; (c) phase
      17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
      workspace to NIters 2,100, cut to 1,088 (and the cut printed) if the
      script, with it and phase 21 at its shortest, would pass 1,080 s
@@ -3306,16 +3316,26 @@ def colmap_depth(label, t_start, after_s=0.0, part="(c)"):
     return 1088, (1024, 1056)
 
 
+# phase 20's views (0-based, all of the 800x800 camera) rewritten as the
+# JPEG kinds of scripts/jpeg_kinds.py
+JPEG_KINDS = {1: "arith", 2: "arith_progressive", 5: "cmyk", 6: "lossless"}
+
+
 def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     """Phase 20, JPEG capture: (a) the bench scene exported as phase 17(a)
-    exports it with JPEG views (utils/jpeg.py, encoded on the card); (b) the
+    exports it with JPEG views (utils/jpeg.py, encoded on the card), the
+    views of JPEG_KINDS rewritten as those kinds (scripts/jpeg_kinds.py)
+    and read back on the card; (b) the
     undistortion on the card (each distorted view decoded, undistorted and
-    re-encoded as JPEG at quality 95), views 1 and 4 also through the CPU
+    re-encoded as JPEG at quality 95), views 1 and 4 and the rewritten
+    views also through the CPU
     (the undistorted file byte for byte the card's), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal) and
     its image encoded on both (byte-equal), the committed cv2 fixtures
-    (tests/data/jpeg) decoded and encoded on the card to cv2's pixels and
-    bytes, decode and encode seconds for the 16 views and for a 4,000 x
+    (tests/data/jpeg, tests/data/jpeg_kinds) decoded on the card to cv2's
+    pixels and tests/data/jpeg's source encoded to cv2's bytes, each
+    kind's decode ms on its view (host and device apart), decode and
+    encode seconds for the 16 views and for a 4,000 x
     3,000 upscale of view 1 (host entropy and device stages apart, MB/s,
     Mpix/s), and load_images of the 16 undistorted views; (c) phase
     17(c)'s flagship ``cli train --dataset-type colmap`` on the JPEG
@@ -3332,6 +3352,7 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
     from nerfpp_tpu_torch.utils import image as I
     from nerfpp_tpu_torch.utils import jpeg as J
+    from scripts import jpeg_kinds as JK
     from scripts.colmap_export import export_colmap_scene
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
@@ -3356,6 +3377,35 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     log("jpeg", f"(a) exported in {time.perf_counter() - t0:.2f} s: "
         f"{len(sources)} JPEG views, "
         f"{sum(f.stat().st_size for f in sources)} bytes")
+    t0 = time.perf_counter()
+    JK.encoder_library()
+    built = time.perf_counter() - t0
+    parts = []
+    for i, kind in JPEG_KINDS.items():
+        path = sources[i]
+        before = J.read_jpeg(path, dev)
+        baseline = path.stat().st_size
+        t0 = time.perf_counter()
+        size = JK.rewrite(path, kind, dev)
+        took = time.perf_counter() - t0
+        frame = J.decode_coefficients(path.read_bytes(), path)
+        after = J.frame_pixels(frame, dev)
+        coded = {"arith": (True, False, False, "ycc"),
+                 "arith_progressive": (True, True, False, "ycc"),
+                 "cmyk": (False, False, False, "cmyk"),
+                 "lossless": (False, False, True, "rgb")}[kind]
+        if (frame.arithmetic, frame.progressive, frame.lossless,
+                frame.colour) != coded or after.shape != before.shape:
+            raise AssertionError(f"{path.name}: the {kind} rewrite reads back "
+                                 f"as {frame.colour} {tuple(after.shape)}")
+        if kind != "cmyk" and not torch.equal(after, before):
+            raise AssertionError(f"{path.name}: the {kind} rewrite does not "
+                                 "decode to the baseline file's pixels")
+        parts.append(f"view {i + 1} {kind} {size} bytes (baseline "
+                     f"{baseline}) in {took:.3f} s")
+    log("jpeg", f"(a) JPEG kinds (arithmetic coder built in {built:.2f} s): "
+        + "; ".join(parts) + "; each read back on the card, the arithmetic "
+        "and lossless ones bitwise the baseline file's pixels")
 
     # (b) undistortion on the card, then the codec card against CPU
     torch.cuda.synchronize()
@@ -3368,7 +3418,7 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
             any(f.parent.name != "undistorted" for f in undistorted):
         raise AssertionError(f"undistorted files {undistorted[:3]}...")
     raw = C.read_model(ws / "sparse" / "0")
-    for i in (0, 3):
+    for i in (0, 3, *JPEG_KINDS):
         cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
         k = cam.k_matrix().astype(np.float64)
         d = cam.distortion().astype(np.float64)
@@ -3386,8 +3436,8 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
     log("jpeg", f"(b) load_from_colmap_reconstruction with undistortion on "
         f"the card (parse, near/far, box; JPEG decode, undistort, JPEG "
         f"encode of {len(sc.views)} views): {und_s:.3f} s the first time, "
-        f"{und_warm:.3f} s again; views 1 and 4 through the CPU: the "
-        f"undistorted files byte for byte the card's")
+        f"{und_warm:.3f} s again; views 1 and 4 and the JPEG kinds' views "
+        f"through the CPU: the undistorted files byte for byte the card's")
     for f in sources + undistorted:
         data = f.read_bytes()
         frame = J.decode_coefficients(data, f)
@@ -3403,14 +3453,16 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
         f"undistorted files: decoded on the card bitwise the CPU's, their "
         f"images encoded on the card byte for byte the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
-    names = sorted(f.stem for f in fixtures.glob("*.jpg")
-                   if f.stem != "source")
-    for name in names:
-        want = np.load(fixtures / f"{name}.npy")
-        got = J.read_jpeg(fixtures / f"{name}.jpg", dev).cpu().numpy()
+    kind_fixtures = fixtures.parent / "jpeg_kinds"
+    paths = sorted(f for f in fixtures.glob("*.jpg") if f.stem != "source")
+    paths += sorted(kind_fixtures.glob("*.jpg"))
+    names = [f.stem for f in paths]
+    for path in paths:
+        want = np.load(path.with_suffix(".npy"))
+        got = J.read_jpeg(path, dev).cpu().numpy()
         if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"fixture {name}: the card's decode is not "
-                                 "cv2's")
+            raise AssertionError(f"fixture {path.name}: the card's decode is "
+                                 "not cv2's")
     src = np.load(fixtures / "source.npy")
     if J.encode_jpeg(torch.from_numpy(src).to(dev), device=dev) != (
             fixtures / "source.jpg").read_bytes():
@@ -3420,6 +3472,16 @@ def jpeg_phase(scene, dev, psnr_png, t_start, after_s=0.0):
         f" decoded on the card to cv2.imread's pixels; source encoded on "
         f"the card to cv2.imencode's bytes")
     codec_times(sources[:1], dev)                    # warm the card's path
+    times = decode_times(
+        [sources[0]] + [sources[i] for i in JPEG_KINDS], dev,
+        lambda path: J.decode_coefficients(path.read_bytes(), path),
+        J.frame_pixels)
+    log("jpeg", "(b) decode of one 800x800 view of each kind, medians of 3 "
+        "(host: reading, markers and C++ entropy pass; device: the pixel "
+        "stages, synchronised): " + "; ".join(
+            f"{name} ({kind}) {b} bytes: host {h:.3f} ms, device {d:.3f} ms"
+            for kind, (name, (h, d, b, _)) in zip(
+                ["baseline"] + list(JPEG_KINDS.values()), times.items())))
     t, images = codec_times(sources, dev)
     log("jpeg", codec_line(f"(b) the {len(sources)} exported views", t))
     big = I.resize_linear_u8(images[0], (3000, 4000))
@@ -3775,23 +3837,21 @@ def write_tiff_kind(path, kind, dev):
     return len(data)
 
 
-def tiff_times(files, dev, reps=3):
-    """Decode each TIFF file to ``dev``: {file name: (host ms, device ms,
-    bytes, pixels)}, the host part (the directory, decompression and the
-    JPEG entropy pass: decode_tiff) and the device part (tiff_pixels,
-    synchronised) apart, each the median of ``reps`` decodes after a first
-    one."""
+def decode_times(files, dev, decode, pixels, reps=3):
+    """Decode each file to ``dev``: {file name: (host ms, device ms, bytes,
+    pixels)}, the host part (``decode(path)``: reading, parsing and the C++
+    passes) and the device part (``pixels(decoded, dev)``, synchronised)
+    apart, each the median of ``reps`` decodes after a first one."""
     import torch
-    from nerfpp_tpu_torch.utils import tiff as T
     out = {}
     for path in files:
         host, device = [], []
         for _ in range(reps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dec = T.decode_tiff(path)
+            dec = decode(path)
             t1 = time.perf_counter()
-            img = T.tiff_pixels(dec, dev)
+            img = pixels(dec, dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             host.append(1e3 * (t1 - t0))
@@ -3840,7 +3900,7 @@ def formats_phase(scene, dev, psnrs, t_start):
     depth by 255), decode and encode seconds of each new format (a Sun
     raster copy of view 6 among them) and of the 4 TIFF views (read_image
     to the card and write_image from it), each
-    TIFF kind's and TIFF kind fixture's decode (tiff_times), of
+    TIFF kind's and TIFF kind fixture's decode (decode_times), of
     the 2 progressive views and a 4,000 x 3,000 progressive upscale (host
     entropy pass and device stages apart), of the 800x800 lossy WebP
     fixture and the exported and undistorted WebP views (webp_times: host
@@ -4078,7 +4138,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     # each kind too: small files, the per-call cost)
     kinds = [sources[j] for j in TIFF_KINDS] + sorted(fixtures.glob(
         "tiff_*.tif"))
-    for name, (host, device, n, px) in tiff_times(kinds, dev).items():
+    for name, (host, device, n, px) in decode_times(
+            kinds, dev, T.decode_tiff, T.tiff_pixels).items():
         total = host + device
         log("formats", f"(b) TIFF {name} ({n} bytes, {px / 1e6:.3f} Mpix): "
             f"decode {total:.3f} ms (host {host:.3f} ms, device "

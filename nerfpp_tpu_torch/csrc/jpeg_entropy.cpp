@@ -1,24 +1,39 @@
-// JPEG entropy coding on the host: one Huffman-coded scan of 8x8
-// coefficient blocks decoded into, or encoded from, int16 arrays, sequential
-// (baseline) or progressive.
+// JPEG entropy coding on the host: one scan of 8x8 coefficient blocks
+// decoded into, or encoded from, int16 arrays, sequential (baseline) or
+// progressive, Huffman or arithmetic; and one lossless (SOF3) scan decoded
+// into samples.
 //
 // The pixel stages around it (dequantisation, IDCT, upsampling, colour
-// conversion and their inverses) run in PyTorch (utils/jpeg.py); Huffman
+// conversion and their inverses) run in PyTorch (utils/jpeg.py); entropy
 // coding is sequential, so it stays on the CPU, as libjpeg keeps it. The
 // semantics follow ITU T.81 and libjpeg-turbo's jdhuff.c / jchuff.c:
 //
 // - decoding: DC prediction per component, EOB and ZRL, byte stuffing
 //   (FF 00), FF fill bytes before a marker, restart markers every
-//   `restart_interval` MCUs (the bit buffer dropped, the RST number checked,
-//   the DC predictors reset); a marker met inside the data feeds zero bits,
-//   as libjpeg does on a truncated segment;
+//   `restart_interval` MCUs (the bit buffer dropped, the RST number checked
+//   and, where it is another, resynchronised as jpeg_resync_to_restart
+//   does, the DC predictors reset); a marker met inside the data feeds
+//   zero bits, and once a needed bit lies past the data the MCUs after it
+//   are left as they are, as libjpeg does on a truncated segment
+//   (insufficient_data);
 // - encoding: the same MCU order, stuffing, and the last byte filled with
 //   one bits (libjpeg's flush_bits);
 // - progressive scans (jdphuff.c / jcphuff.c): DC first and refinement
 //   scans (interleaved or not), AC first scans with EOB runs, AC refinement
 //   scans with their correction bits, restarts inside any scan; the encoder
 //   gathers each scan's symbol counts first and codes the scan with the
-//   optimal tables of jchuff.c's jpeg_gen_optimal_table, which it returns.
+//   optimal tables of jchuff.c's jpeg_gen_optimal_table, which it returns;
+// - arithmetic-coded scans (jdarith.c, T.81 Annex D and F.1.4 / G.1.3):
+//   the QM decoder with its probability estimation table, the DC bins
+//   conditioned on the previous difference by the DAC bounds L and U, the
+//   AC bins split at Kx, sequential and the four progressive kinds, each
+//   restart resetting the statistics and the decoder, zeros fed once a
+//   marker is met;
+// - lossless scans (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
+//   sample differences (size 16 meaning 32768), undone row by row with
+//   predictors 1-7, the first row of the scan and of each restart interval
+//   predicted from 2^(P - Pt - 1), every value kept modulo 2^16 and put out
+//   shifted left by Pt as an 8-bit sample.
 //
 // Blocks are stored in natural (row-major) order, 64 int16 each.
 //
@@ -26,6 +41,7 @@
 // interface, loaded with ctypes.
 #include <cstdint>
 #include <cstring>
+#include <utility>
 
 namespace {
 
@@ -43,7 +59,6 @@ constexpr int kLookBits = 9;
 enum Error : int64_t {
   kBadTable = -1,
   kBadCode = -2,
-  kBadRestart = -3,
   kBadArgs = -4,
   kNoRoom = -5,
   kBadValue = -6,
@@ -127,6 +142,56 @@ bool make_encode_table(const uint8_t* counts, const uint8_t* symbols,
 
 // ----------------------------------------------------------------- reading
 
+// jdmarker.c's next_marker from `*pos`: stray bytes, FF fill bytes and FF 00
+// pairs skipped. Returns the marker's code, `*at` its first FF and `*pos`
+// the byte after it; at the end of the data the EOI that jpeg_stdio_src
+// inserts there (cv2.imread reads files through it).
+int next_marker(const uint8_t* data, int64_t size, int64_t* pos,
+                int64_t* at) {
+  int64_t p = *pos;
+  for (;;) {
+    while (p < size && data[p] != 0xFF) ++p;
+    *at = p;
+    while (p + 1 < size && data[p + 1] == 0xFF) ++p;
+    if (p + 1 >= size) {
+      *pos = size;
+      return 0xD9;
+    }
+    if (data[p + 1] != 0) break;
+    p += 2;                                       // FF 00: data, skipped
+  }
+  *pos = p + 2;
+  return data[p + 1];
+}
+
+// jpeg_resync_to_restart: where the marker met is not RST `num`, an RST
+// of the next two is left unread (its segment then reads as zeros), an
+// earlier RST or an invalid marker skipped for the next one, any other RST
+// taken as the expected one, any other marker left unread. Returns the
+// marker left unread (0: none), with `*at` where it starts.
+int resync_to_restart(const uint8_t* data, int64_t size, int64_t* pos,
+                      int64_t* at, int marker, int num) {
+  for (;;) {
+    int action;
+    if (marker < 0xC0) {
+      action = 2;
+    } else if (marker < 0xD0 || marker > 0xD7) {
+      action = 3;
+    } else if (marker == 0xD0 + ((num + 1) & 7) ||
+               marker == 0xD0 + ((num + 2) & 7)) {
+      action = 3;
+    } else if (marker == 0xD0 + ((num - 1) & 7) ||
+               marker == 0xD0 + ((num - 2) & 7)) {
+      action = 2;
+    } else {
+      action = 1;
+    }
+    if (action == 1) return 0;
+    if (action == 3) return marker;
+    marker = next_marker(data, size, pos, at);
+  }
+}
+
 struct BitReader {
   const uint8_t* data;
   int64_t size;
@@ -134,10 +199,12 @@ struct BitReader {
   uint64_t buf = 0;        // bits, most significant first
   int bits = 0;
   bool at_marker = false;  // pos is at a marker: feed zero bits
+  int64_t fed = 0;         // zero bits fed past the data
 
   void fill() {
     while (bits <= 56) {
       uint32_t c = 0;
+      bool real = false;
       if (!at_marker && pos < size) {
         c = data[pos];
         if (c == 0xFF) {
@@ -145,18 +212,25 @@ struct BitReader {
           while (q < size && data[q] == 0xFF) ++q;   // fill bytes
           if (q < size && data[q] == 0x00) {
             pos = q + 1;                             // stuffed FF
+            real = true;
           } else {
             at_marker = true;                        // leave pos on it
             c = 0;
           }
         } else {
           ++pos;
+          real = true;
         }
       }
+      if (!real) fed += 8;
       buf |= static_cast<uint64_t>(c) << (56 - bits);
       bits += 8;
     }
   }
+
+  // some of the zero bits fed past the data have been consumed (libjpeg's
+  // insufficient_data): they sit behind every real bit of the buffer
+  bool past_data() const { return bits < fed; }
 
   uint32_t peek(int n) {
     if (bits < n) fill();
@@ -192,16 +266,18 @@ struct BitReader {
     return t.symbols[(code + t.valoffset[len]) & 0xFF];
   }
 
-  // drop the buffered bits and step over the RST marker numbered `num`
-  bool restart(int num) {
+  // drop the buffered bits and step over the RST marker numbered `num`,
+  // resynchronising as libjpeg does when the marker met is another (one
+  // left unread feeds zeros)
+  void restart(int num) {
     buf = 0;
     bits = 0;
-    at_marker = false;
-    while (pos < size && data[pos] != 0xFF) ++pos;   // stray bytes
-    while (pos + 1 < size && data[pos + 1] == 0xFF) ++pos;
-    if (pos + 1 >= size || data[pos + 1] != 0xD0 + num) return false;
-    pos += 2;
-    return true;
+    fed = 0;
+    int64_t at;
+    int m = next_marker(data, size, &pos, &at);
+    m = m == 0xD0 + num ? 0 : resync_to_restart(data, size, &pos, &at, m, num);
+    at_marker = m != 0;
+    if (at_marker) pos = at;
   }
 };
 
@@ -356,11 +432,251 @@ struct ProgressiveEncoder {
   }
 };
 
+
+// ---------------------------------------------------------- arithmetic
+
+// T.81 Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS of each
+// state; entry 113 is libjpeg's fixed estimate of 0.5 (it never moves),
+// the bin of a sign or a refinement bit
+struct QeState {
+  uint16_t qe;
+  uint8_t nlps, nmps, swtch;
+};
+const QeState kQe[114] = {
+    {0x5a1d, 1, 1, 1},     {0x2586, 14, 2, 0},    {0x1114, 16, 3, 0},
+    {0x080b, 18, 4, 0},    {0x03d8, 20, 5, 0},    {0x01da, 23, 6, 0},
+    {0x00e5, 25, 7, 0},    {0x006f, 28, 8, 0},    {0x0036, 30, 9, 0},
+    {0x001a, 33, 10, 0},   {0x000d, 35, 11, 0},   {0x0006, 9, 12, 0},
+    {0x0003, 10, 13, 0},   {0x0001, 12, 13, 0},   {0x5a7f, 15, 15, 1},
+    {0x3f25, 36, 16, 0},   {0x2cf2, 38, 17, 0},   {0x207c, 39, 18, 0},
+    {0x17b9, 40, 19, 0},   {0x1182, 42, 20, 0},   {0x0cef, 43, 21, 0},
+    {0x09a1, 45, 22, 0},   {0x072f, 46, 23, 0},   {0x055c, 48, 24, 0},
+    {0x0406, 49, 25, 0},   {0x0303, 51, 26, 0},   {0x0240, 52, 27, 0},
+    {0x01b1, 54, 28, 0},   {0x0144, 56, 29, 0},   {0x00f5, 57, 30, 0},
+    {0x00b7, 59, 31, 0},   {0x008a, 60, 32, 0},   {0x0068, 62, 33, 0},
+    {0x004e, 63, 34, 0},   {0x003b, 32, 35, 0},   {0x002c, 33, 9, 0},
+    {0x5ae1, 37, 37, 1},   {0x484c, 64, 38, 0},   {0x3a0d, 65, 39, 0},
+    {0x2ef1, 67, 40, 0},   {0x261f, 68, 41, 0},   {0x1f33, 69, 42, 0},
+    {0x19a8, 70, 43, 0},   {0x1518, 72, 44, 0},   {0x1177, 73, 45, 0},
+    {0x0e74, 74, 46, 0},   {0x0bfb, 75, 47, 0},   {0x09f8, 77, 48, 0},
+    {0x0861, 78, 49, 0},   {0x0706, 79, 50, 0},   {0x05cd, 48, 51, 0},
+    {0x04de, 50, 52, 0},   {0x040f, 50, 53, 0},   {0x0363, 51, 54, 0},
+    {0x02d4, 52, 55, 0},   {0x025c, 53, 56, 0},   {0x01f8, 54, 57, 0},
+    {0x01a4, 55, 58, 0},   {0x0160, 56, 59, 0},   {0x0125, 57, 60, 0},
+    {0x00f6, 58, 61, 0},   {0x00cb, 59, 62, 0},   {0x00ab, 61, 63, 0},
+    {0x008f, 61, 32, 0},   {0x5b12, 65, 65, 1},   {0x4d04, 80, 66, 0},
+    {0x412c, 81, 67, 0},   {0x37d8, 82, 68, 0},   {0x2fe8, 83, 69, 0},
+    {0x293c, 84, 70, 0},   {0x2379, 86, 71, 0},   {0x1edf, 87, 72, 0},
+    {0x1aa9, 87, 73, 0},   {0x174e, 72, 74, 0},   {0x1424, 72, 75, 0},
+    {0x119c, 74, 76, 0},   {0x0f6b, 74, 77, 0},   {0x0d51, 75, 78, 0},
+    {0x0bb6, 77, 79, 0},   {0x0a40, 77, 48, 0},   {0x5832, 80, 81, 1},
+    {0x4d1c, 88, 82, 0},   {0x438e, 89, 83, 0},   {0x3bdd, 90, 84, 0},
+    {0x34ee, 91, 85, 0},   {0x2eae, 92, 86, 0},   {0x299a, 93, 87, 0},
+    {0x2516, 86, 71, 0},   {0x5570, 88, 89, 1},   {0x4ca9, 95, 90, 0},
+    {0x44d9, 96, 91, 0},   {0x3e22, 97, 92, 0},   {0x3824, 99, 93, 0},
+    {0x32b4, 99, 94, 0},   {0x2e17, 93, 86, 0},   {0x56a8, 95, 96, 1},
+    {0x4f46, 101, 97, 0},  {0x47e5, 102, 98, 0},  {0x41cf, 103, 99, 0},
+    {0x3c3d, 104, 100, 0}, {0x375e, 99, 93, 0},   {0x5231, 105, 102, 0},
+    {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0}, {0x415e, 103, 99, 0},
+    {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1},
+    {0x5522, 112, 109, 0}, {0x59eb, 112, 111, 1}, {0x5a1d, 113, 113, 0}};
+
+constexpr int kFixedBin = 113;
+constexpr int kDcBins = 64;
+constexpr int kAcBins = 256;
+
+// jdarith.c's decoder: C holds the interval's base and the input bits
+// (the cut between them moves with CT), A the interval's size; a bin is
+// its state index with the MPS in bit 7
+struct ArithReader {
+  const uint8_t* data;
+  int64_t size;
+  int64_t pos;
+  int64_t c = 0;
+  int64_t a = 0;
+  int ct = -16;              // -16: two bytes to read before the first bit
+  int marker = 0;            // the marker met (0: none yet)
+  int64_t marker_at = -1;    // where its FF bytes start
+
+  // the next data byte; once a marker (or the end, read as libjpeg's
+  // inserted EOI) is met, zeros
+  int byte() {
+    if (marker) return 0;
+    if (pos >= size) {
+      marker = 0xD9;
+      marker_at = size;
+      return 0;
+    }
+    int d = data[pos++];
+    if (d != 0xFF) return d;
+    int64_t at = pos - 1;
+    do {
+      if (pos >= size) {
+        marker = 0xD9;
+        marker_at = at;
+        return 0;
+      }
+      d = data[pos++];
+    } while (d == 0xFF);
+    if (d == 0) return 0xFF;                    // stuffed
+    marker = d;
+    marker_at = at;
+    return 0;
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {                        // D.2.6 renormalisation
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const QeState& q = kQe[sv & 0x7F];
+    int64_t qe = q.qe;
+    int nl = q.nlps | (q.swtch << 7), nm = q.nmps;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {                            // D.2.4 / D.2.5
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // step over the RST marker numbered `num` (already met, or the next
+  // marker) as read_restart_marker does, resynchronising where it is
+  // another, and start again
+  void restart(int num) {
+    if (!marker) marker = next_marker(data, size, &pos, &marker_at);
+    if (marker != 0xD0 + num)
+      marker = resync_to_restart(data, size, &pos, &marker_at, marker, num);
+    else
+      marker = 0;
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  int64_t end() const { return marker ? marker_at : pos; }
+};
+
+// The statistics of one arithmetic scan: DC and AC bins per table (0-15),
+// and the conditioning of each (DAC: L and U per DC table, Kx per AC table)
+struct ArithStats {
+  uint8_t dc[16][kDcBins];
+  uint8_t ac[16][kAcBins];
+  uint8_t fixed = kFixedBin;
+  const uint8_t* cond;       // L [16], U [16], Kx [16]
+
+  int dc_context(int m, int sign, int tbl) const {
+    if (m < static_cast<int>((1L << cond[tbl]) >> 1)) return 0;
+    if (m > static_cast<int>((1L << cond[16 + tbl]) >> 1)) return 12 + 4 * sign;
+    return 4 + 4 * sign;
+  }
+};
+
+// F.1.4.4.1 / Figure F.19-F.24: one DC difference of the bins at `s0`,
+// updating the component's context; -1: a magnitude that overflows
+int arith_dc_diff(ArithReader& in, ArithStats& stats, int tbl, int* context,
+                  int32_t* diff) {
+  uint8_t* st = stats.dc[tbl] + *context;
+  if (in.decode(st) == 0) {
+    *context = 0;
+    *diff = 0;
+    return 0;
+  }
+  int sign = in.decode(st + 1);
+  st += 2 + sign;
+  int m = in.decode(st);
+  if (m) {
+    st = stats.dc[tbl] + 20;                    // X1
+    while (in.decode(st)) {
+      if ((m <<= 1) == 0x8000) return -1;
+      st += 1;
+    }
+  }
+  *context = stats.dc_context(m, sign, tbl);
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (in.decode(st)) v |= m;
+  v += 1;
+  *diff = sign ? -v : v;
+  return 0;
+}
+
+// the magnitude category and bits of an AC coefficient whose sign has just
+// been read, the category's first bin at `st`; -1 on overflow
+int arith_ac_value(ArithReader& in, ArithStats& stats, int tbl, int k,
+                   uint8_t* st, int sign, int32_t* value) {
+  int m = in.decode(st);
+  if (m && in.decode(st)) {
+    m <<= 1;
+    st = stats.ac[tbl] + (k <= stats.cond[32 + tbl] ? 189 : 217);
+    while (in.decode(st)) {
+      if ((m <<= 1) == 0x8000) return -1;
+      st += 1;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (in.decode(st)) v |= m;
+  v += 1;
+  *value = sign ? -v : v;
+  return 0;
+}
+
+// --------------------------------------------------------------- lossless
+
+// jdlossls.c's predictors on the previous sample Ra, the one above Rb and
+// the one above-left Rc
+inline int32_t predict(int psv, int32_t ra, int32_t rb, int32_t rc) {
+  switch (psv) {
+    case 1: return ra;
+    case 2: return rb;
+    case 3: return rc;
+    case 4: return ra + rb - rc;
+    case 5: return ra + ((rb - rc) >> 1);
+    case 6: return rb + ((ra - rc) >> 1);
+    default: return (ra + rb) >> 1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int jpeg_entropy_version() { return 1; }
+
+// The arithmetic decoder's state table: [114 * 4] Qe, Next_Index_LPS,
+// Next_Index_MPS and Switch_MPS of each state.
+void jpeg_arith_states(int32_t* out) {
+  for (int i = 0; i < 114; ++i) {
+    out[4 * i] = kQe[i].qe;
+    out[4 * i + 1] = kQe[i].nlps;
+    out[4 * i + 2] = kQe[i].nmps;
+    out[4 * i + 3] = kQe[i].swtch;
+  }
+}
 
 // Decode one baseline Huffman scan of `n_comp` components.
 //
@@ -405,13 +721,16 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t size, int64_t start,
   int16_t scratch[64];
   int64_t mcu = 0;
   int next_rst = 0;
+  bool insufficient = false;
   for (int32_t my = 0; my < mcus_y; ++my) {
     for (int32_t mx = 0; mx < mcus_x; ++mx, ++mcu) {
       if (restart_interval > 0 && mcu > 0 && mcu % restart_interval == 0) {
-        if (!in.restart(next_rst)) return kBadRestart;
+        in.restart(next_rst);
         next_rst = (next_rst + 1) & 7;
         std::memset(pred, 0, sizeof(pred));
+        if (!in.at_marker) insufficient = false;
       }
+      if (insufficient) continue;        // past the data: blocks left zero
       for (int c = 0; c < n_comp; ++c) {
         const DecodeTable& dc = tables[comp_tables[2 * c]];
         const DecodeTable& ac = tables[4 + comp_tables[2 * c + 1]];
@@ -448,6 +767,7 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t size, int64_t start,
           }
         }
       }
+      insufficient = in.past_data();
     }
   }
   return in.pos;
@@ -527,17 +847,22 @@ int64_t jpeg_encode_scan(const int16_t* blocks, int64_t n_blocks,
 // at successive approximation ah/al into the coefficient arrays, which hold
 // the earlier scans' results (zero before the first). Arguments as
 // jpeg_decode_scan; an AC scan has one component and comp_hv (1, 1).
+// `rows_per_imcu`: MCU rows an iMCU row (1 when interleaved, else the
+// component's v); `last_good` receives the iMCU row of the last MCU begun
+// before the data ran out (jdcoefct.c's last_good_iMCU_row).
 int64_t jpeg_decode_progressive_scan(
     const uint8_t* data, int64_t size, int64_t start, int32_t n_comp,
     const int32_t* comp_hv, const int32_t* comp_grid,
     const int32_t* comp_tables, const uint8_t* counts, const uint8_t* symbols,
     int32_t mcus_x, int32_t mcus_y, int32_t restart_interval, int32_t ss,
-    int32_t se, int32_t ah, int32_t al, int16_t** coefs) {
+    int32_t se, int32_t ah, int32_t al, int32_t rows_per_imcu,
+    int32_t* last_good, int16_t** coefs) {
   const bool dc = ss == 0;
   if (n_comp < 1 || n_comp > 4 || mcus_x < 1 || mcus_y < 1 || start < 0 ||
       (dc ? se != 0 : (ss > se || se > 63 || n_comp != 1)) ||
-      (ah && al != ah - 1) || al > 13)
+      (ah && al != ah - 1) || al > 13 || rows_per_imcu < 1)
     return kBadArgs;
+  *last_good = 0;
   DecodeTable tables[8];
   bool built[8] = {false};
   if (!(dc && ah)) {                        // DC refinement needs no table
@@ -561,14 +886,18 @@ int64_t jpeg_decode_progressive_scan(
   int16_t scratch[64];
   int64_t mcu = 0;
   int next_rst = 0;
+  bool insufficient = false;
   for (int32_t my = 0; my < mcus_y; ++my) {
     for (int32_t mx = 0; mx < mcus_x; ++mx, ++mcu) {
       if (restart_interval > 0 && mcu > 0 && mcu % restart_interval == 0) {
-        if (!in.restart(next_rst)) return kBadRestart;
+        in.restart(next_rst);
         next_rst = (next_rst + 1) & 7;
         std::memset(pred, 0, sizeof(pred));
         eobrun = 0;
+        if (!in.at_marker) insufficient = false;
       }
+      if (insufficient) continue;        // past the data: blocks kept
+      *last_good = my / rows_per_imcu;
       for (int c = 0; c < n_comp; ++c) {
         int h = comp_hv[2 * c], v = comp_hv[2 * c + 1];
         int rows = comp_grid[2 * c], cols = comp_grid[2 * c + 1];
@@ -656,6 +985,7 @@ int64_t jpeg_decode_progressive_scan(
           }
         }
       }
+      insufficient = in.past_data();
     }
   }
   return in.pos;
@@ -845,6 +1175,323 @@ int64_t jpeg_encode_progressive_scan(
     }
   }
   return length;
+}
+
+
+// Decode one arithmetic-coded scan (jdarith.c) into the coefficient arrays:
+// sequential (`progressive` 0: every coefficient of each block) or one
+// progressive pass of band ss-se at approximation ah/al (DC first, DC
+// refinement on the fixed bin, AC first, AC refinement). Arguments as
+// jpeg_decode_scan / jpeg_decode_progressive_scan, with comp_tables the DC
+// and AC conditioning table of each component (0-15) and conditioning
+// [48] each table's DAC values: L [16], U [16], Kx [16]. The statistics
+// start at zero and restart with every restart interval (a marker other
+// than the expected RST resynchronised as libjpeg does); past a marker the
+// decoder reads zeros. A coefficient that overflows stops the scan's
+// decoding until the next restart, as libjpeg stops it (the blocks after it
+// keep what they hold). Returns where reading stopped (the marker after the
+// data) or a negative error code.
+int64_t jpeg_decode_arith_scan(
+    const uint8_t* data, int64_t size, int64_t start, int32_t n_comp,
+    const int32_t* comp_hv, const int32_t* comp_grid,
+    const int32_t* comp_tables, const uint8_t* conditioning, int32_t mcus_x,
+    int32_t mcus_y, int32_t restart_interval, int32_t progressive,
+    int32_t ss, int32_t se, int32_t ah, int32_t al, int16_t** coefs) {
+  const bool dc = ss == 0;
+  if (n_comp < 1 || n_comp > 4 || mcus_x < 1 || mcus_y < 1 || start < 0)
+    return kBadArgs;
+  if (progressive && ((dc ? se != 0 : (ss > se || se > 63 || n_comp != 1)) ||
+                      (ah && al != ah - 1) || al > 13))
+    return kBadArgs;
+  for (int k = 0; k < 2 * n_comp; ++k)
+    if (comp_tables[k] < 0 || comp_tables[k] > 15) return kBadArgs;
+  static thread_local ArithStats stats;
+  stats.cond = conditioning;
+  const bool uses_dc = !progressive || (dc && !ah);
+  const bool uses_ac = !progressive || !dc;
+  auto reset = [&](int32_t* last_dc, int* context) {
+    for (int c = 0; c < n_comp; ++c) {
+      if (uses_dc) {
+        std::memset(stats.dc[comp_tables[2 * c]], 0, kDcBins);
+        last_dc[c] = 0;
+        context[c] = 0;
+      }
+      if (uses_ac) std::memset(stats.ac[comp_tables[2 * c + 1]], 0, kAcBins);
+    }
+  };
+  int32_t last_dc[4] = {0, 0, 0, 0};
+  int context[4] = {0, 0, 0, 0};
+  reset(last_dc, context);
+  ArithReader in{data, size, start};
+  bool broken = false;         // libjpeg's ct == -1 after an overflow
+  const int p1 = 1 << al;
+  const int m1 = -(1 << al);
+  int16_t scratch[64];
+  int64_t mcu = 0;
+  int next_rst = 0;
+  for (int32_t my = 0; my < mcus_y; ++my) {
+    for (int32_t mx = 0; mx < mcus_x; ++mx, ++mcu) {
+      if (restart_interval > 0 && mcu > 0 && mcu % restart_interval == 0) {
+        in.restart(next_rst);
+        next_rst = (next_rst + 1) & 7;
+        reset(last_dc, context);
+        broken = false;
+      }
+      if (broken) continue;
+      for (int c = 0; c < n_comp && !broken; ++c) {
+        int h = comp_hv[2 * c], v = comp_hv[2 * c + 1];
+        int rows = comp_grid[2 * c], cols = comp_grid[2 * c + 1];
+        int dt = comp_tables[2 * c], at = comp_tables[2 * c + 1];
+        for (int by = 0; by < v && !broken; ++by) {
+          for (int bx = 0; bx < h && !broken; ++bx) {
+            int64_t row = static_cast<int64_t>(my) * v + by;
+            int64_t col = static_cast<int64_t>(mx) * h + bx;
+            int16_t* block = scratch;
+            if (row < rows && col < cols) {
+              block = coefs[c] + (row * cols + col) * 64;
+            } else {
+              std::memset(scratch, 0, sizeof(scratch));
+            }
+            int32_t value;
+            if (!progressive || (dc && !ah)) {            // DC
+              if (arith_dc_diff(in, stats, dt, &context[c], &value) < 0) {
+                broken = true;
+                break;
+              }
+              last_dc[c] = (last_dc[c] + value) & 0xFFFF;
+              block[0] = static_cast<int16_t>(
+                  static_cast<uint32_t>(last_dc[c]) << (progressive ? al : 0));
+              if (progressive) continue;
+            }
+            if (progressive && dc) {                      // DC refinement
+              if (in.decode(&stats.fixed))
+                block[0] = static_cast<int16_t>(block[0] | p1);
+              continue;
+            }
+            const int first = progressive ? ss : 1, last = progressive ? se
+                                                                        : 63;
+            if (!ah || !progressive) {                    // AC (first)
+              for (int k = first; k <= last; ++k) {
+                uint8_t* st = stats.ac[at] + 3 * (k - 1);
+                if (in.decode(st)) break;                 // EOB
+                while (in.decode(st + 1) == 0) {
+                  st += 3;
+                  if (++k > last) {
+                    broken = true;
+                    break;
+                  }
+                }
+                if (broken) break;
+                int sign = in.decode(&stats.fixed);
+                if (arith_ac_value(in, stats, at, k, st + 2, sign, &value) <
+                    0) {
+                  broken = true;
+                  break;
+                }
+                block[kNatural[k]] = static_cast<int16_t>(
+                    static_cast<uint32_t>(value) << (progressive ? al : 0));
+              }
+              continue;
+            }
+            int kex = se;                                 // AC refinement
+            for (; kex > 0; --kex)
+              if (block[kNatural[kex]]) break;
+            for (int k = ss; k <= se; ++k) {
+              uint8_t* st = stats.ac[at] + 3 * (k - 1);
+              if (k > kex && in.decode(st)) break;        // EOB
+              for (;;) {
+                int16_t* coef = block + kNatural[k];
+                if (*coef) {                              // already nonzero
+                  if (in.decode(st + 2))
+                    *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1
+                                                                    : p1));
+                  break;
+                }
+                if (in.decode(st + 1)) {                  // newly nonzero
+                  *coef = static_cast<int16_t>(in.decode(&stats.fixed) ? m1
+                                                                       : p1);
+                  break;
+                }
+                st += 3;
+                if (++k > se) {
+                  broken = true;
+                  break;
+                }
+              }
+              if (broken) break;
+            }
+          }
+        }
+      }
+    }
+  }
+  return in.end();
+}
+
+// Decode one lossless Huffman scan (SOF3) into 8-bit samples.
+//
+// comp_hv      [n_comp * 2]  samples per MCU across and down (1, 1 in a
+//                            scan of one component)
+// comp_size    [n_comp * 3]  each component's rows and columns of real
+//                            samples (height and width_in_blocks) and its
+//                            vertical sampling factor (a scan of one
+//                            component takes that many rows an iMCU row)
+// comp_tables  [n_comp]      DC table (0..3) of each component
+// counts, symbols            as jpeg_decode_scan (DC slots 0-3)
+// mcus_x, mcus_y             MCUs across and MCU rows of the scan
+// psv, pt, precision         predictor (1-7), point transform, sample bits
+// samples      [n_comp]      uint8 arrays [rows, cols]
+//
+// As jddiffct.c runs it: an iMCU row's MCU rows are decoded first (a
+// restart, checked before each MCU row, sends the next row that each
+// component undoes through the first-row predictor), then its sample rows
+// undone. Once the data runs out, the MCU rows after it hold zero
+// differences from a reset predictor (libjpeg's insufficient_data); a
+// marker other than the expected RST is resynchronised as libjpeg does.
+// Returns where reading stopped or a negative error code.
+int64_t jpeg_decode_lossless_scan(
+    const uint8_t* data, int64_t size, int64_t start, int32_t n_comp,
+    const int32_t* comp_hv, const int32_t* comp_size,
+    const int32_t* comp_tables, const uint8_t* counts, const uint8_t* symbols,
+    int32_t mcus_x, int32_t mcus_y, int32_t restart_interval, int32_t psv,
+    int32_t pt, int32_t precision, uint8_t** samples) {
+  if (n_comp < 1 || n_comp > 4 || mcus_x < 1 || mcus_y < 1 || start < 0 ||
+      psv < 1 || psv > 7 || pt < 0 || pt >= precision || precision > 16 ||
+      (restart_interval > 0 && restart_interval % mcus_x))
+    return kBadArgs;
+  DecodeTable tables[4];
+  bool built[4] = {false, false, false, false};
+  for (int c = 0; c < n_comp; ++c) {
+    int t = comp_tables[c];
+    if (t < 0 || t > 3) return kBadArgs;
+    if (!built[t]) {
+      if (!make_decode_table(counts + 16 * t, symbols + 256 * t, &tables[t]))
+        return kBadTable;
+      built[t] = true;
+    }
+  }
+  const bool interleaved = n_comp > 1;
+  const int32_t initial = 1 << (precision - pt - 1);
+  // per component: v rows of differences of the MCU columns, the previous
+  // undone row, and whether its next row is a first row
+  int32_t* diff[4];
+  int32_t* prev[4];
+  int32_t* cur[4];
+  bool first_row[4];
+  int64_t width[4];
+  int64_t done_rows[4] = {0, 0, 0, 0};
+  int64_t need = 0;
+  for (int c = 0; c < n_comp; ++c) {
+    width[c] = static_cast<int64_t>(mcus_x) * comp_hv[2 * c];
+    need += width[c] * (comp_hv[2 * c + 1] + comp_size[3 * c + 2] + 2);
+  }
+  int32_t* pool = new int32_t[need + 1]();
+  int32_t* at = pool;
+  for (int c = 0; c < n_comp; ++c) {
+    int rows = interleaved ? comp_hv[2 * c + 1] : comp_size[3 * c + 2];
+    diff[c] = at;
+    at += width[c] * rows;
+    prev[c] = at;
+    at += width[c];
+    cur[c] = at;
+    at += width[c];
+    first_row[c] = true;
+  }
+  BitReader in{data, size, start};
+  int64_t restart_rows = restart_interval > 0 ? restart_interval / mcus_x : 0;
+  int64_t rows_to_go = restart_rows;
+  int next_rst = 0;
+  int64_t status = 0;
+  bool insufficient = false;
+  const int64_t imcu_rows = interleaved ? mcus_y
+                                        : (mcus_y + comp_size[2] - 1) /
+                                              comp_size[2];
+  int64_t mcu_row = 0;
+  for (int64_t imcu = 0; imcu < imcu_rows && !status; ++imcu) {
+    int per_imcu = 1;
+    if (!interleaved) {
+      per_imcu = comp_size[2];
+      if (imcu == imcu_rows - 1) {
+        int64_t rem = comp_size[0] % comp_size[2];
+        per_imcu = static_cast<int>(rem ? rem : comp_size[2]);
+      }
+    }
+    for (int y = 0; y < per_imcu; ++y, ++mcu_row) {
+      if (restart_rows) {
+        if (rows_to_go == 0) {
+          in.restart(next_rst);
+          next_rst = (next_rst + 1) & 7;
+          if (!in.at_marker) insufficient = false;
+          for (int c = 0; c < n_comp; ++c) first_row[c] = true;
+          rows_to_go = restart_rows;
+        }
+      }
+      if (insufficient) {
+        for (int c = 0; c < n_comp; ++c) {
+          int rows = interleaved ? comp_hv[2 * c + 1] : 1;
+          int64_t base = interleaved ? 0 : y;
+          std::memset(diff[c] + base * width[c], 0,
+                      sizeof(int32_t) * width[c] * rows);
+          first_row[c] = true;
+        }
+      } else {
+        for (int32_t mx = 0; mx < mcus_x && !status; ++mx) {
+          for (int c = 0; c < n_comp && !status; ++c) {
+            int h = interleaved ? comp_hv[2 * c] : 1;
+            int v = interleaved ? comp_hv[2 * c + 1] : 1;
+            const DecodeTable& t = tables[comp_tables[c]];
+            for (int by = 0; by < v; ++by) {
+              for (int bx = 0; bx < h; ++bx) {
+                int s = in.decode(t);
+                if (s < 0) {
+                  status = kBadCode;
+                  break;
+                }
+                if (s > 16) {
+                  status = kBadValue;
+                  break;
+                }
+                int32_t d = s == 16 ? 32768 : s ? extend(in.get(s), s) : 0;
+                int64_t r = interleaved ? by : y;
+                diff[c][r * width[c] + static_cast<int64_t>(mx) * h + bx] = d;
+              }
+              if (status) break;
+            }
+          }
+        }
+        insufficient = in.past_data();
+      }
+      if (restart_rows) --rows_to_go;
+    }
+    if (status) break;
+    for (int c = 0; c < n_comp; ++c) {
+      int64_t rows_c = comp_size[3 * c], cols = comp_size[3 * c + 1];
+      int v = interleaved ? comp_hv[2 * c + 1] : comp_size[3 * c + 2];
+      for (int r = 0; r < v && done_rows[c] < rows_c; ++r) {
+        const int32_t* d = diff[c] + r * width[c];
+        int32_t* out = cur[c];
+        const int32_t* up = prev[c];
+        if (first_row[c]) {
+          int32_t ra = (d[0] + initial) & 0xFFFF;
+          out[0] = ra;
+          for (int64_t x = 1; x < cols; ++x) out[x] = ra = (d[x] + ra) & 0xFFFF;
+          first_row[c] = false;
+        } else {
+          int32_t ra = (d[0] + up[0]) & 0xFFFF;
+          out[0] = ra;
+          for (int64_t x = 1; x < cols; ++x)
+            out[x] = ra = (d[x] + predict(psv, ra, up[x], up[x - 1])) & 0xFFFF;
+        }
+        uint8_t* dst = samples[c] + done_rows[c] * cols;
+        for (int64_t x = 0; x < cols; ++x)
+          dst[x] = static_cast<uint8_t>(static_cast<uint32_t>(out[x]) << pt);
+        std::swap(cur[c], prev[c]);
+        ++done_rows[c];
+      }
+    }
+  }
+  delete[] pool;
+  return status ? status : in.pos;
 }
 
 }  // extern "C"

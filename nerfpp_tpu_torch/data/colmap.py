@@ -30,18 +30,19 @@ undistortion, and the optional SfM shell-out.
   when the binary is installed.
 
 Images are what utils/image.py ``read_image`` reads, as cv2.imread reads
-them: PNG of every colour type and depth, baseline and progressive JPEG,
-classic and BigTIFF (1- to 64-bit integer or float samples, gray, RGB(A),
-palette, CMYK, YCbCr; LZW, Deflate, PackBits, JPEG or none), BMP, PBM /
-PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy VP8,
-lossless VP8L, alpha) and JPEG 2000 (JP2 or raw codestreams; an undistorted
-.jp2 view is written back as cv2.imwrite writes it, OpenJPEG's rate-4 5/3).
-A view in another format (GIF, AVIF,
-animated WebP, arithmetic-coded, 12-bit or CMYK JPEG, old-style
-JPEG-compressed TIFF, ...) raises NotImplementedError naming the file and
-the kind when it is read, and an undistorted RGBA WebP view with fully
-transparent pixels (the zero border of the undistortion) when it is
-written.
+them: PNG of every colour type and depth, JPEG (baseline, progressive,
+arithmetic-coded and lossless; gray, YCbCr, RGB, CMYK and YCCK; each
+undistorted view written back as cv2.imwrite's baseline JPEG of the
+pixels), classic and BigTIFF (1- to 64-bit integer or float samples,
+gray, RGB(A), palette, CMYK, YCbCr; LZW, Deflate, PackBits, JPEG or
+none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP
+(lossy VP8, lossless VP8L, alpha, animated) and JPEG 2000 (JP2 or raw
+codestreams; an undistorted .jp2 view is written back as cv2.imwrite
+writes it, OpenJPEG's rate-4 5/3).
+A view that cv2.imread returns no image for (a 12-bit or hierarchical
+JPEG, an LZMA TIFF, ...) raises ValueError naming the file; one in another
+format (GIF, AVIF, old-style JPEG-compressed TIFF, ...) raises
+NotImplementedError naming the file and the kind.
 """
 from __future__ import annotations
 

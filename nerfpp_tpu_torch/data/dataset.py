@@ -123,12 +123,14 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     """Decode view images into one [n, H, W, 3] f32 stack, as
     nerfpp_tpu/data/dataset.py ``load_images`` does. The files are what
     utils/image.py ``read_image`` reads on ``device``: PNG of any colour
-    type and depth, baseline or progressive JPEG, TIFF (integer or float
+    type and depth, JPEG (baseline, progressive, arithmetic-coded and
+    lossless; gray, YCbCr, RGB, CMYK and YCCK), TIFF (integer or float
     samples, CMYK, YCbCr, JPEG-compressed, BigTIFF), BMP, PBM / PGM / PPM
-    / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy, lossless or with
-    alpha) and JPEG 2000 (JP2 or raw codestreams, 8 or 16 bits); other
-    formats (GIF, AVIF, animated WebP, arithmetic-coded, 12-bit or CMYK
-    JPEG, ...) raise NotImplementedError naming the file.
+    / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy, lossless, with
+    alpha or animated) and JPEG 2000 (JP2 or raw codestreams, 8 or 16
+    bits); a file cv2.imread returns no image for (a 12-bit or
+    hierarchical JPEG, ...) raises ValueError naming the file, and other
+    formats (GIF, AVIF, ...) raise NotImplementedError naming it.
     Each image is resized in its stored type (uint8, uint16, int16,
     float32 or float64, as cv2.resize; int8, int32 and uint32 raise when a
     resize is needed), then cast to f32 and divided by 255, whatever its

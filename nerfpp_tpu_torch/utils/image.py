@@ -70,7 +70,8 @@ k5, k6]].
 ``read_image`` and ``write_image`` are ``cv2.imread(path,
 IMREAD_UNCHANGED)`` and ``cv2.imwrite`` for the formats the port reads and
 writes, each in its own module: PNG of every colour type and depth
-(utils/png.py), baseline, extended sequential and progressive Huffman JPEG
+(utils/png.py), JPEG, baseline, extended sequential and progressive,
+Huffman or arithmetic-coded, lossless, gray, YCbCr, RGB, CMYK and YCCK
 (utils/jpeg.py), classic and BigTIFF of 1- to 64-bit integer and float
 samples, gray, RGB(A), palette, CMYK and YCbCr, JPEG-compressed too
 (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
@@ -85,10 +86,10 @@ bytes, as OpenCV's does, writing by the extension (PNG, TIFF, JPEG 2000 and
 the portable formats keep 16 bits; JPEG is written baseline at quality 95,
 WebP lossless and .jp2 as OpenJPEG's rate-4 5/3, as cv2.imwrite writes them
 at its defaults, WebP's colour under alpha 0 as libwebp rewrites it).
-AVIF, GIF and the formats' unread kinds (arithmetic-coded, 12-bit and CMYK
-JPEG, old-style JPEG-compressed TIFF, JPEG 2000 code-block styles other
-than 0, ...) raise NotImplementedError naming the file and the kind; files
-cv2.imread returns None for raise ValueError.
+AVIF, GIF and the formats' unread kinds (old-style JPEG-compressed TIFF,
+JPEG 2000 code-block styles other than 0, ...) raise NotImplementedError
+naming the file and the kind; files cv2.imread returns None for (a 12-bit
+JPEG, an LZMA TIFF, ...) raise ValueError.
 """
 from __future__ import annotations
 
@@ -481,8 +482,8 @@ def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
-READ = ("PNG, baseline and progressive JPEG, TIFF, BMP, PBM / PGM / PPM / "
-        "PAM / PFM, Radiance HDR, Sun raster, WebP and JPEG 2000")
+READ = ("PNG, JPEG, TIFF, BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, "
+        "Sun raster, WebP and JPEG 2000")
 # extension -> the writer of a numpy image (JPEG is encoded on the device)
 WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,

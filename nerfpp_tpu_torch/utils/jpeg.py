@@ -14,29 +14,43 @@ Entropy coding is sequential and runs on the host, in C++
 integer arithmetic in PyTorch on the given device, vectorised over all
 blocks, so the card's results are the CPU's bit for bit:
 
-- reading: the markers (SOI; SOF0, SOF1 and SOF2 (progressive) at 8 bits;
-  DHT and DQT, also between scans; DQT with 8- and 16-bit entries; DRI,
-  SOS; APPn and COM skipped, so EXIF orientation is ignored as
-  IMREAD_UNCHANGED ignores it), each scan's blocks decoded on the host (a
-  progressive file's scans, jdphuff.c's DC first and refinement, AC first
-  with EOB runs and AC refinement with its correction bits, restarts in
-  any scan, into one coefficient buffer a component), then for a
+- reading: the markers (SOI; SOF0, SOF1 and SOF2 (progressive), SOF9 and
+  SOF10 (arithmetic-coded sequential and progressive) at 8 bits, SOF3
+  (lossless) at 2-8 bits; DHT, DAC and DQT, also between scans; DQT with
+  8- and 16-bit entries; DRI, SOS; APPn and COM skipped, so EXIF
+  orientation is ignored as IMREAD_UNCHANGED ignores it), each scan's
+  blocks decoded on the host (a progressive file's scans, jdphuff.c's DC
+  first and refinement, AC first with EOB runs and AC refinement with its
+  correction bits, restarts in any scan, into one coefficient buffer a
+  component; an arithmetic-coded scan through jdarith.c's QM decoder, its
+  DC bins conditioned by the DAC values, or libjpeg's defaults L 0, U 1
+  and Kx 5; a lossless scan's differences undone on the host with
+  predictors 1-7 and put out shifted by the point transform; a file cut
+  short read on into EOI markers, as cv2.imread's stdio source supplies
+  them, its MCUs after the data left as they are and missing restart
+  markers resynchronised as libjpeg does), then for a
   progressive file libjpeg's block smoothing where it runs
   (``smooth_blocks``: jdcoefct.c's decompress_smooth_data in its
   libjpeg-turbo 2.1 form, when some of the first nine AC coefficients
   are still short of bits: a file cut after some of its scans, never a
-  whole file of jpeg_simple_progression), dequantisation, the ISLOW
-  inverse DCT of jidctint.c (13-bit constants, 2 pass bits, DESCALE
-  rounding, in int64, the result range-limited through its ``&
-  RANGE_MASK`` table, so out-of-range sums wrap as libjpeg's do), fancy
+  whole file of jpeg_simple_progression; the rows after the data of a
+  scan cut short take the coef_bits before it), dequantisation, the ISLOW
+  inverse DCT of jidctint.c as libjpeg-turbo's SIMD code runs it (13-bit
+  constants, 2 pass bits, DESCALE rounding, 16-bit lanes where it keeps
+  them, the result saturated), fancy
   upsampling of jdsample.c (h2v1, h1v2 and h2v2 with their 1/2 and 8/7
   biases, the last real sample row and column repeated at the edges; any
   other integral ratio, and h2v1 or h2v2 of a component at most 2 samples
   wide, by replication), and the integer YCbCr -> RGB tables of jdcolor.c
   (16 scale bits). The colour space is libjpeg's choice: a JFIF marker
   means YCbCr, an Adobe marker's transform 0 RGB and 1 YCbCr, otherwise
-  the component ids (1, 2, 3: YCbCr; 'R', 'G', 'B': RGB). One component
-  stays gray.
+  the component ids (1, 2, 3: YCbCr; 'R', 'G', 'B': RGB; a lossless file
+  RGB whatever its ids). One component stays gray. Four are CMYK (no
+  Adobe marker or transform 0) or YCCK (another transform), which
+  jdcolor.c's ycck_cmyk_convert makes CMYK; cv2 then turns CMYK into 3
+  channels (OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on Adobe's inverted
+  values). A lossless file's samples are upsampled by replication (no
+  fancy upsampling without a DCT) and converted by no table.
 - writing: ``cv2.imwrite(".jpg")`` at its defaults: quality 95, 4:2:0
   YCbCr for colour and one component for gray, baseline, the standard
   Huffman tables, no optimisation, no restarts. jccolor.c's RGB -> YCbCr,
@@ -53,9 +67,15 @@ blocks, so the card's results are the CPU's bit for bit:
   pass), a DHT segment before each scan that codes with one. Only
   scripts/colmap_export.py and chip_smoke.py write progressive files.
 
-Arithmetic-coded, lossless, hierarchical and 12-bit files and 4-component
-(CMYK, YCCK) files raise NotImplementedError naming the file and the kind;
-malformed data raises ValueError naming the file.
+Every file is either read as cv2.imread reads it or raises ValueError
+naming the file: the kinds libjpeg-turbo refuses through the 8-bit
+interface that OpenCV calls, for which cv2.imread returns None (12-bit
+and 9-16-bit lossless files; hierarchical files, SOF5-7 and SOF13-15, DHP
+and EXP; arithmetic-coded lossless files, SOF11; JPGn and RESn markers, a
+second SOI; a size left to a DNL marker; 2 or more than 4 components;
+fractional sampling ratios; a lossless file in YCbCr or YCCK; a lossless
+restart interval that is not whole MCU rows; bad DAC values), and
+malformed data.
 """
 from __future__ import annotations
 
@@ -108,24 +128,34 @@ STD_HUFFMAN = {k: bytes.fromhex(v) for k, v in {
             "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
             "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"}.items()}
 
-# start-of-frame markers that are not read, by kind
-SOF_KINDS = {0xC3: "lossless",
-             0xC5: "hierarchical (differential sequential)",
-             0xC6: "hierarchical (differential progressive)",
-             0xC7: "hierarchical (differential lossless)",
-             0xC9: "arithmetic-coded (extended sequential)",
-             0xCA: "arithmetic-coded (progressive)",
-             0xCB: "arithmetic-coded (lossless)",
-             0xCD: "arithmetic-coded hierarchical (differential sequential)",
-             0xCE: "arithmetic-coded hierarchical (differential progressive)",
-             0xCF: "arithmetic-coded hierarchical (differential lossless)"}
+# start-of-frame markers that libjpeg-turbo refuses (cv2.imread returns no
+# image), by kind
+SOF_KINDS = {0xC5: "a hierarchical (differential sequential)",
+             0xC6: "a hierarchical (differential progressive)",
+             0xC7: "a hierarchical (differential lossless)",
+             0xC8: "a JPG extension",
+             0xCB: "an arithmetic-coded lossless",
+             0xCD: "an arithmetic-coded hierarchical (differential "
+                   "sequential)",
+             0xCE: "an arithmetic-coded hierarchical (differential "
+                   "progressive)",
+             0xCF: "an arithmetic-coded hierarchical (differential "
+                   "lossless)"}
+# the start-of-frame markers read: DCT Huffman (baseline, extended,
+# progressive), lossless Huffman, DCT arithmetic (extended, progressive)
+SOF_READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
+# what a file reads as past its end: EOI markers, enough for any segment
+EOF_FILL = b"\xff\xd9" * 32768
+# DAC defaults (set at SOI): L 0 and U 1 of each DC table, Kx 5 of each AC
+# table, 16 tables each
+DAC_DEFAULTS = np.array([0] * 16 + [1] * 16 + [5] * 16, np.uint8)
 # block smoothing (jdcoefct.c): coef_bits kept for the DC and the first 9 AC
 # coefficients in zigzag order, at these natural positions
 SAVED_COEFS = 10
 SMOOTH_POS = ZIGZAG[:SAVED_COEFS]
 ENTROPY_ERRORS = {-1: "an invalid Huffman table", -2: "a bad Huffman code",
-                  -3: "a missing restart marker", -4: "a bad scan header",
-                  -5: "no room for the scan", -6: "a coefficient out of range"}
+                  -4: "a bad scan header", -5: "no room for the scan",
+                  -6: "a coefficient out of range"}
 
 _lib = None
 
@@ -151,8 +181,20 @@ def entropy_library() -> ctypes.CDLL:
         lib.jpeg_decode_progressive_scan.restype = ctypes.c_int64
         lib.jpeg_decode_progressive_scan.argtypes = [
             u8p, ctypes.c_int64, ctypes.c_int64, i32, i32p, i32p, i32p, u8p,
-            u8p, i32, i32, i32, i32, i32, i32, i32,
+            u8p, i32, i32, i32, i32, i32, i32, i32, i32, i32p,
             ctypes.POINTER(ctypes.c_void_p)]
+        lib.jpeg_decode_arith_scan.restype = ctypes.c_int64
+        lib.jpeg_decode_arith_scan.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, i32, i32p, i32p, i32p, u8p,
+            i32, i32, i32, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.jpeg_decode_lossless_scan.restype = ctypes.c_int64
+        lib.jpeg_decode_lossless_scan.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, i32, i32p, i32p, i32p, u8p,
+            u8p, i32, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.jpeg_arith_states.restype = None
+        lib.jpeg_arith_states.argtypes = [i32p]
         lib.jpeg_encode_progressive_scan.restype = ctypes.c_int64
         lib.jpeg_encode_progressive_scan.argtypes = [
             i32, i32p, i32p, i32p, i32, i32, i32, i32, i32, i32, i32,
@@ -191,15 +233,24 @@ class Component:
     tq: int
     quant: Optional[np.ndarray] = None     # natural order, latched at its
     coefs: Optional[np.ndarray] = None     # first scan; int16 [R, C, 64]
+    samples: Optional[np.ndarray] = None   # lossless: uint8 [rows, cols]
 
 
 @dataclass
 class Frame:
     """A decoded file before its pixel stages: the size, the components
-    with their quantised blocks, the colour space ("gray", "ycc", "rgb"),
-    and for a progressive file each component's coef_bits (libjpeg's: the
-    point transform Al of the last scan of each of the first 10 zigzag
-    coefficients, -1 before any scan) and whether block smoothing runs."""
+    with their quantised blocks (a lossless file: their samples), the
+    colour space ("gray", "ycc", "rgb", "cmyk", "ycck"), and for a
+    progressive file each component's coef_bits (libjpeg's: the point
+    transform Al of the last scan of each of the first 10 zigzag
+    coefficients, -1 before any scan), its prev_bits (coef_bits before the
+    last scan of the component, 0 before the file's first scan), the last
+    iMCU row of the last scan begun before its data ran out (libjpeg
+    smooths the rows after it with prev_bits) and whether block smoothing
+    runs.
+    ``arithmetic``: arithmetic-coded, with ``conditioning`` its DAC values
+    (L, U of DC tables 0-15, Kx of AC tables 0-15); ``lossless``: SOF3 at
+    ``precision`` bits."""
     height: int
     width: int
     components: List[Component]
@@ -207,24 +258,35 @@ class Frame:
     scans: int = 0
     progressive: bool = False
     coef_bits: Optional[np.ndarray] = None    # int [n_comp, SAVED_COEFS]
+    prev_bits: Optional[np.ndarray] = None    # int [n_comp, SAVED_COEFS]
+    last_good: int = 1 << 30
     smooth: bool = False
+    arithmetic: bool = False
+    lossless: bool = False
+    precision: int = 8
+    conditioning: Optional[np.ndarray] = None
+
+
+def _no_image(name, kind: str):
+    """A file that libjpeg-turbo refuses: cv2.imread returns None."""
+    raise ValueError(f"{name}: {kind}; cv2.imread returns no image for it")
 
 
 def _frame_header(name, marker: int, seg: bytes) -> Frame:
+    if len(seg) < 6:
+        raise ValueError(f"{name}: truncated SOF{marker - 0xC0} segment")
     precision, height, width, n = struct.unpack(">BHHB", seg[:6])
-    if precision != 8:
-        raise NotImplementedError(f"{name}: a {precision}-bit JPEG is not "
-                                  "read; 8-bit samples are")
-    if n == 4:
-        raise NotImplementedError(f"{name}: a 4-component (CMYK or YCCK) "
-                                  "JPEG is not read; gray and 3-component "
-                                  "files are")
-    if n not in (1, 3):
-        raise NotImplementedError(f"{name}: a JPEG of {n} components is not "
-                                  "read; gray and 3-component files are")
+    lossless = marker == 0xC3
+    if precision != 8 and not (lossless and 2 <= precision <= 8):
+        # libjpeg-turbo reads 12-bit files, and lossless files of 9-16
+        # bits, only through its 12- and 16-bit interfaces, which OpenCV
+        # does not call; lossless samples of 2-7 bits come back as they are
+        _no_image(name, f"a {precision}-bit {'lossless ' * lossless}JPEG")
+    if n not in (1, 3, 4):
+        _no_image(name, f"a JPEG of {n} components (libjpeg converts 1, 3 "
+                  "and 4 to BGR)")
     if height == 0 or width == 0:
-        raise NotImplementedError(f"{name}: a JPEG whose size is set by a "
-                                  "DNL marker is not read")
+        _no_image(name, "a JPEG whose size is set by a DNL marker")
     if len(seg) < 6 + 3 * n:
         raise ValueError(f"{name}: truncated SOF{marker - 0xC0} segment")
     comps = []
@@ -237,13 +299,31 @@ def _frame_header(name, marker: int, seg: bytes) -> Frame:
         comps.append(Component(cid, h, v, tq))
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     if any(hmax % c.h or vmax % c.v for c in comps):
-        raise NotImplementedError(
-            f"{name}: fractional sampling ratios "
-            f"{[(c.h, c.v) for c in comps]} are not read")
-    progressive = marker == 0xC2
+        _no_image(name, f"fractional sampling ratios "
+                  f"{[(c.h, c.v) for c in comps]}")
+    progressive = marker in (0xC2, 0xCA)
     bits = np.full((n, SAVED_COEFS), -1, np.int64) if progressive else None
     return Frame(height, width, comps, progressive=progressive,
-                 coef_bits=bits)
+                 coef_bits=bits, prev_bits=None if bits is None else
+                 np.zeros_like(bits), arithmetic=marker in (0xC9, 0xCA),
+                 lossless=lossless, precision=precision)
+
+
+def _arith_segment(name, seg: bytes, cond: np.ndarray) -> None:
+    """A DAC segment into ``cond`` (L [16], U [16], Kx [16]), as jdmarker.c
+    reads it."""
+    if len(seg) % 2:
+        _no_image(name, "a DAC segment of odd length")
+    for index, val in zip(seg[::2], seg[1::2]):
+        if index >= 32:
+            _no_image(name, f"a DAC entry for table index {index}")
+        if index >= 16:
+            cond[32 + index - 16] = val
+        elif (val & 15) > (val >> 4):
+            _no_image(name, f"DC conditioning L {val & 15} above U "
+                      f"{val >> 4}")
+        else:
+            cond[index], cond[16 + index] = val & 15, val >> 4
 
 
 def _huffman_segment(name, seg: bytes, tables: dict) -> None:
@@ -291,14 +371,21 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
         raise ValueError(f"{name}: bad progression: a scan of {n} "
                          f"component(s), band {ss}-{se}, approximation "
                          f"{ah}/{al}")
-    # the tables a scan reads: both (sequential), DC (DC first), AC (AC)
-    needs = ((0, 1) if not frame.progressive else
+    if frame.lossless and not (1 <= ss <= 7 and se == 0 and ah == 0
+                               and al < frame.precision):
+        _no_image(name, f"a lossless scan of predictor {ss}, Se {se}, Ah "
+                  f"{ah}, point transform {al}")
+    # the Huffman tables a scan reads: both (sequential), DC (DC first,
+    # lossless), AC (AC); an arithmetic scan reads none
+    needs = (() if frame.arithmetic else (0,) if frame.lossless else
+             (0, 1) if not frame.progressive else
              () if ss == 0 and ah else (0,) if ss == 0 else (1,))
     by_id = {c.id: c for c in frame.components}
     hmax = max(c.h for c in frame.components)
     vmax = max(c.v for c in frame.components)
-    mcus = (_ceil_div(frame.height, 8 * vmax), _ceil_div(frame.width,
-                                                          8 * hmax))
+    unit = 1 if frame.lossless else 8          # samples a block across
+    mcus = (_ceil_div(frame.height, unit * vmax),
+            _ceil_div(frame.width, unit * hmax))
     comps, tables = [], []
     for i in range(n):
         cid, t = seg[1 + 2 * i:3 + 2 * i]
@@ -309,7 +396,12 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
             if key not in huffman:
                 raise ValueError(f"{name}: scan uses undefined Huffman "
                                  f"table {key}")
-        if c.quant is None:
+        if frame.lossless:
+            if c.samples is None:
+                c.samples = np.zeros(
+                    (_ceil_div(frame.height * c.v, vmax),
+                     _ceil_div(frame.width * c.h, hmax)), np.uint8)
+        elif c.quant is None:
             if c.tq not in quant:
                 raise ValueError(f"{name}: undefined quantisation table "
                                  f"{c.tq}")
@@ -320,29 +412,60 @@ def _scan(name, data: np.ndarray, pos: int, seg: bytes, frame: Frame,
     if n == 1:                    # one block an MCU over the real blocks
         c = comps[0]
         hv = [(1, 1)]
-        mcus = (_ceil_div(_ceil_div(frame.height * c.v, vmax), 8),
-                _ceil_div(_ceil_div(frame.width * c.h, hmax), 8))
+        mcus = (_ceil_div(_ceil_div(frame.height * c.v, vmax), unit),
+                _ceil_div(_ceil_div(frame.width * c.h, hmax), unit))
     else:
         hv = [(c.h, c.v) for c in comps]
-    counts, symbols = _huffman_arrays(huffman)
-    hv = np.asarray(hv, np.int32)
-    grid = np.asarray([c.coefs.shape[:2] for c in comps], np.int32)
-    tab = np.asarray(tables, np.int32)
-    ptrs = (ctypes.c_void_p * n)(*[c.coefs.ctypes.data for c in comps])
-    args = (_ptr(data, ctypes.c_uint8), data.size, pos, n,
-            _ptr(hv, ctypes.c_int32), _ptr(grid, ctypes.c_int32),
-            _ptr(tab, ctypes.c_int32), _ptr(counts, ctypes.c_uint8),
-            _ptr(symbols, ctypes.c_uint8), mcus[1], mcus[0], restart)
     lib = entropy_library()
-    if frame.progressive:
-        end = lib.jpeg_decode_progressive_scan(*args, ss, se, ah, al, ptrs)
-        for c in comps:                # jdphuff.c's start_pass bookkeeping
-            i = frame.components.index(c)
-            hi = min(se, SAVED_COEFS - 1)
-            if ss <= hi:
-                frame.coef_bits[i, ss:hi + 1] = al
+    hv = np.asarray(hv, np.int32)
+    tab = np.asarray(tables, np.int32)
+    if frame.lossless:
+        if restart % mcus[1]:
+            _no_image(name, f"a lossless scan whose restart interval "
+                      f"{restart} is not a whole number of MCU rows of "
+                      f"{mcus[1]}")
+        counts, symbols = _huffman_arrays(huffman)
+        size = np.asarray([(*c.samples.shape, c.v) for c in comps], np.int32)
+        dc = np.ascontiguousarray(tab[:, 0])
+        ptrs = (ctypes.c_void_p * n)(*[c.samples.ctypes.data for c in comps])
+        end = lib.jpeg_decode_lossless_scan(
+            _ptr(data, ctypes.c_uint8), data.size, pos, n,
+            _ptr(hv, ctypes.c_int32), _ptr(size, ctypes.c_int32),
+            _ptr(dc, ctypes.c_int32), _ptr(counts, ctypes.c_uint8),
+            _ptr(symbols, ctypes.c_uint8), mcus[1], mcus[0], restart, ss,
+            al, frame.precision, ptrs)
     else:
-        end = lib.jpeg_decode_scan(*args, ptrs)
+        grid = np.asarray([c.coefs.shape[:2] for c in comps], np.int32)
+        ptrs = (ctypes.c_void_p * n)(*[c.coefs.ctypes.data for c in comps])
+        head = (_ptr(data, ctypes.c_uint8), data.size, pos, n,
+                _ptr(hv, ctypes.c_int32), _ptr(grid, ctypes.c_int32),
+                _ptr(tab, ctypes.c_int32))
+        if frame.progressive:          # jdphuff.c's / jdarith.c's start_pass
+            for c in comps:            # bookkeeping
+                i = frame.components.index(c)
+                frame.prev_bits[i, 1:] = (frame.coef_bits[i, 1:]
+                                          if frame.scans else 0)
+                hi = min(se, SAVED_COEFS - 1)
+                if ss <= hi:
+                    frame.coef_bits[i, ss:hi + 1] = al
+        if frame.arithmetic:
+            end = lib.jpeg_decode_arith_scan(
+                *head, _ptr(frame.conditioning, ctypes.c_uint8), mcus[1],
+                mcus[0], restart, int(frame.progressive), ss, se, ah, al,
+                ptrs)
+        else:
+            counts, symbols = _huffman_arrays(huffman)
+            args = head + (_ptr(counts, ctypes.c_uint8),
+                           _ptr(symbols, ctypes.c_uint8), mcus[1], mcus[0],
+                           restart)
+            if frame.progressive:
+                good = np.zeros(1, np.int32)
+                end = lib.jpeg_decode_progressive_scan(
+                    *args, ss, se, ah, al, 1 if n > 1 else comps[0].v,
+                    _ptr(good, ctypes.c_int32), ptrs)
+                frame.last_good = int(good[0])
+            else:
+                end = lib.jpeg_decode_scan(*args, ptrs)
     if end < 0:
         raise ValueError(f"{name}: scan {frame.scans + 1} has "
                          f"{ENTROPY_ERRORS.get(end, f'error {end}')}")
@@ -382,12 +505,17 @@ def decode_coefficients(data: bytes, name="<bytes>",
     segments may then replace."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+    # past its end a file reads as EOI markers, as jpeg_stdio_src (which
+    # cv2.imread reads through) supplies them: a segment cut short takes
+    # them as its bytes, a scan as the marker that ends it
+    data = bytes(data) + EOF_FILL
     buf = np.frombuffer(data, np.uint8)
     n = len(data)
     frame, quant, huffman, restart = None, {}, {}, 0
     if tables:
         _table_segments(name, tables, quant, huffman)
     jfif, adobe = False, None
+    conditioning = DAC_DEFAULTS.copy()
     pos = 2
     while True:
         while pos < n and data[pos] != 0xFF:       # garbage, as libjpeg
@@ -400,8 +528,14 @@ def decode_coefficients(data: bytes, name="<bytes>",
         pos += 2
         if marker == 0xD9:
             break
-        if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
-            continue                                # no length
+        if marker == 0xD8:
+            _no_image(name, "a second SOI marker")
+        if marker in (0x00, 0x01) or 0xD0 <= marker <= 0xD7:
+            continue               # FF 00 is data; TEM and RSTn: no length
+        if not (0xC0 <= marker <= 0xFE and marker not in (0xDE, 0xDF)
+                and not 0xF0 <= marker <= 0xFD):
+            _no_image(name, f"a marker 0x{marker:02X} (DHP, EXP, JPGn and "
+                      "RESn are libjpeg's errors)")
         if pos + 2 > n:
             raise ValueError(f"{name}: truncated marker 0x{marker:02X}")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
@@ -409,21 +543,16 @@ def decode_coefficients(data: bytes, name="<bytes>",
         if length < 2 or len(seg) != length - 2:
             raise ValueError(f"{name}: truncated marker 0x{marker:02X}")
         pos += length
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in SOF_READ:
             if frame is not None:
                 raise ValueError(f"{name}: a second SOF marker")
             frame = _frame_header(name, marker, seg)
+            frame.conditioning = conditioning
         elif marker in SOF_KINDS:
-            raise NotImplementedError(
-                f"{name}: a {SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is "
-                "not read; baseline, extended sequential and progressive "
-                "Huffman JPEG (SOF0, SOF1, SOF2) are")
+            _no_image(name, f"{SOF_KINDS[marker]} JPEG "
+                      f"(SOF{marker - 0xC0})")
         elif marker == 0xCC:
-            raise NotImplementedError(f"{name}: an arithmetic-coded JPEG "
-                                      "(DAC marker) is not read")
-        elif marker in (0xDE, 0xDF):
-            raise NotImplementedError(f"{name}: a hierarchical JPEG (DHP or "
-                                      "EXP marker) is not read")
+            _arith_segment(name, seg, conditioning)
         elif marker == 0xC4:
             _huffman_segment(name, seg, huffman)
         elif marker == 0xDB:
@@ -442,20 +571,38 @@ def decode_coefficients(data: bytes, name="<bytes>",
             adobe = seg[11]
     if frame is None or frame.scans == 0:
         raise ValueError(f"{name}: no frame or no scan")
-    missing = [c.id for c in frame.components if c.coefs is None]
+    missing = [c.id for c in frame.components
+               if (c.samples if frame.lossless else c.coefs) is None]
     if missing:
         raise ValueError(f"{name}: no scan holds component(s) {missing}")
-    if len(frame.components) == 1:
-        frame.colour = "gray"
-    elif jfif:
-        frame.colour = "ycc"
-    elif adobe is not None:
-        frame.colour = "rgb" if adobe == 0 else "ycc"
-    else:
-        ids = tuple(c.id for c in frame.components)
-        frame.colour = "rgb" if ids == (82, 71, 66) else "ycc"
+    frame.colour = _colour_space(frame, jfif, adobe)
+    if frame.lossless and frame.colour in ("ycc", "ycck"):
+        _no_image(name, f"a lossless JPEG in {frame.colour.upper()} "
+                  "(libjpeg converts no colours of a lossless file)")
     frame.smooth = frame.progressive and _smoothing_ok(frame)
     return frame
+
+
+def _colour_space(frame: Frame, jfif: bool, adobe: Optional[int]) -> str:
+    """libjpeg-turbo's jpeg_color_space (jdapimin.c's
+    default_decompress_parms): one component gray; three YCbCr under a JFIF
+    marker, RGB or YCbCr by an Adobe marker's transform (0: RGB), else by
+    the component ids (1, 2, 3: YCbCr, or RGB in a lossless file; 'R',
+    'G', 'B': RGB; others YCbCr, or RGB in a lossless file); four CMYK,
+    or YCCK under an Adobe marker of a transform other than 0."""
+    n = len(frame.components)
+    if n == 1:
+        return "gray"
+    if n == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    ids = tuple(c.id for c in frame.components)
+    if ids == (82, 71, 66) or frame.lossless:
+        return "rgb"
+    return "ycc"
 
 
 def _smoothing_ok(frame: Frame) -> bool:
@@ -473,16 +620,25 @@ def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x + (1 << (n - 1))) >> n
 
 
+def _int16(x: torch.Tensor) -> torch.Tensor:
+    """x modulo 2^16 as a signed 16-bit value (a 16-bit SIMD lane)."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_pass(x: torch.Tensor, shift: int) -> torch.Tensor:
-    """One pass of jidctint.c's jpeg_idct_islow along the last dim."""
+    """One pass of jidctint.c's jpeg_idct_islow along the last dim, as
+    libjpeg-turbo's SIMD version computes it: the products exact in 32
+    bits, the sums in0 + in4, in0 - in4, in7 + in3 and in5 + in1 in 16-bit
+    lanes, the result descaled and saturated to 16 bits."""
     x0, x1, x2, x3, x4, x5, x6, x7 = x.unbind(-1)
     z1 = (x2 + x6) * 4433                         # FIX_0_541196100
     tmp2 = z1 + x6 * -15137                       # FIX_1_847759065
     tmp3 = z1 + x2 * 6270                         # FIX_0_765366865
-    tmp0 = (x0 + x4) << 13
-    tmp1 = (x0 - x4) << 13
+    tmp0 = _int16(x0 + x4) << 13
+    tmp1 = _int16(x0 - x4) << 13
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    z1, z2, z3, z4 = x7 + x1, x5 + x3, x7 + x3, x5 + x1
+    z1, z2 = x7 + x1, x5 + x3
+    z3, z4 = _int16(x7 + x3), _int16(x5 + x1)
     z5 = (z3 + z4) * 9633                         # FIX_1_175875602
     z1 = z1 * -7373                               # FIX_0_899976223
     z2 = z2 * -20995                              # FIX_2_562915447
@@ -494,17 +650,23 @@ def _idct_pass(x: torch.Tensor, shift: int) -> torch.Tensor:
     o1 = x1 * 12299 + z1 + z4                     # FIX_1_501321110
     out = torch.stack([t10 + o1, t11 + o3, t12 + o5, t13 + o7,
                        t13 - o7, t12 - o5, t11 - o3, t10 - o1], -1)
-    return _descale(out, shift)
+    return _descale(out, shift).clamp(-32768, 32767)
 
 
 def idct_islow(blocks: torch.Tensor) -> torch.Tensor:
     """Dequantised int64 blocks [..., 8, 8] (natural order) -> samples
-    [..., 8, 8] in 0-255 (int64), as jpeg_idct_islow computes them."""
-    ws = _idct_pass(blocks.transpose(-1, -2), 13 - 2).transpose(-1, -2)
-    x = _idct_pass(ws, 13 + 2 + 3) & 1023          # RANGE_MASK
-    # the post-IDCT range-limit table: the 10 bits as a signed value,
-    # re-centred and clamped
-    return (((x + 512) & 1023) - 512 + 128).clamp(0, 255)
+    [..., 8, 8] in 0-255 (int64), as libjpeg-turbo's SIMD
+    jsimd_idct_islow computes them (cv2.imread runs it): the dequantised
+    values kept in 16 bits; a block whose rows 1-7 are all zero takes its
+    first pass as row 0 << 2 in 16 bits; the result saturated, not
+    range-limited through jidctint.c's table (the two part only where the
+    sums leave the range valid data reach)."""
+    x = _int16(blocks)
+    ws = _idct_pass(x.transpose(-1, -2), 13 - 2)
+    flat = (x[..., 1:, :] == 0).all(-1).all(-1)[..., None, None]
+    ws = torch.where(flat, _int16(x[..., :1, :].transpose(-1, -2) << 2), ws)
+    out = _idct_pass(ws.transpose(-1, -2), 13 + 2 + 3)
+    return (out + 128).clamp(0, 255)
 
 
 def _neighbours(x: torch.Tensor, dim: int):
@@ -541,11 +703,16 @@ def _fancy_h2v2(x: torch.Tensor) -> torch.Tensor:
     return _interleave(rows[0], rows[1], 0)
 
 
-def upsample(x: torch.Tensor, h_expand: int, v_expand: int) -> torch.Tensor:
+def upsample(x: torch.Tensor, h_expand: int, v_expand: int,
+             fancy: bool = True) -> torch.Tensor:
     """A component's real samples [dh, dw] to the full grid, as jdsample.c
-    picks the method."""
+    picks the method (``fancy`` False, as for a lossless file: replication
+    only)."""
     if (h_expand, v_expand) == (1, 1):
         return x
+    if not fancy:
+        return x.repeat_interleave(v_expand, 0).repeat_interleave(h_expand,
+                                                                  1)
     if (h_expand, v_expand) == (2, 1) and x.shape[1] > 2:
         return _fancy(x, 1)
     if (h_expand, v_expand) == (1, 2):
@@ -568,6 +735,14 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
     g = y + ((-_fix(0.34414) * xb - _fix(0.71414) * xr + half) >> 16)
     b = y + ((_fix(1.77200) * xb + half) >> 16)
     return torch.stack([r, g, b], -1).clamp(0, 255)
+
+
+def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor,
+                k: torch.Tensor) -> torch.Tensor:
+    """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on int64 planes as libjpeg
+    returns them (Adobe's inverted values) -> [..., 3] RGB: each of C, M, Y
+    becomes k - ((255 - x) * k >> 8)."""
+    return torch.stack([k - (((255 - x) * k) >> 8) for x in (c, m, y)], -1)
 
 
 def _estimate(num: torch.Tensor, q: int, al: int) -> torch.Tensor:
@@ -669,13 +844,28 @@ def frame_pixels(frame: Frame, device) -> torch.Tensor:
     planes = []
     imcu_rows = _ceil_div(frame.height, 8 * vmax)
     for i, c in enumerate(frame.components):
+        if frame.lossless:
+            plane = torch.from_numpy(c.samples).to(dev).to(torch.int64)
+            plane = upsample(plane, hmax // c.h, vmax // c.v, fancy=False)
+            planes.append(plane[:frame.height, :frame.width])
+            continue
         coefs = torch.from_numpy(c.coefs).to(dev).to(torch.int64)
         if frame.smooth:
-            coefs = smooth_blocks(
-                coefs, c.quant, frame.coef_bits[i],
-                _ceil_div(_ceil_div(frame.height * c.v, vmax), 8),
-                _ceil_div(_ceil_div(frame.width * c.h, hmax), 8), c.v,
-                imcu_rows)
+            hib = _ceil_div(_ceil_div(frame.height * c.v, vmax), 8)
+            wib = _ceil_div(_ceil_div(frame.width * c.h, hmax), 8)
+            smoothed = smooth_blocks(coefs, c.quant, frame.coef_bits[i], hib,
+                                     wib, c.v, imcu_rows)
+            if frame.last_good < imcu_rows - 1:
+                # jdcoefct.c: the iMCU rows after the last good one take
+                # the coef_bits from before the last scan (-1 after one)
+                prev = frame.coef_bits[i].copy()
+                prev[1:] = frame.prev_bits[i, 1:] if frame.scans > 1 else -1
+                late = torch.arange(hib, device=dev) // c.v > frame.last_good
+                smoothed = torch.where(
+                    late[:, None, None],
+                    smooth_blocks(coefs, c.quant, prev, hib, wib, c.v,
+                                  imcu_rows), smoothed)
+            coefs = smoothed
         rows, cols = coefs.shape[:2]
         quant = torch.from_numpy(c.quant).to(dev)
         samples = idct_islow((coefs * quant).view(rows, cols, 8, 8))
@@ -688,8 +878,13 @@ def frame_pixels(frame: Frame, device) -> torch.Tensor:
         out = planes[0]
     elif frame.colour == "rgb":
         out = torch.stack(planes, -1)
-    else:
+    elif frame.colour == "ycc":
         out = ycc_to_rgb(*planes)
+    elif frame.colour == "cmyk":
+        out = cmyk_to_rgb(*planes)
+    else:                                  # jdcolor.c's ycck_cmyk_convert
+        out = cmyk_to_rgb(*(255 - ycc_to_rgb(*planes[:3])).unbind(-1),
+                          planes[3])
     return out.to(torch.uint8)
 
 

@@ -81,9 +81,11 @@ CMYK and CMYK of other than 4 samples or of another ink set, 2- and 4-bit
 gray, 2-bit and 16-bit palettes, 1-bit colour, 10-14-bit gray with alpha
 or with a predictor, gray with alpha of 32-bit or float samples, more than
 4 samples, 16-bit YCbCr, half-float (16-bit SampleFormat 3) samples,
-Orientation 5-8, uncompressed 8-bit tiles of FillOrder 2; so do malformed
-files. Still refused with NotImplementedError naming the file and the
-kind: old-style JPEG (compression 6), CCITT and the other compressions,
+Orientation 5-8, uncompressed 8-bit tiles of FillOrder 2, and the
+compressions whose codec OpenCV's libtiff leaves out (LZMA, Zstandard,
+WebP, LERC); so do malformed files. Still refused with NotImplementedError
+naming the file and the kind: old-style JPEG (compression 6), CCITT, JPEG
+2000 (34712: cv2 returns zeros) and the other compressions,
 64-bit integer and 8-bit float samples, complex samples, Lab, LogLuv and
 the other photometric interpretations, YCbCr subsampled 4x4 (OpenCV's
 pixels leave the data units' at the right edge where the width left is
@@ -128,6 +130,9 @@ COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3 fax",
                 7: "JPEG-in-TIFF", 34712: "JPEG 2000-in-TIFF",
                 34925: "LZMA", 50000: "Zstandard", 50001: "WebP-in-TIFF",
                 34887: "LERC"}
+# compressions whose codec OpenCV's libtiff leaves out ("compression
+# support is not configured": cv2.imread returns None)
+UNCONFIGURED = (34925, 50000, 50001, 34887)
 PHOTOMETRICS = {4: "transparency mask", 8: "CIE L*a*b*", 9: "ICC L*a*b*",
                 10: "ITU L*a*b*", 32844: "LogL", 32845: "LogLuv"}
 # field type -> (struct code, size); 13 IFD, 16-18 BigTIFF's LONG8, SLONG8
@@ -470,6 +475,9 @@ def decode_tiff(path) -> Decoded:
     fmt = _one(tags, SAMPLE_FORMAT, 1)
     pred = _one(tags, PREDICTOR, 1)
     orientation = _one(tags, ORIENTATION, 1)
+    if comp in UNCONFIGURED:
+        _no_image(path, f"a {COMPRESSIONS[comp]} TIFF (OpenCV's libtiff has "
+                  "no such codec)")
     if comp not in (NONE, LZW, DEFLATE, DEFLATE_OLD, PACKBITS, JPEG):
         _refuse(path, f"a {COMPRESSIONS.get(comp, f'compression {comp}')}"
                 " TIFF")

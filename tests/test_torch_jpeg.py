@@ -9,9 +9,13 @@ OpenCV's libjpeg-turbo on the CPU, bit for bit.
   order) exactly.
 - Encoding: ``encode_jpeg`` at its defaults must be ``cv2.imencode(".jpg")``
   byte for byte on RGB and gray images of odd sizes (header included).
-- Refusals: arithmetic-coded, lossless, 12-bit and 4-component files, and
-  BMP, name the file; a missing g++ raises. (Progressive files are read:
-  tests/test_torch_jpeg_progressive.py.)
+- Refusals: a lossless file with no scan and a 12-bit file, which
+  cv2.imread returns no image for, raise ValueError naming the file, and
+  AVIF and unknown files name theirs; an arithmetic-coded and a CMYK file
+  read as cv2 reads them; a missing g++ raises. (Progressive files:
+  tests/test_torch_jpeg_progressive.py; arithmetic, CMYK / YCCK and
+  lossless files: tests/test_torch_jpeg_arith.py, test_torch_jpeg_cmyk.py
+  and test_torch_jpeg_lossless.py.)
 - The committed fixtures under tests/data/jpeg (made by ``make_fixtures``
   below with OpenCV 5.0.0's libjpeg-turbo 3.1.2; run this file as a script
   to write them again) still match the installed cv2, and the port reads
@@ -127,24 +131,33 @@ def _header_only(sof: bytes) -> bytes:
 
 
 def test_unread_files_raise_naming_the_file(tmp_path):
+    from scripts import jpeg_kinds as K
     img = pattern(24, 24, 3)
+    # cv2.imread returns no image for a file with no scan or of 12 bits:
+    # ValueError naming the file; it reads arithmetic-coded and CMYK files
+    # (kind None): their pixels
+    cmyk = K.cmyk_planes(torch.from_numpy(img))
     cases = {"lossless.jpg": (_header_only(b"\xff\xc3\x00\x11\x08\x00\x08"
                                            b"\x00\x08\x03"
                                            + b"\x01\x11\x00" * 3),
-                              "lossless"),
-             "cmyk.jpg": (_header_only(b"\xff\xc0\x00\x14\x08\x00\x08\x00"
-                                       b"\x08\x04" + b"\x01\x11\x00" * 4),
-                          "CMYK"),
+                              "no scan"),
+             "cmyk.jpg": (K.huffman_bytes(K.planes_plan(cmyk), app=K.adobe(0)),
+                          None),
              "deep.jpg": (_header_only(b"\xff\xc1\x00\x11\x0c\x00\x08\x00"
                                        b"\x08\x03" + b"\x01\x11\x00" * 3),
                           "12-bit"),
-             "arith.jpg": (_header_only(b"\xff\xc9\x00\x11\x08\x00\x08\x00"
-                                        b"\x08\x03" + b"\x01\x11\x00" * 3),
-                           "arithmetic")}
+             "arith.jpg": (K.arith_bytes(K.plan_of(cv2_file(img)[0])), None)}
     for name, (data, kind) in cases.items():
-        (tmp_path / name).write_bytes(data)
-        with pytest.raises(NotImplementedError, match=f"{name}.*{kind}"):
-            read_image(tmp_path / name, "cpu")
+        path = tmp_path / name
+        path.write_bytes(data)
+        want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if kind is None:
+            np.testing.assert_array_equal(read_image(path, "cpu").numpy(),
+                                          want[..., ::-1])
+            continue
+        assert want is None
+        with pytest.raises(ValueError, match=f"{name}.*{kind}"):
+            read_image(path, "cpu")
     assert cv2.imwrite(str(tmp_path / "view.avif"), img)
     with pytest.raises(NotImplementedError, match=r"view\.avif.*AVIF"):
         read_image(tmp_path / "view.avif", "cpu")

@@ -10,13 +10,25 @@ against OpenCV's libjpeg-turbo on the CPU, bit for bit.
   block smoothing (the first nine AC coefficients estimated from a 5x5
   window of DC values where their bits are missing; the DC too when no AC
   data came). ``read_jpeg`` must return ``cv2.imdecode``'s pixels exactly.
+- Files cut anywhere, baseline and progressive, with and without restart
+  intervals and an EOI: ``cv2.imread`` (libjpeg's stdio source reads EOI
+  markers past the end) reads them, and the port must return its pixels
+  (the MCUs after the data left as they are, missing restart markers
+  resynchronised, the rows after the data of a cut scan smoothed with the
+  coef_bits from before it, a segment cut short read on into EOI bytes).
+- Blocks of coefficients and quantisers far beyond what valid data reach:
+  the inverse DCT must give cv2's pixels, libjpeg-turbo's SIMD arithmetic
+  (16-bit lanes, saturation).
 - Encoding: ``encode_jpeg(progressive=True)`` must be cv2's bytes.
-- Still refused: arithmetic-coded, 12-bit and 4-component progressive
-  files, naming the file and the kind.
+- A 12-bit progressive file, which cv2.imread returns no image for, raises
+  ValueError naming the file and the kind; a progressive CMYK file
+  (Pillow's) and an arithmetic-coded progressive one read as cv2 reads
+  them.
 - The committed fixtures under tests/data/image (tests/torch_image_common.py
   ``make_fixtures``, OpenCV 5.0.0's libjpeg-turbo 3.1.2) still match cv2
   and the port.
 """
+import io
 from pathlib import Path
 
 import cv2
@@ -80,6 +92,53 @@ def test_decoder_matches_opencv_whole_and_cut(sampling):
                         f"scans {k}")
 
 
+def test_cut_files_read_as_cv2_imread_reads_them(tmp_path):
+    from tests.torch_jpeg_kinds_common import cv2_read
+    for sampling in ("gray", "4:2:0", "4:4:4"):
+        for rst in (0, 1, 2, 5):
+            for progressive in (False, True):
+                params = [cv2.IMWRITE_JPEG_QUALITY, 90,
+                          cv2.IMWRITE_JPEG_RST_INTERVAL, rst,
+                          cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
+                if sampling != "gray":
+                    params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                               SAMPLING[sampling]]
+                img = pattern(37, 45, 1 if sampling == "gray" else 3, 3)
+                ok, buf = cv2.imencode(".jpg", img, params)
+                for frac in (0.2, 0.35, 0.5, 0.65, 0.8, 0.95):
+                    for tail in (b"", b"\xff\xd9"):
+                        cut = buf.tobytes()[:int(buf.size * frac)] + tail
+                        want = cv2_read(cut, tmp_path)
+                        label = (f"{sampling} restart {rst} progressive "
+                                 f"{progressive} cut at {frac} {tail}")
+                        if want is None:
+                            with pytest.raises(ValueError):
+                                decode(cut)
+                            continue
+                        np.testing.assert_array_equal(decode(cut), want,
+                                                      err_msg=label)
+
+
+def test_idct_of_out_of_range_blocks_is_libjpeg_turbos(tmp_path):
+    # baseline files of random blocks, up to 1,023 a coefficient, dense or
+    # sparse (rows 1-7 all zero take the SIMD code's shortcut), quantisers
+    # up to 255: sums leave 16 bits where libjpeg-turbo keeps them in 16
+    from scripts import jpeg_kinds as K
+    from tests.torch_jpeg_kinds_common import cv2_read
+    rng = np.random.RandomState(0)
+    for trial in range(48):
+        amp = (5, 50, 200, 1023)[trial % 4]
+        blocks = np.zeros((4, 4, 64), np.int16)
+        dense = rng.rand(4, 4, 64) < (0.1, 0.5, 1.0)[trial % 3]
+        blocks[dense] = rng.randint(-amp, amp + 1, dense.sum())
+        blocks[..., 0] = rng.randint(-1000, 1000, (4, 4))
+        quant = rng.randint(1, (1, 16, 100, 255)[trial // 4 % 4] + 1, 64)
+        plan = K.Plan(32, 32, [K.Component(1, 1, 1, 0, blocks)], {0: quant})
+        data = K.huffman_bytes(plan, app=b"")
+        np.testing.assert_array_equal(decode(data), cv2_read(data, tmp_path),
+                                      err_msg=f"trial {trial}")
+
+
 def test_block_smoothing_runs_where_libjpeg_runs_it():
     # a whole file: every coefficient bit sent, no smoothing; cut after 5, 7
     # or 9 scans: smoothing, and without it the pixels are not cv2's
@@ -132,15 +191,30 @@ def _sof2(precision, comps):
 
 
 def test_still_unread_progressive_kinds_raise(tmp_path):
+    # cv2.imread returns no image for a 12-bit file: ValueError naming it;
+    # it reads progressive CMYK (Pillow's) and arithmetic-coded progressive
+    # files (kind None): their pixels
+    from PIL import Image
+    from scripts import jpeg_kinds as K
+    img = pattern(19, 21, 3, 2)
+    buf = io.BytesIO()
+    Image.fromarray(pattern(19, 21, 4, 3), "CMYK").save(buf, "JPEG",
+                                                        progressive=True)
     cases = {"deep.jpg": (_sof2(12, 3), "12-bit"),
-             "cmyk.jpg": (_sof2(8, 4), "CMYK"),
-             "arith.jpg": (b"\xff\xd8\xff\xca\x00\x11\x08\x00\x08\x00\x08\x03"
-                           + b"\x01\x11\x00" * 3 + b"\xff\xd9",
-                           "arithmetic-coded")}
+             "cmyk.jpg": (buf.getvalue(), None),
+             "arith.jpg": (K.arith_bytes(K.plan_of(encode(img, [])),
+                                         progressive=True), None)}
     for name, (data, kind) in cases.items():
-        (tmp_path / name).write_bytes(data)
-        with pytest.raises(NotImplementedError, match=f"{name}.*{kind}"):
-            read_image(tmp_path / name, "cpu")
+        path = tmp_path / name
+        path.write_bytes(data)
+        want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if kind is None:
+            np.testing.assert_array_equal(read_image(path, "cpu").numpy(),
+                                          want[..., ::-1])
+            continue
+        assert want is None
+        with pytest.raises(ValueError, match=f"{name}.*{kind}"):
+            read_image(path, "cpu")
     # a scan whose progression is not legal is malformed data
     data = encode(pattern(16, 16, 3), [])
     sos = data.index(b"\xff\xda")
