@@ -223,8 +223,12 @@ Phases, each printing its own lines:
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
      cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
      Radiance HDR, Sun raster, signed and float TIFF, lossy, lossless and
-     alpha WebP, JPEG 2000 of cv2 and Pillow) decoded on the card to cv2's
-     pixels and prog_source
+     alpha WebP, JPEG 2000 of cv2 and Pillow, the TIFF kinds: CCITT fax,
+     CIE L*a*b*, 64-bit, LogL / LogLuv, ...) decoded on the card to cv2's
+     pixels, view 3 rewritten as the CLOSED_TIFF_KINDS (closed_tiff_kinds:
+     Group 4, Group 3, 8- and 16-bit L*a*b*, uint64, LogLuv) and each
+     decoded card against CPU and timed, host and device apart, and
+     prog_source
      encoded progressive on the card to cv2's bytes, views 1 and 4 as
      16-bit PNG and PPM, int16 TIFF and float PFM, HDR and TIFF through
      undistort_images and load_images on the card against the CPU, the
@@ -3837,6 +3841,82 @@ def write_tiff_kind(path, kind, dev):
     return len(data)
 
 
+# the TIFF kinds read since TIFF was closed that phase 21(b) writes from
+# view 3's pixels (closed_tiff_kinds)
+CLOSED_TIFF_KINDS = ("g4_strips", "g3_2d_fill", "lab8_lzw", "lab16_lzw",
+                     "uint64", "logluv")
+
+
+def closed_tiff_kinds(src, out_dir):
+    """Phase 21(b)'s CCITT, CIE L*a*b* and 64-bit TIFFs (CLOSED_TIFF_KINDS)
+    of view ``src``'s pixels, read on the CPU and written here (the card's
+    machine has no image library): its green channel thresholded at 128 as
+    Group 4 in strips of 64 rows (scripts/fax_kinds.py) and as Group 3
+    two-dimensional (every 4th row one-dimensional) with fill bits in one
+    strip, MinIsWhite; its bytes as 8-bit L*a*b* and its bytes x 257 plus
+    a seeded byte as 16-bit L*a*b*, LZW with predictor 2 in strips of 64
+    rows; its green channel x (2^40 + 3) as uint64 gray, LZW with predictor
+    2; LogLuv under SGILog, each pixel's word its green channel << 22 (L)
+    and red and blue (u, v), literal runs. Returns the files."""
+    import numpy as np
+    import torch
+    from nerfpp_tpu_torch.utils import tiff as T
+    from nerfpp_tpu_torch.utils.image import read_image
+    from scripts.fax_kinds import encode_g3, encode_g4
+    rgb = read_image(src, torch.device("cpu")).numpy()
+    h, w = rgb.shape[:2]
+    bits = (rgb[..., 1] >= 128).astype(np.uint8)
+
+    def lzw_strips(img, dtype):                   # img: [h, w, samples]
+        u = img.astype(dtype)
+        diff = u.copy()
+        diff[:, 1:] -= u[:, :-1]                    # predictor 2, wraps
+        return [T.lzw_encode(diff[y:y + 64].astype(
+            np.dtype(dtype).newbyteorder("<")).tobytes())
+            for y in range(0, h, 64)]
+    rng = np.random.RandomState(SEED)
+    lab16 = rgb.astype(np.uint16) * 257 + rng.randint(0, 256, rgb.shape)
+    c = rgb.astype(np.uint32)
+    words = (c[..., 1] << 22) | (c[..., 0] << 8) | c[..., 2]
+
+    def sgilog(rows):                   # 4 byte planes, literal runs
+        out = bytearray()
+        for row in rows:
+            for k in (24, 16, 8, 0):
+                b = ((row >> k) & 255).astype(np.uint8).tobytes()
+                for i in range(0, len(b), 127):
+                    out += bytes([len(b[i:i + 127])]) + b[i:i + 127]
+        return bytes(out)
+    kinds = {
+        "g4_strips": ([(258, 3, [1]), (259, 3, [4]), (262, 3, [0]),
+                       (277, 3, [1]), (278, 4, [64])],
+                      [encode_g4(bits[y:y + 64]) for y in range(0, h, 64)]),
+        "g3_2d_fill": ([(258, 3, [1]), (259, 3, [3]), (262, 3, [0]),
+                        (277, 3, [1]), (278, 4, [h]), (292, 4, [5])],
+                       [encode_g3(bits, k=4, fill=True)]),
+        "lab8_lzw": ([(258, 3, [8] * 3), (259, 3, [5]), (262, 3, [8]),
+                      (277, 3, [3]), (278, 4, [64]), (284, 3, [1]),
+                      (317, 3, [2])], lzw_strips(rgb, np.uint8)),
+        "lab16_lzw": ([(258, 3, [16] * 3), (259, 3, [5]), (262, 3, [8]),
+                       (277, 3, [3]), (278, 4, [64]), (284, 3, [1]),
+                       (317, 3, [2])],
+                      lzw_strips(lab16, np.uint16)),
+        "uint64": ([(258, 3, [64]), (259, 3, [5]), (262, 3, [1]),
+                    (277, 3, [1]), (278, 4, [64]), (317, 3, [2])],
+                   lzw_strips(rgb[..., 1:2].astype(np.uint64)
+                              * np.uint64(2 ** 40 + 3), np.uint64)),
+        "logluv": ([(258, 3, [16] * 3), (259, 3, [34676]), (262, 3, [32845]),
+                    (277, 3, [3]), (278, 4, [64])],
+                   [sgilog(words[y:y + 64]) for y in range(0, h, 64)])}
+    files = []
+    for name in CLOSED_TIFF_KINDS:
+        entries, chunks = kinds[name]
+        path = Path(out_dir) / f"view_003_{name}.tif"
+        path.write_bytes(tiff_bytes(w, h, entries, chunks))
+        files.append(path)
+    return files
+
+
 def decode_times(files, dev, decode, pixels, reps=3):
     """Decode each file to ``dev``: {file name: (host ms, device ms, bytes,
     pixels)}, the host part (``decode(path)``: reading, parsing and the C++
@@ -3886,10 +3966,11 @@ def formats_phase(scene, dev, psnrs, t_start):
     bytes), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal), the
     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
-    cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
-    Radiance HDR, Sun raster, signed and float TIFF, WebP lossy, lossless,
-    with alpha and in a VP8X wrapper, JPEG 2000 of cv2 and Pillow) decoded
-    on the card to cv2's pixels
+    cut, PNG kinds, TIFF variants and kinds, BMP kinds, PBM / PGM / PPM /
+    PAM / PFM, Radiance HDR, Sun raster, signed and float TIFF, WebP lossy,
+    lossless, with alpha and in a VP8X wrapper, JPEG 2000 of cv2 and
+    Pillow) decoded on the card to cv2's pixels, view 3 as each of
+    CLOSED_TIFF_KINDS decoded on the card bitwise the CPU's
     and prog_source encoded progressive on the card to cv2's bytes, the
     800x800 lossy WebP fixture decoded on the card bitwise the CPU's, views
     1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
@@ -4140,6 +4221,28 @@ def formats_phase(scene, dev, psnrs, t_start):
         "tiff_*.tif"))
     for name, (host, device, n, px) in decode_times(
             kinds, dev, T.decode_tiff, T.tiff_pixels).items():
+        total = host + device
+        log("formats", f"(b) TIFF {name} ({n} bytes, {px / 1e6:.3f} Mpix): "
+            f"decode {total:.3f} ms (host {host:.3f} ms, device "
+            f"{device:.3f} ms): {n / total / 1e3:.1f} MB/s, "
+            f"{px / total / 1e3:.1f} Mpix/s")
+
+    # the kinds read since TIFF was closed, written from view 3's pixels:
+    # card against CPU, then each decode's host and device parts
+    (root / "closed").mkdir()
+    t0 = time.perf_counter()
+    closed = closed_tiff_kinds(sources[3], root / "closed")
+    write_s = time.perf_counter() - t0
+    for f in closed:
+        card = I.read_image(f, dev).cpu()
+        host = I.read_image(f, cpu)
+        if card.dtype != host.dtype or not torch.equal(card, host):
+            raise AssertionError(f"{f.name}: decode card against CPU differs")
+    log("formats", f"(b) view 3 rewritten as {', '.join(CLOSED_TIFF_KINDS)} "
+        f"in {write_s:.2f} s (CPU encoders), each decoded on the card "
+        "bitwise the CPU's")
+    for name, (host, device, n, px) in decode_times(
+            closed, dev, T.decode_tiff, T.tiff_pixels).items():
         total = host + device
         log("formats", f"(b) TIFF {name} ({n} bytes, {px / 1e6:.3f} Mpix): "
             f"decode {total:.3f} ms (host {host:.3f} ms, device "

@@ -124,16 +124,17 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     nerfpp_tpu/data/dataset.py ``load_images`` does. The files are what
     utils/image.py ``read_image`` reads on ``device``: PNG of any colour
     type and depth, JPEG (baseline, progressive, arithmetic-coded and
-    lossless; gray, YCbCr, RGB, CMYK and YCCK), TIFF (integer or float
-    samples, CMYK, YCbCr, JPEG-compressed, BigTIFF), BMP, PBM / PGM / PPM
-    / PAM / PFM, Radiance HDR, Sun raster, WebP (lossy, lossless, with
+    lossless; gray, YCbCr, RGB, CMYK and YCCK), TIFF (integer samples to
+    64 bits or float, CMYK, YCbCr, CIE L*a*b*, JPEG- or CCITT
+    fax-compressed, BigTIFF), BMP, PBM / PGM / PPM / PAM / PFM, Radiance
+    HDR, Sun raster, WebP (lossy, lossless, with
     alpha or animated) and JPEG 2000 (JP2 or raw codestreams, 8 or 16
     bits); a file cv2.imread returns no image for (a 12-bit or
     hierarchical JPEG, ...) raises ValueError naming the file, and other
     formats (GIF, AVIF, ...) raise NotImplementedError naming it.
     Each image is resized in its stored type (uint8, uint16, int16,
-    float32 or float64, as cv2.resize; int8, int32 and uint32 raise when a
-    resize is needed), then cast to f32 and divided by 255, whatever its
+    float32 or float64, as cv2.resize; int8, int32, uint32, int64 and
+    uint64 raise when a resize is needed), then cast to f32 and divided by 255, whatever its
     type: a 16-bit file's values reach 65535 / 255 = 257, and a float
     file's (PFM, HDR, float TIFF) radiance or depth values come out divided
     by 255, as the JAX package's do (the reference's behaviour, mirrored;

@@ -73,9 +73,9 @@ writes, each in its own module: PNG of every colour type and depth
 (utils/png.py), JPEG, baseline, extended sequential and progressive,
 Huffman or arithmetic-coded, lossless, gray, YCbCr, RGB, CMYK and YCCK
 (utils/jpeg.py), classic and BigTIFF of 1- to 64-bit integer and float
-samples, gray, RGB(A), palette, CMYK and YCbCr, JPEG-compressed too
-(utils/tiff.py), BMP (utils/bmp.py), PBM, PGM, PPM, PAM and PFM
-(utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
+samples, gray, RGB(A), palette, CMYK, YCbCr and CIE L*a*b*, JPEG- and
+CCITT fax-compressed too (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM,
+PPM, PAM and PFM (utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
 (utils/sunras.py), WebP, lossy, lossless, with alpha and animated (the
 first frame on its canvas) (utils/webp.py),
 and JPEG 2000, JP2 files and raw codestreams, 5/3 and 9/7, tiles,
@@ -86,10 +86,10 @@ bytes, as OpenCV's does, writing by the extension (PNG, TIFF, JPEG 2000 and
 the portable formats keep 16 bits; JPEG is written baseline at quality 95,
 WebP lossless and .jp2 as OpenJPEG's rate-4 5/3, as cv2.imwrite writes them
 at its defaults, WebP's colour under alpha 0 as libwebp rewrites it).
-AVIF, GIF and the formats' unread kinds (old-style JPEG-compressed TIFF,
-JPEG 2000 code-block styles other than 0, ...) raise NotImplementedError
-naming the file and the kind; files cv2.imread returns None for (a 12-bit
-JPEG, an LZMA TIFF, ...) raise ValueError.
+AVIF, GIF and the formats' unread kinds (SGILog24 LogLuv TIFF, JPEG 2000
+code-block styles other than 0, ...) raise NotImplementedError naming the
+file and the kind; files cv2.imread returns None for (a 12-bit JPEG, an
+LZMA or old-style JPEG-compressed TIFF, ...) raise ValueError.
 """
 from __future__ import annotations
 
@@ -482,8 +482,9 @@ def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
-READ = ("PNG, JPEG, TIFF, BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, "
-        "Sun raster, WebP and JPEG 2000")
+READ = ("PNG, JPEG, TIFF (CCITT fax, CIE L*a*b* and 64-bit samples too), "
+        "BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP "
+        "and JPEG 2000")
 # extension -> the writer of a numpy image (JPEG is encoded on the device)
 WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,
@@ -542,11 +543,11 @@ def read_image(path, device="cuda") -> torch.Tensor:
     """cv2.imread(path, IMREAD_UNCHANGED) in RGB(A) order: [H, W] or [H, W,
     C] on ``device``, in the dtype OpenCV returns (uint8; uint16 for 16-bit
     PNG, TIFF, portable and JPEG 2000 files; float32 for PFM and HDR;
-    TIFF's signed, 32-bit and float samples as they are), by the leading
-    bytes. WebP's chroma upsampling and colour conversion, JPEG-in-TIFF's,
-    YCbCr TIFF's and CMYK TIFF's pixel stages, and JPEG 2000's
-    dequantisation, inverse wavelet and colour transforms run on
-    ``device``."""
+    TIFF's signed, 32-bit, 64-bit and float samples as they are), by the
+    leading bytes. WebP's chroma upsampling and colour conversion,
+    JPEG-in-TIFF's, YCbCr TIFF's, CMYK TIFF's and CIE L*a*b* TIFF's pixel
+    stages, and JPEG 2000's dequantisation, inverse wavelet and colour
+    transforms run on ``device``; CCITT fax decodes on the host."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":

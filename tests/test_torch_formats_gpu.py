@@ -26,8 +26,12 @@ card; the card's machine has no OpenCV, so this file imports none, and
   pixels;
 - every committed TIFF kind fixture (tests/data/image/tiff_*: BigTIFF,
   JPEG-in-TIFF, YCbCr, CMYK, gray with alpha, 1- to 14-bit samples,
-  orientations) decoded on the card to cv2's pixels and the CPU's, and
-  its host part decoded once for both;
+  orientations; CCITT RLE, RLEW, Group 3 and Group 4, CIE L*a*b* of 8 and
+  16 bits, uint64 and int64, YCbCr 4x4, planar and palette JPEG-in-TIFF,
+  LogL, LogLuv, ThunderScan)
+  decoded on the card to cv2's pixels and the CPU's, and its host part
+  decoded once for both, and random CIE L*a*b* samples of 8 and 16 bits
+  through the card's ``lab_rgb`` bitwise the CPU's;
 - every committed JPEG 2000 fixture (tests/data/image/jp2_*: cv2's and
   Pillow's, 5/3 and 9/7, tiles, precincts, layers, YCbCr, 16 bits, raw
   codestreams) decoded on the card to cv2's pixels and the CPU's, and
@@ -163,7 +167,7 @@ def test_animated_and_transparent_webp_on_the_card_are_opencvs(cuda,
 def test_tiff_kinds_on_the_card_are_the_cpus_and_opencvs(cuda):
     from nerfpp_tpu_torch.utils import tiff as T
     files = sorted(FIXTURES.glob("tiff_*.tif"))
-    assert len(files) == 16
+    assert len(files) == 33
     for f in files:
         dec = T.decode_tiff(f)
         card = T.tiff_pixels(dec, cuda)
@@ -176,6 +180,20 @@ def test_tiff_kinds_on_the_card_are_the_cpus_and_opencvs(cuda):
                                       err_msg=f.name)
         np.testing.assert_array_equal(I.read_image(f, cuda).cpu().numpy(),
                                       want, err_msg=f.name)
+
+
+def test_lab_pixels_on_the_card_are_the_cpus(cuda):
+    from nerfpp_tpu_torch.utils import tiff as T
+    rng = np.random.RandomState(21)
+    for dtype in (np.int8, np.int16):
+        info = np.iinfo(dtype)
+        lab = torch.from_numpy(rng.randint(info.min, info.max + 1,
+                                           (1000, 1000, 3)).astype(dtype))
+        for white in (T.lab_white(0.3127, 0.329),
+                      T.lab_white(0.34567, 0.3585)):
+            card = T.lab_rgb(lab.to(cuda), white)
+            assert card.device.type == cuda.type
+            assert torch.equal(card.cpu(), T.lab_rgb(lab, white))
 
 
 def test_jpeg2000_on_the_card_is_the_cpus_and_opencvs(cuda, tmp_path):

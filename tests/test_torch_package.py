@@ -50,13 +50,15 @@ def test_import_loads_neither_jax_nor_nerfpp_tpu():
 
 def test_sources_import_no_jax():
     # every import statement of the port, of chip_smoke.py and of the
-    # COLMAP and JPEG-kind writers both it and the tests use, read as code
+    # COLMAP, JPEG-kind and fax writers both it and the tests use, read as
+    # code
     files = sorted(PORT.rglob("*.py"))
     for mod in (("parallel", "mesh.py"), ("core", "losses.py"),
                 ("utils", "profiling.py")):
         assert PORT.joinpath(*mod) in files
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "colmap_export.py",
               ROOT / "scripts" / "jpeg_kinds.py",
+              ROOT / "scripts" / "fax_kinds.py",
               ROOT / "tests" / "torch_parallel_workers.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

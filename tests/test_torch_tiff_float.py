@@ -130,17 +130,26 @@ def test_unread_kinds_raise_naming_the_file(tmp_path):
     assert cv2.imread(str(tmp_path / "half.tif"), cv2.IMREAD_UNCHANGED) is None
     with pytest.raises(ValueError, match=r"half\.tif.*half-float"):
         I.read_image(tmp_path / "half.tif", "cpu")
-    cases = {"i64.tif": (make_tiff(np.zeros((4, 4, 1), np.int64)),
-                         "64-bit signed samples"),
-             "complex.tif": (make_tiff(np.zeros((4, 4, 1), np.float32),
-                                       sample_format=6),
+    cases = {"complex.tif": (make_tiff(np.zeros((4, 4, 1), np.float32),
+                                       sample_format=6), ValueError,
                              "complex float samples"),
              "planar.tif": (make_tiff(np.zeros((4, 4, 3), np.float32),
-                                      planar=2), "32-bit planar"),
+                                      planar=2), NotImplementedError,
+                            "32-bit planar"),
              "pred3.tif": (make_tiff(np.zeros((4, 4, 1), np.int16), comp=8,
-                                     extra_tags=[(317, 3, [3])]),
+                                     extra_tags=[(317, 3, [3])]), ValueError,
                            "signed samples with predictor 3")}
-    for name, (data, kind) in cases.items():
+    for name, (data, error, kind) in cases.items():
         (tmp_path / name).write_bytes(data)
-        with pytest.raises(NotImplementedError, match=f"{name}.*{kind}"):
+        if error is ValueError:                 # cv2.imread returns None
+            assert cv2.imread(str(tmp_path / name),
+                              cv2.IMREAD_UNCHANGED) is None
+        with pytest.raises(error, match=f"{name}.*{kind}"):
             I.read_image(tmp_path / name, "cpu")
+    # 64-bit integers are read since TIFF was closed
+    i64 = make_tiff(np.arange(16, dtype=np.int64).reshape(4, 4, 1) - 8)
+    (tmp_path / "i64.tif").write_bytes(i64)
+    np.testing.assert_array_equal(I.read_image(tmp_path / "i64.tif",
+                                               "cpu").numpy(),
+                                  cv2.imread(str(tmp_path / "i64.tif"),
+                                             cv2.IMREAD_UNCHANGED))

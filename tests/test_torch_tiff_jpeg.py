@@ -15,7 +15,9 @@ that are not multiples of 8 or 16:
   conversion (a JFIF stream under photometric RGB comes back unconverted);
 - the host and device parts apart, and the tables of JPEGTables replaced
   by a stream's own;
-- malformed and unread kinds raise, naming the file.
+- malformed kinds and the kinds cv2.imread returns None for raise,
+  naming the file (planar RGB and YCbCr 1x1 JPEG-in-TIFF, read since
+  TIFF was closed, are in tests/test_torch_tiff_rare.py).
 """
 import cv2
 import numpy as np
@@ -200,14 +202,15 @@ def test_unread_and_malformed_jpeg_tiffs_raise_naming_the_file(tmp_path):
     rng = np.random.RandomState(7)
     img = noise(rng, 16, 16)
     planar = jpeg_tiff(img, (1, 1), 2)
-    cases = {"planar.tif": (make_tiff(img, comp=7, planar=2,
+    cases = {"planar.tif": (make_tiff(img, comp=7, planar=2, photometric=6,
                                       chunks=[encode(img[..., k])
                                               for k in range(3)]),
-                            NotImplementedError, "PlanarConfiguration 2"),
+                            ValueError, "planar YCbCr JPEG-in-TIFF "
+                            "subsampled 2x2"),
              "ojpeg.tif": (planar.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00"
                                           b"\x07", b"\x03\x01\x03\x00\x01"
                                           b"\x00\x00\x00\x06"),
-                           NotImplementedError, "old-style JPEG"),
+                           ValueError, "old-style JPEG"),
              "gray3.tif": (make_tiff(img[..., :1], comp=7,
                                      chunks=[encode(img)]), ValueError,
                            "3 components in a 16x16 box of 1 samples")}

@@ -1,7 +1,8 @@
 """Helpers shared by the image codec tests (a module, not a test file):
 test images, cut progressive JPEGs, PNGs, TIFFs, BMPs (with RLE8 / RLE4
 streams), PAMs, PFMs, Radiance HDRs and Sun rasters of every kind built
-with zlib, struct and numpy, JPEG 2000 files from cv2 and Pillow, and the
+with zlib, struct and numpy, JPEG 2000 files from cv2 and Pillow, CCITT
+fax TIFFs from Pillow's libtiff and scripts/fax_kinds.py, and the
 committed fixtures under tests/data/image (see ``make_fixtures``; run
 ``PYTHONPATH=. python tests/torch_image_common.py`` to write them).
 
@@ -152,6 +153,56 @@ def packbits(b: bytes) -> bytes:
             j += 1
         out += bytes([j - i]) + b[i:j + 1]
         i = j + 1
+    return bytes(out)
+
+
+def lzw_old_style(data: bytes) -> bytes:
+    """Old-style LZW, as libtiff 4.0 and earlier wrote compression 5: Clear,
+    the codes least significant bit first, each as wide as the decoder
+    then reads (an entry a code but the first after a Clear, the width
+    raised once the next free entry passes the widest code), a Clear before
+    the table fills, EOI."""
+    out, acc, n_acc = bytearray(), 0, 0
+    state = {"free": 258, "bits": 9, "count": 0}
+
+    def put(code, clear=False):
+        nonlocal acc, n_acc
+        acc |= code << n_acc
+        n_acc += state["bits"]
+        while n_acc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n_acc -= 8
+        if clear:
+            state.update(free=258, bits=9, count=0)
+            return
+        state["count"] += 1
+        if state["count"] >= 2:
+            state["free"] += 1
+            if state["free"] > (1 << state["bits"]) - 1:
+                state["bits"] = min(state["bits"] + 1, 12)
+
+    put(256, clear=True)
+    table = {bytes([i]): i for i in range(256)}
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = 258 + len(table) - 256
+        w = bytes([c])
+        if len(table) >= 4093:
+            put(table[w])
+            put(256, clear=True)
+            table = {bytes([i]): i for i in range(256)}
+            w = b""
+    if w:
+        put(table[w])
+    put(257)
+    if n_acc:
+        out.append(acc & 255)
     return bytes(out)
 
 
@@ -313,6 +364,67 @@ def make_tiff(img, bo="<", comp=1, predictor=1, planar=1, tile=None,
         out[8:16] = struct.pack(bo + "Q", ifd)
     else:
         out[4:8] = struct.pack(bo + "I", ifd)
+    return bytes(out)
+
+
+def fax_image(rng, h, w, p_same=0.0):
+    """A bilevel image uint8 [h, w] of 0 / 1 runs of every length class
+    (1-3, up to 80, up to 300, up to 2,700 pixels: terminating, make-up and
+    extended make-up codes); each row after the first is its upper
+    neighbour with probability ``p_same`` (vertical and pass modes)."""
+    img = np.zeros((h, w), np.uint8)
+    for y in range(h):
+        if y and rng.rand() < p_same:
+            img[y] = img[y - 1]
+            continue
+        x, c = 0, rng.rand() < 0.5
+        while x < w:
+            n = int(rng.choice([1, 2, 3, rng.randint(1, 80),
+                                rng.randint(60, 300),
+                                rng.randint(1700, 2700)]))
+            img[y, x:x + n] = c
+            c, x = not c, x + n
+    return img
+
+
+def pillow_fax(bits, compression, **tiffinfo):
+    """Pillow's libtiff TIFF of a bilevel image (uint8 [h, w] of 0 / 1, 1
+    white in the image) with ``compression`` "tiff_ccitt", "group3" or
+    "group4" and the given tags (T4Options 292, FillOrder 266,
+    RowsPerStrip 278, Photometric 262)."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(bits.astype(bool)).convert("1").save(
+        buf, "TIFF", compression=compression,
+        tiffinfo={int(k): v for k, v in tiffinfo.items()})
+    return buf.getvalue()
+
+
+def fax_tiff(bits, comp, encode, tile=None, rows_per_strip=None, **kw):
+    """A CCITT TIFF of a bilevel image (uint8 [h, w]) with each strip or
+    tile coded by ``encode`` (scripts/fax_kinds.py), tiles zero-padded."""
+    h, w = bits.shape
+    chunks = []
+    for y, x, rows, cols in boxes_of(h, w, rows_per_strip, tile):
+        box = np.zeros((rows, cols), np.uint8)
+        part = bits[y:y + rows, x:x + cols]
+        box[:part.shape[0], :part.shape[1]] = part
+        chunks.append(encode(box))
+    return make_tiff(bits[..., None], comp=comp, bits=1, chunks=chunks,
+                     tile=tile, rows_per_strip=rows_per_strip, **kw)
+
+
+def sgilog_rows(words, planes):
+    """SGILog data (tif_luv.c's run-length coding) of rows of LogL (2 byte
+    planes) or LogLuv (4) words: each row's byte planes, most significant
+    first, as literal runs of at most 127 bytes."""
+    out = bytearray()
+    for row in np.asarray(words, np.uint64):
+        for k in range(planes - 1, -1, -1):
+            b = ((row >> np.uint64(8 * k)) & np.uint64(255)).astype(
+                np.uint8).tobytes()
+            for i in range(0, len(b), 127):
+                out += bytes([len(b[i:i + 127])]) + b[i:i + 127]
     return bytes(out)
 
 
@@ -590,6 +702,7 @@ def fixture_files():
         extra=(2,))
     files.update(raw_fixture_files())
     files.update(tiff_kind_fixture_files())
+    files.update(tiff_closed_fixture_files())
     files.update(jpeg2000_fixture_files())
     return files
 
@@ -733,6 +846,84 @@ def tiff_kind_fixture_files():
     files["tiff_orientation2_rgb16_9x8.tif"] = make_tiff(
         rng.randint(0, 65536, (8, 9, 3)).astype(np.uint16), ">",
         orientation=2)
+    return files
+
+
+def tiff_closed_fixture_files():
+    """{file name: bytes} of the TIFF kinds read since TIFF was closed:
+    CCITT Modified Huffman (MinIsWhite), word-aligned RLEW, Group 3
+    two-dimensional with fill bits (Pillow's libtiff), Group 4 with
+    FillOrder 2 (Pillow's) and in tiles; CIE L*a*b* of 8 bits (LZW,
+    predictor 2, a D65 WhitePoint), 16 bits (big-endian tiles) and
+    Pillow's LAB; uint64 gray and int64 RGB; YCbCr 4x4 in strips and tiles
+    (libtiff's truncated scanline and tile skew); planar YCbCr and palette
+    JPEG-in-TIFF; LogL and LogLuv under SGILog; a ThunderScan 4-bit
+    palette."""
+    from scripts.fax_kinds import encode_g4, encode_rle
+    rng = np.random.RandomState(21)
+    files = {}
+    bits = fax_image(rng, 11, 19)
+    files["tiff_rle_miniswhite_19x11.tif"] = fax_tiff(
+        bits, 2, encode_rle, rows_per_strip=6, photometric=0)
+    files["tiff_rlew_33x9.tif"] = fax_tiff(
+        fax_image(rng, 9, 33), 32771, lambda b: encode_rle(b, word=True),
+        photometric=0)
+    files["tiff_g3_2d_fill_41x23.tif"] = pillow_fax(
+        fax_image(rng, 23, 41, 0.5), "group3", **{"292": 5, "278": 8})
+    files["tiff_g4_fillorder2_37x29.tif"] = pillow_fax(
+        fax_image(rng, 29, 37, 0.5), "group4", **{"266": 2})
+    files["tiff_g4_tiles_45x37.tif"] = fax_tiff(
+        fax_image(rng, 37, 45, 0.5), 4, encode_g4, tile=(16, 16),
+        photometric=0)
+    lab8 = rng.randint(0, 256, (17, 23, 3)).astype(np.uint8)
+    files["tiff_lab8_lzw_d65_23x17.tif"] = make_tiff(
+        lab8, comp=5, predictor=2, photometric=8, rows_per_strip=5,
+        extra_tags=[(318, 5, [3127, 10000, 3290, 10000])])
+    lab16 = rng.randint(0, 65536, (19, 21, 3)).astype(np.uint16)
+    files["tiff_lab16_tiles_be_21x19.tif"] = make_tiff(
+        lab16, ">", 8, photometric=8, tile=(16, 16))
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (9, 13, 3)).astype(np.uint8),
+                    "LAB").save(buf, "TIFF")
+    files["tiff_lab_pillow_13x9.tif"] = buf.getvalue()
+    files["tiff_uint64_gray_9x7.tif"] = make_tiff(
+        rng.randint(0, 2 ** 63, (7, 9, 1)).astype(np.uint64) * 2 + 1)
+    files["tiff_int64_rgb_lzw_7x5.tif"] = make_tiff(
+        rng.randint(-2 ** 63, 2 ** 63, (5, 7, 3), dtype=np.int64), ">", 5, 2)
+    chunks, _ = ycbcr_units(rng, 13, 11, 4, 4, boxes_of(13, 11, 8))
+    files["tiff_ycbcr44_strips_11x13.tif"] = make_tiff(
+        np.zeros((13, 11, 3), np.uint8), photometric=6, chunks=chunks,
+        rows_per_strip=8, extra_tags=[(530, 3, [4, 4])])
+    chunks, _ = ycbcr_units(rng, 21, 40, 4, 4, boxes_of(21, 40, tile=(16, 16)))
+    files["tiff_ycbcr44_tiles_40x21.tif"] = make_tiff(
+        np.zeros((21, 40, 3), np.uint8), ">", photometric=6, chunks=chunks,
+        tile=(16, 16), extra_tags=[(530, 3, [4, 4])])
+    import cv2
+    img = pattern(16, 24, 3, 22)
+    files["tiff_jpeg_planar_ycbcr_24x16.tif"] = make_tiff(
+        img, comp=7, planar=2, photometric=6,
+        chunks=[cv2.imencode(".jpg", img[..., k])[1].tobytes()
+                for k in range(3)], extra_tags=[(530, 3, [1, 1])])
+    idx = pattern(16, 16, 1, 23)
+    files["tiff_jpeg_palette_16x16.tif"] = make_tiff(
+        idx[..., None], comp=7, photometric=3,
+        colormap=rng.randint(0, 65536, (3, 256)).astype(np.uint16),
+        chunks=[cv2.imencode(".jpg", idx)[1].tobytes()])
+    words = rng.randint(0, 65536, (11, 29)).astype(np.uint32)
+    words[:, 3:17] = words[:, 3:4]
+    files["tiff_logl_sgilog_29x11.tif"] = make_tiff(
+        np.zeros((11, 29, 1), np.int16), photometric=32844, comp=34676,
+        rows_per_strip=6, chunks=[sgilog_rows(words[:6], 2),
+                                  sgilog_rows(words[6:], 2)])
+    words = rng.randint(0, 2 ** 32, (6, 11), dtype=np.uint64)
+    files["tiff_logluv_sgilog_11x6.tif"] = make_tiff(
+        np.zeros((6, 11, 3), np.uint16), photometric=32845, comp=34676,
+        sample_format=2, chunks=[sgilog_rows(words, 4)])
+    files["tiff_thunderscan_pal4_12x7.tif"] = make_tiff(
+        np.zeros((7, 12, 1), np.uint8), comp=32809, bits=4, photometric=3,
+        colormap=rng.randint(0, 65536, (3, 16)).astype(np.uint16),
+        chunks=[bytes([0xc3, 0x4d, 0x8a, 0x05, 0xc9, 0x81, 0x06]) * 7])
     return files
 
 
