@@ -205,31 +205,36 @@ Phases, each printing its own lines:
      cut; the loss must fall), its held-out PSNR beside phase 17's.
  21. image files (utils/png.py, utils/jpeg.py progressive, utils/tiff.py,
      utils/bmp.py, utils/pxm.py, utils/hdr.py, utils/sunras.py,
-     utils/webp.py, utils/jpeg2000.py, csrc/tiff_codec.cpp,
-     csrc/image_rle.cpp, csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp):
+     utils/webp.py, utils/jpeg2000.py, utils/gif.py, csrc/tiff_codec.cpp,
+     csrc/image_rle.cpp, csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp,
+     csrc/gif_codec.cpp):
      (a) phase 17's COLMAP export with each view in
      its format (TRAIN_FORMATS: the 800x800 camera's 12 views progressive
      JPEG, BMP, PPM, lossless WebP, JPEG 2000 and PAM, the 1000x1000
      camera's 4 TIFF, rewritten as the TIFF kinds of TIFF_KINDS: RGB
      JPEG-in-TIFF with JPEGTables, BigTIFF, YCbCr 4:2:0 JPEG tiles, CMYK
      under Orientation 3; WebP view 12 rewritten as RGBA, alpha 0 off a
-     disc, a masked object capture), written on the card; (b) the
+     disc, a masked object capture; PAM view 14 rewritten as GIF,
+     GIF_VIEW: error-diffused onto cv2's 3-3-2 palette), written on the
+     card; (b) the
      undistortion on the card (each view written back in its format, a
      progressive one as baseline JPEG at quality 95, a WebP lossless with
-     libwebp's rewrite under alpha 0, a .jp2 as cv2.imwrite writes it),
-     one view of each format and view 12
+     libwebp's rewrite under alpha 0, a .jp2 and a .gif as cv2.imwrite
+     writes them), one view of each format and view 12
      also through the CPU (the same bytes), every exported and
      undistorted file decoded on the card and the CPU (bitwise equal), the
      committed cv2 fixtures (tests/data/image: progressive JPEG whole and
      cut, PNG kinds, TIFF variants, BMP kinds, PBM / PGM / PPM / PAM / PFM,
      Radiance HDR, Sun raster, signed and float TIFF, lossy, lossless and
      alpha WebP, JPEG 2000 of cv2 and Pillow, the TIFF kinds: CCITT fax,
-     CIE L*a*b*, 64-bit, LogL / LogLuv, ...) decoded on the card to cv2's
-     pixels, view 3 rewritten as the CLOSED_TIFF_KINDS (closed_tiff_kinds:
-     Group 4, Group 3, 8- and 16-bit L*a*b*, uint64, LogLuv) and each
-     decoded card against CPU and timed, host and device apart, and
-     prog_source
-     encoded progressive on the card to cv2's bytes, views 1 and 4 as
+     CIE L*a*b*, 64-bit, LogL / LogLuv, ..., GIF of cv2, Pillow and
+     scripts/gif_kinds.py) decoded on the card to cv2's pixels, the GIF
+     writer's committed inputs encoded on the card to cv2.imwrite's
+     committed bytes, view 3 rewritten as the CLOSED_TIFF_KINDS
+     (closed_tiff_kinds: Group 4, Group 3, 8- and 16-bit L*a*b*, uint64,
+     LogLuv) and each decoded card against CPU and timed, host and device
+     apart, and prog_source encoded progressive on the card to cv2's
+     bytes, views 1 and 4 as
      16-bit PNG and PPM, int16 TIFF and float PFM, HDR and TIFF through
      undistort_images and load_images on the card against the CPU, the
      decode and encode seconds of each new format (a Sun raster copy of
@@ -246,12 +251,14 @@ Phases, each printing its own lines:
      there and on view 12, the exported and undistorted
      .jp2 views re-encoded on the card and the CPU (the same bytes), the
      JPEG 2000 decode and encode of an 800x800 view and a 4,000x3,000
-     upscale (host C++ and device stages apart), the undistortion and
-     load_images; (c) phase 17(c)'s flagship
-     ``cli train --dataset-type colmap`` on the mixed workspace to NIters
-     2,100 (cut to 1,088, and the cut printed, if the script would pass
-     1,080 s; launch counts reset before step 0 and read after: K1, K2, K3
-     and its index, no other kernel; steps 1,056-1,087 timed; the loss
+     upscale (host C++ and device stages apart), the GIF decode and encode
+     of the 800x800 GIF view (host C++ and device stages apart), the
+     undistortion and load_images; (c) phase 17(c)'s flagship
+     ``cli train --dataset-type colmap`` on the mixed workspace (one
+     dithered GIF view among the 16) to NIters 2,100 (cut to 1,088, and
+     the cut printed, if the script would pass 1,080 s; launch counts
+     reset before step 0 and read after: K1, K2, K3 and its index, no
+     other kernel; steps 1,056-1,087 timed; the loss
      must fall), its held-out PSNR beside phases 17 and 20.
 The line before the last is the kernel summary JSON, each kernel's
 launches those of the main path it runs on: phase 3's serving for K1/K2,
@@ -3270,6 +3277,19 @@ def jp2_times(files, dev):
         lambda planes, path: JP.encode_planes(planes, str(path)))
 
 
+def gif_times(files, dev):
+    """split_times of GIF files, encoded again as cv2.imwrite writes .gif:
+    the host parts the container and the C++ LZW decoder, the C++ error
+    diffusion and LZW encoder; the device parts the de-interlacing, palette
+    gather and canvas, the conversion to uint8 and the copy to the host."""
+    from nerfpp_tpu_torch.utils import gif as G
+    return split_times(
+        files, lambda path, data: G.decode_gif(path),
+        lambda dec: G.gif_pixels(dec, dev),
+        lambda img, path: G.encoder_input(img, dev),
+        lambda rgb, path: G.encode_rgb(rgb))
+
+
 def split_line(label, t, fmt, again):
     """One log line of split_times' figures for files of ``fmt``,
     ``again`` naming the second encoding."""
@@ -3607,6 +3627,9 @@ WEBP_MASKED_VIEW = 12
 # the TIFF kind each of those 4 views is rewritten as (write_tiff_kind)
 TIFF_KINDS = {3: "jpeg_rgb_tables", 7: "bigtiff", 11: "jpeg_ycbcr_tiles",
               15: "cmyk_orientation3"}
+# the PAM view (0-based index 14) rewritten as GIF from the card
+# (gif_view): cv2.imwrite's error diffusion onto its 3-3-2 palette
+GIF_VIEW = 14
 
 
 def webp_transparent_and_animated(root, dev, masked_view, webp_dir):
@@ -3684,6 +3707,27 @@ def webp_transparent_and_animated(root, dev, masked_view, webp_dir):
                               f"{img.shape[1]}x{img.shape[0]} view "
                               "(undistorted, RGBA)", t, "WebP",
                               "re-encoded lossless"))
+
+
+def gif_view(ws, path, dev):
+    """Rewrites the view at ``path`` as GIF, written from the card through
+    write_image under the same stem with ``.gif``, and renames it in the
+    workspace's model (images.bin and images.txt; the names are of equal
+    length). Returns the new path."""
+    from nerfpp_tpu_torch.utils import image as I
+    new = path.with_suffix(".gif")
+    if len(new.name) != len(path.name):
+        raise AssertionError(f"{path.name}: a GIF name of another length")
+    I.write_image(new, I.read_image(path, dev), dev)
+    path.unlink()
+    for f in ("images.bin", "images.txt"):
+        model = ws / "sparse" / "0" / f
+        data = model.read_bytes()
+        if data.count(path.name.encode()) != 1:
+            raise AssertionError(f"{model}: {path.name} not named once")
+        model.write_bytes(data.replace(path.name.encode(),
+                                       new.name.encode()))
+    return new
 
 
 def mask_webp_view(path, dev):
@@ -3952,25 +3996,29 @@ def formats_phase(scene, dev, psnrs, t_start):
     """Phase 21, the image files cv2.imread reads and cv2.imwrite writes
     (utils/png.py, utils/jpeg.py progressive, utils/tiff.py, utils/bmp.py,
     utils/pxm.py, utils/hdr.py, utils/sunras.py, utils/webp.py,
-    utils/jpeg2000.py, csrc/tiff_codec.cpp, csrc/image_rle.cpp,
-    csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp): (a)
+    utils/jpeg2000.py, utils/gif.py, csrc/tiff_codec.cpp,
+    csrc/image_rle.cpp, csrc/webp_codec.cpp, csrc/jpeg2000_codec.cpp,
+    csrc/gif_codec.cpp): (a)
     phase 17's COLMAP export with each view in a format of TRAIN_FORMATS
     (the 800x800 camera's 12 views progressive JPEG, BMP, PPM, lossless
     WebP, JPEG 2000 and PAM, the 1000x1000 camera's 4 TIFF, rewritten as
     the kinds of TIFF_KINDS by write_tiff_kind; WebP view
     WEBP_MASKED_VIEW rewritten as an RGBA masked capture by
-    mask_webp_view), written on the card's path; (b) the undistortion on
+    mask_webp_view; PAM view GIF_VIEW rewritten as GIF by gif_view),
+    written on the card's path; (b) the undistortion on
     the card (each view read, undistorted and written back in its format,
     the masked view through libwebp's rewrite under alpha 0), one view of
-    each format and the masked view also through the CPU (the same
-    bytes), every exported and
+    each format, the masked view and the GIF view also through the CPU
+    (the same bytes), every exported and
     undistorted file decoded on the card and the CPU (bitwise equal), the
     committed cv2 fixtures (tests/data/image: progressive JPEG whole and
     cut, PNG kinds, TIFF variants and kinds, BMP kinds, PBM / PGM / PPM /
     PAM / PFM, Radiance HDR, Sun raster, signed and float TIFF, WebP lossy,
     lossless, with alpha and in a VP8X wrapper, JPEG 2000 of cv2 and
-    Pillow) decoded on the card to cv2's pixels, view 3 as each of
-    CLOSED_TIFF_KINDS decoded on the card bitwise the CPU's
+    Pillow, GIF of cv2, Pillow and scripts/gif_kinds.py) decoded on the
+    card to cv2's pixels, the GIF writer's committed inputs
+    (gifw_*.input.npy) encoded on the card to cv2's committed bytes, view
+    3 as each of CLOSED_TIFF_KINDS decoded on the card bitwise the CPU's
     and prog_source encoded progressive on the card to cv2's bytes, the
     800x800 lossy WebP fixture decoded on the card bitwise the CPU's, views
     1 and 4 as 16-bit PNG and PPM, as int16 TIFF and as float
@@ -3988,9 +4036,11 @@ def formats_phase(scene, dev, psnrs, t_start):
     C++ and device stages apart), the port's lossless WebP sizes beside
     cv2's files for the lossless fixtures, the animated and transparent
     WebP fixtures, the 4,000 x 3,000 rewrite and the masked view's times
-    (webp_transparent_and_animated), the undistortion and
-    load_images; (c) phase 17(c)'s flagship ``cli train
-    --dataset-type colmap`` on the mixed workspace to NIters 2,100, or 1,088
+    (webp_transparent_and_animated), the exported and undistorted GIF
+    view's decode and encode (gif_times: host C++ and device stages
+    apart), the undistortion and load_images; (c) phase 17(c)'s flagship
+    ``cli train --dataset-type colmap`` on the mixed workspace (one
+    dithered GIF view among the 16) to NIters 2,100, or 1,088
     if the whole script would pass 1,080 s (the cut is printed; steps
     1,024-1,055 then timed in place of 1,056-1,087), launch counts reset
     before step 0 and read after (K1, K2, K3 and its index, no other
@@ -4003,6 +4053,7 @@ def formats_phase(scene, dev, psnrs, t_start):
     from nerfpp_tpu_torch.data import colmap as C
     from nerfpp_tpu_torch.data.dataset import SceneData, View, load_images
     from nerfpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nerfpp_tpu_torch.utils import gif as G
     from nerfpp_tpu_torch.utils import image as I
     from nerfpp_tpu_torch.utils import image_rle
     from nerfpp_tpu_torch.utils import jpeg as J
@@ -4018,7 +4069,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     for name, load in (("TIFF codec", T.codec_library),
                        ("BMP / HDR run-length codec", image_rle.library),
                        ("WebP codec", W.codec_library),
-                       ("JPEG 2000 codec", JP.codec_library)):
+                       ("JPEG 2000 codec", JP.codec_library),
+                       ("GIF codec", G.library)):
         t0 = time.perf_counter()
         lib = load()
         log("formats", f"{name} built and loaded in "
@@ -4037,6 +4089,9 @@ def formats_phase(scene, dev, psnrs, t_start):
     tiff_sizes = {kind: write_tiff_kind(sources[j], kind, dev)
                   for j, kind in TIFF_KINDS.items()}
     masked = mask_webp_view(sources[WEBP_MASKED_VIEW], dev)
+    sources[GIF_VIEW] = gif_view(ws, sources[GIF_VIEW], dev)
+    if sorted((ws / "images").iterdir()) != sources:
+        raise AssertionError(f"export after the GIF rewrite: {sources}")
     jpgs = [f for f in sources if f.suffix == ".jpg"]
     if not all(J.decode_coefficients(f.read_bytes()).progressive
                for f in jpgs):
@@ -4054,7 +4109,8 @@ def formats_phase(scene, dev, psnrs, t_start):
                     for j, k in TIFF_KINDS.items())
         + f"; view {WEBP_MASKED_VIEW} rewritten as RGBA, {masked[0]:.1%} "
         f"of it alpha 0 (libwebp's analysis: {masked[1]}; {masked[2]} "
-        "bytes)")
+        f"bytes); view {GIF_VIEW} rewritten as GIF "
+        f"({sources[GIF_VIEW].stat().st_size} bytes)")
 
     # (b) undistortion on the card, then the codecs card against CPU
     torch.cuda.synchronize()
@@ -4069,8 +4125,8 @@ def formats_phase(scene, dev, psnrs, t_start):
     raw = C.read_model(ws / "sparse" / "0")
     checked = []
     (root / "cpu_check").mkdir()
-    # one view of each format, and the masked WebP view
-    for i in (0, 1, 2, 3, 4, 5, 6, WEBP_MASKED_VIEW):
+    # one view of each format, the masked WebP view and the GIF view
+    for i in (0, 1, 2, 3, 4, 5, 6, WEBP_MASKED_VIEW, GIF_VIEW):
         cam = raw.cameras[raw.images[sc.views[i].id].camera_id]
         k = cam.k_matrix().astype(np.float64)
         d = cam.distortion().astype(np.float64)
@@ -4100,7 +4156,7 @@ def formats_phase(scene, dev, psnrs, t_start):
             raise AssertionError(f"{f}: decode card against CPU differs")
     log("formats", f"(b) {len(sources)} exported and {len(undistorted)} "
         "undistorted files (progressive and baseline JPEG, TIFF of the "
-        "kinds of TIFF_KINDS and LZW, BMP, PPM, WebP, JPEG 2000, PAM) "
+        "kinds of TIFF_KINDS and LZW, BMP, PPM, WebP, JPEG 2000, PAM, GIF) "
         "decoded on the card bitwise the CPU's")
     fixtures = Path(__file__).resolve().parent / "tests" / "data" / "image"
     names = []
@@ -4118,9 +4174,20 @@ def formats_phase(scene, dev, psnrs, t_start):
                          fixtures / "prog_source.jpg").read_bytes():
         raise AssertionError("fixture prog_source: the card's progressive "
                              "encoding is not cv2's")
+    gifw = sorted(fixtures.glob("gifw_*.input.npy"))
+    for f in gifw:
+        img = torch.from_numpy(np.load(f)).to(dev)
+        if G.encode_gif(img, dev) != (fixtures / f.name.replace(
+                ".input.npy", ".gif")).read_bytes():
+            raise AssertionError(f"fixture {f.name}: the card's GIF encoding "
+                                 "is not cv2's")
+    if len(gifw) != 4:
+        raise AssertionError(f"GIF writer fixtures: {gifw}")
     log("formats", f"(b) {len(names)} cv2 fixtures ({', '.join(names)}) "
         "decoded on the card to cv2.imread's pixels; prog_source encoded "
-        "progressive on the card to cv2.imencode's bytes")
+        "progressive on the card to cv2.imencode's bytes; the GIF writer's "
+        f"{len(gifw)} inputs ({', '.join(f.name for f in gifw)}) encoded on "
+        "the card to cv2.imwrite's bytes")
 
     # views 1 and 4 in the deep and float formats (16 bits: the 8-bit view
     # x 257 plus seeded noise below 257, int16 that less 32,768 through
@@ -4319,14 +4386,30 @@ def formats_phase(scene, dev, psnrs, t_start):
                               "(decoded bitwise the CPU's)", t, "JPEG 2000",
                               "encoded again to"))
     del img, big, back
+
+    # GIF: the exported and undistorted 800x800 view decoded and encoded
+    # again (cv2.imwrite's bytes), host and device parts apart
+    gifs = [f for f in sources + undistorted if f.suffix == ".gif"]
+    if len(gifs) != 2:
+        raise AssertionError(f"GIF views {gifs}")
+    gif_times(gifs[:1], dev)                        # warm the card's path
+    for f in gifs:
+        t, (img,) = gif_times([f], dev)
+        if G.encode_gif(img, dev) != G.encode_gif(img.cpu(), cpu):
+            raise AssertionError(f"{f.name}: the card's GIF encoding "
+                                 "differs from the CPU's")
+        log("formats", split_line(
+            f"(b) {f.parent.name}/{f.name} ({img.shape[1]}x{img.shape[0]}, "
+            f"{img.shape[2]} channels)", t, "GIF", "encoded again to"))
+    del img
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stack = load_images(sc, list(range(len(sc.views))),
                         target_hw=(sc.views[0].h, sc.views[0].w), device=dev)
     load_s = time.perf_counter() - t0
     log("formats", f"(b) load_images of the {len(sc.views)} undistorted "
-        f"views (baseline JPEG, TIFF, BMP, PPM, WebP, JPEG 2000 and PAM "
-        f"decoded on the card, 1000x1000 resized to 800x800): "
+        f"views (baseline JPEG, TIFF, BMP, PPM, WebP, JPEG 2000, PAM and "
+        f"GIF decoded on the card, 1000x1000 resized to 800x800): "
         f"{load_s:.3f} s, "
         f"stack {stack.shape}")
     del stack
@@ -4359,7 +4442,7 @@ def formats_phase(scene, dev, psnrs, t_start):
                              f"kernels: {others}")
     log("formats", f"(c) cli train --dataset-type colmap on the mixed "
         f"capture (progressive JPEG, RGB JPEG-in-TIFF, BigTIFF, YCbCr JPEG "
-        f"tiles, CMYK TIFF, BMP, PPM, WebP, JPEG 2000, PAM; "
+        f"tiles, CMYK TIFF, BMP, PPM, WebP, JPEG 2000, PAM, GIF; "
         f"flagship): {loss.size} steps in "
         f"{train_s:.1f} s (the load, decode, undistortion and re-encoding "
         f"included: about {und_warm + load_s:.2f} s of it, "

@@ -36,12 +36,14 @@ undistorted view written back as cv2.imwrite's baseline JPEG of the
 pixels), classic and BigTIFF (1- to 64-bit integer or float samples,
 gray, RGB(A), palette, CMYK, YCbCr; LZW, Deflate, PackBits, JPEG or
 none), BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP
-(lossy VP8, lossless VP8L, alpha, animated) and JPEG 2000 (JP2 or raw
+(lossy VP8, lossless VP8L, alpha, animated), GIF (an undistorted .gif
+view is written back as cv2.imwrite writes it, error-diffused onto its
+3-3-2 palette, a pixel of alpha 0 transparent) and JPEG 2000 (JP2 or raw
 codestreams; an undistorted .jp2 view is written back as cv2.imwrite
 writes it, OpenJPEG's rate-4 5/3).
 A view that cv2.imread returns no image for (a 12-bit or hierarchical
-JPEG, an LZMA TIFF, ...) raises ValueError naming the file; one in another
-format (GIF, AVIF, old-style JPEG-compressed TIFF, ...) raises
+JPEG, an LZMA TIFF, a GIF cut short, ...) raises ValueError naming the
+file; one in another format (AVIF, SGILog24 LogLuv TIFF, ...) raises
 NotImplementedError naming the file and the kind.
 """
 from __future__ import annotations

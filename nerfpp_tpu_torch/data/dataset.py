@@ -128,10 +128,12 @@ def load_images(scene: SceneData, indices, white_bkgr: Optional[bool] = None,
     64 bits or float, CMYK, YCbCr, CIE L*a*b*, JPEG- or CCITT
     fax-compressed, BigTIFF), BMP, PBM / PGM / PPM / PAM / PFM, Radiance
     HDR, Sun raster, WebP (lossy, lossless, with
-    alpha or animated) and JPEG 2000 (JP2 or raw codestreams, 8 or 16
+    alpha or animated), GIF (the first frame; 4 channels with
+    transparency) and JPEG 2000 (JP2 or raw codestreams, 8 or 16
     bits); a file cv2.imread returns no image for (a 12-bit or
-    hierarchical JPEG, ...) raises ValueError naming the file, and other
-    formats (GIF, AVIF, ...) raise NotImplementedError naming it.
+    hierarchical JPEG, a GIF cut short, ...) raises ValueError naming the
+    file, and other formats (AVIF, ...) raise NotImplementedError naming
+    it.
     Each image is resized in its stored type (uint8, uint16, int16,
     float32 or float64, as cv2.resize; int8, int32, uint32, int64 and
     uint64 raise when a resize is needed), then cast to f32 and divided by 255, whatever its

@@ -77,19 +77,22 @@ samples, gray, RGB(A), palette, CMYK, YCbCr and CIE L*a*b*, JPEG- and
 CCITT fax-compressed too (utils/tiff.py), BMP (utils/bmp.py), PBM, PGM,
 PPM, PAM and PFM (utils/pxm.py), Radiance HDR (utils/hdr.py), Sun raster
 (utils/sunras.py), WebP, lossy, lossless, with alpha and animated (the
-first frame on its canvas) (utils/webp.py),
+first frame on its canvas) (utils/webp.py), GIF87a and GIF89a, the first
+frame on its screen, interlaced, transparent or animated (utils/gif.py),
 and JPEG 2000, JP2 files and raw codestreams, 5/3 and 9/7, tiles,
 precincts, layers and the five progression orders (utils/jpeg2000.py);
 16-bit PNG, TIFF, PGM, PPM, PAM and JPEG 2000 come back as uint16, PFM and
 HDR as float32, as OpenCV returns them. Reading goes by the file's leading
 bytes, as OpenCV's does, writing by the extension (PNG, TIFF, JPEG 2000 and
 the portable formats keep 16 bits; JPEG is written baseline at quality 95,
-WebP lossless and .jp2 as OpenJPEG's rate-4 5/3, as cv2.imwrite writes them
-at its defaults, WebP's colour under alpha 0 as libwebp rewrites it).
-AVIF, GIF and the formats' unread kinds (SGILog24 LogLuv TIFF, JPEG 2000
+WebP lossless, .jp2 as OpenJPEG's rate-4 5/3 and GIF error-diffused onto
+OpenCV's fixed 3-3-2 palette, as cv2.imwrite writes them at its defaults,
+WebP's colour under alpha 0 as libwebp rewrites it).
+AVIF and the formats' unread kinds (SGILog24 LogLuv TIFF, JPEG 2000
 code-block styles other than 0, ...) raise NotImplementedError naming the
 file and the kind; files cv2.imread returns None for (a 12-bit JPEG, an
-LZMA or old-style JPEG-compressed TIFF, ...) raise ValueError.
+LZMA or old-style JPEG-compressed TIFF, a GIF cut short, ...) raise
+ValueError.
 """
 from __future__ import annotations
 
@@ -100,7 +103,7 @@ import numpy as np
 import torch
 
 from nerfpp_tpu_torch import resolve_device
-from nerfpp_tpu_torch.utils import bmp, hdr, pxm, sunras
+from nerfpp_tpu_torch.utils import bmp, gif, hdr, pxm, sunras
 from nerfpp_tpu_torch.utils.jpeg2000 import SIGNATURES as JPEG2000_SIGNATURES
 from nerfpp_tpu_torch.utils.jpeg2000 import (decode_jpeg2000, jpeg2000_pixels,
                                              write_jpeg2000)
@@ -478,13 +481,11 @@ def resize_stored(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 # ---------------------------------------------------------------- files
 
-# leading bytes of formats cv2.imread reads and the port does not
-OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 TIFF_EXTENSIONS = (".tif", ".tiff")
 READ = ("PNG, JPEG, TIFF (CCITT fax, CIE L*a*b* and 64-bit samples too), "
-        "BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP "
-        "and JPEG 2000")
+        "BMP, PBM / PGM / PPM / PAM / PFM, Radiance HDR, Sun raster, WebP, "
+        "GIF and JPEG 2000")
 # extension -> the writer of a numpy image (JPEG is encoded on the device)
 WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
            ".bmp": bmp.write_bmp, ".dib": bmp.write_bmp,
@@ -499,9 +500,10 @@ WRITERS = {".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
 def image_format(path) -> str:
     """The format from the file's leading bytes, as cv2.imread finds it:
     "png", "jpeg", "tiff", "bmp", "pxm" (P1-P6), "pam" (P7), "pfm", "hdr",
-    "sunras", "webp" or "jpeg2000" (a JP2 file or a raw codestream);
-    anything else raises NotImplementedError naming the file and, where
-    known, its format."""
+    "sunras", "webp", "gif" (any file that starts "GIF", as OpenCV routes
+    it; utils/gif.py refuses signatures other than GIF87a and GIF89a) or
+    "jpeg2000" (a JP2 file or a raw codestream); anything else raises
+    NotImplementedError naming the file and, where known, its format."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
@@ -524,9 +526,11 @@ def image_format(path) -> str:
         return "sunras"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "webp"
+    if head.startswith(gif.MAGIC):
+        return "gif"
     if head.startswith(JPEG2000_SIGNATURES):
         return "jpeg2000"
-    kind = next((k for sig, k in OTHER_FORMATS if head.startswith(sig)), None)
+    kind = None
     if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
         kind = "AVIF"
     raise NotImplementedError(
@@ -546,8 +550,9 @@ def read_image(path, device="cuda") -> torch.Tensor:
     TIFF's signed, 32-bit, 64-bit and float samples as they are), by the
     leading bytes. WebP's chroma upsampling and colour conversion,
     JPEG-in-TIFF's, YCbCr TIFF's, CMYK TIFF's and CIE L*a*b* TIFF's pixel
-    stages, and JPEG 2000's dequantisation, inverse wavelet and colour
-    transforms run on ``device``; CCITT fax decodes on the host."""
+    stages, GIF's palette gather, de-interlacing and canvas, and JPEG
+    2000's dequantisation, inverse wavelet and colour transforms run on
+    ``device``; CCITT fax and GIF's LZW decode on the host."""
     dev = resolve_device(device)
     kind = image_format(path)
     if kind == "jpeg":
@@ -560,6 +565,8 @@ def read_image(path, device="cuda") -> torch.Tensor:
         return tiff_pixels(decode_tiff(path), dev)
     if kind == "jpeg2000":
         return jpeg2000_pixels(decode_jpeg2000(path), dev)
+    if kind == "gif":
+        return gif.read_gif(path, dev)
     return torch.from_numpy(READERS[kind](path)).to(dev)
 
 
@@ -567,11 +574,13 @@ def write_image(path, img, device="cuda") -> None:
     """cv2.imwrite(path, img) of an [H, W] or [H, W, C] image in RGB(A)
     order, by the extension: baseline JPEG at quality 95 (encoded on
     ``device``) for .jpg, .jpeg and .jpe; JPEG 2000 at OpenJPEG's rate 4
-    (its wavelet transform on ``device``) for .jp2; PNG, TIFF, BMP (.bmp,
-    .dib), PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr, .pic), Sun
-    raster (.sr, .ras) and lossless WebP (.webp) as their modules write
-    them, each taking the dtypes that format reads back; any other
-    extension raises."""
+    (its wavelet transform on ``device``) for .jp2; GIF (.gif, converted to
+    uint8 on ``device``, error-diffused and LZW-coded on the host; gray
+    raises ValueError, as cv2.imwrite returns False for it); PNG, TIFF, BMP
+    (.bmp, .dib), PBM / PGM / PPM / PNM, PAM, PFM, Radiance HDR (.hdr,
+    .pic), Sun raster (.sr, .ras) and lossless WebP (.webp) as their
+    modules write them, each taking the dtypes that format reads back; any
+    other extension raises."""
     ext = Path(path).suffix.lower()
     if ext in JPEG_EXTENSIONS:
         write_jpeg(path, img, device=device)
@@ -579,11 +588,14 @@ def write_image(path, img, device="cuda") -> None:
     if ext == ".jp2":
         write_jpeg2000(path, img, device)
         return
+    if ext == ".gif":
+        gif.write_gif(path, img, device)
+        return
     if ext not in WRITERS:
         raise NotImplementedError(f"{path}: no writer for {ext or 'a name '
                                   'without extension'}; the port writes PNG, "
-                                  "JPEG, JPEG 2000 (.jp2), TIFF, BMP, PBM / "
-                                  "PGM / PPM / PNM, PAM, PFM, HDR, Sun "
+                                  "JPEG, JPEG 2000 (.jp2), GIF, TIFF, BMP, "
+                                  "PBM / PGM / PPM / PNM, PAM, PFM, HDR, Sun "
                                   "raster and WebP")
     arr = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
     WRITERS[ext](path, arr)

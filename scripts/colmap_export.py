@@ -23,7 +23,8 @@ takes a SceneData with poses on a sphere (data/synthetic.py's
   "ras" (24-bit Sun raster), "pfm" and "hdr" (float32 PFM and run-length
   RGBE), "webp" (lossless WebP, read back to the pixels of cv2.imwrite's
   own file), "jp2" (JPEG 2000 at OpenJPEG's rate 4, cv2.imwrite's bytes),
-  each as cv2.imwrite writes it; integer views are the render
+  "gif" (error-diffused onto the fixed 3-3-2 palette, cv2.imwrite's
+  bytes), each as cv2.imwrite writes it; integer views are the render
   spread over their type's range and rounded, float views the render as
   it is. Encoded on the device where the format has device stages:
   every train view rendered from the scene's
@@ -77,7 +78,7 @@ FORMATS = {"png": (".png", "uint8", False), "png16": (".png", "uint16", False),
            "ras": (".ras", "uint8", False), "pfm": (".pfm", "float32", False),
            "hdr": (".hdr", "float32", False),
            "webp": (".webp", "uint8", False),
-           "jp2": (".jp2", "uint8", False)}
+           "jp2": (".jp2", "uint8", False), "gif": (".gif", "uint8", False)}
 
 
 @dataclasses.dataclass

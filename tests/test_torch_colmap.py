@@ -169,14 +169,15 @@ def test_undistortion_matches_opencv(capture, tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
-    # PNG, JPEG, TIFF, BMP, WebP, JPEG 2000 and the other formats the port
-    # reads are read; a GIF view raises when the undistortion reads it, a
-    # JPEG 2000 view of a kind the port does not read (its code-block style
-    # set to bypass) when load_images does, each naming the file and its
-    # kind
+    # PNG, JPEG, TIFF, BMP, WebP, GIF, JPEG 2000 and the other formats the
+    # port reads are read; an AVIF view raises when the undistortion reads
+    # it, a JPEG 2000 view of a kind the port does not read (its code-block
+    # style set to bypass) when load_images does, each naming the file and
+    # its kind
     from scripts.colmap_export import write_images_bin
     img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
-    for ext, params, kind in ((".gif", [], "GIF"), (".jp2", [], "JPEG 2000")):
+    for ext, params, kind in ((".avif", [], "AVIF"),
+                              (".jp2", [], "JPEG 2000")):
         ws = tmp_path / ext[1:]
         (ws / "sparse" / "0").mkdir(parents=True)
         for f in synthetic_model.iterdir():
@@ -192,7 +193,7 @@ def test_non_png_images_raise_naming_the_file(synthetic_model, tmp_path):
         write_images_bin(ws / "sparse" / "0" / "images.bin",
                          [rec.images[i] for i in sorted(rec.images)])
         match = rf"img_1\{ext}.*{kind}"
-        if kind == "GIF":
+        if kind == "AVIF":
             with pytest.raises(NotImplementedError, match=match):
                 PC.load_from_colmap_reconstruction(ws, device="cpu")
         else:

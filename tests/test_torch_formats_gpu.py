@@ -35,7 +35,11 @@ card; the card's machine has no OpenCV, so this file imports none, and
 - every committed JPEG 2000 fixture (tests/data/image/jp2_*: cv2's and
   Pillow's, 5/3 and 9/7, tiles, precincts, layers, YCbCr, 16 bits, raw
   codestreams) decoded on the card to cv2's pixels and the CPU's, and
-  .jp2 files written from the card with the CPU's bytes.
+  .jp2 files written from the card with the CPU's bytes;
+- every committed GIF fixture (tests/data/image/gif*: cv2's, Pillow's and
+  scripts/gif_kinds.py's) decoded on the card to cv2's pixels and the
+  CPU's, and each committed writer input (gifw_*.input.npy) encoded from
+  the card to cv2.imwrite's committed bytes.
 """
 from pathlib import Path
 
@@ -218,3 +222,26 @@ def test_jpeg2000_on_the_card_is_the_cpus_and_opencvs(cuda, tmp_path):
                                .astype(dtype))
         assert J.encode_jpeg2000(img.to(cuda), cuda) == J.encode_jpeg2000(
             img, "cpu"), shape
+
+
+def test_gif_on_the_card_is_the_cpus_and_opencvs(cuda, tmp_path):
+    from nerfpp_tpu_torch.utils import gif as G
+    files = sorted(FIXTURES.glob("gif*.gif"))
+    assert len(files) == 11
+    for f in files:
+        dec = G.decode_gif(f)
+        card = G.gif_pixels(dec, cuda)
+        assert card.device.type == cuda.type
+        got = card.cpu().numpy()
+        want = np.load(f.with_suffix(".npy"))
+        np.testing.assert_array_equal(got, want, err_msg=f.name)
+        np.testing.assert_array_equal(
+            got, G.gif_pixels(dec, "cpu").numpy(), err_msg=f.name)
+    inputs = sorted(FIXTURES.glob("gifw_*.input.npy"))
+    assert len(inputs) == 4
+    for f in inputs:
+        img = torch.from_numpy(np.load(f))
+        want = (FIXTURES / f.name.replace(".input.npy", ".gif")).read_bytes()
+        assert G.encode_gif(img.to(cuda), cuda) == want, f.name
+        I.write_image(tmp_path / "card.gif", img.to(cuda), cuda)
+        assert (tmp_path / "card.gif").read_bytes() == want, f.name

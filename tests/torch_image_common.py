@@ -2,7 +2,8 @@
 test images, cut progressive JPEGs, PNGs, TIFFs, BMPs (with RLE8 / RLE4
 streams), PAMs, PFMs, Radiance HDRs and Sun rasters of every kind built
 with zlib, struct and numpy, JPEG 2000 files from cv2 and Pillow, CCITT
-fax TIFFs from Pillow's libtiff and scripts/fax_kinds.py, and the
+fax TIFFs from Pillow's libtiff and scripts/fax_kinds.py, GIFs from cv2,
+Pillow and scripts/gif_kinds.py, and the
 committed fixtures under tests/data/image (see ``make_fixtures``; run
 ``PYTHONPATH=. python tests/torch_image_common.py`` to write them).
 
@@ -704,6 +705,7 @@ def fixture_files():
     files.update(tiff_kind_fixture_files())
     files.update(tiff_closed_fixture_files())
     files.update(jpeg2000_fixture_files())
+    files.update(gif_fixture_files())
     return files
 
 
@@ -1004,16 +1006,108 @@ def prog_source():
     return pattern(19, 23, 3, 5)
 
 
+def cv2_gif(img) -> bytes:
+    """cv2.imencode(".gif") of an RGB(A) image at its defaults."""
+    import cv2
+    bgr = img[..., [2, 1, 0, 3][:img.shape[2]]]
+    ok, buf = cv2.imencode(".gif", np.ascontiguousarray(bgr))
+    assert ok
+    return buf.tobytes()
+
+
+def pillow_gif(frames, mode, palette=None, **options) -> bytes:
+    """Pillow's GIF of the uint8 arrays ``frames``, gray ("L"), RGB or
+    palette indices ("P", with ``palette``'s RGB triples), the first frame
+    saved with the rest appended."""
+    from PIL import Image
+    ims = []
+    for f in frames:
+        a = np.ascontiguousarray(f, np.uint8)
+        im = Image.frombytes(mode, (a.shape[1], a.shape[0]), a.tobytes())
+        if palette is not None:
+            im.putpalette(np.asarray(palette, np.uint8).tobytes())
+        ims.append(im)
+    buf = io.BytesIO()
+    ims[0].save(buf, "GIF", save_all=len(ims) > 1, append_images=ims[1:],
+                **options)
+    return buf.getvalue()
+
+
+def disc_alpha(h, w, frac=0.4):
+    """255 on a centred disc of ``frac`` of the short side, 0 off it."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    r = np.hypot(yy - (h - 1) / 2, xx - (w - 1) / 2)
+    return np.where(r <= frac * min(h, w), 255, 0).astype(np.uint8)
+
+
+def gif_write_inputs():
+    """{stem: seeded RGB(A) input} of the writer's fixtures: RGB, RGBA
+    with alpha 0 off a disc (the transparent index), RGBA never 0 (read
+    back with 3 channels), uint16 (converted as cv2's convertTo does)."""
+    rgba = np.dstack([pattern(40, 52, 3, 31), disc_alpha(40, 52)])
+    opaque = np.dstack([pattern(24, 30, 3, 32),
+                        np.full((24, 30), 128, np.uint8)])
+    u16 = pattern(20, 25, 3, 33).astype(np.uint16) * 3
+    return {"gifw_rgb_48x64": pattern(48, 64, 3, 30),
+            "gifw_rgba_disc_52x40": rgba, "gifw_rgba_opaque_30x24": opaque,
+            "gifw_u16_25x20": u16}
+
+
+def gif_fixture_files():
+    """{file name: bytes} of the GIF fixtures: cv2.imwrite's files of
+    ``gif_write_inputs`` (gifw_*), Pillow's palette, interlaced L and
+    animated transparent files, and scripts/gif_kinds.py's kinds (a local
+    table on a small offset first frame, GIF87a with a deferred clear, a
+    2-bit code stream without a leading clear and with the transparent
+    index unused, a frame of codes past 4,095 with clears)."""
+    from scripts import gif_kinds as G
+    files = {f"{stem}.gif": cv2_gif(img)
+             for stem, img in gif_write_inputs().items()}
+    rng = np.random.RandomState(22)
+    files["gif_pillow_p_17x13.gif"] = pillow_gif(
+        [rng.randint(0, 200, (13, 17))], "P",
+        palette=rng.randint(0, 256, (200, 3)))
+    files["gif_pillow_l_interlaced_20x17.gif"] = pillow_gif(
+        [pattern(17, 20, 1, 34)], "L", interlace=True)
+    anim = [pattern(9, 13, 3, 35), pattern(9, 13, 3, 35)]
+    anim[1][2:5, 3:8] = pattern(3, 5, 3, 36)
+    # Pillow codes the second frame's unchanged pixels as transparent
+    files["gif_pillow_anim_13x9.gif"] = pillow_gif(anim, "RGB", duration=50,
+                                                   loop=0)
+    pal = rng.randint(0, 256, (16, 3))
+    files["gif_kinds_offset_local_9x11.gif"] = G.make_gif(
+        9, 11, [G.frame(rng.randint(0, 8, (6, 5)), left=2, top=3,
+                        local=rng.randint(0, 256, (8, 3)),
+                        extensions=[G.graphic_control(2, transparent=3)])],
+        palette=pal, background=5)
+    files["gif_kinds_87a_deferred_70x60.gif"] = G.make_gif(
+        70, 60, [G.frame(rng.randint(0, 256, (60, 70)), defer_clear=True)],
+        palette=rng.randint(0, 256, (256, 3)), version=b"87a")
+    files["gif_kinds_2bit_noclear_12x7.gif"] = G.make_gif(
+        12, 7, [G.frame(rng.randint(0, 4, (7, 12)), clear_first=False,
+                        interlace=True,
+                        extensions=[G.comment(b"no clear"),
+                                    G.graphic_control(transparent=9)])],
+        palette=pal[:4])
+    files["gif_kinds_codes_4095_96x80.gif"] = G.make_gif(
+        96, 80, [G.frame(rng.randint(0, 64, (80, 96)),
+                         extensions=[G.netscape(), G.graphic_control(1)])],
+        palette=rng.randint(0, 256, (64, 3)))
+    return files
+
+
 def make_fixtures(out=FIXTURES):
     """Write each fixture file and <stem>.npy, cv2.imread's pixels in
     RGB(A) order (prog_source.npy: the image that prog_source.jpg
-    encodes)."""
+    encodes), and each GIF writer input as <stem>.input.npy."""
     out.mkdir(parents=True, exist_ok=True)
     for name, data in fixture_files().items():
         (out / name).write_bytes(data)
         stem = Path(name).stem
         np.save(out / f"{stem}.npy", prog_source() if stem == "prog_source"
                 else cv2_read(out / name))
+    for stem, img in gif_write_inputs().items():
+        np.save(out / f"{stem}.input.npy", img)
 
 
 if __name__ == "__main__":
